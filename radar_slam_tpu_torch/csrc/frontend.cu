@@ -1,0 +1,502 @@
+// One-pass radar front end for NVIDIA Hopper (sm_90a), FP32 SIMT.
+//
+// Replaces: radar_slam_tpu/ops/frontend_pallas.py:_frontend_kernel_split
+// (body _frontend_body) -- the one TPU kernel on the batched
+// scatterers-to-pose path -- at its production knobs: split synthesis
+// factors, range-frequency noise from the "fast" Gaussian transform,
+// CA-CFAR with a guard band, 3x3 local max, range gate.
+//
+// What bounds it on this card: arithmetic.  Per frame (A*C = 256, S = 400,
+// Sc = 128) the two complex products T = e_fast W_rng and Z = e_at T are
+// 33.6 M complex MACs, ~270 MFLOP, against ~1.3 MB of device-memory
+// traffic (the T scratch out and in, Z out, the power map and score map)
+// -- about 200 FLOP per byte, above the FP32 SIMT ridge of the H100
+// (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte).  The Doppler power, noise
+// and CFAR stages are ~15 MFLOP per frame.
+//
+// What the design does about it: the products run as shared-memory-tiled
+// FP32 SIMT matmuls (64 x 64 output tile, depth 16, 4 x 4 complex
+// accumulators per thread, four real FMAs per complex MAC); both factor
+// planes are recomposed from their per-axis tables while the A tiles are
+// loaded, so e_at [A*C, Sc] and e_fast [Sc, S] never exist in device
+// memory.  The noise is drawn once per Z tile (plus a halo for the window
+// taps) from Philox-4x32-10 into shared memory.  Tensor cores (wgmma,
+// TMA, 3xTF32) are not used yet: the precision contract is FP32.
+//
+// Launch sequence, all on the caller's stream:
+//   1. range_dft_kernel   T[f] = e_fast[f] @ W_rng           [Sc, S] complex
+//   2. z_kernel           Z[f] = e_at[f] @ T[f] + noise, DC zeroed, stored
+//                         transposed as zr/zi [S, A*C]
+//   3. doppler_power_kernel  p[f, d, s] = mean_a |sum_c Wdop^T[d, c] Z|^2
+//   4. cfar_kernel        CA-CFAR threshold + local max + gate -> score
+//
+// Built as a shared library with a plain C interface (no PyTorch headers):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC
+// No fast math: the noise needs accurate logf/sqrtf and the dB map uses
+// logf(x) * 10/ln(10), as the reference kernel does.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;          // output tile rows
+constexpr int BN = 64;          // output tile columns
+constexpr int BK = 16;          // reduction depth per stage
+constexpr int TPB = 256;        // 16 x 16 threads, 4 x 4 outputs each
+constexpr int MAX_TAPS = 5;     // a 3-term cosine window has 5 taps
+constexpr int MAX_HALO = 2;
+constexpr int PS = 16;          // range bins per Doppler-power block
+constexpr int CFAR_THREADS = 512;
+constexpr float NEG_SCORE = -1e30f;
+constexpr float LOG10E_10 = 4.3429448190325176f;   // 10 / ln(10)
+
+struct NoiseTaps {
+  int n;
+  int halo;
+  int off[MAX_TAPS];
+  float coef[MAX_TAPS];
+};
+
+// ---- counter-based Gaussian generator (ops/noise.py is the plain form) --
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const unsigned lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float byte_sum(unsigned w) {
+  // Logical shifts on unsigned words (an arithmetic shift NaN'd the
+  // reference's noise on chip).
+  return (float)((w & 255u) + ((w >> 8) & 255u) + ((w >> 16) & 255u) +
+                 (w >> 24)) - 510.0f;
+}
+
+// Two standard normals for element idx = row * S + col of a frame's
+// [A*C, S] noise plane.  The _rn intrinsics keep nvcc from contracting
+// into FMAs, so the arithmetic rounds as the plain version's does.
+__device__ __forceinline__ float2 normal_pair(unsigned seed, unsigned idx) {
+  const uint4 a = philox4x32_10(make_uint4(idx, 0u, 0u, 0u),
+                                make_uint2(seed, 0u));
+  const uint4 b = philox4x32_10(make_uint4(idx, 1u, 0u, 0u),
+                                make_uint2(seed, 0u));
+  const float u1 = __fadd_rn(__fmul_rn((float)(a.x >> 8), 1.0f / 16777216.0f),
+                             0.5f / 16777216.0f);
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+  const float g1 = byte_sum(a.y), g2 = byte_sum(a.z);
+  const float h1 = byte_sum(a.w), h2 = byte_sum(b.x);
+  const float v1 = __fadd_rn(g1, __fmul_rn(0.7071067811865476f,
+                                           __fsub_rn(h1, h2)));
+  const float v2 = __fadd_rn(g2, __fmul_rn(0.7071067811865476f,
+                                           __fadd_rn(h1, h2)));
+  const float inv = 1.0f / sqrtf(__fadd_rn(
+      __fadd_rn(__fmul_rn(v1, v1), __fmul_rn(v2, v2)), 1e-6f));
+  return make_float2(__fmul_rn(__fmul_rn(r, v1), inv),
+                     __fmul_rn(__fmul_rn(r, v2), inv));
+}
+
+// ---- shared tiled complex matmul core ----------------------------------
+// smem layout: Ar, Ai [BK][BM] then Br, Bi [BK][BN].  Thread (ty, tx)
+// accumulates rows rm + 16 i and columns cn + 16 j of the output tile.
+
+__device__ __forceinline__ void mma_stage(const float* __restrict__ sm,
+                                          int rm, int cn,
+                                          float (&accr)[4][4],
+                                          float (&acci)[4][4]) {
+  const float* Ar = sm;
+  const float* Ai = sm + BK * BM;
+  const float* Br = sm + 2 * BK * BM;
+  const float* Bi = sm + 2 * BK * BM + BK * BN;
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    float ar[4], ai[4], br[4], bi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ar[i] = Ar[kk * BM + rm + 16 * i];
+      ai[i] = Ai[kk * BM + rm + 16 * i];
+      br[i] = Br[kk * BN + cn + 16 * i];
+      bi[i] = Bi[kk * BN + cn + 16 * i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        accr[i][j] = fmaf(ar[i], br[j], accr[i][j]);
+        accr[i][j] = fmaf(-ai[i], bi[j], accr[i][j]);
+        acci[i][j] = fmaf(ar[i], bi[j], acci[i][j]);
+        acci[i][j] = fmaf(ai[i], br[j], acci[i][j]);
+      }
+    }
+  }
+}
+
+// 1. T[f] = e_fast[f] @ W_rng.  e_fast[sc, s] = coarse[sc, s / B] *
+// fine[sc, s % B] * [t_s >= tau_sc] (* [t_s - tau_sc <= T] at reference
+// fidelity), composed while loading the A tile.  M = Sc, N = K = S.
+__global__ void __launch_bounds__(TPB)
+range_dft_kernel(const float2* __restrict__ coarse,
+                 const float2* __restrict__ fine,
+                 const float* __restrict__ tau,
+                 const float* __restrict__ tvec,
+                 const float2* __restrict__ wrng,
+                 float2* __restrict__ tout,
+                 int Sc, int S, int B, int Q, int has_upper,
+                 float echo_upper) {
+  __shared__ float sm[2 * BK * BM + 2 * BK * BN];
+  const int f = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float accr[4][4] = {}, acci[4][4] = {};
+  const float2* co = coarse + (size_t)f * Sc * Q;
+  const float2* fi = fine + (size_t)f * Sc * B;
+  const float* ta = tau + (size_t)f * Sc;
+
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    for (int e = threadIdx.x; e < BM * BK; e += TPB) {
+      const int mm = e % BM, kk = e / BM;
+      const int sc = m0 + mm, s = k0 + kk;
+      float er = 0.f, ei = 0.f;
+      if (sc < Sc && s < S) {
+        const int q = s / B, j = s - q * B;
+        const float2 c = co[sc * Q + q];
+        const float2 fn = fi[sc * B + j];
+        const float ts = tvec[s], tt = ta[sc];
+        float arrived = (ts >= tt) ? 1.f : 0.f;
+        if (has_upper && !(ts - tt <= echo_upper)) arrived = 0.f;
+        er = (c.x * fn.x - c.y * fn.y) * arrived;
+        ei = (c.x * fn.y + c.y * fn.x) * arrived;
+      }
+      sm[kk * BM + mm] = er;
+      sm[BK * BM + kk * BM + mm] = ei;
+    }
+    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
+      const int nn = e % BN, kk = e / BN;
+      const int s = k0 + kk, n = n0 + nn;
+      const float2 w = (s < S && n < S) ? wrng[(size_t)s * S + n]
+                                        : make_float2(0.f, 0.f);
+      sm[2 * BK * BM + kk * BN + nn] = w.x;
+      sm[2 * BK * BM + BK * BN + kk * BN + nn] = w.y;
+    }
+    __syncthreads();
+    mma_stage(sm, ty, tx, accr, acci);
+    __syncthreads();
+  }
+  float2* out = tout + (size_t)f * Sc * S;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < Sc && n < S)
+        out[(size_t)m * S + n] = make_float2(accr[i][j], acci[i][j]);
+    }
+  }
+}
+
+// 2. Z[f] = e_at[f] @ T[f] + sigma sqrt(S) (g (*) taps), column 0 zeroed,
+// stored transposed: zr/zi[f, s, a*C + c].  e_at[a*C + c, sc] =
+// dopp[sc, c] * ant[sc, a], composed while loading the A tile.
+// M = A*C, N = S, K = Sc.  Thread (ty, tx) owns rows tx + 16 i and
+// columns ty + 16 j so the transposed store is contiguous along rows.
+__global__ void __launch_bounds__(TPB)
+z_kernel(const float2* __restrict__ ant, const float2* __restrict__ dopp,
+         const float2* __restrict__ tin, const int* __restrict__ seeds,
+         float* __restrict__ zr, float* __restrict__ zi,
+         int A, int C, int S, int Sc, float sn, NoiseTaps taps,
+         int dc_removal) {
+  constexpr int GW = BN + 2 * MAX_HALO;
+  // The matmul stages and the noise tile share one buffer.
+  __shared__ __align__(16) float sm[2 * BM * GW];
+  const int f = blockIdx.z;
+  const int M = A * C;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float accr[4][4] = {}, acci[4][4] = {};
+  const float2* an = ant + (size_t)f * Sc * A;
+  const float2* dp = dopp + (size_t)f * Sc * C;
+  const float2* tf = tin + (size_t)f * Sc * S;
+
+  for (int k0 = 0; k0 < Sc; k0 += BK) {
+    for (int e = threadIdx.x; e < BM * BK; e += TPB) {
+      const int mm = e % BM, kk = e / BM;
+      const int m = m0 + mm, sc = k0 + kk;
+      float er = 0.f, ei = 0.f;
+      if (m < M && sc < Sc) {
+        const int a = m / C, c = m - a * C;
+        const float2 d = dp[sc * C + c];
+        const float2 w = an[sc * A + a];
+        er = d.x * w.x - d.y * w.y;
+        ei = d.x * w.y + d.y * w.x;
+      }
+      sm[kk * BM + mm] = er;
+      sm[BK * BM + kk * BM + mm] = ei;
+    }
+    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
+      const int nn = e % BN, kk = e / BN;
+      const int sc = k0 + kk, n = n0 + nn;
+      const float2 v = (sc < Sc && n < S) ? tf[(size_t)sc * S + n]
+                                          : make_float2(0.f, 0.f);
+      sm[2 * BK * BM + kk * BN + nn] = v.x;
+      sm[2 * BK * BM + BK * BN + kk * BN + nn] = v.y;
+    }
+    __syncthreads();
+    mma_stage(sm, tx, ty, accr, acci);
+    __syncthreads();
+  }
+
+  float2* g = reinterpret_cast<float2*>(sm);   // [BM][GW] noise tile
+  const bool noisy = sn != 0.0f;
+  if (noisy) {
+    // Columns n0 - H .. n0 + BN + H - 1 (mod S) of rows m0 .. m0 + BM - 1:
+    // each value drawn once, the window taps read it from shared memory.
+    const unsigned seed = (unsigned)seeds[f];
+    const int H = taps.halo;
+    const int w = BN + 2 * H;
+    for (int e = threadIdx.x; e < BM * w; e += TPB) {
+      const int mm = e / w, jj = e % w;
+      const int m = m0 + mm;
+      const int col = ((n0 - H + jj) % S + S) % S;
+      g[mm * GW + jj] = (m < M) ? normal_pair(seed, (unsigned)(m * S + col))
+                                : make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+  }
+
+  float* zro = zr + (size_t)f * S * M;
+  float* zio = zi + (size_t)f * S * M;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int mm = tx + 16 * i, nn = ty + 16 * j;
+      const int m = m0 + mm, n = n0 + nn;
+      if (m >= M || n >= S) continue;
+      float vr = accr[i][j], vi = acci[i][j];
+      if (noisy) {
+        float cr = 0.f, ci = 0.f;
+        for (int t = 0; t < taps.n; ++t) {
+          // roll by off: the tap reads column n - off.
+          const float2 gv = g[mm * GW + nn + taps.halo - taps.off[t]];
+          const float tr = __fmul_rn(taps.coef[t], gv.x);
+          const float ti = __fmul_rn(taps.coef[t], gv.y);
+          cr = (t == 0) ? tr : __fadd_rn(cr, tr);
+          ci = (t == 0) ? ti : __fadd_rn(ci, ti);
+        }
+        vr = __fadd_rn(vr, __fmul_rn(sn, cr));
+        vi = __fadd_rn(vi, __fmul_rn(sn, ci));
+      }
+      if (dc_removal && n == 0) {
+        vr = 0.f;
+        vi = 0.f;
+      }
+      zro[(size_t)n * M + m] = vr;
+      zio[(size_t)n * M + m] = vi;
+    }
+  }
+}
+
+// 3. p[f, d, s] = (1/A) sum_a |sum_c WdopT[d, c] Z[f, s, a*C + c]|^2.
+// One block per (PS range bins, frame); Z rows and WdopT staged in shared
+// memory (rows padded by one float against bank conflicts).
+__global__ void __launch_bounds__(TPB)
+doppler_power_kernel(const float* __restrict__ zr,
+                     const float* __restrict__ zi,
+                     const float2* __restrict__ wdt, float* __restrict__ p,
+                     int A, int C, int S) {
+  extern __shared__ float dsm[];
+  const int M = A * C, ld = M + 1;
+  float* zsr = dsm;
+  float* zsi = zsr + PS * ld;
+  float* wr = zsi + PS * ld;
+  float* wi = wr + C * C;
+  const int f = blockIdx.y, s0 = blockIdx.x * PS;
+  const float* zrf = zr + (size_t)f * S * M;
+  const float* zif = zi + (size_t)f * S * M;
+  for (int e = threadIdx.x; e < PS * M; e += blockDim.x) {
+    const int sl = e / M, col = e % M;
+    const int s = s0 + sl;
+    zsr[sl * ld + col] = (s < S) ? zrf[(size_t)s * M + col] : 0.f;
+    zsi[sl * ld + col] = (s < S) ? zif[(size_t)s * M + col] : 0.f;
+  }
+  for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
+    wr[e] = wdt[e].x;
+    wi[e] = wdt[e].y;
+  }
+  __syncthreads();
+  const float inv_a = 1.0f / (float)A;
+  for (int o = threadIdx.x; o < PS * C; o += blockDim.x) {
+    const int sl = o % PS, d = o / PS;
+    const int s = s0 + sl;
+    if (s >= S) continue;
+    float acc = 0.f;
+    for (int a = 0; a < A; ++a) {
+      float orr = 0.f, oii = 0.f;
+      const float* zra = zsr + sl * ld + a * C;
+      const float* zia = zsi + sl * ld + a * C;
+      for (int c = 0; c < C; ++c) {
+        const float w_r = wr[d * C + c], w_i = wi[d * C + c];
+        orr = fmaf(w_r, zra[c], orr);
+        orr = fmaf(-w_i, zia[c], orr);
+        oii = fmaf(w_r, zia[c], oii);
+        oii = fmaf(w_i, zra[c], oii);
+      }
+      acc += orr * orr + oii * oii;
+    }
+    p[((size_t)f * C + d) * S + s] = acc * inv_a;
+  }
+}
+
+__device__ __forceinline__ float window_count(int i, int pad, int n) {
+  return (float)(min(i + pad, n - 1) - max(i - pad, 0) + 1);
+}
+
+// 4. CA-CFAR + local max + range gate -> score.  One block per frame; the
+// whole [C, S] map and its Doppler-axis training-window sums live in shared
+// memory (2 C S floats: 205 KB at C = 64, S = 400).  Box sums run along
+// Doppler first, then range, as the reference's banded products do.
+__global__ void __launch_bounds__(CFAR_THREADS)
+cfar_kernel(const float* __restrict__ p, float* __restrict__ score,
+            int C, int S, int train, int guard, int neighborhood,
+            float offset_db, float threshold_db, int gate_lo, int gate_hi) {
+  extern __shared__ float csm[];
+  const int n = C * S;
+  float* p1 = csm;
+  float* tcol = p1 + n;     // training-window sums along Doppler
+  const int f = blockIdx.x;
+  const float* pf = p + (size_t)f * n;
+  const int tpad = train + guard, gpad = guard;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) p1[e] = pf[e] + 1e-12f;
+  __syncthreads();
+  if (train > 0) {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int d = e / S, s = e % S;
+      float ts = 0.f;
+      for (int dd = max(d - tpad, 0); dd <= min(d + tpad, C - 1); ++dd)
+        ts += p1[dd * S + s];
+      tcol[e] = ts;
+    }
+    __syncthreads();
+  }
+  const float n_train = (float)((2 * tpad + 1) * (2 * tpad + 1));
+  const float n_guard = (float)((2 * gpad + 1) * (2 * gpad + 1));
+  const int r = neighborhood / 2;
+  float* out = score + (size_t)f * n;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int d = e / S, s = e % S;
+    const float v = p1[e];
+    const float pd = logf(v) * LOG10E_10;
+    float thresh = threshold_db;
+    if (train > 0) {
+      float st = 0.f;
+      for (int ss = max(s - tpad, 0); ss <= min(s + tpad, S - 1); ++ss)
+        st += tcol[d * S + ss];
+      float noise = st / (window_count(d, tpad, C) * window_count(s, tpad, S));
+      if (guard > 0) {
+        float sg = 0.f;
+        for (int ss = max(s - gpad, 0); ss <= min(s + gpad, S - 1); ++ss) {
+          float cg = 0.f;
+          for (int dd = max(d - gpad, 0); dd <= min(d + gpad, C - 1); ++dd)
+            cg += p1[dd * S + ss];
+          sg += cg;
+        }
+        const float gm =
+            sg / (window_count(d, gpad, C) * window_count(s, gpad, S));
+        noise = (noise * n_train - gm * n_guard) / (n_train - n_guard);
+      }
+      const float noise_db = logf(fmaxf(noise, 1e-12f)) * LOG10E_10;
+      thresh = fmaxf(noise_db + offset_db, threshold_db);
+    }
+    // Local max against zero-filled neighbours (p1 > 0, so the border
+    // never blocks a peak).
+    bool peak = true;
+    for (int dy = -r; dy <= r; ++dy) {
+      for (int dx = -r; dx <= r; ++dx) {
+        if (dy == 0 && dx == 0) continue;
+        const int dd = d - dy, ss = s - dx;
+        const float nb = (dd >= 0 && dd < C && ss >= 0 && ss < S)
+                             ? p1[dd * S + ss] : 0.f;
+        peak = peak && (v >= nb);
+      }
+    }
+    const bool mask = peak && (pd > thresh) && s >= gate_lo && s <= gate_hi;
+    out[e] = mask ? pd : NEG_SCORE;
+  }
+}
+
+}  // namespace
+
+extern "C" int radar_frontend_split(
+    const void* ant, const void* dopp, const void* coarse, const void* fine,
+    const void* tau, const void* tvec, const void* seeds, const void* wrng,
+    const void* wdopt, void* tbuf, void* zr, void* zi, void* p, void* score,
+    int F, int A, int C, int S, int Sc, int B, int Q, int device,
+    int has_upper, float echo_upper, float sn, int n_taps,
+    const int* tap_off, const float* tap_coef, int dc_removal, int train,
+    int guard, int neighborhood, float offset_db, float threshold_db,
+    int gate_lo, int gate_hi, void* stream) {
+  if (F <= 0 || F > 65535 || n_taps < 0 || n_taps > MAX_TAPS ||
+      neighborhood < 1 || (neighborhood & 1) == 0)
+    return (int)cudaErrorInvalidValue;
+  NoiseTaps taps{};
+  taps.n = n_taps;
+  for (int t = 0; t < n_taps; ++t) {
+    taps.off[t] = tap_off[t];
+    taps.coef[t] = tap_coef[t];
+    const int h = tap_off[t] < 0 ? -tap_off[t] : tap_off[t];
+    if (h > MAX_HALO) return (int)cudaErrorInvalidValue;
+    if (h > taps.halo) taps.halo = h;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = A * C;
+
+  dim3 g1((S + BN - 1) / BN, (Sc + BM - 1) / BM, F);
+  range_dft_kernel<<<g1, TPB, 0, st>>>(
+      static_cast<const float2*>(coarse), static_cast<const float2*>(fine),
+      static_cast<const float*>(tau), static_cast<const float*>(tvec),
+      static_cast<const float2*>(wrng), static_cast<float2*>(tbuf), Sc, S, B,
+      Q, has_upper, echo_upper);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  dim3 g2((S + BN - 1) / BN, (M + BM - 1) / BM, F);
+  z_kernel<<<g2, TPB, 0, st>>>(
+      static_cast<const float2*>(ant), static_cast<const float2*>(dopp),
+      static_cast<const float2*>(tbuf), static_cast<const int*>(seeds),
+      static_cast<float*>(zr), static_cast<float*>(zi), A, C, S, Sc, sn, taps,
+      dc_removal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const size_t pow_smem = sizeof(float) * (2 * PS * (M + 1) + 2 * C * C);
+  err = cudaFuncSetAttribute(doppler_power_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)pow_smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 g3((S + PS - 1) / PS, F);
+  doppler_power_kernel<<<g3, TPB, pow_smem, st>>>(
+      static_cast<const float*>(zr), static_cast<const float*>(zi),
+      static_cast<const float2*>(wdopt), static_cast<float*>(p), A, C, S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const size_t cfar_smem = sizeof(float) * 2 * (size_t)C * S;
+  err = cudaFuncSetAttribute(cfar_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)cfar_smem);
+  if (err != cudaSuccess) return (int)err;
+  cfar_kernel<<<F, CFAR_THREADS, cfar_smem, st>>>(
+      static_cast<const float*>(p), static_cast<float*>(score), C, S, train,
+      guard, neighborhood, offset_db, threshold_db, gate_lo, gate_hi);
+  return (int)cudaGetLastError();
+}

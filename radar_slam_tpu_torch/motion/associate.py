@@ -1,0 +1,74 @@
+"""Cross-frame target association (mutual nearest neighbours), batched.
+
+Counterpart of ``radar_slam_tpu/motion/associate.py:associate_targets``
+with ``association_method="mutual"`` and the cartesian metric, over a
+leading frame axis: current target i and previous target j match iff
+each is the other's nearest (reliable, gated) neighbour.  Also computes
+what the velocity solver needs per match: the temporal phase difference
+on reference antenna 0, the apparent velocity and the match weight.
+The reference's sequential "greedy" method is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from radar_slam_tpu_torch.core.config import VelocityConfig
+from radar_slam_tpu_torch.core.geometry import direction_vector
+from radar_slam_tpu_torch.core.types import Associations, Targets
+
+
+def associate_targets(current: Targets, previous: Targets, dt: float,
+                      cfg: VelocityConfig) -> Associations:
+    """Mutual-NN gated association between two target sets [F, K]."""
+    if cfg.association_method == "greedy":
+        raise NotImplementedError(
+            "association_method='greedy' is not ported yet (ROADMAP: "
+            "greedy association)")
+    if cfg.association_method != "mutual":
+        raise ValueError(
+            f"Unknown association method: {cfg.association_method}")
+    F, K = current.range_m.shape
+    dev = current.range_m.device
+
+    cur_ok = current.valid & current.is_reliable
+    prev_ok = previous.valid & previous.is_reliable
+    cur_pos = current.position
+    prev_pos = previous.position
+    diff = cur_pos[:, :, None, :2] - prev_pos[:, None, :, :2]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)   # [F, K, K]
+    ok = cur_ok[:, :, None] & prev_ok[:, None, :]
+    dist = torch.where(ok, dist, 1e9)
+
+    j_of_i = torch.argmin(dist, dim=2)                           # [F, K]
+    i_of_j = torch.argmin(dist, dim=1)                           # [F, K]
+    best_dist = torch.amin(dist, dim=2)
+    mutual = (torch.gather(i_of_j, 1, j_of_i)
+              == torch.arange(K, device=dev)[None, :])
+    hit = cur_ok & mutual & (best_dist < cfg.association_gate)
+
+    # Previous-frame lookups at prev_idx: signature on antenna 0, position,
+    # confidence.
+    s_prev = torch.gather(previous.spatial_signature[..., 0], 1, j_of_i)
+    p_prev = torch.gather(prev_pos, 1, j_of_i[..., None].expand(F, K, 3))
+    c_prev = torch.gather(previous.confidence, 1, j_of_i)
+    s_cur = current.spatial_signature[..., 0]
+    phase = torch.angle(s_cur * s_prev.conj())
+
+    dt = max(float(dt), 1e-6)
+    apparent_v = (cur_pos - p_prev) / dt
+
+    el = (current.elevation_rad if current.elevation_rad is not None
+          else torch.zeros_like(current.azimuth_rad))
+    direction = direction_vector(current.azimuth_rad, el)
+    return Associations(
+        prev_index=j_of_i.to(torch.int32),
+        distance=torch.where(hit, best_dist, 0.0),
+        temporal_phase_diff=torch.where(hit, phase, 0.0),
+        position=cur_pos,
+        direction=direction,
+        vr_mps=current.vr_mps,
+        apparent_velocity=torch.where(hit[..., None], apparent_v, 0.0),
+        weight=torch.where(hit, current.confidence * c_prev, 0.0),
+        valid=hit,
+    )

@@ -1,0 +1,201 @@
+"""The batched scatterers-to-pose pipeline.
+
+Counterpart of ``radar_slam_tpu/pipeline/frame.py:process_sequence_batched``
+on the path a TPU takes at ``complete_analysis_config()``: phase A runs the
+one-pass front end over all frames at once (split synthesis factors ->
+front-end kernel -> exact top-K + Z-column signatures -> detections) and
+the AoA tail; phase B runs windowed temporal smoothing, mutual-NN
+association with the previous frame, the batched 6-DoF solve and a
+prefix-sum pose.  There is no backend branch: the device of the input
+tensors decides whether the front end launches its CUDA kernel (``cuda``)
+or runs its plain PyTorch version (``cpu``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from radar_slam_tpu_torch.aoa import confidence as conf_mod
+from radar_slam_tpu_torch.aoa import estimators, smoothing
+from radar_slam_tpu_torch.core.config import PipelineConfig
+from radar_slam_tpu_torch.core.types import (Detections, FrameOutput,
+                                             MotionEstimate, ScattererBatch,
+                                             Targets)
+from radar_slam_tpu_torch.motion.associate import associate_targets
+from radar_slam_tpu_torch.motion.velocity import solve_velocity
+from radar_slam_tpu_torch.ops import frontend as fe
+from radar_slam_tpu_torch.ops.windows import window_freq_taps
+from radar_slam_tpu_torch.signal import detect as detect_mod
+from radar_slam_tpu_torch.signal.rds import _mix_vector
+from radar_slam_tpu_torch.signal.synth import (fast_time_base,
+                                               synthesis_factors_split)
+
+
+def _check_supported(cfg: PipelineConfig) -> None:
+    """The port runs the one-pass front end at its production knobs; a
+    config that selects another path raises instead of silently running
+    this one."""
+    if not (cfg.fft_mode == "fused" and cfg.synth_in_kernel
+            and cfg.frontend_one_pass):
+        raise NotImplementedError(
+            "only the one-pass front end is ported (fft_mode='fused', "
+            "synth_in_kernel=True, frontend_one_pass=True); ROADMAP: "
+            "cube-input and three-dispatch paths")
+    if cfg.frontend_factors != "split":
+        raise NotImplementedError(
+            "frontend_factors='dense' is not ported (ROADMAP: K3)")
+    if cfg.detection.cfar_mode != "ca":
+        raise NotImplementedError(
+            f"cfar_mode={cfg.detection.cfar_mode!r}: only CA-CFAR is "
+            "ported (ROADMAP: cube-input paths, OS-CFAR)")
+    if cfg.detection.clutter_map_alpha > 0:
+        raise ValueError("the batched pipeline requires clutter_map_alpha "
+                         "== 0 (the clutter EMA makes detection sequential)")
+    if cfg.chirp_subset is not None:
+        raise NotImplementedError("chirp_subset is not ported")
+
+
+def _onepass_frontend(scatterers: ScattererBatch, seeds: torch.Tensor,
+                      cfg: PipelineConfig):
+    """Front end over a frame batch: split factors -> kernel -> exact
+    top-K + signatures -> detections.  Returns (p_lin [F, R, D],
+    Detections [F, K], sigs [F, K, A])."""
+    C = cfg.radar.num_chirps
+    S = cfg.radar.samples_per_chirp
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    d = cfg.detection
+    dev = scatterers.range_m.device
+    mix = _mix_vector(cfg.radar, cfg.window, "baseband", S, device=dev)
+    lo, hi = detect_mod.range_gate_bin_interval(cfg.radar, S, d)
+    split = synthesis_factors_split(scatterers, cfg.radar,
+                                    cfg.synth_fidelity)
+    t = fast_time_base(cfg.radar, cfg.synth_fidelity, device=dev)
+    echo_upper = (cfg.radar.chirp_duration
+                  if cfg.synth_fidelity == "reference" else None)
+    p_lin, rb, db, vals, sigs = fe.scatterer_frontend_split(
+        split.ant, split.dopp, split.coarse, split.fine, split.tau, t,
+        seeds, mix, C, sigma, d.max_detections,
+        train=d.cfar_train_cells, guard=d.guard_cells,
+        neighborhood=d.neighborhood, offset_db=d.cfar_offset_db,
+        threshold_db=d.threshold_db, min_range_bin=lo, max_range_bin=hi,
+        doppler_window=cfg.doppler_window, noise_impl=cfg.noise_impl,
+        noise_domain=cfg.noise_domain,
+        noise_taps=window_freq_taps(cfg.window),
+        topk_mode=cfg.frontend_topk, echo_upper=echo_upper)
+    det = detect_mod.detections_from_topk(p_lin, rb, db, vals, cfg.radar,
+                                          cfg.detection)
+    return p_lin, det, sigs
+
+
+def _aoa_features(det: Detections, sigs: torch.Tensor, cfg: PipelineConfig):
+    """MDL model order, angles and confidence for every frame's detections
+    [F, K].  Returns (det, sigs, keep, num_sources, is_multi, angles_deg,
+    el_deg, conf)."""
+    K = det.range_bin.shape[-1]
+    keep = (det.valid & (det.power_db > cfg.aoa.power_filter_db)
+            & (torch.arange(K, device=sigs.device) < cfg.aoa.max_targets))
+    eigvals = estimators.rank1_eigenvalues(sigs)
+    num_sources, is_multi, _ = conf_mod.mdl_model_order(eigvals)
+    angles_deg, el_deg, _ = estimators.estimate_angles_2d(
+        sigs, cfg.radar, cfg.aoa, method=cfg.aoa.method,
+        num_sources=num_sources)
+    conf = conf_mod.angle_confidence(sigs, angles_deg, cfg.radar, el_deg)
+    return det, sigs, keep, num_sources, is_multi, angles_deg, el_deg, conf
+
+
+def _batched_assoc_solve(targets: Targets, cfg: PipelineConfig
+                         ) -> Tuple[torch.Tensor, MotionEstimate]:
+    """Association with the previous frame (a shift, not a scan) and the
+    velocity solve, batched over frames; no temporal prior."""
+    F = targets.range_m.shape[0]
+    prev = Targets(*[None if x is None else torch.cat([x[:1], x[:-1]])
+                     for x in targets])
+    assoc = associate_targets(targets, prev, cfg.frame_dt, cfg.velocity)
+    has_prev = torch.arange(F, device=targets.range_m.device) > 0
+    assoc = assoc._replace(valid=assoc.valid & has_prev[:, None])
+    motion = solve_velocity(
+        assoc, cfg.frame_dt, cfg.radar.lambda_c, cfg.velocity,
+        v_unambiguous=cfg.radar.max_unambiguous_velocity)
+    return assoc.num_valid, motion
+
+
+def _pose_prefix(motion: MotionEstimate, cfg: PipelineConfig,
+                 rotate_pose: bool) -> torch.Tensor:
+    """Planar pose [F, 3] as prefix sums over per-frame increments."""
+    dtf = float(np.float32(cfg.frame_dt))
+    wz = torch.where(motion.success, motion.angular_velocity[:, 2], 0.0)
+    yaw_after = torch.cumsum(wz * dtf, dim=0)
+    yaw_before = yaw_after - wz * dtf
+    v = torch.where(motion.success[:, None], motion.velocity[:, :2], 0.0)
+    if rotate_pose:
+        c, s = torch.cos(yaw_before), torch.sin(yaw_before)
+        step_xy = torch.stack([c * v[:, 0] - s * v[:, 1],
+                               s * v[:, 0] + c * v[:, 1]], dim=-1) * dtf
+    else:
+        step_xy = v * dtf
+    xy_after = torch.cumsum(step_xy, dim=0)
+    return torch.cat([xy_after, yaw_after[:, None]], dim=-1)
+
+
+def _sequence_from_features(features, cfg: PipelineConfig,
+                            rotate_pose: bool) -> FrameOutput:
+    """Phase B: windowed temporal smoothing, shift-association, batched
+    solves, prefix-sum pose."""
+    (det, sigs, keep, num_sources, is_multi, angles_deg, el_deg,
+     conf) = features
+    D = cfg.radar.num_chirps
+    det_keys = det.range_bin * D + det.doppler_bin                # [F, K]
+    angles_s, conf_s = smoothing.smooth_windowed(
+        det_keys, angles_deg, conf, keep, cfg.aoa)
+
+    reliable = keep & (conf_s >= cfg.aoa.confidence_threshold) & ~is_multi
+    targets = Targets(
+        range_bin=det.range_bin, doppler_bin=det.doppler_bin,
+        range_m=det.range_m, doppler_hz=det.doppler_hz,
+        vr_mps=det.vr_mps, power_db=det.power_db,
+        azimuth_rad=torch.deg2rad(angles_s), confidence=conf_s,
+        num_sources=num_sources, is_multipath=is_multi,
+        is_reliable=reliable, spatial_signature=sigs, valid=keep,
+        elevation_rad=torch.deg2rad(el_deg))
+
+    n_assoc, motion = _batched_assoc_solve(targets, cfg)
+    pose = _pose_prefix(motion, cfg, rotate_pose)
+    return FrameOutput(
+        motion=motion, pose=pose,
+        num_detections=torch.sum(det.valid, dim=-1).to(torch.int32),
+        num_reliable=torch.sum(reliable, dim=-1).to(torch.int32),
+        num_associations=n_assoc.to(torch.int32),
+        target_xy=targets.position[..., :2],
+        target_valid=targets.valid & targets.is_reliable)
+
+
+def frame_seeds(generator: torch.Generator, num_frames: int,
+                device) -> torch.Tensor:
+    """Per-frame noise seeds [F] int32 drawn from ``generator`` (a
+    non-blocking copy: the host does not wait for the device)."""
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (num_frames,),
+                          generator=generator, dtype=torch.int64,
+                          device=generator.device)
+    return seeds.to(torch.int32).to(device, non_blocking=True)
+
+
+def process_sequence_batched(scatterers: ScattererBatch,
+                             generator: torch.Generator,
+                             cfg: PipelineConfig,
+                             rotate_pose: bool = True) -> FrameOutput:
+    """Throughput-oriented whole-sequence pipeline over scatterers [F, S_max].
+
+    ``generator`` draws the per-frame noise seeds (the only randomness);
+    the same generator state gives the same noise on either device type.
+    Returns a :class:`FrameOutput` with leading frame axis [F]."""
+    _check_supported(cfg)
+    fe.use_f32_matmuls()
+    F = scatterers.range_m.shape[0]
+    seeds = frame_seeds(generator, F, scatterers.range_m.device)
+    _, det, sigs = _onepass_frontend(scatterers, seeds, cfg)
+    features = _aoa_features(det, sigs, cfg)
+    return _sequence_from_features(features, cfg, rotate_pose)
+
