@@ -57,6 +57,18 @@ def scatterer_batch_from_numpy(fields: Dict[str, np.ndarray],
                        if el is not None else None))
 
 
+def signals_from_numpy(x: np.ndarray, device) -> torch.Tensor:
+    """ADC cubes [F, A, C, S] complex64 on ``device``, copied from a numpy
+    array (a reference cube read back, or one made with numpy).  Raises
+    unless ``x`` is complex64 with four axes."""
+    x = np.asarray(x)
+    if x.dtype != np.complex64:
+        raise TypeError(f"signals: dtype {x.dtype} != complex64")
+    if x.ndim != 4:
+        raise ValueError(f"signals: need [F, A, C, S], got shape {x.shape}")
+    return torch.from_numpy(np.array(x, order="C")).to(device)
+
+
 class Detections(NamedTuple):
     """Top-K range-Doppler detections [F, K] (static shape, masked)."""
 

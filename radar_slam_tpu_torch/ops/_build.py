@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA sources (``csrc/*.cu``).
+"""Build, load and bind the package's CUDA sources (``csrc/*.cu``).
 
 Each source is compiled once by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` -- no PyTorch headers, so a
@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -59,3 +61,36 @@ def load(name: str) -> ctypes.CDLL:
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: tuple):
+    """The C function ``symbol`` of the library built from
+    ``csrc/<name>.cu``, with its argument types set (``ctypes.c_void_p``
+    for pointers and the stream, so no 64-bit value is cut) and an int
+    (``cudaError_t``) result."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_input(name: str, x: torch.Tensor, dtype: torch.dtype,
+                device: torch.device, shape=None) -> None:
+    """Raise unless ``x`` has ``dtype``, lies on ``device``, is contiguous
+    and (when given) has ``shape``."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype} != {dtype}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
+
+
+def launch(fn, *args) -> None:
+    """Call a bound launcher; raise on a non-zero ``cudaError_t``."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {err}")

@@ -90,3 +90,13 @@ def standard_normals(seeds: torch.Tensor, rows: int,
     inv = 1.0 / torch.sqrt(v1 * v1 + v2 * v2 + 1e-6)
     shape = (seeds.shape[0], rows, cols)
     return (r * v1 * inv).reshape(shape), (r * v2 * inv).reshape(shape)
+
+
+def frame_seeds(generator: torch.Generator, num_frames: int,
+                device) -> torch.Tensor:
+    """Per-frame noise seeds [F] int32 drawn from ``generator`` (a
+    non-blocking copy: the host does not wait for the device)."""
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (num_frames,),
+                          generator=generator, dtype=torch.int64,
+                          device=generator.device)
+    return seeds.to(torch.int32).to(device, non_blocking=True)

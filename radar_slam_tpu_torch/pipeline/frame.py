@@ -1,14 +1,25 @@
-"""The batched scatterers-to-pose pipeline.
+"""The batched pipelines: scatterers or ADC cubes in, poses out.
 
-Counterpart of ``radar_slam_tpu/pipeline/frame.py:process_sequence_batched``
-on the path a TPU takes at ``complete_analysis_config()``: phase A runs the
-one-pass front end over all frames at once (split synthesis factors ->
-front-end kernel -> exact top-K + Z-column signatures -> detections) and
-the AoA tail; phase B runs windowed temporal smoothing, mutual-NN
-association with the previous frame, the batched 6-DoF solve and a
-prefix-sum pose.  There is no backend branch: the device of the input
-tensors decides whether the front end launches its CUDA kernel (``cuda``)
-or runs its plain PyTorch version (``cpu``).
+Counterpart of ``radar_slam_tpu/pipeline/frame.py`` for its two batched
+drivers, each in two phases.  Phase A is frame-independent and runs over
+all frames at once:
+
+- :func:`process_sequence_batched` (scatterers [F, S_max]) at
+  ``fft_mode="fused"`` with ``synth_in_kernel`` runs the one-pass front end
+  (split synthesis factors -> front-end kernel -> exact top-K + Z-column
+  signatures -> detections), the path a TPU takes at
+  ``complete_analysis_config()``; otherwise it synthesizes the ADC cubes
+  and runs :func:`frame_features`, the reference's materialized branch.
+- :func:`process_signal_sequence_batched` (cubes [F, A, C, S]) runs
+  :func:`frame_features`: the fused power map (``fft_mode="fused"``) or the
+  complex RDS (``"fft"``, ``"matmul"``, ``"pallas"``), CA-CFAR detection,
+  signatures.
+
+Both end in the AoA tail.  Phase B runs windowed temporal smoothing,
+mutual-NN association with the previous frame, the batched 6-DoF solve and
+a prefix-sum pose.  There is no backend branch: the device of the input
+tensors decides whether a kernel launches its CUDA code (``cuda``) or runs
+its plain PyTorch version (``cpu``).
 """
 
 from __future__ import annotations
@@ -27,35 +38,64 @@ from radar_slam_tpu_torch.core.types import (Detections, FrameOutput,
 from radar_slam_tpu_torch.motion.associate import associate_targets
 from radar_slam_tpu_torch.motion.velocity import solve_velocity
 from radar_slam_tpu_torch.ops import frontend as fe
+from radar_slam_tpu_torch.ops.noise import frame_seeds
 from radar_slam_tpu_torch.ops.windows import window_freq_taps
 from radar_slam_tpu_torch.signal import detect as detect_mod
-from radar_slam_tpu_torch.signal.rds import _mix_vector
+from radar_slam_tpu_torch.signal.rds import (_mix_vector,
+                                             detection_signatures,
+                                             range_doppler_spectrum,
+                                             rds_power)
 from radar_slam_tpu_torch.signal.synth import (fast_time_base,
-                                               synthesis_factors_split)
+                                               synthesis_factors_split,
+                                               synthesize_frames_batch)
 
 
-def _check_supported(cfg: PipelineConfig) -> None:
-    """The port runs the one-pass front end at its production knobs; a
-    config that selects another path raises instead of silently running
-    this one."""
-    if not (cfg.fft_mode == "fused" and cfg.synth_in_kernel
-            and cfg.frontend_one_pass):
-        raise NotImplementedError(
-            "only the one-pass front end is ported (fft_mode='fused', "
-            "synth_in_kernel=True, frontend_one_pass=True); ROADMAP: "
-            "cube-input and three-dispatch paths")
-    if cfg.frontend_factors != "split":
-        raise NotImplementedError(
-            "frontend_factors='dense' is not ported (ROADMAP: K3)")
+def _check_common(cfg: PipelineConfig) -> None:
     if cfg.detection.cfar_mode != "ca":
         raise NotImplementedError(
             f"cfar_mode={cfg.detection.cfar_mode!r}: only CA-CFAR is "
-            "ported (ROADMAP: cube-input paths, OS-CFAR)")
+            "ported (ROADMAP: three-dispatch path with OS-CFAR)")
     if cfg.detection.clutter_map_alpha > 0:
         raise ValueError("the batched pipeline requires clutter_map_alpha "
                          "== 0 (the clutter EMA makes detection sequential)")
     if cfg.chirp_subset is not None:
         raise NotImplementedError("chirp_subset is not ported")
+    if cfg.radar.num_antennas_el != 1:
+        raise NotImplementedError(
+            "num_antennas_el > 1 (a 2-D array) is not ported (ROADMAP: "
+            "MUSIC / ESPRIT and URA arrays)")
+
+
+def _check_cube_supported(cfg: PipelineConfig) -> None:
+    """The cube-input path: every fft_mode ("fused", "fft", "matmul",
+    "pallas") with or without ``use_pallas``, CA-CFAR, a 1-D array."""
+    _check_common(cfg)
+    if cfg.fft_mode not in ("fused", "fft", "matmul", "pallas"):
+        raise ValueError(f"Unknown fft_mode: {cfg.fft_mode}")
+
+
+def _one_pass(cfg: PipelineConfig) -> bool:
+    """The scatterer driver's phase A: the one-pass front end at
+    ``fft_mode="fused"`` with ``synth_in_kernel``, else synthesis + the
+    cube-input path (the reference's materialized branch)."""
+    return cfg.fft_mode == "fused" and cfg.synth_in_kernel
+
+
+def _check_supported(cfg: PipelineConfig) -> None:
+    """The scatterer driver's configs (see :func:`_one_pass`); a config
+    that selects an unported path raises instead of silently running
+    another."""
+    if not _one_pass(cfg):
+        _check_cube_supported(cfg)
+        return
+    if not cfg.frontend_one_pass:
+        raise NotImplementedError(
+            "frontend_one_pass=False is the three-dispatch path, not "
+            "ported (ROADMAP: K4, K5, K6)")
+    if cfg.frontend_factors != "split":
+        raise NotImplementedError(
+            "frontend_factors='dense' is not ported (ROADMAP: K3)")
+    _check_common(cfg)
 
 
 def _onepass_frontend(scatterers: ScattererBatch, seeds: torch.Tensor,
@@ -172,14 +212,42 @@ def _sequence_from_features(features, cfg: PipelineConfig,
         target_valid=targets.valid & targets.is_reliable)
 
 
-def frame_seeds(generator: torch.Generator, num_frames: int,
-                device) -> torch.Tensor:
-    """Per-frame noise seeds [F] int32 drawn from ``generator`` (a
-    non-blocking copy: the host does not wait for the device)."""
-    seeds = torch.randint(-2 ** 31, 2 ** 31, (num_frames,),
-                          generator=generator, dtype=torch.int64,
-                          device=generator.device)
-    return seeds.to(torch.int32).to(device, non_blocking=True)
+def frame_features(signals: torch.Tensor, cfg: PipelineConfig):
+    """Phase A of the cube-input path over ADC cubes [F, A, C, S]:
+    RDS or power map -> detection -> signatures -> the AoA tail.
+
+    ``fft_mode="fused"`` takes the power map straight from the cubes
+    (``rds_power``: the K7 kernel on a CUDA tensor) and recomputes only the
+    detected cells' signatures; the other modes build the complex RDS
+    (``"pallas"``: the K8 kernel; ``"fft"`` with ``use_pallas``: the K9
+    kernel) and detect on it (with ``use_pallas``: the K10 kernel).
+
+    Returns (det, sigs, keep, num_sources, is_multi, angles_deg, el_deg,
+    conf), each with the leading frame axis."""
+    if cfg.fft_mode == "fused":
+        p_lin = rds_power(signals, cfg.radar, window=cfg.window,
+                          chirp_subset=cfg.chirp_subset,
+                          doppler_window=cfg.doppler_window,
+                          dft_precision=cfg.power_precision,
+                          doppler_precision=cfg.doppler_precision,
+                          doppler_layout=cfg.doppler_layout)
+        det = detect_mod.detect_peaks_from_power(p_lin, cfg.radar,
+                                                 cfg.detection)
+        sigs = detection_signatures(signals, det.range_bin, det.doppler_bin,
+                                    cfg.radar, window=cfg.window,
+                                    chirp_subset=cfg.chirp_subset,
+                                    doppler_window=cfg.doppler_window)
+    else:
+        rds = range_doppler_spectrum(signals, cfg.radar, window=cfg.window,
+                                     chirp_subset=cfg.chirp_subset,
+                                     doppler_window=cfg.doppler_window,
+                                     use_pallas=cfg.use_pallas,
+                                     fft_mode=cfg.fft_mode,
+                                     dft_precision=cfg.dft_precision)
+        det = detect_mod.detect_peaks(rds, cfg.radar, cfg.detection,
+                                      use_pallas=cfg.use_pallas)
+        sigs = detect_mod.extract_spatial_signatures(rds, det)
+    return _aoa_features(det, sigs, cfg)
 
 
 def process_sequence_batched(scatterers: ScattererBatch,
@@ -190,12 +258,38 @@ def process_sequence_batched(scatterers: ScattererBatch,
 
     ``generator`` draws the per-frame noise seeds (the only randomness);
     the same generator state gives the same noise on either device type.
-    Returns a :class:`FrameOutput` with leading frame axis [F]."""
+    At ``fft_mode="fused"`` with ``synth_in_kernel`` phase A is the
+    one-pass front end; otherwise the ADC cubes are synthesized
+    (``synthesize_frames_batch``) and go through :func:`frame_features`.  Returns a :class:`FrameOutput`
+    with leading frame axis [F]."""
     _check_supported(cfg)
     fe.use_f32_matmuls()
-    F = scatterers.range_m.shape[0]
-    seeds = frame_seeds(generator, F, scatterers.range_m.device)
-    _, det, sigs = _onepass_frontend(scatterers, seeds, cfg)
-    features = _aoa_features(det, sigs, cfg)
+    if _one_pass(cfg):
+        F = scatterers.range_m.shape[0]
+        seeds = frame_seeds(generator, F, scatterers.range_m.device)
+        _, det, sigs = _onepass_frontend(scatterers, seeds, cfg)
+        features = _aoa_features(det, sigs, cfg)
+    else:
+        signals = synthesize_frames_batch(scatterers, cfg.radar, generator,
+                                          fidelity=cfg.synth_fidelity)
+        features = frame_features(signals, cfg)
     return _sequence_from_features(features, cfg, rotate_pose)
 
+
+def process_signal_sequence_batched(signals: torch.Tensor,
+                                    cfg: PipelineConfig,
+                                    rotate_pose: bool = True) -> FrameOutput:
+    """Batched (two-phase) driver over ADC cubes [F, A, C, S] complex64
+    (baseband): :func:`frame_features` over all frames, then phase B.
+    Returns a :class:`FrameOutput` with leading frame axis [F]."""
+    _check_cube_supported(cfg)
+    r = cfg.radar
+    want = (r.num_antennas, r.num_chirps, r.samples_per_chirp)
+    if signals.dim() != 4 or tuple(signals.shape[1:]) != want:
+        raise ValueError(f"signals: need [F, {want[0]}, {want[1]}, "
+                         f"{want[2]}], got {tuple(signals.shape)}")
+    if signals.dtype != torch.complex64:
+        raise TypeError(f"signals: dtype {signals.dtype} != complex64")
+    fe.use_f32_matmuls()
+    features = frame_features(signals, cfg)
+    return _sequence_from_features(features, cfg, rotate_pose)

@@ -1,21 +1,167 @@
-"""The [K]-shaped detection tail of the one-pass front end.
+"""Static-shape range-Doppler peak detection, batched over frames.
 
-Counterpart of ``radar_slam_tpu/signal/detect.py`` for the batched slice:
-the static range-gate interval, and the build of :class:`Detections` from
-raw top-K picks (validity, cross-detection NMS, parabolic sub-bin
-refinement, bin-to-metric conversion), batched over a leading frame axis.
-The dense detectors (CA / OS-CFAR on a materialized power map, the clutter
-map) belong to the cube-input path and are not ported yet.
+Counterpart of ``radar_slam_tpu/signal/detect.py``: the dense detectors of
+the cube-input path (power map -> local max + CA-CFAR -> range gate ->
+exact top-K) on an RDS [F, A, R, D] or a power map [F, R, D], the static
+range-gate interval, and the build of :class:`Detections` from raw top-K
+picks (validity, cross-detection NMS, parabolic sub-bin refinement,
+bin-to-metric conversion) that the one-pass front end shares.  OS-CFAR and
+the clutter map raise ``NotImplementedError`` (ROADMAP: the three-dispatch
+path with OS-CFAR; the sequential drivers).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as tfn
 
 from radar_slam_tpu_torch.core.config import DetectionConfig, RadarConfig
 from radar_slam_tpu_torch.core.types import Detections
+from radar_slam_tpu_torch.ops.cfar import db10
+from radar_slam_tpu_torch.ops.frontend import topk_exact
 from radar_slam_tpu_torch.signal.rds import doppler_to_radial_velocity
+
+
+def _window1d(x: torch.Tensor, size: int, dim: int, fill: float,
+              op: str) -> torch.Tensor:
+    """Centered width-``size`` window reduction ("max" or "sum") along
+    ``dim`` (-2 or -1) of [..., R, D], the edge extended with ``fill``."""
+    pad = size // 2
+    xp = tfn.pad(x, (pad, pad) if dim == -1 else (0, 0, pad, pad),
+                 value=fill)
+    win = xp.unfold(dim, size, 1)
+    return win.amax(-1) if op == "max" else win.sum(-1)
+
+
+def _maxpool2d_same(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Max filter with SAME (-inf) padding over the last two axes."""
+    return _window1d(_window1d(x, size, -2, -float("inf"), "max"), size, -1,
+                     -float("inf"), "max")
+
+
+def _box_sum2d(x: torch.Tensor, size: int) -> torch.Tensor:
+    return _window1d(_window1d(x, size, -2, 0.0, "sum"), size, -1, 0.0,
+                     "sum")
+
+
+def _box_mean2d(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Box mean with zero-extended edges: the box sum over the per-cell
+    count of in-bounds cells."""
+    R, D = x.shape[-2:]
+    pad = size // 2
+
+    def counts(n):
+        i = torch.arange(n, device=x.device)
+        return (torch.clamp(i + pad, max=n - 1) - torch.clamp(i - pad, min=0)
+                + 1.0)
+
+    return _box_sum2d(x, size) / (counts(R)[:, None] * counts(D)[None, :])
+
+
+def power_spectrum_db(rds: torch.Tensor) -> torch.Tensor:
+    """Non-coherent power map [..., R, D] in dB of an RDS [..., A, R, D]."""
+    return db10(torch.mean(rds.abs() ** 2, dim=-3) + 1e-12)
+
+
+def _threshold_power(p_lin: torch.Tensor, det: DetectionConfig):
+    """Local max + (CA-CFAR-relative) threshold of a linear power map
+    [F, R, D].  Returns (power_db, is_peak_above)."""
+    power_db = db10(p_lin)
+    is_peak = _maxpool2d_same(power_db, det.neighborhood) == power_db
+    if det.cfar_train_cells > 0:
+        if det.cfar_mode != "ca":
+            raise NotImplementedError(
+                f"cfar_mode={det.cfar_mode!r}: only CA-CFAR is ported "
+                "(ROADMAP: three-dispatch path with OS-CFAR)")
+        train = 2 * det.cfar_train_cells + 2 * det.guard_cells + 1
+        guard = 2 * det.guard_cells + 1
+        noise = _box_mean2d(p_lin, train)
+        if det.guard_cells > 0:
+            g = _box_mean2d(p_lin, guard)
+            n_train = train * train
+            n_guard = guard * guard
+            noise = (noise * n_train - g * n_guard) / (n_train - n_guard)
+        noise_db = db10(torch.clamp(noise, min=1e-12))
+        thresh = torch.clamp(noise_db + det.cfar_offset_db,
+                             min=det.threshold_db)
+    else:
+        thresh = det.threshold_db
+    return power_db, is_peak & (power_db > thresh)
+
+
+def _no_clutter(clutter_lin) -> None:
+    if clutter_lin is not None:
+        raise NotImplementedError(
+            "the clutter map is not ported (ROADMAP: sequential drivers)")
+
+
+def detect_peaks(rds: torch.Tensor, cfg: RadarConfig, det: DetectionConfig,
+                 use_pallas: bool = False,
+                 clutter_lin: Optional[torch.Tensor] = None) -> Detections:
+    """Top-K range-Doppler peaks [F, K] of an RDS [F, A, R, D], sorted by
+    descending power.  ``use_pallas`` routes power / local max / CFAR
+    through the CFAR-mask kernel (``ops/cfar.py``: CUDA on a CUDA tensor,
+    its plain version on a CPU tensor)."""
+    _no_clutter(clutter_lin)
+    if use_pallas:
+        if det.cfar_train_cells > 0 and det.cfar_mode != "ca":
+            raise NotImplementedError(
+                f"cfar_mode={det.cfar_mode!r}: only CA-CFAR is ported "
+                "(ROADMAP: three-dispatch path with OS-CFAR)")
+        from radar_slam_tpu_torch.ops.cfar import cfar_mask
+        power_db, is_peak_above = cfar_mask(
+            rds, threshold_db=det.threshold_db,
+            neighborhood=det.neighborhood, train=det.cfar_train_cells,
+            guard=det.guard_cells, offset_db=det.cfar_offset_db)
+    else:
+        p_lin = torch.mean(rds.abs() ** 2, dim=-3) + 1e-12
+        power_db, is_peak_above = _threshold_power(p_lin, det)
+    return _finalize_detections(power_db, is_peak_above, cfg, det)
+
+
+def detect_peaks_from_power(p_lin: torch.Tensor, cfg: RadarConfig,
+                            det: DetectionConfig,
+                            clutter_lin: Optional[torch.Tensor] = None
+                            ) -> Detections:
+    """:func:`detect_peaks` from a linear power map [F, R, D]
+    (``mean_a |rds|^2``, the fused path's input)."""
+    _no_clutter(clutter_lin)
+    power_db, is_peak_above = _threshold_power(p_lin + 1e-12, det)
+    return _finalize_detections(power_db, is_peak_above, cfg, det)
+
+
+def _finalize_detections(power_db: torch.Tensor, is_peak_above: torch.Tensor,
+                         cfg: RadarConfig, det: DetectionConfig
+                         ) -> Detections:
+    """Range gate, exact top-K over the masked map (flat index r*D + d),
+    then :func:`_detections_from_bins`."""
+    F, R, D = power_db.shape
+    lo, hi = range_gate_bin_interval(cfg, R, det)
+    r_idx = torch.arange(R, device=power_db.device)
+    gate = (r_idx >= lo) & (r_idx <= hi)
+    mask = is_peak_above & gate[:, None]
+    score = torch.where(mask, power_db, -float("inf")).reshape(F, R * D)
+    top_vals, top_idx = topk_exact(score, det.max_detections)
+    return _detections_from_bins(power_db, top_idx // D, top_idx % D,
+                                 top_vals, cfg, det)
+
+
+def extract_spatial_signatures(rds: torch.Tensor,
+                               detections: Detections) -> torch.Tensor:
+    """Unit-power spatial signatures [F, K, A]: ``rds[f, :, r_k, d_k]``
+    normalized (an invalid slot gathers cell (0, 0), as in the
+    reference)."""
+    F, A, R, D = rds.shape
+    flat = (detections.range_bin.to(torch.int64) * D
+            + detections.doppler_bin.to(torch.int64))             # [F, K]
+    idx = flat[:, None, :].expand(F, A, flat.shape[-1])
+    sig = torch.gather(rds.reshape(F, A, R * D), 2, idx).transpose(1, 2)
+    power = torch.sum(sig.abs() ** 2, dim=-1, keepdim=True)
+    return torch.where(power > 0,
+                       sig / torch.sqrt(torch.clamp(power, min=1e-30)), sig)
 
 
 def range_gate_bin_interval(cfg: RadarConfig, R: int,

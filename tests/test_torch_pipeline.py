@@ -93,7 +93,8 @@ def test_bench_scene_meets_accuracy_gates_on_cpu():
 
 def test_port_imports_and_runs_without_jax():
     """A process whose ``import jax`` fails imports every module of the
-    port and runs a 2-frame pipeline."""
+    port and runs a 2-frame pipeline from scatterers and one from ADC
+    cubes."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -124,6 +125,15 @@ def test_port_imports_and_runs_without_jax():
         out = process_sequence_batched(batch, torch.Generator(), cfg)
         assert out.pose.shape == (2, 3)
         assert bool(torch.isfinite(out.pose).all())
+
+        from radar_slam_tpu_torch.pipeline.frame import (
+            process_signal_sequence_batched)
+        from radar_slam_tpu_torch.signal.synth import (
+            synthesize_frames_batch)
+        sig = synthesize_frames_batch(batch, cfg.radar, torch.Generator())
+        out = process_signal_sequence_batched(sig, cfg)
+        assert out.pose.shape == (2, 3)
+        assert bool(torch.isfinite(out.pose).all())
         assert not any(k.split(".")[0] in ("jax", "jaxlib")
                        for k in sys.modules)
         print("MODULES", len(mods))
@@ -133,7 +143,7 @@ def test_port_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split("MODULES")[-1])
-    assert n >= 20, res.stdout
+    assert n >= 30, res.stdout
 
 
 @pytest.mark.parametrize("knob", [
