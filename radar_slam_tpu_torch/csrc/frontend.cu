@@ -1,10 +1,17 @@
 // One-pass radar front end for NVIDIA Hopper (sm_90a), FP32 SIMT.
 //
-// Replaces: radar_slam_tpu/ops/frontend_pallas.py:_frontend_kernel_split
-// (body _frontend_body) -- the one TPU kernel on the batched
-// scatterers-to-pose path -- at its production knobs: split synthesis
-// factors, range-frequency noise from the "fast" Gaussian transform,
-// CA-CFAR with a guard band, 3x3 local max, range gate.
+// Replaces, at the production knobs (range-frequency noise from the "fast"
+// Gaussian transform, CA-CFAR with a guard band, 3x3 local max, range
+// gate), the two kernels of radar_slam_tpu/ops/frontend_pallas.py that
+// share the body _frontend_body:
+//   K1  radar_frontend_split  _frontend_kernel_split (:308), split
+//       synthesis factors -- the kernel of the batched scatterers-to-pose
+//       path;
+//   K3  radar_frontend_dense  _frontend_kernel (:296), dense factor planes
+//       e_ac [F, Sc, A*C] and e_fast [F, Sc, S] (frontend_factors="dense").
+// The two differ only in how the products' A tiles are loaded (a template
+// parameter of range_dft_kernel and z_kernel); everything after the loads
+// is one code path.
 //
 // What bounds it on this card: arithmetic.  Per frame (A*C = 256, S = 400,
 // Sc = 128) the two complex products T = e_fast W_rng and Z = e_at T are
@@ -16,12 +23,15 @@
 //
 // What the design does about it: the products run as shared-memory-tiled
 // FP32 SIMT matmuls (64 x 64 output tile, depth 16, 4 x 4 complex
-// accumulators per thread, four real FMAs per complex MAC); both factor
-// planes are recomposed from their per-axis tables while the A tiles are
+// accumulators per thread, four real FMAs per complex MAC); K1 recomposes
+// both factor planes from their per-axis tables while the A tiles are
 // loaded, so e_at [A*C, Sc] and e_fast [Sc, S] never exist in device
-// memory.  The noise is drawn once per Z tile (plus a halo for the window
-// taps) from Philox-4x32-10 into shared memory.  Tensor cores (wgmma,
-// TMA, 3xTF32) are not used yet: the precision contract is FP32.
+// memory; K3 reads them (e_ac transposed in the load, no copy; ~1.3 MB
+// more input per frame).  The noise is drawn once per Z tile (plus a halo
+// for the window taps) from Philox-4x32-10 into shared memory.  Tensor
+// cores (wgmma, TMA, 3xTF32) are not used yet: the precision contract is
+// FP32.  Both run every product in FP32 where the TPU's default runs the
+// dense kernel's Z product at bf16x3 ("high"), accurate to ~1e-7.
 //
 // Launch sequence, all on the caller's stream:
 //   1. range_dft_kernel   T[f] = e_fast[f] @ W_rng           [Sc, S] complex
@@ -142,9 +152,11 @@ __device__ __forceinline__ void mma_stage(const float* __restrict__ sm,
   }
 }
 
-// 1. T[f] = e_fast[f] @ W_rng.  e_fast[sc, s] = coarse[sc, s / B] *
-// fine[sc, s % B] * [t_s >= tau_sc] (* [t_s - tau_sc <= T] at reference
-// fidelity), composed while loading the A tile.  M = Sc, N = K = S.
+// 1. T[f] = e_fast[f] @ W_rng.  K1 (SPLIT): e_fast[sc, s] =
+// coarse[sc, s / B] * fine[sc, s % B] * [t_s >= tau_sc] (* [t_s - tau_sc
+// <= T] at reference fidelity), composed while loading the A tile; K3:
+// e_fast (in coarse, already echo-gated) read as it is.  M = Sc, N = K = S.
+template <bool SPLIT>
 __global__ void __launch_bounds__(TPB)
 range_dft_kernel(const float2* __restrict__ coarse,
                  const float2* __restrict__ fine,
@@ -159,16 +171,16 @@ range_dft_kernel(const float2* __restrict__ coarse,
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float accr[4][4] = {}, acci[4][4] = {};
-  const float2* co = coarse + (size_t)f * Sc * Q;
-  const float2* fi = fine + (size_t)f * Sc * B;
-  const float* ta = tau + (size_t)f * Sc;
+  const float2* co = coarse + (size_t)f * Sc * (SPLIT ? Q : S);
+  const float2* fi = SPLIT ? fine + (size_t)f * Sc * B : nullptr;
+  const float* ta = SPLIT ? tau + (size_t)f * Sc : nullptr;
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     for (int e = threadIdx.x; e < BM * BK; e += TPB) {
       const int mm = e % BM, kk = e / BM;
       const int sc = m0 + mm, s = k0 + kk;
       float er = 0.f, ei = 0.f;
-      if (sc < Sc && s < S) {
+      if (SPLIT && sc < Sc && s < S) {
         const int q = s / B, j = s - q * B;
         const float2 c = co[sc * Q + q];
         const float2 fn = fi[sc * B + j];
@@ -177,6 +189,14 @@ range_dft_kernel(const float2* __restrict__ coarse,
         if (has_upper && !(ts - tt <= echo_upper)) arrived = 0.f;
         er = (c.x * fn.x - c.y * fn.y) * arrived;
         ei = (c.x * fn.y + c.y * fn.x) * arrived;
+      } else if (!SPLIT && sc < Sc && s < S) {
+        // Read along sc (a warp touches 32 rows of e_fast): uncoalesced,
+        // but each [BM, BK] tile is small and e_fast stays in L2 across
+        // the S / BN column tiles.  A coalesced transposing load is later
+        // work.
+        const float2 v = co[(size_t)sc * S + s];
+        er = v.x;
+        ei = v.y;
       }
       sm[kk * BM + mm] = er;
       sm[BK * BM + kk * BM + mm] = ei;
@@ -206,10 +226,12 @@ range_dft_kernel(const float2* __restrict__ coarse,
 }
 
 // 2. Z[f] = e_at[f] @ T[f] + sigma sqrt(S) (g (*) taps), column 0 zeroed,
-// stored transposed: zr/zi[f, s, a*C + c].  e_at[a*C + c, sc] =
-// dopp[sc, c] * ant[sc, a], composed while loading the A tile.
+// stored transposed: zr/zi[f, s, a*C + c].  K1 (SPLIT): e_at[a*C + c, sc]
+// = dopp[sc, c] * ant[sc, a], composed while loading the A tile; K3:
+// e_at[m, sc] = e_ac[sc, m] (in ant) read along m, coalesced.
 // M = A*C, N = S, K = Sc.  Thread (ty, tx) owns rows tx + 16 i and
 // columns ty + 16 j so the transposed store is contiguous along rows.
+template <bool SPLIT>
 __global__ void __launch_bounds__(TPB)
 z_kernel(const float2* __restrict__ ant, const float2* __restrict__ dopp,
          const float2* __restrict__ tin, const int* __restrict__ seeds,
@@ -224,8 +246,8 @@ z_kernel(const float2* __restrict__ ant, const float2* __restrict__ dopp,
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float accr[4][4] = {}, acci[4][4] = {};
-  const float2* an = ant + (size_t)f * Sc * A;
-  const float2* dp = dopp + (size_t)f * Sc * C;
+  const float2* an = ant + (size_t)f * Sc * (SPLIT ? A : M);
+  const float2* dp = SPLIT ? dopp + (size_t)f * Sc * C : nullptr;
   const float2* tf = tin + (size_t)f * Sc * S;
 
   for (int k0 = 0; k0 < Sc; k0 += BK) {
@@ -233,12 +255,16 @@ z_kernel(const float2* __restrict__ ant, const float2* __restrict__ dopp,
       const int mm = e % BM, kk = e / BM;
       const int m = m0 + mm, sc = k0 + kk;
       float er = 0.f, ei = 0.f;
-      if (m < M && sc < Sc) {
+      if (SPLIT && m < M && sc < Sc) {
         const int a = m / C, c = m - a * C;
         const float2 d = dp[sc * C + c];
         const float2 w = an[sc * A + a];
         er = d.x * w.x - d.y * w.y;
         ei = d.x * w.y + d.y * w.x;
+      } else if (!SPLIT && m < M && sc < Sc) {
+        const float2 v = an[(size_t)sc * M + m];
+        er = v.x;
+        ei = v.y;
       }
       sm[kk * BM + mm] = er;
       sm[BK * BM + kk * BM + mm] = ei;
@@ -435,17 +461,20 @@ cfar_kernel(const float* __restrict__ p, float* __restrict__ score,
   }
 }
 
-}  // namespace
-
-extern "C" int radar_frontend_split(
-    const void* ant, const void* dopp, const void* coarse, const void* fine,
-    const void* tau, const void* tvec, const void* seeds, const void* wrng,
-    const void* wdopt, void* tbuf, void* zr, void* zi, void* p, void* score,
-    int F, int A, int C, int S, int Sc, int B, int Q, int device,
-    int has_upper, float echo_upper, float sn, int n_taps,
-    const int* tap_off, const float* tap_coef, int dc_removal, int train,
-    int guard, int neighborhood, float offset_db, float threshold_db,
-    int gate_lo, int gate_hi, void* stream) {
+// The four launches.  SPLIT: (ant, dopp, coarse, fine, tau, tvec) are the
+// split tables; otherwise ant is e_ac [F, Sc, A*C] and coarse e_fast
+// [F, Sc, S] (the rest unused).
+template <bool SPLIT>
+int launch_frontend(const void* ant, const void* dopp, const void* coarse,
+                    const void* fine, const void* tau, const void* tvec,
+                    const void* seeds, const void* wrng, const void* wdopt,
+                    void* tbuf, void* zr, void* zi, void* p, void* score,
+                    int F, int A, int C, int S, int Sc, int B, int Q,
+                    int device, int has_upper, float echo_upper, float sn,
+                    int n_taps, const int* tap_off, const float* tap_coef,
+                    int dc_removal, int train, int guard, int neighborhood,
+                    float offset_db, float threshold_db, int gate_lo,
+                    int gate_hi, void* stream) {
   if (F <= 0 || F > 65535 || n_taps < 0 || n_taps > MAX_TAPS ||
       neighborhood < 1 || (neighborhood & 1) == 0)
     return (int)cudaErrorInvalidValue;
@@ -464,7 +493,7 @@ extern "C" int radar_frontend_split(
   const int M = A * C;
 
   dim3 g1((S + BN - 1) / BN, (Sc + BM - 1) / BM, F);
-  range_dft_kernel<<<g1, TPB, 0, st>>>(
+  range_dft_kernel<SPLIT><<<g1, TPB, 0, st>>>(
       static_cast<const float2*>(coarse), static_cast<const float2*>(fine),
       static_cast<const float*>(tau), static_cast<const float*>(tvec),
       static_cast<const float2*>(wrng), static_cast<float2*>(tbuf), Sc, S, B,
@@ -472,7 +501,7 @@ extern "C" int radar_frontend_split(
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   dim3 g2((S + BN - 1) / BN, (M + BM - 1) / BM, F);
-  z_kernel<<<g2, TPB, 0, st>>>(
+  z_kernel<SPLIT><<<g2, TPB, 0, st>>>(
       static_cast<const float2*>(ant), static_cast<const float2*>(dopp),
       static_cast<const float2*>(tbuf), static_cast<const int*>(seeds),
       static_cast<float*>(zr), static_cast<float*>(zi), A, C, S, Sc, sn, taps,
@@ -499,4 +528,38 @@ extern "C" int radar_frontend_split(
       static_cast<const float*>(p), static_cast<float*>(score), C, S, train,
       guard, neighborhood, offset_db, threshold_db, gate_lo, gate_hi);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1: split synthesis factors.
+extern "C" int radar_frontend_split(
+    const void* ant, const void* dopp, const void* coarse, const void* fine,
+    const void* tau, const void* tvec, const void* seeds, const void* wrng,
+    const void* wdopt, void* tbuf, void* zr, void* zi, void* p, void* score,
+    int F, int A, int C, int S, int Sc, int B, int Q, int device,
+    int has_upper, float echo_upper, float sn, int n_taps,
+    const int* tap_off, const float* tap_coef, int dc_removal, int train,
+    int guard, int neighborhood, float offset_db, float threshold_db,
+    int gate_lo, int gate_hi, void* stream) {
+  return launch_frontend<true>(
+      ant, dopp, coarse, fine, tau, tvec, seeds, wrng, wdopt, tbuf, zr, zi,
+      p, score, F, A, C, S, Sc, B, Q, device, has_upper, echo_upper, sn,
+      n_taps, tap_off, tap_coef, dc_removal, train, guard, neighborhood,
+      offset_db, threshold_db, gate_lo, gate_hi, stream);
+}
+
+// K3: dense factor planes e_ac [F, Sc, A*C] and e_fast [F, Sc, S].
+extern "C" int radar_frontend_dense(
+    const void* e_ac, const void* e_fast, const void* seeds,
+    const void* wrng, const void* wdopt, void* tbuf, void* zr, void* zi,
+    void* p, void* score, int F, int A, int C, int S, int Sc, int device,
+    float sn, int n_taps, const int* tap_off, const float* tap_coef,
+    int dc_removal, int train, int guard, int neighborhood, float offset_db,
+    float threshold_db, int gate_lo, int gate_hi, void* stream) {
+  return launch_frontend<false>(
+      e_ac, nullptr, e_fast, nullptr, nullptr, nullptr, seeds, wrng, wdopt,
+      tbuf, zr, zi, p, score, F, A, C, S, Sc, 1, 1, device, 0, 0.0f, sn,
+      n_taps, tap_off, tap_coef, dc_removal, train, guard, neighborhood,
+      offset_db, threshold_db, gate_lo, gate_hi, stream);
 }

@@ -1,9 +1,10 @@
-"""One-pass front end: split synthesis factors -> Z + power + CFAR score map
--> exact top-K + Z-column signatures.
+"""One-pass front end: synthesis factors -> Z + power + CFAR score map ->
+exact top-K + Z-column signatures.
 
 Counterpart of ``radar_slam_tpu/ops/frontend_pallas.py`` at its production
-knobs (split factors, range-frequency noise, "fast" Gaussians, CA-CFAR,
-exact top-K).  Per frame the kernel body computes
+knobs (range-frequency noise, "fast" Gaussians, CA-CFAR, exact top-K), for
+its two kernels: K1 on split factors (the default) and K3 on dense factor
+planes.  Per frame the kernel body computes
 
     T = e_fast @ W_rng                      [Sc, S]   (range DFT, mix/DC folded)
     Z = e_at @ T + sigma sqrt(S) (g (*) taps), column 0 zeroed    [A*C, S]
@@ -11,28 +12,31 @@ exact top-K).  Per frame the kernel body computes
     score = 10 log10(p + 1e-12) where (3x3 local max & CA-CFAR & range
             gate), else -1e30
 
-with e_at[a*C + c, sc] = dopp[sc, c] * ant[sc, a] and e_fast recomposed
-from the coarse / fine tables and the echo gate.  The noise is shaped by
-the PERIODIC window's taps while the signal keeps the symmetric window --
-the reference's documented deviation, reproduced on purpose.
+with, for K1, e_at[a*C + c, sc] = dopp[sc, c] * ant[sc, a] and e_fast
+recomposed from the coarse / fine tables and the echo gate, and for K3
+e_at = e_ac^T and e_fast as given.  The noise is shaped by the PERIODIC
+window's taps while the signal keeps the symmetric window -- the
+reference's documented deviation, reproduced on purpose.
 
-Three layers:
+Three layers per kernel:
 
-- :func:`frontend_kernel_split` -- the kernel wrapper.  On a CUDA tensor it
-  launches the hand-written kernel of ``csrc/frontend.cu`` (or raises); on
-  a CPU tensor it runs :func:`scatterer_frontend_split_reference`.
-  ``frontend_kernel_split.launches`` counts the CUDA launches.
-- :func:`scatterer_frontend_split_reference` -- the kernel body in plain
-  PyTorch, the oracle the kernel is held against on the card.
-- :func:`scatterer_frontend_split` -- the public entry point, mirroring the
-  reference wrapper: constants, kernel, then :func:`_finalize`.
+- :func:`frontend_kernel_split` (K1) / :func:`frontend_kernel_dense` (K3)
+  -- the kernel wrappers.  On a CUDA tensor each launches its hand-written
+  kernel of ``csrc/frontend.cu`` (or raises); on a CPU tensor it runs its
+  plain version.  ``.launches`` counts the CUDA launches.
+- :func:`scatterer_frontend_split_reference` /
+  :func:`scatterer_frontend_reference` -- the plain versions: the factor
+  planes, then one shared body (:func:`_frontend_body_reference`), the
+  oracle the kernels are held against on the card.
+- :func:`scatterer_frontend_split` / :func:`scatterer_frontend` -- the
+  public entry points, mirroring the reference wrappers: constants,
+  kernel, then :func:`_finalize`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import math
 from typing import Optional, Tuple
 
@@ -123,42 +127,16 @@ def _cfar_threshold(p1: torch.Tensor, prm: FrontendParams) -> torch.Tensor:
     return torch.clamp(noise_db + prm.offset_db, min=prm.threshold_db)
 
 
-def scatterer_frontend_split_reference(
-        ant: torch.Tensor, dopp: torch.Tensor, coarse: torch.Tensor,
-        fine: torch.Tensor, tau: torch.Tensor, t: torch.Tensor,
-        seeds: torch.Tensor, w_rng: torch.Tensor, w_dop_t: torch.Tensor,
-        prm: FrontendParams
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel body in plain PyTorch.
-
-    Args:
-        ant / dopp / coarse / fine: [F, Sc, A|C|Q|B] complex64 split factors.
-        tau: [F, Sc] float32 round-trip delays; t: [S] fast-time base.
-        seeds: [F] int32 per-frame noise seeds.
-        w_rng: [S, S] complex64 folded range DFT; w_dop_t: [C, C] complex64
-            transposed Doppler DFT (fftshift in its row order).
-
-    Returns:
-        (zr, zi [F, S, A*C] float32 -- Z transposed, row a*C + c;
-         p [F, C, S] float32 Doppler power; score [F, C, S] float32).
-    """
-    F, Sc, A = ant.shape
-    C = dopp.shape[-1]
-    B = fine.shape[-1]
-    Q = coarse.shape[-1]
-    S = t.shape[0]
-    AC = A * C
-
-    e_at = (dopp.transpose(1, 2)[:, None, :, :]
-            * ant.transpose(1, 2)[:, :, None, :]).reshape(F, AC, Sc)
-    e_fast = (coarse[..., :, None] * fine[..., None, :]).reshape(
-        F, Sc, Q * B)[..., :S]
-    arrived = t[None, None, :] >= tau[..., None]
-    if prm.echo_upper is not None:
-        arrived = arrived & (t[None, None, :] - tau[..., None]
-                             <= prm.echo_upper)
-    e_fast = e_fast * arrived.to(torch.float32)
-
+def _frontend_body_reference(e_at: torch.Tensor, e_fast: torch.Tensor,
+                             seeds: torch.Tensor, w_rng: torch.Tensor,
+                             w_dop_t: torch.Tensor, prm: FrontendParams,
+                             A: int):
+    """The kernel body shared by K1 and K3 in plain PyTorch, from the factor
+    planes e_at [F, A*C, Sc] and e_fast [F, Sc, S] on.  Returns (zr, zi,
+    p, score) as the kernels do."""
+    F, AC, _ = e_at.shape
+    S = e_fast.shape[-1]
+    C = AC // A
     z = e_at @ (e_fast @ w_rng)                              # [F, AC, S]
     if prm.sigma != 0.0:
         # sigma = 0 adds exactly zero; the draw is skipped (so is it in
@@ -199,6 +177,58 @@ def scatterer_frontend_split_reference(
     return zr, zi, p, score
 
 
+def scatterer_frontend_split_reference(
+        ant: torch.Tensor, dopp: torch.Tensor, coarse: torch.Tensor,
+        fine: torch.Tensor, tau: torch.Tensor, t: torch.Tensor,
+        seeds: torch.Tensor, w_rng: torch.Tensor, w_dop_t: torch.Tensor,
+        prm: FrontendParams
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 in plain PyTorch: the split tables recomposed into the factor
+    planes, then the shared body.
+
+    Args:
+        ant / dopp / coarse / fine: [F, Sc, A|C|Q|B] complex64 split factors.
+        tau: [F, Sc] float32 round-trip delays; t: [S] fast-time base.
+        seeds: [F] int32 per-frame noise seeds.
+        w_rng: [S, S] complex64 folded range DFT; w_dop_t: [C, C] complex64
+            transposed Doppler DFT (fftshift in its row order).
+
+    Returns:
+        (zr, zi [F, S, A*C] float32 -- Z transposed, row a*C + c;
+         p [F, C, S] float32 Doppler power; score [F, C, S] float32).
+    """
+    F, Sc, A = ant.shape
+    C = dopp.shape[-1]
+    B = fine.shape[-1]
+    Q = coarse.shape[-1]
+    S = t.shape[0]
+
+    e_at = (dopp.transpose(1, 2)[:, None, :, :]
+            * ant.transpose(1, 2)[:, :, None, :]).reshape(F, A * C, Sc)
+    e_fast = (coarse[..., :, None] * fine[..., None, :]).reshape(
+        F, Sc, Q * B)[..., :S]
+    arrived = t[None, None, :] >= tau[..., None]
+    if prm.echo_upper is not None:
+        arrived = arrived & (t[None, None, :] - tau[..., None]
+                             <= prm.echo_upper)
+    e_fast = e_fast * arrived.to(torch.float32)
+    return _frontend_body_reference(e_at, e_fast, seeds, w_rng, w_dop_t,
+                                    prm, A)
+
+
+def scatterer_frontend_reference(
+        e_ac: torch.Tensor, e_fast: torch.Tensor, seeds: torch.Tensor,
+        w_rng: torch.Tensor, w_dop_t: torch.Tensor, prm: FrontendParams,
+        C: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """K3 in plain PyTorch: the dense planes e_ac [F, Sc, A*C] (row
+    a*C + c) and e_fast [F, Sc, S] (echo-gated) into the shared body.
+    Returns what :func:`scatterer_frontend_split_reference` returns."""
+    return _frontend_body_reference(e_ac.transpose(1, 2), e_fast, seeds,
+                                    w_rng, w_dop_t, prm,
+                                    e_ac.shape[-1] // C)
+
+
 def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
                   prm: FrontendParams):
     F, Sc, A = ant.shape
@@ -224,22 +254,8 @@ def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
             raise ValueError(f"{name} is not contiguous")
     if Q * B < S:
         raise ValueError(f"coarse/fine tables cover {Q * B} < S={S} samples")
-    if len(prm.noise_taps) > _MAX_TAPS:
-        raise ValueError(f"at most {_MAX_TAPS} noise taps")
-    if prm.neighborhood % 2 != 1:
-        raise ValueError("neighborhood must be odd")
+    _check_params(prm)
     return F, Sc, A, C, B, Q, S
-
-
-@functools.lru_cache(maxsize=None)
-def _frontend_fn():
-    lib = _build.load("frontend")
-    fn = lib.radar_frontend_split
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([vp] * 14 + [ci] * 8 + [ci, cf, cf, ci, vp, vp, ci]
-                   + [ci, ci, ci, cf, cf, ci, ci, vp])
-    fn.restype = ci
-    return fn
 
 
 def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
@@ -248,12 +264,7 @@ def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
                                          seeds, w_rng, w_dop_t, prm)
     if F > 65535:
         raise ValueError(f"F={F} frames exceeds the grid's z limit 65535")
-    # csrc/frontend.cu: doppler_power_kernel stages 16 rows of Z and W_dop^T,
-    # cfar_kernel the [C, S] map and its Doppler box sums.
-    smem = max(4 * (2 * 16 * (A * C + 1) + 2 * C * C), 4 * 2 * C * S)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"A={A}, C={C}, S={S} needs {smem} bytes of shared "
-                         f"memory per block; the kernel has {_MAX_SMEM}")
+    _check_smem(A, C, S)
     dev = ant.device
     ins = (ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t)
     tbuf = torch.empty((F, Sc, S), dtype=torch.complex64, device=dev)
@@ -261,25 +272,18 @@ def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
     zi = torch.empty_like(zr)
     p = torch.empty((F, C, S), dtype=torch.float32, device=dev)
     score = torch.empty_like(p)
-    n_taps = len(prm.noise_taps)
-    tap_off = (ctypes.c_int * _MAX_TAPS)(*[o for o, _ in prm.noise_taps])
-    tap_coef = (ctypes.c_float * _MAX_TAPS)(*[c for _, c in prm.noise_taps])
-    sn = (float(prm.sigma * float(S) ** 0.5)
-          if prm.sigma != 0.0 else 0.0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _frontend_fn()(
-        *[x.data_ptr() for x in ins],
-        tbuf.data_ptr(), zr.data_ptr(), zi.data_ptr(), p.data_ptr(),
-        score.data_ptr(),
-        F, A, C, S, Sc, B, Q, dev.index,
-        int(prm.echo_upper is not None),
-        float(prm.echo_upper if prm.echo_upper is not None else 0.0),
-        sn, n_taps, ctypes.cast(tap_off, ctypes.c_void_p),
-        ctypes.cast(tap_coef, ctypes.c_void_p), int(prm.dc_removal),
-        prm.train, prm.guard, prm.neighborhood, prm.offset_db,
-        prm.threshold_db, prm.min_range_bin, prm.max_range_bin, stream)
-    if err != 0:
-        raise RuntimeError(f"frontend kernel failed: cudaError_t {err}")
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.bind("frontend", "radar_frontend_split",
+                     (vp,) * 14 + (ci,) * 8 + (ci, cf, cf, ci, vp, vp)
+                     + (ci,) * 4 + (cf, cf, ci, ci, vp))
+    _build.launch(fn, *[x.data_ptr() for x in ins], tbuf.data_ptr(),
+                  zr.data_ptr(), zi.data_ptr(), p.data_ptr(),
+                  score.data_ptr(), F, A, C, S, Sc, B, Q, dev.index,
+                  int(prm.echo_upper is not None),
+                  float(prm.echo_upper if prm.echo_upper is not None
+                        else 0.0),
+                  *_noise_args(prm, S), *_cfar_args(prm),
+                  torch.cuda.current_stream(dev).cuda_stream)
     frontend_kernel_split.launches += 1
     return zr, zi, p, score
 
@@ -302,6 +306,99 @@ def frontend_kernel_split(ant, dopp, coarse, fine, tau, t, seeds, w_rng,
 
 
 frontend_kernel_split.launches = 0
+
+
+def _check_params(prm: FrontendParams) -> None:
+    if len(prm.noise_taps) > _MAX_TAPS:
+        raise ValueError(f"at most {_MAX_TAPS} noise taps")
+    if prm.neighborhood % 2 != 1:
+        raise ValueError("neighborhood must be odd")
+
+
+def _check_smem(A: int, C: int, S: int) -> None:
+    # csrc/frontend.cu: doppler_power_kernel stages 16 rows of Z and W_dop^T,
+    # cfar_kernel the [C, S] map and its Doppler box sums.
+    smem = max(4 * (2 * 16 * (A * C + 1) + 2 * C * C), 4 * 2 * C * S)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"A={A}, C={C}, S={S} needs {smem} bytes of shared "
+                         f"memory per block; the kernel has {_MAX_SMEM}")
+
+
+def _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t, C: int,
+                        prm: FrontendParams):
+    if e_ac.dim() != 3 or e_fast.dim() != 3:
+        raise ValueError(f"e_ac / e_fast: need [F, Sc, A*C] / [F, Sc, S], "
+                         f"got {tuple(e_ac.shape)} / {tuple(e_fast.shape)}")
+    F, Sc, AC = e_ac.shape
+    S = e_fast.shape[-1]
+    if AC % C:
+        raise ValueError(f"e_ac: A*C = {AC} is not a multiple of C = {C}")
+    dev = e_ac.device
+    for name, x, dtype, shape in (
+            ("e_ac", e_ac, torch.complex64, (F, Sc, AC)),
+            ("e_fast", e_fast, torch.complex64, (F, Sc, S)),
+            ("seeds", seeds, torch.int32, (F,)),
+            ("w_rng", w_rng, torch.complex64, (S, S)),
+            ("w_dop_t", w_dop_t, torch.complex64, (C, C))):
+        _build.check_input(name, x, dtype, dev, shape)
+    _check_params(prm)
+    return F, Sc, AC // C, S
+
+
+def _noise_args(prm: FrontendParams, S: int):
+    """(sn, n_taps, tap offsets, tap coefficients) for the C launchers."""
+    tap_off = (ctypes.c_int * _MAX_TAPS)(*[o for o, _ in prm.noise_taps])
+    tap_coef = (ctypes.c_float * _MAX_TAPS)(*[c for _, c in prm.noise_taps])
+    sn = (float(prm.sigma * float(S) ** 0.5)
+          if prm.sigma != 0.0 else 0.0)
+    return (sn, len(prm.noise_taps), ctypes.cast(tap_off, ctypes.c_void_p),
+            ctypes.cast(tap_coef, ctypes.c_void_p))
+
+
+def _cfar_args(prm: FrontendParams):
+    return (int(prm.dc_removal), prm.train, prm.guard, prm.neighborhood,
+            prm.offset_db, prm.threshold_db, prm.min_range_bin,
+            prm.max_range_bin)
+
+
+def frontend_kernel_dense(e_ac, e_fast, seeds, w_rng, w_dop_t,
+                          prm: FrontendParams, C: int):
+    """K3, the one-pass kernel on dense factor planes: same arguments and
+    outputs as :func:`scatterer_frontend_reference`.  A CUDA tensor
+    launches the hand-written kernel (``csrc/frontend.cu``,
+    ``radar_frontend_dense``) or raises; a CPU tensor runs the plain
+    version, because there is no card to run the kernel on."""
+    F, Sc, A, S = _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t,
+                                      C, prm)
+    dev = e_ac.device
+    if dev.type == "cpu":
+        return scatterer_frontend_reference(e_ac, e_fast, seeds, w_rng,
+                                            w_dop_t, prm, C)
+    if dev.type != "cuda":
+        raise ValueError(f"no front-end kernel for device {dev}")
+    if not 0 < F <= 65535:
+        raise ValueError(f"F={F} frames: the kernel takes 1..65535")
+    _check_smem(A, C, S)
+    tbuf = torch.empty((F, Sc, S), dtype=torch.complex64, device=dev)
+    zr = torch.empty((F, S, A * C), dtype=torch.float32, device=dev)
+    zi = torch.empty_like(zr)
+    p = torch.empty((F, C, S), dtype=torch.float32, device=dev)
+    score = torch.empty_like(p)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.bind("frontend", "radar_frontend_dense",
+                     (vp,) * 10 + (ci,) * 6 + (cf, ci, vp, vp)
+                     + (ci,) * 4 + (cf, cf, ci, ci, vp))
+    _build.launch(fn, e_ac.data_ptr(), e_fast.data_ptr(), seeds.data_ptr(),
+                  w_rng.data_ptr(), w_dop_t.data_ptr(), tbuf.data_ptr(),
+                  zr.data_ptr(), zi.data_ptr(), p.data_ptr(),
+                  score.data_ptr(), F, A, C, S, Sc, dev.index,
+                  *_noise_args(prm, S), *_cfar_args(prm),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    frontend_kernel_dense.launches += 1
+    return zr, zi, p, score
+
+
+frontend_kernel_dense.launches = 0
 
 
 def topk_exact(score: torch.Tensor, K: int):
@@ -358,30 +455,11 @@ def frontend_constants(C: int, S: int, mix: torch.Tensor, dc_removal: bool,
     return w_rng.contiguous(), w_dop_t.contiguous()
 
 
-def scatterer_frontend_split(
-        ant: torch.Tensor, dopp: torch.Tensor, coarse: torch.Tensor,
-        fine: torch.Tensor, tau: torch.Tensor, t: torch.Tensor,
-        seeds: torch.Tensor, mix: torch.Tensor, C: int, sigma: float,
-        K: int, *, train: int, guard: int, neighborhood: int,
-        offset_db: float, threshold_db: float, min_range_bin: int,
-        max_range_bin: int, clutter: Optional[torch.Tensor] = None,
-        dc_removal: bool = True, doppler_window: Optional[str] = None,
-        noise_impl: str = "fast", topk_mode: str = "two_stage",
-        noise_domain: str = "range_freq", noise_taps: tuple = (),
-        echo_upper: Optional[float] = None, cfar_impl: str = "matmul"):
-    """The one-pass front end over a frame batch (the reference wrapper's
-    split-factor entry point, production knobs only).
-
-    ``topk_mode`` "two_stage" and "sort" both select exactly (they are two
-    TPU lowerings of the same answer).  The non-default branches of the
-    reference kernel -- time-domain noise, Box-Muller, the prefix-sum CFAR
-    and the clutter input -- are not ported yet and raise.
-
-    Returns:
-        (p_lin [F, R, D] f32, r_bin [F, K] i32, d_bin [F, K] i32,
-         top_vals_db [F, K] f32 with -inf for exhausted slots,
-         signatures [F, K, A] complex64 unit-power).
-    """
+def _check_knobs(noise_domain: str, noise_taps: tuple, noise_impl: str,
+                 cfar_impl: str, clutter, topk_mode: str) -> None:
+    """The knobs K1 and K3 run: range-frequency noise from the "fast"
+    transform, the box-sum CA-CFAR, no clutter input, exact top-K.  The
+    other branches of the reference kernel (K1') raise."""
     if noise_domain != "range_freq":
         raise NotImplementedError(
             f"noise_domain={noise_domain!r}: only 'range_freq' is ported "
@@ -402,18 +480,95 @@ def scatterer_frontend_split(
             "the clutter-map input is not ported (ROADMAP: K1' clutter)")
     if topk_mode not in ("two_stage", "sort"):
         raise ValueError(f"Unknown topk_mode: {topk_mode}")
-    use_f32_matmuls()
-    S = t.shape[0]
-    A = ant.shape[-1]
-    w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
-                                        doppler_window)
-    prm = FrontendParams(
+
+
+def _params(sigma, noise_taps, echo_upper, dc_removal, train, guard,
+            neighborhood, offset_db, threshold_db, min_range_bin,
+            max_range_bin) -> FrontendParams:
+    return FrontendParams(
         sigma=float(sigma), noise_taps=tuple(noise_taps),
         echo_upper=echo_upper, dc_removal=dc_removal, train=train,
         guard=guard, neighborhood=neighborhood, offset_db=offset_db,
         threshold_db=threshold_db, min_range_bin=min_range_bin,
         max_range_bin=max_range_bin)
+
+
+def scatterer_frontend_split(
+        ant: torch.Tensor, dopp: torch.Tensor, coarse: torch.Tensor,
+        fine: torch.Tensor, tau: torch.Tensor, t: torch.Tensor,
+        seeds: torch.Tensor, mix: torch.Tensor, C: int, sigma: float,
+        K: int, *, train: int, guard: int, neighborhood: int,
+        offset_db: float, threshold_db: float, min_range_bin: int,
+        max_range_bin: int, clutter: Optional[torch.Tensor] = None,
+        dc_removal: bool = True, doppler_window: Optional[str] = None,
+        noise_impl: str = "fast", topk_mode: str = "two_stage",
+        noise_domain: str = "range_freq", noise_taps: tuple = (),
+        echo_upper: Optional[float] = None, cfar_impl: str = "matmul"):
+    """The one-pass front end over a frame batch (the reference wrapper's
+    split-factor entry point, production knobs only; K1).
+
+    ``topk_mode`` "two_stage" and "sort" both select exactly (they are two
+    TPU lowerings of the same answer).  The non-default branches of the
+    reference kernel -- time-domain noise, Box-Muller, the prefix-sum CFAR
+    and the clutter input -- are not ported yet and raise.
+
+    Returns:
+        (p_lin [F, R, D] f32, r_bin [F, K] i32, d_bin [F, K] i32,
+         top_vals_db [F, K] f32 with -inf for exhausted slots,
+         signatures [F, K, A] complex64 unit-power).
+    """
+    _check_knobs(noise_domain, noise_taps, noise_impl, cfar_impl, clutter,
+                 topk_mode)
+    use_f32_matmuls()
+    S = t.shape[0]
+    A = ant.shape[-1]
+    w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
+                                        doppler_window)
+    prm = _params(sigma, noise_taps, echo_upper, dc_removal, train, guard,
+                  neighborhood, offset_db, threshold_db, min_range_bin,
+                  max_range_bin)
     zr, zi, p_ds, score_ds = frontend_kernel_split(
         ant, dopp, coarse, fine, tau.to(torch.float32),
         t.to(torch.float32), seeds.to(torch.int32), w_rng, w_dop_t, prm)
+    return _finalize(zr, zi, p_ds, score_ds, K, A, C, doppler_window)
+
+
+def scatterer_frontend(
+        e_ac: torch.Tensor, e_fast: torch.Tensor, seeds: torch.Tensor,
+        mix: torch.Tensor, C: int, sigma: float, K: int, *, train: int,
+        guard: int, neighborhood: int, offset_db: float, threshold_db: float,
+        min_range_bin: int, max_range_bin: int,
+        clutter: Optional[torch.Tensor] = None,
+        clutter_offset_db: float = 6.0, dc_removal: bool = True,
+        doppler_window: Optional[str] = None, synth_precision: str = "high",
+        precision_name: str = "default", doppler_precision: str = "high",
+        doppler_layout: str = "loop", sig_precision: str = "high",
+        noise_impl: str = "fast", topk_mode: str = "two_stage",
+        noise_domain: str = "range_freq", noise_taps: tuple = (),
+        cfar_impl: str = "matmul"):
+    """The one-pass front end on dense factor planes (the reference's
+    ``scatterer_frontend``; K3): e_ac [F, Sc, A*C] / e_fast [F, Sc, S]
+    complex64 (``signal/synth.py:synthesis_factors``).  Same knob coverage,
+    and the same returns, as :func:`scatterer_frontend_split`; the
+    precision and layout names are accepted and select nothing (float32
+    throughout).  The reference's defaults for ``noise_impl``,
+    ``noise_domain`` and ``topk_mode`` are its K1' branches; the port's
+    are the production knobs every caller passes."""
+    from radar_slam_tpu_torch.signal.rds import _check_precision
+    _check_knobs(noise_domain, noise_taps, noise_impl, cfar_impl, clutter,
+                 topk_mode)
+    _check_precision(synth_precision, precision_name, doppler_precision,
+                     sig_precision)
+    if doppler_layout not in ("loop", "wide"):
+        raise ValueError(f"Unknown doppler_layout: {doppler_layout}")
+    use_f32_matmuls()
+    S = e_fast.shape[-1]
+    A = e_ac.shape[-1] // C
+    w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
+                                        doppler_window)
+    prm = _params(sigma, noise_taps, None, dc_removal, train, guard,
+                  neighborhood, offset_db, threshold_db, min_range_bin,
+                  max_range_bin)
+    zr, zi, p_ds, score_ds = frontend_kernel_dense(
+        e_ac, e_fast, seeds.to(torch.int32), w_rng, w_dop_t, prm, C)
     return _finalize(zr, zi, p_ds, score_ds, K, A, C, doppler_window)

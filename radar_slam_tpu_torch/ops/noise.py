@@ -1,19 +1,24 @@
 """The front end's counter-based Gaussian generator, in plain PyTorch.
 
-The reference kernel draws its noise from the TPU's seeded in-kernel PRNG
-(``ops/synthpower_pallas.py:_standard_normals``, impl="fast").  Those bits
-cannot be replayed off the TPU, so the port keeps the *transform* and
-replaces the bit source with Philox-4x32-10 (Salmon et al., "Parallel
-random numbers: as easy as 1, 2, 3", SC 2011), which the CUDA kernel in
-``csrc/frontend.cu`` evaluates bit-identically:
+The reference kernels draw their noise from the TPU's seeded in-kernel
+PRNG (``ops/synthpower_pallas.py:_standard_normals``).  Those bits cannot
+be replayed off the TPU, so the port keeps the *transforms* and replaces
+the bit source with Philox-4x32-10 (Salmon et al., "Parallel random
+numbers: as easy as 1, 2, 3", SC 2011), which the CUDA kernels in
+``csrc/frontend.cu`` and ``csrc/synthpower.cu`` evaluate bit-identically:
 
 - key   = (frame seed as uint32, 0);
 - counter = (element index, block, 0, 0), element index = row * S + col
   over the [A*C, S] noise plane (row a*C + c), block 0 and 1;
-- words w0..w3 from block 0 and w4 from block 1 feed the transform:
-  an exact Rayleigh radius sqrt(-2 log u), u = (w0 >> 8) / 2^24 + 2^-25,
-  times a direction from two Irwin-Hall(4) byte sums (w1, w2) plus a pair
-  (w3, w4) rotated 45 degrees, whose square-lattice anisotropies cancel.
+- impl "fast" (the front end's default): words w0..w3 from block 0 and w4
+  from block 1 feed the transform: an exact Rayleigh radius
+  sqrt(-2 log u1), u1 = (w0 >> 8) 2^-24 + 2^-25, times a direction from
+  two Irwin-Hall(4) byte sums (w1, w2) plus a pair (w3, w4) rotated 45
+  degrees, whose square-lattice anisotropies cancel;
+- impl "box_muller" (the default of the reference's ``noise_cube`` and
+  ``scatterer_power``): words w0 and w1 of block 0 give
+  u1 = (w0 >> 8) 2^-24 + 2^-25 and u2 = (w1 >> 8) 2^-24, and the planes
+  are r cos(2 pi u2) and r sin(2 pi u2) with r = sqrt(-2 ln u1).
 
 Every shift is logical: an arithmetic ``>> 8`` on signed words made half
 of the reference's uniforms negative and NaN'd its noise on chip.  The
@@ -31,6 +36,7 @@ _W0 = 0x9E3779B9
 _W1 = 0xBB67AE85
 _MASK = 0xFFFFFFFF
 _ROUNDS = 10
+_TWO_PI = 6.283185307179586
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -66,21 +72,30 @@ def _byte_sum(w: torch.Tensor) -> torch.Tensor:
             + (w >> 24))
 
 
-def standard_normals(seeds: torch.Tensor, rows: int,
-                     cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+def standard_normals(seeds: torch.Tensor, rows: int, cols: int,
+                     impl: str = "fast") -> tuple[torch.Tensor, torch.Tensor]:
     """Two standard-normal planes [F, rows, cols] per frame seed.
 
-    ``seeds`` [F] int32.  Element (f, i, j) is the transform of the Philox
-    words at counter i * cols + j under key seeds[f]; the CUDA kernel draws
-    the same words for the same (seed, index)."""
+    ``seeds`` [F] int32.  Element (f, i, j) is the ``impl`` transform
+    ("fast" or "box_muller") of the Philox words at counter i * cols + j
+    under key seeds[f]; the CUDA kernels draw the same words for the same
+    (seed, index)."""
+    if impl not in ("fast", "box_muller"):
+        raise ValueError(f"Unknown noise impl: {impl}")
     dev = seeds.device
     key0 = (seeds.to(torch.int64) & _MASK)[:, None]               # [F, 1]
     idx = torch.arange(rows * cols, dtype=torch.int64, device=dev)[None, :]
     w0, w1, w2, w3 = philox4x32((idx, 0, 0, 0), (key0, 0))
-    w4 = philox4x32((idx, 1, 0, 0), (key0, 0))[0]
     u1 = ((w0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
           + (0.5 / (1 << 24)))
     r = torch.sqrt(-2.0 * torch.log(u1))
+    shape = (seeds.shape[0], rows, cols)
+    if impl == "box_muller":
+        u2 = (w1 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+        ang = _TWO_PI * u2
+        return ((r * torch.cos(ang)).reshape(shape),
+                (r * torch.sin(ang)).reshape(shape))
+    w4 = philox4x32((idx, 1, 0, 0), (key0, 0))[0]
     g1 = _byte_sum(w1).to(torch.float32) - 510.0
     g2 = _byte_sum(w2).to(torch.float32) - 510.0
     h1 = _byte_sum(w3).to(torch.float32) - 510.0
@@ -88,7 +103,6 @@ def standard_normals(seeds: torch.Tensor, rows: int,
     v1 = g1 + 0.7071067811865476 * (h1 - h2)
     v2 = g2 + 0.7071067811865476 * (h1 + h2)
     inv = 1.0 / torch.sqrt(v1 * v1 + v2 * v2 + 1e-6)
-    shape = (seeds.shape[0], rows, cols)
     return (r * v1 * inv).reshape(shape), (r * v2 * inv).reshape(shape)
 
 

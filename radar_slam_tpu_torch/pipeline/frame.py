@@ -4,16 +4,25 @@ Counterpart of ``radar_slam_tpu/pipeline/frame.py`` for its two batched
 drivers, each in two phases.  Phase A is frame-independent and runs over
 all frames at once:
 
-- :func:`process_sequence_batched` (scatterers [F, S_max]) at
-  ``fft_mode="fused"`` with ``synth_in_kernel`` runs the one-pass front end
-  (split synthesis factors -> front-end kernel -> exact top-K + Z-column
-  signatures -> detections), the path a TPU takes at
-  ``complete_analysis_config()``; otherwise it synthesizes the ADC cubes
-  and runs :func:`frame_features`, the reference's materialized branch.
+- :func:`process_sequence_batched` (scatterers [F, S_max]) routes as a TPU
+  does (the reference's frame.py:653-657 and :781-793):
+  - **one-pass** at ``fft_mode="fused"`` with ``synth_in_kernel``,
+    ``frontend_one_pass`` and CA-CFAR: synthesis factors (split, or dense
+    with ``frontend_factors="dense"``) -> the front-end kernel (K1, or K3)
+    -> exact top-K + Z-column signatures -> detections -- the path of
+    ``complete_analysis_config()``;
+  - **three-dispatch** at ``fft_mode="fused"`` with ``synth_in_kernel``
+    otherwise (OS-CFAR, or ``frontend_one_pass=False``): dense factors ->
+    power map from the factors (K4) -> detection -> signatures from the
+    factors (K5) (:func:`sequence_features_scatterers_fused`);
+  - **materialized** otherwise: the ADC cubes are synthesized and go
+    through :func:`frame_features`.
+  The three-dispatch and materialized paths draw one noise realization
+  per generator state (``ops/noise.py``, element (a*C + c) * S + s).
 - :func:`process_signal_sequence_batched` (cubes [F, A, C, S]) runs
   :func:`frame_features`: the fused power map (``fft_mode="fused"``) or the
-  complex RDS (``"fft"``, ``"matmul"``, ``"pallas"``), CA-CFAR detection,
-  signatures.
+  complex RDS (``"fft"``, ``"matmul"``, ``"pallas"``), CA- or OS-CFAR
+  detection, signatures.
 
 Both end in the AoA tail.  Phase B runs windowed temporal smoothing,
 mutual-NN association with the previous frame, the batched 6-DoF solve and
@@ -38,6 +47,7 @@ from radar_slam_tpu_torch.core.types import (Detections, FrameOutput,
 from radar_slam_tpu_torch.motion.associate import associate_targets
 from radar_slam_tpu_torch.motion.velocity import solve_velocity
 from radar_slam_tpu_torch.ops import frontend as fe
+from radar_slam_tpu_torch.ops import synthpower as sp
 from radar_slam_tpu_torch.ops.noise import frame_seeds
 from radar_slam_tpu_torch.ops.windows import window_freq_taps
 from radar_slam_tpu_torch.signal import detect as detect_mod
@@ -46,15 +56,14 @@ from radar_slam_tpu_torch.signal.rds import (_mix_vector,
                                              range_doppler_spectrum,
                                              rds_power)
 from radar_slam_tpu_torch.signal.synth import (fast_time_base,
+                                               synthesis_factors,
                                                synthesis_factors_split,
                                                synthesize_frames_batch)
 
 
 def _check_common(cfg: PipelineConfig) -> None:
-    if cfg.detection.cfar_mode != "ca":
-        raise NotImplementedError(
-            f"cfar_mode={cfg.detection.cfar_mode!r}: only CA-CFAR is "
-            "ported (ROADMAP: three-dispatch path with OS-CFAR)")
+    if cfg.detection.cfar_mode not in ("ca", "os"):
+        raise ValueError(f"Unknown cfar_mode: {cfg.detection.cfar_mode}")
     if cfg.detection.clutter_map_alpha > 0:
         raise ValueError("the batched pipeline requires clutter_map_alpha "
                          "== 0 (the clutter EMA makes detection sequential)")
@@ -68,39 +77,42 @@ def _check_common(cfg: PipelineConfig) -> None:
 
 def _check_cube_supported(cfg: PipelineConfig) -> None:
     """The cube-input path: every fft_mode ("fused", "fft", "matmul",
-    "pallas") with or without ``use_pallas``, CA-CFAR, a 1-D array."""
+    "pallas") with or without ``use_pallas``, CA- or OS-CFAR, a 1-D
+    array."""
     _check_common(cfg)
     if cfg.fft_mode not in ("fused", "fft", "matmul", "pallas"):
         raise ValueError(f"Unknown fft_mode: {cfg.fft_mode}")
 
 
-def _one_pass(cfg: PipelineConfig) -> bool:
-    """The scatterer driver's phase A: the one-pass front end at
-    ``fft_mode="fused"`` with ``synth_in_kernel``, else synthesis + the
-    cube-input path (the reference's materialized branch)."""
-    return cfg.fft_mode == "fused" and cfg.synth_in_kernel
+def _phase_a_route(cfg: PipelineConfig) -> str:
+    """The scatterer driver's phase A, routed as a TPU routes it with no
+    backend test: "one_pass", "three_dispatch" or "materialized" (see the
+    module docstring)."""
+    if cfg.fft_mode == "fused" and cfg.synth_in_kernel:
+        if cfg.frontend_one_pass and cfg.detection.cfar_mode == "ca":
+            return "one_pass"
+        return "three_dispatch"
+    return "materialized"
 
 
 def _check_supported(cfg: PipelineConfig) -> None:
-    """The scatterer driver's configs (see :func:`_one_pass`); a config
-    that selects an unported path raises instead of silently running
-    another."""
-    if not _one_pass(cfg):
+    """The scatterer driver's configs; a config that selects an unported
+    path raises instead of silently running another (the one-pass front
+    end's K1' knobs raise in ``ops/frontend.py``)."""
+    route = _phase_a_route(cfg)
+    if route == "materialized":
         _check_cube_supported(cfg)
         return
-    if not cfg.frontend_one_pass:
-        raise NotImplementedError(
-            "frontend_one_pass=False is the three-dispatch path, not "
-            "ported (ROADMAP: K4, K5, K6)")
-    if cfg.frontend_factors != "split":
-        raise NotImplementedError(
-            "frontend_factors='dense' is not ported (ROADMAP: K3)")
+    if route == "one_pass" and cfg.frontend_factors not in ("split",
+                                                            "dense"):
+        raise ValueError(f"Unknown frontend_factors: {cfg.frontend_factors}")
     _check_common(cfg)
 
 
 def _onepass_frontend(scatterers: ScattererBatch, seeds: torch.Tensor,
                       cfg: PipelineConfig):
-    """Front end over a frame batch: split factors -> kernel -> exact
+    """Front end over a frame batch: synthesis factors (split, or dense
+    with ``frontend_factors="dense"``) -> kernel (K1, or K3) -> exact
     top-K + signatures -> detections.  Returns (p_lin [F, R, D],
     Detections [F, K], sigs [F, K, A])."""
     C = cfg.radar.num_chirps
@@ -110,24 +122,74 @@ def _onepass_frontend(scatterers: ScattererBatch, seeds: torch.Tensor,
     dev = scatterers.range_m.device
     mix = _mix_vector(cfg.radar, cfg.window, "baseband", S, device=dev)
     lo, hi = detect_mod.range_gate_bin_interval(cfg.radar, S, d)
-    split = synthesis_factors_split(scatterers, cfg.radar,
-                                    cfg.synth_fidelity)
-    t = fast_time_base(cfg.radar, cfg.synth_fidelity, device=dev)
-    echo_upper = (cfg.radar.chirp_duration
-                  if cfg.synth_fidelity == "reference" else None)
-    p_lin, rb, db, vals, sigs = fe.scatterer_frontend_split(
-        split.ant, split.dopp, split.coarse, split.fine, split.tau, t,
-        seeds, mix, C, sigma, d.max_detections,
+    common = dict(
         train=d.cfar_train_cells, guard=d.guard_cells,
         neighborhood=d.neighborhood, offset_db=d.cfar_offset_db,
         threshold_db=d.threshold_db, min_range_bin=lo, max_range_bin=hi,
         doppler_window=cfg.doppler_window, noise_impl=cfg.noise_impl,
         noise_domain=cfg.noise_domain,
         noise_taps=window_freq_taps(cfg.window),
-        topk_mode=cfg.frontend_topk, echo_upper=echo_upper)
+        topk_mode=cfg.frontend_topk)
+    if cfg.frontend_factors == "split":
+        split = synthesis_factors_split(scatterers, cfg.radar,
+                                        cfg.synth_fidelity)
+        t = fast_time_base(cfg.radar, cfg.synth_fidelity, device=dev)
+        echo_upper = (cfg.radar.chirp_duration
+                      if cfg.synth_fidelity == "reference" else None)
+        p_lin, rb, db, vals, sigs = fe.scatterer_frontend_split(
+            split.ant, split.dopp, split.coarse, split.fine, split.tau, t,
+            seeds, mix, C, sigma, d.max_detections, echo_upper=echo_upper,
+            **common)
+    else:
+        e_ac, e_fast = synthesis_factors(scatterers, cfg.radar,
+                                         cfg.synth_fidelity)
+        p_lin, rb, db, vals, sigs = fe.scatterer_frontend(
+            e_ac, e_fast, seeds, mix, C, sigma, d.max_detections,
+            precision_name=cfg.power_precision,
+            doppler_precision=cfg.synth_doppler_precision,
+            doppler_layout=cfg.synth_doppler_layout, **common)
     det = detect_mod.detections_from_topk(p_lin, rb, db, vals, cfg.radar,
                                           cfg.detection)
     return p_lin, det, sigs
+
+
+def sequence_features_scatterers_fused(scatterers: ScattererBatch,
+                                       generator: torch.Generator,
+                                       cfg: PipelineConfig):
+    """Phase A for scatterers [F, S_max] without a cube through torch: the
+    one-pass front end (see :func:`_phase_a_route`), or the three-dispatch
+    path -- the power map straight from the dense synthesis factors (K4),
+    detection on it (CA- or OS-CFAR), then the detected cells' signatures
+    from the factors with the same noise (K5).  The seeds come from
+    ``generator`` as the materialized path draws them, so both see one
+    noise realization.  Returns the AoA features with the frame axis."""
+    if cfg.chirp_subset is not None:
+        raise ValueError("synth_in_kernel requires chirp_subset=None")
+    F = scatterers.range_m.shape[0]
+    dev = scatterers.range_m.device
+    seeds = frame_seeds(generator, F, dev)
+    if _phase_a_route(cfg) == "one_pass":
+        _, det, sigs = _onepass_frontend(scatterers, seeds, cfg)
+        return _aoa_features(det, sigs, cfg)
+
+    C = cfg.radar.num_chirps
+    S = cfg.radar.samples_per_chirp
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    mix = _mix_vector(cfg.radar, cfg.window, "baseband", S, device=dev)
+    e_ac, e_fast = synthesis_factors(scatterers, cfg.radar,
+                                     cfg.synth_fidelity)
+    p_lin = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
+                               doppler_window=cfg.doppler_window,
+                               precision_name=cfg.power_precision,
+                               doppler_precision=cfg.synth_doppler_precision,
+                               doppler_layout=cfg.synth_doppler_layout,
+                               noise_impl=cfg.noise_impl)
+    det = detect_mod.detect_peaks_from_power(p_lin, cfg.radar, cfg.detection)
+    sigs = sp.scatterer_signatures(e_ac, e_fast, seeds, det.range_bin,
+                                   det.doppler_bin, mix, C, sigma,
+                                   doppler_window=cfg.doppler_window,
+                                   noise_impl=cfg.noise_impl)
+    return _aoa_features(det, sigs, cfg)
 
 
 def _aoa_features(det: Detections, sigs: torch.Tensor, cfg: PipelineConfig):
@@ -257,18 +319,18 @@ def process_sequence_batched(scatterers: ScattererBatch,
     """Throughput-oriented whole-sequence pipeline over scatterers [F, S_max].
 
     ``generator`` draws the per-frame noise seeds (the only randomness);
-    the same generator state gives the same noise on either device type.
-    At ``fft_mode="fused"`` with ``synth_in_kernel`` phase A is the
-    one-pass front end; otherwise the ADC cubes are synthesized
-    (``synthesize_frames_batch``) and go through :func:`frame_features`.  Returns a :class:`FrameOutput`
-    with leading frame axis [F]."""
+    the same generator state gives the same noise on either device type,
+    and on the three-dispatch and the materialized paths.  Phase A is
+    :func:`sequence_features_scatterers_fused` (one-pass or three-dispatch)
+    at ``fft_mode="fused"`` with ``synth_in_kernel``; otherwise the ADC
+    cubes are synthesized (``synthesize_frames_batch``) and go through
+    :func:`frame_features`.  Returns a :class:`FrameOutput` with leading
+    frame axis [F]."""
     _check_supported(cfg)
     fe.use_f32_matmuls()
-    if _one_pass(cfg):
-        F = scatterers.range_m.shape[0]
-        seeds = frame_seeds(generator, F, scatterers.range_m.device)
-        _, det, sigs = _onepass_frontend(scatterers, seeds, cfg)
-        features = _aoa_features(det, sigs, cfg)
+    if _phase_a_route(cfg) != "materialized":
+        features = sequence_features_scatterers_fused(scatterers, generator,
+                                                      cfg)
     else:
         signals = synthesize_frames_batch(scatterers, cfg.radar, generator,
                                           fidelity=cfg.synth_fidelity)

@@ -5,9 +5,10 @@ the cube-input path (power map -> local max + CA-CFAR -> range gate ->
 exact top-K) on an RDS [F, A, R, D] or a power map [F, R, D], the static
 range-gate interval, and the build of :class:`Detections` from raw top-K
 picks (validity, cross-detection NMS, parabolic sub-bin refinement,
-bin-to-metric conversion) that the one-pass front end shares.  OS-CFAR and
-the clutter map raise ``NotImplementedError`` (ROADMAP: the three-dispatch
-path with OS-CFAR; the sequential drivers).
+bin-to-metric conversion) that the one-pass front end shares.  The CFAR is
+cell-averaging ("ca") or order-statistic ("os", :func:`_os_noise`).  The
+clutter map raises ``NotImplementedError`` (ROADMAP: the sequential
+drivers).
 """
 
 from __future__ import annotations
@@ -61,6 +62,54 @@ def _box_mean2d(x: torch.Tensor, size: int) -> torch.Tensor:
     return _box_sum2d(x, size) / (counts(R)[:, None] * counts(D)[None, :])
 
 
+_OS_CHUNK = 128       # frames per order-statistic sort in _os_noise
+
+
+def _os_noise(p_lin: torch.Tensor, train: int, guard: int,
+              rank: float) -> torch.Tensor:
+    """Order-statistic noise estimate per cell of power maps [F, R, D].
+
+    The training cells of a cell are a cross of ``train`` cells per side
+    beyond the guard band along both axes (4 train samples); the estimate
+    is the ``rank``-quantile of those inside the map.  The reference rolls
+    the map and masks wrapped samples to +inf; padding the map with +inf
+    and slicing gives the same samples.  k = round(rank (n_valid - 1)) is
+    taken in float32 with round-half-to-even, as ``jnp.round``.  A cell
+    with no valid sample (tiny maps) falls back to the mean of its own
+    frame's map.  Frames are sorted ``_OS_CHUNK`` at a time: the stack is
+    4 train floats per cell (~3.4 GB at 2048 frames of 400 x 32), and the
+    sort needs as much again plus its indices."""
+    F, R, D = p_lin.shape
+    dev = p_lin.device
+    h = guard + train
+    offs = range(guard + 1, h + 1)
+    row = torch.arange(R, device=dev)[:, None]
+    col = torch.arange(D, device=dev)[None, :]
+    n_valid = sum(((row >= o).to(torch.int32) + (row < R - o).to(torch.int32)
+                   + (col >= o).to(torch.int32) + (col < D - o).to(torch.int32))
+                  for o in offs)                                  # [R, D]
+    k = torch.clamp(torch.round(rank * (n_valid - 1).to(torch.float32))
+                    .to(torch.int64), 0, 4 * train - 1)
+    out = torch.empty_like(p_lin)
+    for i in range(0, F, _OS_CHUNK):
+        p = p_lin[i:i + _OS_CHUNK]
+        xp = tfn.pad(p, (h, h, h, h), value=float("inf"))
+        # The reference's stack order (+o, -o along range, +o, -o along
+        # Doppler); the sort makes it immaterial.
+        shifts = []
+        for o in offs:
+            shifts += [xp[:, h - o:h - o + R, h:h + D],
+                       xp[:, h + o:h + o + R, h:h + D],
+                       xp[:, h:h + R, h - o:h - o + D],
+                       xp[:, h:h + R, h + o:h + o + D]]
+        stack = torch.sort(torch.stack(shifts, dim=-1), dim=-1).values
+        est = torch.gather(stack, -1,
+                           k.expand(p.shape[0], R, D)[..., None])[..., 0]
+        mean = torch.mean(p, dim=(-2, -1), keepdim=True)
+        out[i:i + _OS_CHUNK] = torch.where(torch.isfinite(est), est, mean)
+    return out
+
+
 def power_spectrum_db(rds: torch.Tensor) -> torch.Tensor:
     """Non-coherent power map [..., R, D] in dB of an RDS [..., A, R, D]."""
     return db10(torch.mean(rds.abs() ** 2, dim=-3) + 1e-12)
@@ -72,18 +121,20 @@ def _threshold_power(p_lin: torch.Tensor, det: DetectionConfig):
     power_db = db10(p_lin)
     is_peak = _maxpool2d_same(power_db, det.neighborhood) == power_db
     if det.cfar_train_cells > 0:
-        if det.cfar_mode != "ca":
-            raise NotImplementedError(
-                f"cfar_mode={det.cfar_mode!r}: only CA-CFAR is ported "
-                "(ROADMAP: three-dispatch path with OS-CFAR)")
-        train = 2 * det.cfar_train_cells + 2 * det.guard_cells + 1
-        guard = 2 * det.guard_cells + 1
-        noise = _box_mean2d(p_lin, train)
-        if det.guard_cells > 0:
-            g = _box_mean2d(p_lin, guard)
-            n_train = train * train
-            n_guard = guard * guard
-            noise = (noise * n_train - g * n_guard) / (n_train - n_guard)
+        if det.cfar_mode == "os":
+            noise = _os_noise(p_lin, det.cfar_train_cells, det.guard_cells,
+                              det.os_rank)
+        elif det.cfar_mode == "ca":
+            train = 2 * det.cfar_train_cells + 2 * det.guard_cells + 1
+            guard = 2 * det.guard_cells + 1
+            noise = _box_mean2d(p_lin, train)
+            if det.guard_cells > 0:
+                g = _box_mean2d(p_lin, guard)
+                n_train = train * train
+                n_guard = guard * guard
+                noise = (noise * n_train - g * n_guard) / (n_train - n_guard)
+        else:
+            raise ValueError(f"Unknown cfar_mode: {det.cfar_mode}")
         noise_db = db10(torch.clamp(noise, min=1e-12))
         thresh = torch.clamp(noise_db + det.cfar_offset_db,
                              min=det.threshold_db)
@@ -102,15 +153,13 @@ def detect_peaks(rds: torch.Tensor, cfg: RadarConfig, det: DetectionConfig,
                  use_pallas: bool = False,
                  clutter_lin: Optional[torch.Tensor] = None) -> Detections:
     """Top-K range-Doppler peaks [F, K] of an RDS [F, A, R, D], sorted by
-    descending power.  ``use_pallas`` routes power / local max / CFAR
+    descending power.  ``use_pallas`` routes power / local max / CA-CFAR
     through the CFAR-mask kernel (``ops/cfar.py``: CUDA on a CUDA tensor,
-    its plain version on a CPU tensor)."""
+    its plain version on a CPU tensor).  That kernel implements CA only, so
+    with ``cfar_mode="os"`` the plain detector runs and no kernel launches,
+    as the reference routes it (its detect.py:150-151)."""
     _no_clutter(clutter_lin)
-    if use_pallas:
-        if det.cfar_train_cells > 0 and det.cfar_mode != "ca":
-            raise NotImplementedError(
-                f"cfar_mode={det.cfar_mode!r}: only CA-CFAR is ported "
-                "(ROADMAP: three-dispatch path with OS-CFAR)")
+    if use_pallas and det.cfar_mode == "ca":
         from radar_slam_tpu_torch.ops.cfar import cfar_mask
         power_db, is_peak_above = cfar_mask(
             rds, threshold_db=det.threshold_db,

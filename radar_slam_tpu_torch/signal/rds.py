@@ -159,21 +159,13 @@ def rds_power(signals: torch.Tensor, cfg: RadarConfig, window: str = "hann",
     return torch.mean(rds.abs() ** 2, dim=-3)
 
 
-def detection_signatures(signals: torch.Tensor, range_bin: torch.Tensor,
-                         doppler_bin: torch.Tensor, cfg: RadarConfig,
-                         window: str = "hann", dc_removal: bool = True,
-                         input_domain: str = "baseband",
-                         chirp_subset: Optional[Tuple[int, int]] = None,
-                         doppler_window: Optional[str] = None
-                         ) -> torch.Tensor:
-    """Unit-power spatial signatures [F, K, A] of K detected cells per
-    frame, evaluated from the cubes [F, A, C, S] as only the K needed DFT
-    coefficients (float32).  ``range_bin`` / ``doppler_bin`` are [F, K]."""
-    signals = _subset(signals, chirp_subset)
-    F, A, C, S = signals.shape
-    dev = signals.device
-    mix = _mix_vector(cfg, window, input_domain, S, device=dev)
-
+def signature_columns(S: int, C: int, range_bin: torch.Tensor,
+                      doppler_bin: torch.Tensor, mix: torch.Tensor,
+                      dc_removal: bool, doppler_window: Optional[str]):
+    """The detected cells' DFT columns: range [F, S, K] (column r of
+    ``range_dft_matrix``) and Doppler [F, C, K] (column d of
+    ``doppler_dft_matrix``), complex64."""
+    dev = mix.device
     # Column r of range_dft_matrix: mix * (e^{+2j pi s r / S} - [r == 0])
     # (the DC projector changes only the r = 0 column).
     s = torch.arange(S, dtype=torch.float32, device=dev)
@@ -193,12 +185,43 @@ def detection_signatures(signals: torch.Tensor, range_bin: torch.Tensor,
     w_dop = torch.polar(torch.ones_like(phase), phase)            # [F, C, K]
     if doppler_window is not None:
         w_dop = get_window(doppler_window, C, device=dev)[:, None] * w_dop
+    return w_rng, w_dop
 
-    g = torch.matmul(signals.reshape(F, A * C, S), w_rng)         # [F, AC, K]
-    sig = torch.einsum("fack,fck->fka", g.reshape(F, A, C, -1), w_dop)
+
+def unit_power(sig: torch.Tensor) -> torch.Tensor:
+    """Signatures [..., A] scaled to unit power (zero ones kept)."""
     power = torch.sum(sig.abs() ** 2, dim=-1, keepdim=True)
     return torch.where(power > 0,
                        sig / torch.sqrt(torch.clamp(power, min=1e-30)), sig)
+
+
+def signatures_from_columns(x: torch.Tensor, w_rng: torch.Tensor,
+                            w_dop: torch.Tensor, A: int) -> torch.Tensor:
+    """Unit-power signatures [F, K, A] of cubes x [F, A*C, S] (row a*C + c)
+    against the columns of :func:`signature_columns`."""
+    F, AC, S = x.shape
+    g = torch.matmul(x, w_rng)                                    # [F, AC, K]
+    sig = torch.einsum("fack,fck->fka", g.reshape(F, A, AC // A, -1), w_dop)
+    return unit_power(sig)
+
+
+def detection_signatures(signals: torch.Tensor, range_bin: torch.Tensor,
+                         doppler_bin: torch.Tensor, cfg: RadarConfig,
+                         window: str = "hann", dc_removal: bool = True,
+                         input_domain: str = "baseband",
+                         chirp_subset: Optional[Tuple[int, int]] = None,
+                         doppler_window: Optional[str] = None
+                         ) -> torch.Tensor:
+    """Unit-power spatial signatures [F, K, A] of K detected cells per
+    frame, evaluated from the cubes [F, A, C, S] as only the K needed DFT
+    coefficients (float32).  ``range_bin`` / ``doppler_bin`` are [F, K]."""
+    signals = _subset(signals, chirp_subset)
+    F, A, C, S = signals.shape
+    mix = _mix_vector(cfg, window, input_domain, S, device=signals.device)
+    w_rng, w_dop = signature_columns(S, C, range_bin, doppler_bin, mix,
+                                     dc_removal, doppler_window)
+    return signatures_from_columns(signals.reshape(F, A * C, S), w_rng,
+                                   w_dop, A)
 
 
 def range_doppler_spectrum(signals: torch.Tensor, cfg: RadarConfig,

@@ -125,14 +125,16 @@ def test_scatterer_driver_materialized_branch():
 
 
 @pytest.mark.parametrize("driver,knob,exc", [
-    ("cube", dict(detection=dataclasses.replace(
-        bench_config().detection, cfar_mode="os")), NotImplementedError),
+    ("cube", dict(aoa=dataclasses.replace(bench_config().aoa,
+                                          method="music")),
+     NotImplementedError),
     ("cube", dict(chirp_subset=(0, 16)), NotImplementedError),
     ("cube", dict(radar=dataclasses.replace(bench_config().radar,
                                             num_antennas_el=2)),
      NotImplementedError),
     ("cube", dict(fft_mode="dft"), ValueError),
-    ("scatterers", dict(frontend_one_pass=False), NotImplementedError),
+    ("scatterers", dict(frontend_factors="dense", noise_impl="box_muller"),
+     NotImplementedError),
     ("scatterers", dict(synth_in_kernel=False, chirp_subset=(0, 16)),
      NotImplementedError),
 ])

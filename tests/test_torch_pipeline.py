@@ -11,6 +11,7 @@
   process where ``import jax`` fails.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -93,8 +94,8 @@ def test_bench_scene_meets_accuracy_gates_on_cpu():
 
 def test_port_imports_and_runs_without_jax():
     """A process whose ``import jax`` fails imports every module of the
-    port and runs a 2-frame pipeline from scatterers and one from ADC
-    cubes."""
+    port and runs 2-frame pipelines from scatterers (the one-pass route and
+    the OS-CFAR three-dispatch route) and one from ADC cubes."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -125,6 +126,11 @@ def test_port_imports_and_runs_without_jax():
         out = process_sequence_batched(batch, torch.Generator(), cfg)
         assert out.pose.shape == (2, 3)
         assert bool(torch.isfinite(out.pose).all())
+        os_cfg = dataclasses.replace(cfg, detection=dataclasses.replace(
+            cfg.detection, cfar_mode="os"))
+        out = process_sequence_batched(batch, torch.Generator(), os_cfg)
+        assert out.pose.shape == (2, 3)
+        assert bool(torch.isfinite(out.pose).all())
 
         from radar_slam_tpu_torch.pipeline.frame import (
             process_signal_sequence_batched)
@@ -143,14 +149,15 @@ def test_port_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split("MODULES")[-1])
-    assert n >= 30, res.stdout
+    assert n >= 31, res.stdout
 
 
 @pytest.mark.parametrize("knob", [
-    dict(frontend_one_pass=False), dict(frontend_factors="dense"),
+    dict(frontend_factors="dense", noise_domain="time"),
+    dict(velocity=dataclasses.replace(bench_config().velocity,
+                                      association_method="greedy")),
     dict(noise_domain="time"), dict(noise_impl="box_muller")])
 def test_unported_pipeline_configs_raise(knob):
-    import dataclasses
     cfg = dataclasses.replace(bench_config(), **knob)
     _, fields, _ = scene_fields(2)
     with pytest.raises(NotImplementedError):
