@@ -9,10 +9,13 @@ the 96-point constant-motion bench scene at the bench operating point
 (``complete_analysis_config()``, max_scatterers=128): the scatterer driver
 ``pipeline.frame.process_sequence_batched`` on its one-pass route (kernel
 K1; K3 with ``frontend_factors="dense"``) and its three-dispatch route
-(kernels K4 and K5; OS-CFAR, or ``frontend_one_pass=False``), and the
-ADC-cube driver ``pipeline.frame.process_signal_sequence_batched``
-(kernels K7-K10).  K6 draws the noise K4 and K5 draw and is their
-validation surface; no driver launches it.  One JSON line per phase:
+(kernels K4 and K5; OS-CFAR, or ``frontend_one_pass=False``), the ADC-cube
+driver ``pipeline.frame.process_signal_sequence_batched`` (kernels
+K7-K10), and the sequential drivers ``process_sequence`` (K1 with the
+clutter map as its clutter input), ``process_signal_sequence`` (K7) and
+``process_sequence_chunked``.  K6 draws the noise K4 and K5 draw and is
+their validation surface; the prefix-sum CFAR of K1' is a kernel argument;
+no driver launches either.  One JSON line per phase:
 
 1. env              torch / CUDA versions, the card, kernel build times;
 2. kernel_vs_plain  K1 against its plain PyTorch version on the card, 8
@@ -61,21 +64,57 @@ validation surface; no driver launches it.  One JSON line per phase:
                     (PIPELINE_SEED; pose difference from the pipeline
                     phase shown): bench.py's gates in each, K4 and K5 (or
                     K3) launched and K1 not;
-8. throughput       frames/s of the scatterer pipeline (CUDA events, 2048
+8. k1prime_kernels_vs_plain  K1 and K3 in each K1' branch (time-domain
+                    noise with either transform, range-frequency Box-Muller,
+                    the prefix-sum CFAR, the clutter input) against their
+                    plain versions on 8 and 64 frames at the production
+                    sigma: K1's tolerances with identical detection sets,
+                    the launch and branch counts, the noise words bit for
+                    bit in both domains and transforms, K3 on the time
+                    domain against K4 (one noisy cube) to 1e-5 of the
+                    map's maximum, a clutter map gating >= 1/4 of the cells;
+9. sequential_pipeline  process_sequence on the 64-frame scene with the
+                    clutter map (alpha 0.05, SEQ_SEED) and
+                    process_signal_sequence on the 64-frame cubes
+                    (CUBE_SEED): bench.py's gates in each, K1 launched 64
+                    times through the clutter branch, K7 64 times;
+10. driver_consistency  one generator state, track_capacity 256: the
+                    chunked driver (exact prior) within 1e-5 m of the
+                    sequential one, the Jacobi prior within 1e-3 m, the
+                    batched driver within 1e-4 m at temporal_weight 0, the
+                    time-domain one-pass route within 1e-4 m of the CA
+                    three-dispatch route (one noisy cube), with the fast
+                    transform, and Box-Muller in either domain on the
+                    batched driver;
+11. throughput      frames/s of the scatterer pipeline (CUDA events, 2048
                     vs 512 frames differenced, interleaved trials) and
                     K1's and its plain version's time per 64-frame call;
-9. cube_throughput  the same for the fused cube driver (cubes synthesized
+12. cube_throughput the same for the fused cube driver (cubes synthesized
                     before timing) and the time per 64-frame call of K7,
                     K8, K9, K10 and of each plain version (not gated);
-10. three_dispatch_throughput  the same for the OS three-dispatch scatterer
+13. three_dispatch_throughput  the same for the OS three-dispatch scatterer
                     driver, and the time per 64-frame call of K3, K4, K5,
                     K6 and of each plain version (not gated);
-11. profile         one traced 2048-frame call of each driver
+14. k1prime_throughput  K1's time per 64-frame call in each K1' branch and
+                    its plain version's (not gated);
+15. sequential_latency  p50 / p99 of one process_scatterers step (CUDA
+                    events and host clock, 256 frames after 16 of
+                    warm-up), frames/s of the chunked driver (2048 vs 512),
+                    profiles of one chunk and one step (not gated);
+16. seed_spread     bench.py's gates over generator seeds 0-15 for
+                    process_sequence with the clutter map and
+                    process_signal_sequence (printed, not gated);
+17. profile         one traced 2048-frame call of each batched driver
                     (torch.profiler; the scatterer driver on its one-pass
                     and its OS three-dispatch route) and of the OS-CFAR
                     order-statistic stage alone: device busy time, idle
                     share, launches, the costliest kernels;
-12. kernels         the per-kernel summary line.
+18. kernels         the per-kernel summary line: launches on the main
+                    paths, error against the plain version, kernel and
+                    plain times, the bound (operations or bytes at the
+                    H100's peak rates, each DFT stage counted as an FFT
+                    where that is less work) and the one-call PyTorch time
+                    (none of these kernels has one: null).
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
@@ -84,7 +123,9 @@ a kernel does not build or launch, or any check fails.  Imports no JAX.
 
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -121,6 +162,35 @@ SYNTH_REPLACES = {"K3": "radar_slam_tpu/ops/frontend_pallas.py:296",
 # for 3 (seeds 3, 14, 15; ~31 detections per frame against CA's ~23);
 # seed 15 has the widest margin (0.273 m / 0.118 m).
 OS_SEED = 15
+# The sequential driver with the clutter map at alpha 0.05 (the sequential
+# path's own setting) meets both gates for 6 of generator seeds 0-15 of this
+# scene (1, 2, 4, 10, 11, 15); seed 2 has the widest margin.  The
+# sequential cube driver with the clutter map meets them at CUBE_SEED.
+# Phase seed_spread prints both spreads over SPREAD_SEEDS.
+SEQ_SEED = 2
+CLUTTER_ALPHA = 0.05
+SPREAD_SEEDS = range(16)
+# K1' branches of the one-pass kernel: the knobs that select each, on top
+# of the production knobs (the clutter branch also takes a clutter map).
+K1P_BRANCHES = {
+    "time_fast": dict(noise_domain="time", noise_impl="fast"),
+    "time_box_muller": dict(noise_domain="time", noise_impl="box_muller"),
+    "freq_box_muller": dict(noise_impl="box_muller"),
+    "cumsum": dict(cfar_impl="cumsum"),
+    "clutter": dict(),
+}
+# The kernels line has one entry per K1' setting: its launches come from
+# the main-path run in that setting, its times and error from that setting.
+K1P_LINE = {"time": "time_fast", "time_box_muller": "time_box_muller",
+            "box_muller": "freq_box_muller", "cumsum": "cumsum",
+            "clutter": "clutter"}
+# Peak rates of one NVIDIA H100 SXM (data sheet, at 700 W): FP32 outside
+# the tensor cores, and HBM3.  A kernel's bound is the larger of the
+# floating-point operations its function needs over the first and the bytes
+# it must move (each input read once, each output written once) over the
+# second.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
 FRONTEND_TOL = {"p_rel": 1e-5, "z_rel": 1e-5, "set_diff": 1, "sig_abs": 2e-4}
 
 
@@ -186,7 +256,9 @@ def kernel_inputs(batch, cfg, seeds, fidelity="tpu"):
                     else None),
         dc_removal=True, train=d.cfar_train_cells, guard=d.guard_cells,
         neighborhood=d.neighborhood, offset_db=d.cfar_offset_db,
-        threshold_db=d.threshold_db, min_range_bin=lo, max_range_bin=hi)
+        threshold_db=d.threshold_db, min_range_bin=lo, max_range_bin=hi,
+        noise_domain="range_freq", noise_impl="fast", cfar_impl="matmul",
+        clutter_offset_db=6.0)
     args = (split.ant, split.dopp, split.coarse, split.fine, split.tau, t,
             seeds, w_rng, w_dop_t)
     return args, prm
@@ -225,10 +297,20 @@ def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
         plain = fe.scatterer_frontend_split_reference(*args, prm)
         torch.cuda.synchronize()
         out[label] = frontend_errors(torch, fe, cfg, kern, plain, label)
+        out[label]["outputs_sha256"] = digest(kern)
     emit("kernel_vs_plain", tolerance=FRONTEND_TOL, **out)
     for label, r in out.items():
         check_frontend(label, r)
     return out["pipeline_batch"]["p_max_abs_err"]
+
+
+def digest(tensors):
+    """A short sha256 of tensors' bytes: equal digests across runs or
+    commits mean bit-identical outputs."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def frontend_errors(torch, fe, cfg, kern, plain, label):
@@ -295,7 +377,7 @@ def phase_pipeline(torch, fe, cfg_mod, device):
     emit("pipeline", frames=64, generator_seed=PIPELINE_SEED,
          success=success, final_pose_err_m=pose_err, pos_rmse_m=rmse,
          final_pose=pose[-1].tolist(), gt_final=gt["poses"][-1].tolist(),
-         kernel_launches=launches,
+         pose_sha256=digest([out.pose]), kernel_launches=launches,
          gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
                 "pos_rmse_m": "<= 0.16", "kernel_launches": "> 0"})
     check(launches > 0, "the main path launched no front-end kernel")
@@ -901,6 +983,447 @@ def os_cfar_stage(torch, sp, cfg, batch):
                   p.shape[0])
 
 
+# ---- K1' and the sequential drivers ----------------------------------------
+
+def bound(flops, nbytes):
+    """(least time in ms, "operations" or "bytes") for this much work."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def dft_ops(n, bins, rows):
+    """FP32 operations of ``rows`` DFTs of ``n`` complex points evaluated
+    at ``bins`` frequencies: the lesser of the dense product (8 per complex
+    MAC) and a whole FFT (5 n log2 n)."""
+    return rows * min(8 * n * bins, 5 * n * math.log2(n))
+
+
+def kernel_work(name, F, A, C, S, Sc, K, B=128, time_domain=False,
+                clutter=False):
+    """(FP32 operations, bytes) one call of a kernel must do on F frames at
+    these shapes.  The true products -- the synthesis e_at e_fast and the
+    antenna-chirp product e_at T -- at 8 operations per complex MAC, each
+    DFT stage at dft_ops (windows, DC projection, noise, power, the CFAR's
+    few MFLOP and the Philox integer work are not counted); bytes of the
+    data inputs read once and the outputs written once (the DFT tables are
+    not counted: an FFT needs none)."""
+    M, Q = A * C, -(-S // B)
+    cmac = 8
+    doppler = dft_ops(C, C, A * S)                # every (antenna, range bin)
+    z_out = 2 * S * M * 4 + 2 * C * S * 4         # zr, zi, p, score
+    if name in ("K1", "K3"):
+        # Time domain: X = e_at e_fast, then the range DFT of its M rows;
+        # range frequency: the range DFT of e_fast's Sc rows, then e_at T.
+        ops = (cmac * M * Sc * S
+               + dft_ops(S, S, M if time_domain else Sc) + doppler)
+        ins = (Sc * (A + C + Q + B) * 8 + Sc * 4 if name == "K1"
+               else Sc * (M + S) * 8)
+        nbytes = F * (ins + 4 + z_out + (C * S * 4 if clutter else 0))
+        return F * ops, nbytes + S * 4
+    if name == "K4":
+        return (F * (cmac * M * Sc * S + dft_ops(S, S, M) + doppler),
+                F * (Sc * (M + S) * 8 + 4 + S * C * 4) + S * 8)
+    if name == "K5":
+        # The range DFT at the K detected bins, then one Doppler bin each.
+        return (F * (cmac * M * Sc * S + dft_ops(S, K, M)
+                     + dft_ops(C, 1, A * K)),
+                F * (Sc * (M + S) * 8 + 4 + 2 * K * 4 + K * A * 8) + S * 8)
+    if name == "K6":
+        return F * M * S * 20, F * (4 + M * S * 8)
+    if name in ("K7", "K8"):
+        out = S * C * 4 if name == "K7" else M * S * 8
+        return (F * (M * S * 10 + dft_ops(S, S, M) + doppler),
+                F * (M * S * 8 + out) + S * 8)
+    if name == "K9":
+        return F * M * S * 10, F * 2 * M * S * 8 + S * 8
+    if name == "K10":
+        return F * S * C * (4 * A + 50), F * (M * S * 8 + S * C * 5)
+    raise ValueError(name)
+
+
+def zero_counts(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "branch_launches"):
+            for b in w.branch_launches:
+                w.branch_launches[b] = 0
+
+
+def branch_counts(w):
+    return {"launches": w.launches, **w.branch_launches}
+
+
+def k1p_clutter(torch, p_ds, seed):
+    """A background map [F, C, S] (the kernel layout) that gates a third
+    of the cells: the plain power map times uniform factors in [0, 0.4]
+    (a cell passes where its factor is below 10^-0.6 = 0.25)."""
+    gen = torch.Generator(device=p_ds.device).manual_seed(seed)
+    return (p_ds * 0.4 * torch.rand(p_ds.shape, generator=gen,
+                                    device=p_ds.device)).contiguous()
+
+
+def k1p_checks(torch, fe, sp, cfg, batch, seeds, label):
+    """Every K1' branch of K1 and K3 against its plain version at the
+    production sigma; the noise words bit for bit; K3 on the time domain
+    against K4 on the same seeds; the clutter map's gating."""
+    from radar_slam_tpu_torch.ops.noise import standard_normals
+    F = seeds.shape[0]
+    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
+    S = cfg.radar.samples_per_chirp
+    args, prm = kernel_inputs(batch, cfg, seeds)
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    dense = (e_ac, e_fast, seeds, args[7], args[8])
+    base_p = fe.scatterer_frontend_split_reference(*args, prm)[2]
+    clut = k1p_clutter(torch, base_p, 11)
+    out, counts = {}, {}
+    for branch, knobs in K1P_BRANCHES.items():
+        prm_b = dataclasses.replace(prm, **knobs)
+        cl = clut if branch == "clutter" else None
+        for kname, wrapper, run, plain in (
+                ("K1", fe.frontend_kernel_split,
+                 lambda: fe.frontend_kernel_split(*args, prm_b, cl),
+                 lambda: fe.scatterer_frontend_split_reference(
+                     *args, prm_b, cl)),
+                ("K3", fe.frontend_kernel_dense,
+                 lambda: fe.frontend_kernel_dense(*dense, prm_b, C, cl),
+                 lambda: fe.scatterer_frontend_reference(*dense, prm_b, C,
+                                                         cl))):
+            before = branch_counts(wrapper)
+            kern = run()
+            torch.cuda.synchronize()
+            after = branch_counts(wrapper)
+            moved = {k: after[k] - before[k] for k in after}
+            want = {k: int(k == "launches" or k in fe._branches(prm_b, cl))
+                    for k in after}
+            check(moved == want, f"{label} {kname} {branch}: counts {moved}")
+            res = frontend_errors(torch, fe, cfg, kern, plain(), f"{label} "
+                                  f"{kname} {branch}")
+            out[f"{kname}_{branch}"] = res
+            if kname == "K1" and branch == "clutter":
+                free = fe.frontend_kernel_split(*args, prm_b)[3]
+                torch.cuda.synchronize()
+                passed_free = int((free > -1e29).sum())
+                passed = int((kern[3] > -1e29).sum())
+                out["clutter_gated_share"] = 1.0 - passed / passed_free
+            if kname == "K3" and branch == "time_fast":
+                p4 = sp.scatterer_power(e_ac, e_fast, seeds, mix, C,
+                                        prm_b.sigma,
+                                        doppler_window=cfg.doppler_window,
+                                        noise_impl="fast")
+                torch.cuda.synchronize()
+                out["K3_time_vs_K4_rel"] = rel_err(
+                    kern[2], p4.transpose(1, 2))[1]
+    # The noise words: zero factors, unit noise on the identity range
+    # product (time) or on one unit tap (range frequency): Z is the drawn
+    # plane, bit for bit against standard_normals on the card.
+    eye = torch.eye(S, dtype=torch.complex64, device=seeds.device)
+    zeros_ac = torch.zeros_like(e_ac)
+    zero_ant = torch.zeros_like(args[0])
+    bits = {}
+    for domain in ("time", "range_freq"):
+        for impl in ("fast", "box_muller"):
+            prm_n = dataclasses.replace(
+                prm, noise_domain=domain, noise_impl=impl, dc_removal=False,
+                noise_taps=((0, 1.0),),
+                sigma=1.0 if domain == "time" else 1.0 / S ** 0.5)
+            w = eye if domain == "time" else args[7]
+            gr, gi = standard_normals(seeds, A * C, S, impl)
+            for kname, kern in (
+                    ("K1", fe.frontend_kernel_split(
+                        zero_ant, *args[1:7], w, args[8], prm_n)),
+                    ("K3", fe.frontend_kernel_dense(
+                        zeros_ac, e_fast, seeds, w, args[8], prm_n, C))):
+                torch.cuda.synchronize()
+                bits[f"{kname}_{domain}_{impl}"] = bool(
+                    torch.equal(kern[0], gr.transpose(1, 2))
+                    and torch.equal(kern[1], gi.transpose(1, 2)))
+    out["noise_bits_identical"] = bits
+    return out
+
+
+def phase_k1prime_kernels_vs_plain(torch, fe, sp, cfg_mod, device):
+    cfg = bench_config(cfg_mod)
+    out = {}
+    for label, frames in (("frames8", 8), ("pipeline_batch", 64)):
+        batch, _ = scene(frames, cfg, device)
+        seeds = (torch.arange(frames, dtype=torch.int32, device=device)
+                 * 7919 - 3)
+        out[label] = k1p_checks(torch, fe, sp, cfg, batch, seeds, label)
+    emit("k1prime_kernels_vs_plain",
+         tolerance={"p_rel": 1e-5, "z_rel": 1e-5, "set_diff": 0,
+                    "sig_abs": 2e-4, "K3_time_vs_K4_rel": 1e-5,
+                    "clutter_gated_share": ">= 0.25",
+                    "noise_bits_identical": True}, **out)
+    for label, r in out.items():
+        for key, res in r.items():
+            if not key.startswith(("K1_", "K3_")) or key.endswith("_rel"):
+                continue
+            check_frontend(f"{label} {key}", res)
+            check(res["set_diff"] == 0, f"{label} {key}: detection sets")
+        check(r["K3_time_vs_K4_rel"] < 1e-5,
+              f"{label}: K3 time vs K4 {r['K3_time_vs_K4_rel']}")
+        check(r["clutter_gated_share"] >= 0.25,
+              f"{label}: clutter gated {r['clutter_gated_share']}")
+        check(all(r["noise_bits_identical"].values()),
+              f"{label}: noise words {r['noise_bits_identical']}")
+    b = out["pipeline_batch"]
+    return {br: max(b[f"K1_{br}"]["p_max_abs_err"],
+                    b[f"K3_{br}"]["p_max_abs_err"]) for br in K1P_BRANCHES}
+
+
+def seq_config(cfg_mod, alpha=CLUTTER_ALPHA, **over):
+    cfg = bench_config(cfg_mod)
+    return dataclasses.replace(cfg, detection=dataclasses.replace(
+        cfg.detection, clutter_map_alpha=alpha), **over)
+
+
+def phase_sequential_pipeline(torch, fe, sp, power, cfg_mod, device):
+    from radar_slam_tpu_torch.pipeline.frame import (process_sequence,
+                                                     process_signal_sequence)
+    wrappers = (fe.frontend_kernel_split, fe.frontend_kernel_dense,
+                sp.scatterer_power, sp.scatterer_signatures,
+                power.rds_power_fused)
+    cfg = seq_config(cfg_mod)
+    batch, gt = scene(64, cfg, device)
+    zero_counts(*wrappers)
+    out = process_sequence(batch, torch.Generator().manual_seed(SEQ_SEED),
+                           cfg)
+    torch.cuda.synchronize()
+    k1 = branch_counts(fe.frontend_kernel_split)
+    others = {"K3": fe.frontend_kernel_dense.launches,
+              "K4": sp.scatterer_power.launches,
+              "K5": sp.scatterer_signatures.launches}
+    success, pose_err, rmse, pose = pipeline_errors(out, gt, 64,
+                                                    "sequential")
+    sig, cgt = cube_signals(64, cfg, device, CUBE_SEED)
+    zero_counts(*wrappers)
+    cout = process_signal_sequence(sig, cfg)
+    torch.cuda.synchronize()
+    k7 = power.rds_power_fused.launches
+    c_success, c_err, c_rmse, c_pose = pipeline_errors(cout, cgt, 64,
+                                                       "cube sequential")
+    emit("sequential_pipeline", frames=64, clutter_map_alpha=CLUTTER_ALPHA,
+         scatterers=dict(driver="process_sequence", generator_seed=SEQ_SEED,
+                         success=success, final_pose_err_m=pose_err,
+                         pos_rmse_m=rmse, final_pose=pose[-1].tolist(),
+                         detections_per_frame=float(
+                             out.num_detections.float().mean().item()),
+                         K1=k1, others=others),
+         cubes=dict(driver="process_signal_sequence",
+                    generator_seed=CUBE_SEED, success=c_success,
+                    final_pose_err_m=c_err, pos_rmse_m=c_rmse,
+                    final_pose=c_pose[-1].tolist(), K7_launches=k7),
+         gt_final=gt["poses"][-1].tolist(),
+         gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
+                "pos_rmse_m": "<= 0.16",
+                "K1": "64 launches, 64 through the clutter branch",
+                "K7": "64 launches"})
+    check(k1["launches"] == 64 and k1["clutter"] == 64,
+          f"sequential: K1 counts {k1}")
+    check(all(v == 0 for v in others.values()), f"sequential: {others}")
+    check(k7 == 64, f"cube sequential: K7 launched {k7} times")
+    for tag, (sc, er, rm) in (("sequential", (success, pose_err, rmse)),
+                              ("cube sequential", (c_success, c_err,
+                                                   c_rmse))):
+        check(sc > 0.9, f"{tag}: solve success {sc}")
+        check(er <= 0.35, f"{tag}: final pose error {er} m")
+        check(rm <= 0.16, f"{tag}: position RMSE {rm} m")
+    return k1["clutter"]
+
+
+def phase_driver_consistency(torch, fe, sp, cfg_mod, device):
+    from radar_slam_tpu_torch.pipeline.frame import (
+        process_sequence, process_sequence_batched, process_sequence_chunked)
+    base = bench_config(cfg_mod)
+    cfg = dataclasses.replace(base, aoa=dataclasses.replace(
+        base.aoa, track_capacity=256))
+    batch, _ = scene(64, cfg, device)
+    gen = lambda: torch.Generator().manual_seed(SEQ_SEED)
+    diff = lambda a, b: float((a.pose - b.pose).abs().max().item())
+    seq = process_sequence(batch, gen(), cfg)
+    exact = process_sequence_chunked(batch, gen(), cfg, window=16,
+                                     prior="exact")
+    jacobi = process_sequence_chunked(batch, gen(), cfg, window=16)
+    flat = dataclasses.replace(cfg, velocity=dataclasses.replace(
+        cfg.velocity, temporal_weight=0.0))
+    batched_flat = process_sequence_batched(batch, gen(), flat)
+    seq_flat = process_sequence(batch, gen(), flat)
+    time_cfg = dataclasses.replace(cfg, **K1P_BRANCHES["time_fast"])
+    zero_counts(fe.frontend_kernel_split, sp.scatterer_power)
+    onepass = process_sequence(batch, gen(), time_cfg)
+    torch.cuda.synchronize()
+    k1 = branch_counts(fe.frontend_kernel_split)
+    three = process_sequence(batch, gen(), dataclasses.replace(
+        time_cfg, frontend_one_pass=False))
+    torch.cuda.synchronize()
+    k4 = sp.scatterer_power.launches
+    # Box-Muller in each noise domain, on the batched driver.
+    bm, k1_bm = {}, {}
+    for setting in ("time_box_muller", "freq_box_muller"):
+        zero_counts(fe.frontend_kernel_split)
+        bm[setting] = process_sequence_batched(
+            batch, gen(), dataclasses.replace(cfg, **K1P_BRANCHES[setting]))
+        torch.cuda.synchronize()
+        k1_bm[setting] = branch_counts(fe.frontend_kernel_split)
+    r = dict(chunked_exact_vs_sequential_m=diff(exact, seq),
+             chunked_jacobi_vs_sequential_m=diff(jacobi, seq),
+             batched_vs_sequential_tw0_m=diff(batched_flat, seq_flat),
+             time_onepass_vs_three_dispatch_m=diff(onepass, three),
+             time_onepass_K1=k1, K4_launches=k4,
+             box_muller_batched_K1=k1_bm,
+             box_muller_batched_final_pose={
+                 s: o.pose[-1].tolist() for s, o in bm.items()})
+    emit("driver_consistency", frames=64, generator_seed=SEQ_SEED,
+         track_capacity=256,
+         gates={"chunked_exact_vs_sequential_m": "<= 1e-5",
+                "chunked_jacobi_vs_sequential_m": "<= 1e-3",
+                "batched_vs_sequential_tw0_m": "<= 1e-4",
+                "time_onepass_vs_three_dispatch_m": "<= 1e-4 (~1e-5 "
+                "expected: one noisy cube)"}, **r)
+    check(r["chunked_exact_vs_sequential_m"] <= 1e-5, "chunked exact")
+    check(r["chunked_jacobi_vs_sequential_m"] <= 1e-3, "chunked jacobi")
+    check(r["batched_vs_sequential_tw0_m"] <= 1e-4, "batched vs sequential")
+    check(r["time_onepass_vs_three_dispatch_m"] <= 1e-4,
+          "time-domain one-pass vs three-dispatch")
+    check(k1["launches"] == 64 and k1["time"] == 64
+          and k1["box_muller"] == 0, f"time-domain K1 counts {k1}")
+    for setting, time_n in (("time_box_muller", 1), ("freq_box_muller", 0)):
+        c = k1_bm[setting]
+        check(c["launches"] == 1 and c["box_muller"] == 1
+              and c["time"] == time_n, f"{setting} K1 counts {c}")
+        check(bool(torch.isfinite(bm[setting].pose).all()),
+              f"{setting} pose")
+    return {"time": k1["time"],
+            "time_box_muller": k1_bm["time_box_muller"]["launches"],
+            "box_muller": k1_bm["freq_box_muller"]["launches"]}
+
+
+def phase_k1prime_throughput(torch, fe, cfg_mod, device):
+    """Time per 64-frame call of K1 in each K1' branch and of its plain
+    version (CUDA events, interleaved)."""
+    cfg = bench_config(cfg_mod)
+    b64, _ = scene(64, cfg, device)
+    seeds = torch.arange(64, dtype=torch.int32, device=device)
+    args, prm = kernel_inputs(b64, cfg, seeds)
+    clut = k1p_clutter(torch, fe.scatterer_frontend_split_reference(
+        *args, prm)[2], 11)
+    times = {}
+    for branch in K1P_LINE.values():
+        prm_b = dataclasses.replace(prm, **K1P_BRANCHES[branch])
+        cl = clut if branch == "clutter" else None
+        kern = lambda: fe.frontend_kernel_split(*args, prm_b, cl)
+        plain = lambda: fe.scatterer_frontend_split_reference(*args, prm_b,
+                                                              cl)
+        kern()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = [cuda_time_ms(torch, plain, 5)]
+        kern_ms = [cuda_time_ms(torch, kern, 20),
+                   cuda_time_ms(torch, kern, 20)]
+        plain_ms.append(cuda_time_ms(torch, plain, 5))
+        times[branch] = dict(kernel_ms_per_64f=min(kern_ms),
+                             plain_ms_per_64f=min(plain_ms),
+                             kernel_ms_trials=kern_ms,
+                             plain_ms_trials=plain_ms)
+    emit("k1prime_throughput", kernel="K1 frontend_split", frames=64,
+         branches=times)
+    return {b: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"])
+            for b, t in times.items()}
+
+
+def phase_sequential_latency(torch, fe, cfg_mod, device):
+    """Per-frame latency of one process_scatterers step (printed, not
+    gated), frames/s of the chunked driver, and profiles of one step and
+    one chunk."""
+    from radar_slam_tpu_torch.ops.noise import frame_seeds
+    from radar_slam_tpu_torch.pipeline import frame as fr
+    cfg = seq_config(cfg_mod)
+    n_warm, n = 16, 256
+    batch, _ = scene(n_warm + n, cfg, device)
+    seeds = frame_seeds(torch.Generator().manual_seed(0), n_warm + n, device)
+    state = fr.init_state(cfg, device=device)
+    ev_ms, host_ms = [], []
+    for f in range(n_warm + n):
+        one = fr._frame(batch, f, f + 1)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, _ = fr.process_scatterers(state, one, seeds[f:f + 1], cfg)
+        stop.record()
+        torch.cuda.synchronize()
+        if f >= n_warm:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(start.elapsed_time(stop))
+    pct = lambda x, q: float(np.percentile(np.asarray(x), q))
+
+    base = bench_config(cfg_mod)
+    f2, f3 = 512, 2048
+    b2, _ = scene(f2, base, device)
+    b3, _ = scene(f3, base, device)
+
+    def run(b):
+        return lambda: fr.process_sequence_chunked(
+            b, torch.Generator().manual_seed(0), base, window=16)
+
+    run(b2)()
+    run(b3)()
+    torch.cuda.synchronize()
+    t2 = t3 = float("inf")
+    for _ in range(3):
+        t2 = min(t2, cuda_time_ms(torch, run(b2), 1))
+        t3 = min(t3, cuda_time_ms(torch, run(b3), 1))
+    emit("sequential_latency", driver="process_scatterers",
+         clutter_map_alpha=CLUTTER_ALPHA, frames=n, warmup=n_warm,
+         step_event_ms_p50=pct(ev_ms, 50), step_event_ms_p99=pct(ev_ms, 99),
+         step_host_ms_p50=pct(host_ms, 50), step_host_ms_p99=pct(host_ms, 99),
+         step_event_ms_max=max(ev_ms),
+         chunked=dict(driver="process_sequence_chunked", prior="jacobi",
+                      window=16, frames_per_s=(f3 - f2) / max(
+                          (t3 - t2) / 1e3, 1e-9), t512_ms=t2, t2048_ms=t3))
+    b16 = fr._frame(b2, 0, 16)
+    phase_profile(torch, "process_sequence_chunked (one 16-frame window)",
+                  lambda: fr.process_sequence_chunked(
+                      b16, torch.Generator().manual_seed(0), base,
+                      window=16), 16)
+    one = fr._frame(batch, 0, 1)
+    phase_profile(torch, "process_scatterers (one step, clutter map)",
+                  lambda: fr.process_scatterers(state, one, seeds[:1], cfg),
+                  1)
+
+
+def phase_seed_spread(torch, cfg_mod, device):
+    """bench.py's gates over SPREAD_SEEDS (printed, not gated): the
+    sequential scatterer driver and the sequential cube driver (cubes
+    synthesized from each seed), both with the clutter map."""
+    from radar_slam_tpu_torch.pipeline.frame import (process_sequence,
+                                                     process_signal_sequence)
+    cfg = seq_config(cfg_mod)
+    batch, gt = scene(64, cfg, device)
+    rows = {"process_sequence": [], "process_signal_sequence": []}
+    for seed in SPREAD_SEEDS:
+        runs = (("process_sequence", lambda: process_sequence(
+                    batch, torch.Generator().manual_seed(seed), cfg)),
+                ("process_signal_sequence", lambda: process_signal_sequence(
+                    cube_signals(64, cfg, device, seed)[0], cfg)))
+        for driver, run in runs:
+            success, err, rmse, _ = pipeline_errors(run(), gt, 64,
+                                                    f"{driver} seed {seed}")
+            rows[driver].append(dict(
+                seed=seed, success=success, final_pose_err_m=err,
+                pos_rmse_m=rmse,
+                passes=success > 0.9 and err <= 0.35 and rmse <= 0.16))
+    emit("seed_spread", frames=64, clutter_map_alpha=CLUTTER_ALPHA,
+         gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
+                "pos_rmse_m": "<= 0.16"},
+         **{d: dict(passing_seeds=[r["seed"] for r in rs if r["passes"]],
+                    median_final_pose_err_m=float(np.median(
+                        [r["final_pose_err_m"] for r in rs])),
+                    seeds=rs) for d, rs in rows.items()})
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -960,10 +1483,18 @@ def main():
                                              device)
     synth_launches = phase_three_dispatch_pipeline(
         torch, sp, fe, cfg_mod, device, cube_pose, split_pose)
+    k1p_err = phase_k1prime_kernels_vs_plain(torch, fe, sp, cfg_mod, device)
+    k1p_launches = {"clutter": phase_sequential_pipeline(
+        torch, fe, sp, power, cfg_mod, device)}
+    k1p_launches.update(phase_driver_consistency(torch, fe, sp, cfg_mod,
+                                                 device))
     ms, plain_ms = phase_throughput(torch, fe, cfg_mod, device)
     cube_ms = phase_cube_throughput(torch, k, cfg_mod, device)
     synth_ms = phase_three_dispatch_throughput(torch, sp, fe, cfg_mod,
                                                device)
+    k1p_ms = phase_k1prime_throughput(torch, fe, cfg_mod, device)
+    phase_sequential_latency(torch, fe, cfg_mod, device)
+    phase_seed_spread(torch, cfg_mod, device)
 
     cfg = bench_config(cfg_mod)
     batch, _ = scene(2048, cfg, device)
@@ -982,33 +1513,53 @@ def main():
                   lambda: process_signal_sequence_batched(sig, cfg), 2048)
     del sig
 
-    kernels = [{
-        "name": "K1 frontend_split", "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]
+    # Bounds at the timed shapes: 64 frames of the bench cell.
+    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
+    S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
+    shapes = dict(F=64, A=A, C=C, S=S, Sc=Sc, K=cfg.detection.max_detections)
+
+    def entry(name, wrapper, source, replaces, launches, err, times,
+              **work):
+        b_ms, b_by = bound(*kernel_work(name.split()[0].rstrip("'"),
+                                        **shapes, **work))
+        return {"name": f"{name} {wrapper}", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": times[0],
+                "plain_ms": times[1], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+
+    kernels = [entry("K1", "frontend_split", KERNEL_SOURCE, KERNEL_REPLACES,
+                     launches, max_err, (ms, plain_ms))]
     for name, wrapper in (("K3", "frontend_dense"),
                           ("K4", "scatterer_power"),
                           ("K5", "scatterer_signatures"),
                           ("K6", "noise_cube")):
-        kernels.append({
-            "name": f"{name} {wrapper}", "route": "cuda",
-            "source": KERNEL_SOURCE if name == "K3" else SYNTH_SOURCE,
-            "replaces": SYNTH_REPLACES[name],
-            "launches": synth_launches.get(name, 0),
-            "max_abs_err": synth_err[name], "ms": synth_ms[name][0],
-            "plain_ms": synth_ms[name][1]})
+        kernels.append(entry(
+            name, wrapper, KERNEL_SOURCE if name == "K3" else SYNTH_SOURCE,
+            SYNTH_REPLACES[name], synth_launches.get(name, 0),
+            synth_err[name], synth_ms[name]))
     # K6 is the validation surface of K4 and K5 (it draws their noise) and
     # is on no driver path, as in the reference: its main-path count is 0.
     kernels[-1]["on_driver_path"] = False
     for name, wrapper in (("K7", "rds_power_fused"), ("K8", "rds_fused"),
                           ("K9", "dechirp_window_dc"),
                           ("K10", "cfar_mask")):
-        kernels.append({
-            "name": f"{name} {wrapper}", "route": "cuda",
-            "source": CUBE_SOURCE, "replaces": CUBE_REPLACES[name],
-            "launches": cube_launches[name], "max_abs_err": cube_err[name],
-            "ms": cube_ms[name][0], "plain_ms": cube_ms[name][1]})
+        kernels.append(entry(name, wrapper, CUBE_SOURCE, CUBE_REPLACES[name],
+                             cube_launches[name], cube_err[name],
+                             cube_ms[name]))
+    # K1' (K1's other branches): main-path launches through each branch --
+    # the clutter input on the sequential driver, time-domain and
+    # Box-Muller noise on the driver-consistency runs; the prefix-sum CFAR
+    # is a kernel argument that no driver selects (as in the reference).
+    for branch, setting in K1P_LINE.items():
+        kernels.append(entry(
+            "K1'", f"frontend_split [{branch}]", KERNEL_SOURCE,
+            "radar_slam_tpu/ops/frontend_pallas.py:186",
+            k1p_launches.get(branch, 0), k1p_err[setting], k1p_ms[setting],
+            time_domain=setting.startswith("time"),
+            clutter=setting == "clutter"))
+        if branch == "cumsum":
+            kernels[-1]["on_driver_path"] = False
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,21 +2,25 @@
 
 The JAX package beside it is the reference; every module here mirrors a
 module of the same name there and is held against it by the CPU parity
-tests (``tests/test_torch_*.py``).  This package imports ``torch`` and never
-``jax``: the frozen configuration dataclasses are shared with the reference
-through ``radar_slam_tpu.core.config``, which imports no jax.
+tests (``tests/test_torch_*.py``).  This package imports ``torch`` and
+nothing of ``jax`` or of the JAX package: it keeps its own copy of the
+frozen configuration dataclasses (``core.config``, with
+``config_from_dict`` to carry a configuration across).
 
-Slice ported so far: the batched scatterers-to-pose path
-(``pipeline.frame.process_sequence_batched``), with the one-pass front-end
-kernel hand-written in CUDA for the H100 (``csrc/frontend.cu``).
+Ported so far: the batched drivers (scatterers and ADC cubes), the
+sequential drivers (``pipeline.frame.process_sequence``,
+``process_sequence_chunked``, ``process_signal_sequence`` and their
+one-frame steps) with the clutter map and the slot-table smoother, and
+every front-end kernel, hand-written in CUDA for the H100 (``csrc/``).
 
-- ``core``      shared config re-export, static-shape tensor types, geometry
-- ``signal``    synthesis factors, DFT constants, detection tail
-- ``ops``       the front-end kernel wrapper + its plain PyTorch version,
-                the counter-based Gaussian generator, window taps
-- ``aoa``       beamforming AoA, confidence + MDL, windowed smoothing
-- ``motion``    mutual-NN association, fused 6-DoF velocity solve
-- ``pipeline``  the batched sequence pipeline
+- ``core``      config, static-shape tensor types, geometry
+- ``signal``    synthesis, DFT constants, detection (CFAR, clutter map)
+- ``ops``       kernel wrappers + their plain PyTorch versions, the
+                counter-based Gaussian generator, window taps
+- ``aoa``       beamforming AoA, confidence + MDL, temporal smoothing,
+                the robust per-frame AoA stage
+- ``motion``    mutual-NN association, 6-DoF velocity solve, planar pose
+- ``pipeline``  the batched and sequential drivers
 - ``io``        synthetic known-truth scenes
 - ``evaluate``  planar pose errors
 """

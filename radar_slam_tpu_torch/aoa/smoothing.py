@@ -1,22 +1,147 @@
-"""Scan-free temporal angle smoothing over a whole sequence.
+"""Temporal angle smoothing: the slot-table smoother and its scan-free form.
 
-Counterpart of ``radar_slam_tpu/aoa/smoothing.py:smooth_windowed``: a track
-is a backward chain of same-key detections (key = range_bin * D +
-doppler_bin) with frame gaps <= track_max_age + 1, and each detection is
-smoothed over the last ``temporal_window`` raw measurements of its chain
+Counterpart of ``radar_slam_tpu/aoa/smoothing.py``.  A track is keyed by
+its cell (key = range_bin * D + doppler_bin); each detection is smoothed
+over the last ``temporal_window`` raw measurements of its track
 (confidence-weighted circular mean blended with the previous raw angle).
-Exact against the reference's slot-table scan while the table never evicts
-a fresh track (capacity >= live tracks).  The slot-table scan itself
-(``update``) belongs to the sequential pipelines and is not ported yet.
+
+- :class:`SmootherState` / :func:`init_state` / :func:`update`: the
+  sequential drivers' fixed-capacity slot table, one frame per call --
+  per-slot ring buffers, free slots then the stalest allocated first, stale
+  tracks (older than ``track_max_age``) unmatchable.
+- :func:`smooth_windowed`: the batched drivers' form over a whole sequence,
+  a backward chain of same-key detections with frame gaps <=
+  track_max_age + 1.  Exact against :func:`update` while the table never
+  evicts a fresh track (capacity >= live tracks).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from radar_slam_tpu_torch.core.config import AoAConfig
+
+
+class SmootherState(NamedTuple):
+    """The slot table (capacity Cs slots, window W)."""
+
+    keys: torch.Tensor     # [Cs] int32, -1 = free slot
+    angles: torch.Tensor   # [Cs, W] float32 ring buffer [deg]
+    confs: torch.Tensor    # [Cs, W] float32 ring buffer
+    count: torch.Tensor    # [Cs] int32 measurements ever written to the slot
+    age: torch.Tensor      # [Cs] int32 frames since the last update
+
+
+def init_state(aoa: AoAConfig, device=None) -> SmootherState:
+    Cs, W = aoa.track_capacity, aoa.temporal_window
+    return SmootherState(
+        keys=torch.full((Cs,), -1, dtype=torch.int32, device=device),
+        angles=torch.zeros((Cs, W), dtype=torch.float32, device=device),
+        confs=torch.zeros((Cs, W), dtype=torch.float32, device=device),
+        count=torch.zeros((Cs,), dtype=torch.int32, device=device),
+        age=torch.zeros((Cs,), dtype=torch.int32, device=device))
+
+
+def _window_smooth(angles: torch.Tensor, confs: torch.Tensor,
+                   count: torch.Tensor, write_pos: torch.Tensor,
+                   smoothing_factor: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smoothed (angle_deg, conf) per row [K] of ring buffers [K, W] holding
+    ``count`` valid entries, the newest at ``write_pos``."""
+    W = angles.shape[-1]
+    idx = torch.arange(W, device=angles.device)[None, :]
+    valid = idx < count[:, None]
+    weights = torch.where(valid, confs, 0.0)
+    wsum = torch.sum(weights, dim=-1, keepdim=True)
+    n_valid = torch.clamp(torch.sum(valid, dim=-1, keepdim=True), min=1)
+    weights = torch.where(wsum > 0, weights / torch.clamp(wsum, min=1e-30),
+                          valid / n_valid)
+    ang_rad = torch.deg2rad(angles)
+    mean_cos = torch.sum(weights * torch.cos(ang_rad), dim=-1)
+    mean_sin = torch.sum(weights * torch.sin(ang_rad), dim=-1)
+    circ_deg = torch.rad2deg(torch.atan2(mean_sin, mean_cos))
+
+    # The previous raw angle is the entry before the newest.
+    write_pos = write_pos.to(torch.int64)
+    prev_pos = torch.remainder(write_pos - 1, W)
+    prev = torch.gather(angles, -1, prev_pos[:, None])[:, 0]
+    blended = smoothing_factor * circ_deg + (1.0 - smoothing_factor) * prev
+    conf = torch.sum(torch.where(valid, confs, 0.0), dim=-1) / n_valid[:, 0]
+
+    newest = torch.gather(angles, -1, write_pos[:, None])[:, 0]
+    newest_conf = torch.gather(confs, -1, write_pos[:, None])[:, 0]
+    single = count <= 1
+    return (torch.where(single, newest, blended),
+            torch.where(single, newest_conf, conf))
+
+
+def update(state: SmootherState, det_keys: torch.Tensor,
+           angles_deg: torch.Tensor, confidences: torch.Tensor,
+           valid: torch.Tensor, aoa: AoAConfig
+           ) -> Tuple[SmootherState, torch.Tensor, torch.Tensor]:
+    """Ingest one frame's detections [K]; returns (new state, smoothed
+    angles [K], smoothed confidences [K]).
+
+    A valid detection continues the fresh track of its key (the first
+    such slot) or takes a new slot: free slots first, then the stalest,
+    never a slot matched this frame.  The allocation order is a stable
+    descending sort of the slots' priority, ``lax.top_k``'s tie order (most
+    slots tie while the table is empty).  Rows that write nothing go to a
+    padding slot that is cut off, as the reference's ``mode="drop"``
+    scatters drop them."""
+    Cs = state.keys.shape[0]
+    W = state.angles.shape[1]
+    K = det_keys.shape[0]
+    dev = det_keys.device
+    det_keys = det_keys.to(torch.int32)
+
+    fresh = state.age <= aoa.track_max_age
+    key_eq = ((state.keys[None, :] == det_keys[:, None])
+              & (state.keys[None, :] >= 0) & fresh[None, :])    # [K, Cs]
+    matched = torch.any(key_eq, dim=1) & valid
+    match_slot = torch.argmax(key_eq.to(torch.uint8), dim=1)     # first true
+
+    slot_matched = torch.any(key_eq & valid[:, None], dim=0)     # [Cs]
+    priority = torch.where(state.keys < 0, 1 << 30, state.age)
+    priority = torch.where(slot_matched, -1, priority)
+    evict_order = torch.sort(priority, descending=True,
+                             stable=True).indices[:min(K, Cs)]
+
+    need_alloc = valid & ~matched
+    alloc_rank = torch.cumsum(need_alloc.to(torch.int64), dim=0) - 1
+    alloc_slot = evict_order[torch.clamp(alloc_rank, 0,
+                                         evict_order.shape[0] - 1)]
+    slot = torch.where(matched, match_slot, alloc_slot)          # [K]
+    slot_w = torch.where(valid, slot, Cs)                        # Cs: dropped
+
+    new_count = torch.where(matched, state.count[slot] + 1, 1)
+    pos = torch.remainder(new_count - 1, W).to(torch.int64)
+
+    def scatter(table, values, fill_pos=None):
+        pad = torch.cat([table, table[:1]])          # row Cs takes the drops
+        if fill_pos is None:
+            pad[slot_w] = values.to(table.dtype)
+        else:
+            pad[slot_w, fill_pos] = values.to(table.dtype)
+        return pad[:Cs]
+
+    keys = scatter(state.keys, det_keys)
+    count = scatter(state.count, torch.clamp(new_count, max=2 ** 30))
+    angles = scatter(state.angles, angles_deg, pos)
+    confs = scatter(state.confs, confidences, pos)
+    age = scatter(state.age + 1, torch.zeros(K, dtype=torch.int32,
+                                             device=dev))
+
+    rows = torch.clamp(slot, 0, Cs - 1)
+    sm_angle, sm_conf = _window_smooth(
+        angles[rows], confs[rows], torch.clamp(count[rows], max=W), pos,
+        aoa.smoothing_factor)
+    sm_angle = torch.where(valid, sm_angle, angles_deg)
+    sm_conf = torch.where(valid, sm_conf, confidences)
+    return (SmootherState(keys=keys, angles=angles, confs=confs,
+                          count=count, age=age), sm_angle, sm_conf)
 
 
 def smooth_windowed(det_keys: torch.Tensor, angles_deg: torch.Tensor,

@@ -1,2 +1,1 @@
-"""Shared configuration (re-exported from the reference), tensor types
-and geometry."""
+"""Configuration (the port's own copy), tensor types and geometry."""

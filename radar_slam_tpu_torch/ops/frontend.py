@@ -1,36 +1,52 @@
 """One-pass front end: synthesis factors -> Z + power + CFAR score map ->
 exact top-K + Z-column signatures.
 
-Counterpart of ``radar_slam_tpu/ops/frontend_pallas.py`` at its production
-knobs (range-frequency noise, "fast" Gaussians, CA-CFAR, exact top-K), for
-its two kernels: K1 on split factors (the default) and K3 on dense factor
-planes.  Per frame the kernel body computes
+Counterpart of ``radar_slam_tpu/ops/frontend_pallas.py`` for its two
+kernels, K1 on split factors and K3 on dense factor planes, in every
+branch of their shared body ``_frontend_body``.  Per frame the kernel body
+computes Z [A*C, S] in one of two noise domains:
 
-    T = e_fast @ W_rng                      [Sc, S]   (range DFT, mix/DC folded)
-    Z = e_at @ T + sigma sqrt(S) (g (*) taps), column 0 zeroed    [A*C, S]
+- ``noise_domain="range_freq"``:
+      T = e_fast @ W_rng                      [Sc, S]   (range DFT, mix/DC folded)
+      Z = e_at @ T + sigma sqrt(S) (g (*) taps), column 0 zeroed
+  the noise drawn in the range-frequency domain and shaped by the PERIODIC
+  window's taps while the signal keeps the symmetric window -- the
+  reference's documented deviation, reproduced on purpose;
+- ``noise_domain="time"`` (the reference wrappers' default):
+      X = e_at @ e_fast + sigma n             [A*C, S]  (the ADC cube)
+      Z = X @ W_rng
+  with n drawn at element (a*C + c) * S + s, the index the three-dispatch
+  kernels and ``synthesize_frame`` use, so one seed gives one cube;
+
+then, in both,
+
     p[d, s] = mean_a |sum_c W_dop[c, d] Z[a*C + c, s]|^2          [C, S]
     score = 10 log10(p + 1e-12) where (3x3 local max & CA-CFAR & range
-            gate), else -1e30
+            gate & clutter gate), else -1e30
 
 with, for K1, e_at[a*C + c, sc] = dopp[sc, c] * ant[sc, a] and e_fast
 recomposed from the coarse / fine tables and the echo gate, and for K3
-e_at = e_ac^T and e_fast as given.  The noise is shaped by the PERIODIC
-window's taps while the signal keeps the symmetric window -- the
-reference's documented deviation, reproduced on purpose.
+e_at = e_ac^T and e_fast as given.  The noise transform is "fast" or
+"box_muller" (``ops/noise.py``); the CA-CFAR box sums run as clipped box
+sums (``cfar_impl="matmul"``, the banded products' sums) or from log-shift
+prefix sums (``"cumsum"``, the reference's add order); the optional clutter
+map [F, R, D] gates cells at ``ln(max(c, 1e-12)) * 10 / ln 10 +
+clutter_offset_db`` -- the kernel's form, not detect.py's ``10 log10``.
 
 Three layers per kernel:
 
 - :func:`frontend_kernel_split` (K1) / :func:`frontend_kernel_dense` (K3)
   -- the kernel wrappers.  On a CUDA tensor each launches its hand-written
   kernel of ``csrc/frontend.cu`` (or raises); on a CPU tensor it runs its
-  plain version.  ``.launches`` counts the CUDA launches.
+  plain version.  ``.launches`` counts the CUDA launches and
+  ``.branch_launches`` those that ran each non-default branch.
 - :func:`scatterer_frontend_split_reference` /
   :func:`scatterer_frontend_reference` -- the plain versions: the factor
   planes, then one shared body (:func:`_frontend_body_reference`), the
   oracle the kernels are held against on the card.
 - :func:`scatterer_frontend_split` / :func:`scatterer_frontend` -- the
-  public entry points, mirroring the reference wrappers: constants,
-  kernel, then :func:`_finalize`.
+  public entry points, with the reference wrappers' signatures and
+  defaults: constants, kernel, then :func:`_finalize`.
 """
 
 from __future__ import annotations
@@ -74,6 +90,25 @@ class FrontendParams:
     threshold_db: float
     min_range_bin: int           # inclusive range gate [lo, hi]
     max_range_bin: int
+    noise_domain: str            # "range_freq" or "time"
+    noise_impl: str              # "fast" or "box_muller"
+    cfar_impl: str               # "matmul" (box sums) or "cumsum"
+    clutter_offset_db: float     # clutter-map gate margin [dB]
+
+
+_DOMAINS = {"range_freq": 0, "time": 1}    # csrc/frontend.cu: DOMAIN_*
+_IMPLS = {"fast": 0, "box_muller": 1}      # csrc/frontend.cu: IMPL_*
+_CFARS = {"matmul": 0, "cumsum": 1}        # csrc/frontend.cu: CFAR_*
+_BRANCHES = ("time", "box_muller", "cumsum", "clutter")
+
+
+def _branches(prm: FrontendParams, clutter) -> Tuple[str, ...]:
+    """The non-default branches a launch with ``prm`` runs (K1')."""
+    on = {"time": prm.noise_domain == "time",
+          "box_muller": prm.noise_impl == "box_muller",
+          "cumsum": prm.cfar_impl == "cumsum",
+          "clutter": clutter is not None}
+    return tuple(b for b in _BRANCHES if on[b])
 
 
 def _log10_db(x: torch.Tensor) -> torch.Tensor:
@@ -127,33 +162,99 @@ def _cfar_threshold(p1: torch.Tensor, prm: FrontendParams) -> torch.Tensor:
     return torch.clamp(noise_db + prm.offset_db, min=prm.threshold_db)
 
 
+def _cumsum_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim`` (-2 or -1) of a [..., C, S] map
+    by log-shift adds of zero-filled shifts: the reference's add order
+    (frontend_pallas.py:93-101), so the sums round as its do."""
+    n = x.shape[dim]
+    sh = 1
+    while sh < n:
+        x = x + (_shift2(x, sh, 0) if dim == -2 else _shift2(x, 0, sh))
+        sh *= 2
+    return x
+
+
+def _box_from_cumsum(cs: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
+    """Clipped width-(2 pad + 1) box sum from an inclusive prefix sum:
+    cs[min(i + pad, n - 1)] - cs[i - pad - 1] (0 before the start)."""
+    n = cs.shape[dim]
+    i = torch.arange(n, device=cs.device)
+    if dim == -2:
+        hi, last, lo = (_shift2(cs, -pad, 0), cs[..., n - 1:n, :],
+                        _shift2(cs, pad + 1, 0))
+        i = i[:, None]
+    else:
+        hi, last, lo = (_shift2(cs, 0, -pad), cs[..., n - 1:n],
+                        _shift2(cs, 0, pad + 1))
+    hi = torch.where(i + pad > n - 1, last, hi)
+    return hi - lo
+
+
+def _cfar_threshold_cumsum(p1: torch.Tensor,
+                           prm: FrontendParams) -> torch.Tensor:
+    """CA-CFAR threshold map [..., C, S] in dB from separable prefix-sum
+    differences (frontend_pallas.py:118-149): the same clipped box means as
+    :func:`_cfar_threshold`, summed in the reference's order."""
+    if prm.train <= 0:
+        return torch.full_like(p1, prm.threshold_db)
+    C, S = p1.shape[-2:]
+    dev = p1.device
+    tpad = prm.train + prm.guard
+    cs_d = _cumsum_axis(p1, -2)
+    sum_d = _box_from_cumsum(cs_d, -2, tpad)
+    sum_t = _box_from_cumsum(_cumsum_axis(sum_d, -1), -1, tpad)
+    noise = sum_t / (_window_counts(C, tpad, dev)[:, None]
+                     * _window_counts(S, tpad, dev)[None, :])
+    if prm.guard > 0:
+        gpad = prm.guard
+        sum_dg = _box_from_cumsum(cs_d, -2, gpad)
+        g = (_box_from_cumsum(_cumsum_axis(sum_dg, -1), -1, gpad)
+             / (_window_counts(C, gpad, dev)[:, None]
+                * _window_counts(S, gpad, dev)[None, :]))
+        n_train = float((2 * tpad + 1) ** 2)
+        n_guard = float((2 * gpad + 1) ** 2)
+        noise = (noise * n_train - g * n_guard) / (n_train - n_guard)
+    noise_db = _log10_db(torch.clamp(noise, min=1e-12))
+    return torch.clamp(noise_db + prm.offset_db, min=prm.threshold_db)
+
+
 def _frontend_body_reference(e_at: torch.Tensor, e_fast: torch.Tensor,
                              seeds: torch.Tensor, w_rng: torch.Tensor,
                              w_dop_t: torch.Tensor, prm: FrontendParams,
-                             A: int):
+                             A: int, clutter: Optional[torch.Tensor] = None):
     """The kernel body shared by K1 and K3 in plain PyTorch, from the factor
-    planes e_at [F, A*C, Sc] and e_fast [F, Sc, S] on.  Returns (zr, zi,
-    p, score) as the kernels do."""
+    planes e_at [F, A*C, Sc] and e_fast [F, Sc, S] on; ``clutter`` is the
+    optional background map in the kernel's layout [F, C, S].  Returns
+    (zr, zi, p, score) as the kernels do."""
     F, AC, _ = e_at.shape
     S = e_fast.shape[-1]
     C = AC // A
-    z = e_at @ (e_fast @ w_rng)                              # [F, AC, S]
-    if prm.sigma != 0.0:
-        # sigma = 0 adds exactly zero; the draw is skipped (so is it in
-        # the kernel).
-        sn = float(prm.sigma * float(S) ** 0.5)
-        gr, gi = standard_normals(seeds, AC, S)
+    if prm.noise_domain == "time":
+        x = e_at @ e_fast                                    # [F, AC, S]
+        if prm.sigma != 0.0:
+            # sigma = 0 adds exactly zero; the draw is skipped (so is it
+            # in the kernel).
+            gr, gi = standard_normals(seeds, AC, S, prm.noise_impl)
+            x = torch.complex(x.real + prm.sigma * gr,
+                              x.imag + prm.sigma * gi)
+        z = x @ w_rng
+    else:
+        z = e_at @ (e_fast @ w_rng)                          # [F, AC, S]
+        if prm.sigma != 0.0:
+            sn = float(prm.sigma * float(S) ** 0.5)
+            gr, gi = standard_normals(seeds, AC, S, prm.noise_impl)
 
-        def conv(g):
-            acc = None
-            for off, cc in prm.noise_taps:
-                term = cc * (g if off == 0 else torch.roll(g, off, dims=-1))
-                acc = term if acc is None else acc + term
-            return acc
+            def conv(g):
+                acc = None
+                for off, cc in prm.noise_taps:
+                    term = cc * (g if off == 0 else torch.roll(g, off,
+                                                               dims=-1))
+                    acc = term if acc is None else acc + term
+                return acc
 
-        z = torch.complex(z.real + sn * conv(gr), z.imag + sn * conv(gi))
-    if prm.dc_removal:
-        z[..., 0] = 0.0
+            z = torch.complex(z.real + sn * conv(gr), z.imag + sn * conv(gi))
+        if prm.dc_removal:
+            z[..., 0] = 0.0
     zt = z.transpose(1, 2)
     zr = zt.real.contiguous()
     zi = zt.imag.contiguous()
@@ -163,7 +264,8 @@ def _frontend_body_reference(e_at: torch.Tensor, e_fast: torch.Tensor,
 
     p1 = p + 1e-12
     pd = _log10_db(p1)
-    thresh = _cfar_threshold(p1, prm)
+    thresh = (_cfar_threshold_cumsum(p1, prm) if prm.cfar_impl == "cumsum"
+              else _cfar_threshold(p1, prm))
     r = prm.neighborhood // 2
     is_peak = torch.ones_like(p1, dtype=torch.bool)
     for dy in range(-r, r + 1):
@@ -173,6 +275,9 @@ def _frontend_body_reference(e_at: torch.Tensor, e_fast: torch.Tensor,
     s_idx = torch.arange(S, device=p.device)
     gate = (s_idx >= prm.min_range_bin) & (s_idx <= prm.max_range_bin)
     mask = is_peak & (pd > thresh) & gate
+    if clutter is not None:
+        cd = _log10_db(torch.clamp(clutter, min=1e-12))
+        mask = mask & (pd > cd + prm.clutter_offset_db)
     score = torch.where(mask, pd, _NEG)
     return zr, zi, p, score
 
@@ -181,7 +286,7 @@ def scatterer_frontend_split_reference(
         ant: torch.Tensor, dopp: torch.Tensor, coarse: torch.Tensor,
         fine: torch.Tensor, tau: torch.Tensor, t: torch.Tensor,
         seeds: torch.Tensor, w_rng: torch.Tensor, w_dop_t: torch.Tensor,
-        prm: FrontendParams
+        prm: FrontendParams, clutter: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 in plain PyTorch: the split tables recomposed into the factor
     planes, then the shared body.
@@ -192,6 +297,8 @@ def scatterer_frontend_split_reference(
         seeds: [F] int32 per-frame noise seeds.
         w_rng: [S, S] complex64 folded range DFT; w_dop_t: [C, C] complex64
             transposed Doppler DFT (fftshift in its row order).
+        clutter: optional [F, C, S] float32 background power map (the
+            kernel's layout: Doppler rows, range columns).
 
     Returns:
         (zr, zi [F, S, A*C] float32 -- Z transposed, row a*C + c;
@@ -213,24 +320,29 @@ def scatterer_frontend_split_reference(
                              <= prm.echo_upper)
     e_fast = e_fast * arrived.to(torch.float32)
     return _frontend_body_reference(e_at, e_fast, seeds, w_rng, w_dop_t,
-                                    prm, A)
+                                    prm, A, clutter)
 
 
 def scatterer_frontend_reference(
         e_ac: torch.Tensor, e_fast: torch.Tensor, seeds: torch.Tensor,
         w_rng: torch.Tensor, w_dop_t: torch.Tensor, prm: FrontendParams,
-        C: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                         torch.Tensor]:
+        C: int, clutter: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3 in plain PyTorch: the dense planes e_ac [F, Sc, A*C] (row
     a*C + c) and e_fast [F, Sc, S] (echo-gated) into the shared body.
     Returns what :func:`scatterer_frontend_split_reference` returns."""
     return _frontend_body_reference(e_ac.transpose(1, 2), e_fast, seeds,
                                     w_rng, w_dop_t, prm,
-                                    e_ac.shape[-1] // C)
+                                    e_ac.shape[-1] // C, clutter)
+
+
+def _check_clutter(clutter, F: int, C: int, S: int, dev) -> None:
+    if clutter is not None:
+        _build.check_input("clutter", clutter, torch.float32, dev, (F, C, S))
 
 
 def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
-                  prm: FrontendParams):
+                  prm: FrontendParams, clutter=None):
     F, Sc, A = ant.shape
     C = dopp.shape[-1]
     B = fine.shape[-1]
@@ -254,78 +366,110 @@ def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
             raise ValueError(f"{name} is not contiguous")
     if Q * B < S:
         raise ValueError(f"coarse/fine tables cover {Q * B} < S={S} samples")
+    _check_clutter(clutter, F, C, S, ant.device)
     _check_params(prm)
     return F, Sc, A, C, B, Q, S
 
 
-def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
-                 prm: FrontendParams):
-    F, Sc, A, C, B, Q, S = _check_inputs(ant, dopp, coarse, fine, tau, t,
-                                         seeds, w_rng, w_dop_t, prm)
-    if F > 65535:
-        raise ValueError(f"F={F} frames exceeds the grid's z limit 65535")
-    _check_smem(A, C, S)
-    dev = ant.device
-    ins = (ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t)
-    tbuf = torch.empty((F, Sc, S), dtype=torch.complex64, device=dev)
+def _outputs(F: int, A: int, C: int, S: int, Sc: int, prm: FrontendParams,
+             dev):
+    """The kernel's scratch (T [F, Sc, S] in the range-frequency domain, X
+    [F, A*C, S] in the time domain) and outputs zr, zi, p, score."""
+    rows = A * C if prm.noise_domain == "time" else Sc
+    scratch = torch.empty((F, rows, S), dtype=torch.complex64, device=dev)
     zr = torch.empty((F, S, A * C), dtype=torch.float32, device=dev)
     zi = torch.empty_like(zr)
     p = torch.empty((F, C, S), dtype=torch.float32, device=dev)
     score = torch.empty_like(p)
+    return scratch, zr, zi, p, score
+
+
+def _count(wrapper, prm: FrontendParams, clutter) -> None:
+    wrapper.launches += 1
+    for b in _branches(prm, clutter):
+        wrapper.branch_launches[b] += 1
+
+
+def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
+                 prm: FrontendParams, clutter):
+    F, Sc, A, C, B, Q, S = _check_inputs(ant, dopp, coarse, fine, tau, t,
+                                         seeds, w_rng, w_dop_t, prm, clutter)
+    if F > 65535:
+        raise ValueError(f"F={F} frames exceeds the grid's z limit 65535")
+    _check_smem(A, C, S, prm)
+    dev = ant.device
+    ins = (ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t)
+    outs = _outputs(F, A, C, S, Sc, prm, dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind("frontend", "radar_frontend_split",
-                     (vp,) * 14 + (ci,) * 8 + (ci, cf, cf, ci, vp, vp)
-                     + (ci,) * 4 + (cf, cf, ci, ci, vp))
-    _build.launch(fn, *[x.data_ptr() for x in ins], tbuf.data_ptr(),
-                  zr.data_ptr(), zi.data_ptr(), p.data_ptr(),
-                  score.data_ptr(), F, A, C, S, Sc, B, Q, dev.index,
+                     (vp,) * 15 + (ci,) * 8 + (ci, cf, cf, ci, vp, vp)
+                     + (ci,) * 4 + (cf, cf, ci, ci) + (ci,) * 3
+                     + (cf, vp))
+    _build.launch(fn, *[x.data_ptr() for x in ins],
+                  *[x.data_ptr() for x in outs],
+                  clutter.data_ptr() if clutter is not None else None,
+                  F, A, C, S, Sc, B, Q, dev.index,
                   int(prm.echo_upper is not None),
                   float(prm.echo_upper if prm.echo_upper is not None
                         else 0.0),
                   *_noise_args(prm, S), *_cfar_args(prm),
+                  *_branch_args(prm),
                   torch.cuda.current_stream(dev).cuda_stream)
-    frontend_kernel_split.launches += 1
-    return zr, zi, p, score
+    _count(frontend_kernel_split, prm, clutter)
+    return outs[1:]
 
 
 def frontend_kernel_split(ant, dopp, coarse, fine, tau, t, seeds, w_rng,
-                          w_dop_t, prm: FrontendParams):
+                          w_dop_t, prm: FrontendParams, clutter=None):
     """The one-pass kernel: same arguments and outputs as
     :func:`scatterer_frontend_split_reference`.  A CUDA tensor launches the
     hand-written kernel (``csrc/frontend.cu``) or raises; a CPU tensor runs
     the plain version, because there is no card to run the kernel on."""
     if ant.device.type == "cuda":
         return _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng,
-                            w_dop_t, prm)
+                            w_dop_t, prm, clutter)
     if ant.device.type == "cpu":
         _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng,
-                      w_dop_t, prm)
+                      w_dop_t, prm, clutter)
         return scatterer_frontend_split_reference(
-            ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t, prm)
+            ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t, prm,
+            clutter)
     raise ValueError(f"no front-end kernel for device {ant.device}")
 
 
 frontend_kernel_split.launches = 0
+frontend_kernel_split.branch_launches = dict.fromkeys(_BRANCHES, 0)
 
 
 def _check_params(prm: FrontendParams) -> None:
+    """Every knob value the reference's kernel takes is ported; an unknown
+    name raises ``ValueError``."""
+    for name, table in (("noise_domain", _DOMAINS),
+                        ("noise_impl", _IMPLS), ("cfar_impl", _CFARS)):
+        if getattr(prm, name) not in table:
+            raise ValueError(f"Unknown {name}: {getattr(prm, name)}")
+    if prm.noise_domain == "range_freq" and not prm.noise_taps:
+        raise ValueError("noise_domain='range_freq' needs the window's "
+                         "noise_taps (ops/windows.py:window_freq_taps)")
     if len(prm.noise_taps) > _MAX_TAPS:
         raise ValueError(f"at most {_MAX_TAPS} noise taps")
     if prm.neighborhood % 2 != 1:
         raise ValueError("neighborhood must be odd")
 
 
-def _check_smem(A: int, C: int, S: int) -> None:
-    # csrc/frontend.cu: doppler_power_kernel stages 16 rows of Z and W_dop^T,
-    # cfar_kernel the [C, S] map and its Doppler box sums.
-    smem = max(4 * (2 * 16 * (A * C + 1) + 2 * C * C), 4 * 2 * C * S)
+def _check_smem(A: int, C: int, S: int, prm: FrontendParams) -> None:
+    # csrc/frontend.cu: doppler_power_kernel stages 16 rows of Z and W_dop^T;
+    # cfar_kernel holds the [C, S] map and its Doppler box sums,
+    # cfar_cumsum_kernel the map and two scan planes.
+    planes = 3 if prm.cfar_impl == "cumsum" else 2
+    smem = max(4 * (2 * 16 * (A * C + 1) + 2 * C * C), 4 * planes * C * S)
     if smem > _MAX_SMEM:
         raise ValueError(f"A={A}, C={C}, S={S} needs {smem} bytes of shared "
                          f"memory per block; the kernel has {_MAX_SMEM}")
 
 
 def _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t, C: int,
-                        prm: FrontendParams):
+                        prm: FrontendParams, clutter=None):
     if e_ac.dim() != 3 or e_fast.dim() != 3:
         raise ValueError(f"e_ac / e_fast: need [F, Sc, A*C] / [F, Sc, S], "
                          f"got {tuple(e_ac.shape)} / {tuple(e_fast.shape)}")
@@ -341,17 +485,25 @@ def _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t, C: int,
             ("w_rng", w_rng, torch.complex64, (S, S)),
             ("w_dop_t", w_dop_t, torch.complex64, (C, C))):
         _build.check_input(name, x, dtype, dev, shape)
+    _check_clutter(clutter, F, C, S, dev)
     _check_params(prm)
     return F, Sc, AC // C, S
 
 
 def _noise_args(prm: FrontendParams, S: int):
-    """(sn, n_taps, tap offsets, tap coefficients) for the C launchers."""
-    tap_off = (ctypes.c_int * _MAX_TAPS)(*[o for o, _ in prm.noise_taps])
-    tap_coef = (ctypes.c_float * _MAX_TAPS)(*[c for _, c in prm.noise_taps])
-    sn = (float(prm.sigma * float(S) ** 0.5)
-          if prm.sigma != 0.0 else 0.0)
-    return (sn, len(prm.noise_taps), ctypes.cast(tap_off, ctypes.c_void_p),
+    """(noise scale, n_taps, tap offsets, tap coefficients) for the C
+    launchers: sigma sqrt(S) on the range-frequency taps, sigma itself in
+    the time domain."""
+    taps = prm.noise_taps if prm.noise_domain == "range_freq" else ()
+    tap_off = (ctypes.c_int * _MAX_TAPS)(*[o for o, _ in taps])
+    tap_coef = (ctypes.c_float * _MAX_TAPS)(*[c for _, c in taps])
+    if prm.sigma == 0.0:
+        sn = 0.0
+    elif prm.noise_domain == "time":
+        sn = float(prm.sigma)
+    else:
+        sn = float(prm.sigma * float(S) ** 0.5)
+    return (sn, len(taps), ctypes.cast(tap_off, ctypes.c_void_p),
             ctypes.cast(tap_coef, ctypes.c_void_p))
 
 
@@ -361,44 +513,49 @@ def _cfar_args(prm: FrontendParams):
             prm.max_range_bin)
 
 
+def _branch_args(prm: FrontendParams):
+    return (_DOMAINS[prm.noise_domain], _IMPLS[prm.noise_impl],
+            _CFARS[prm.cfar_impl], float(prm.clutter_offset_db))
+
+
 def frontend_kernel_dense(e_ac, e_fast, seeds, w_rng, w_dop_t,
-                          prm: FrontendParams, C: int):
+                          prm: FrontendParams, C: int, clutter=None):
     """K3, the one-pass kernel on dense factor planes: same arguments and
     outputs as :func:`scatterer_frontend_reference`.  A CUDA tensor
     launches the hand-written kernel (``csrc/frontend.cu``,
     ``radar_frontend_dense``) or raises; a CPU tensor runs the plain
     version, because there is no card to run the kernel on."""
     F, Sc, A, S = _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t,
-                                      C, prm)
+                                      C, prm, clutter)
     dev = e_ac.device
     if dev.type == "cpu":
         return scatterer_frontend_reference(e_ac, e_fast, seeds, w_rng,
-                                            w_dop_t, prm, C)
+                                            w_dop_t, prm, C, clutter)
     if dev.type != "cuda":
         raise ValueError(f"no front-end kernel for device {dev}")
     if not 0 < F <= 65535:
         raise ValueError(f"F={F} frames: the kernel takes 1..65535")
-    _check_smem(A, C, S)
-    tbuf = torch.empty((F, Sc, S), dtype=torch.complex64, device=dev)
-    zr = torch.empty((F, S, A * C), dtype=torch.float32, device=dev)
-    zi = torch.empty_like(zr)
-    p = torch.empty((F, C, S), dtype=torch.float32, device=dev)
-    score = torch.empty_like(p)
+    _check_smem(A, C, S, prm)
+    outs = _outputs(F, A, C, S, Sc, prm, dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind("frontend", "radar_frontend_dense",
-                     (vp,) * 10 + (ci,) * 6 + (cf, ci, vp, vp)
-                     + (ci,) * 4 + (cf, cf, ci, ci, vp))
+                     (vp,) * 11 + (ci,) * 6 + (cf, ci, vp, vp)
+                     + (ci,) * 4 + (cf, cf, ci, ci) + (ci,) * 3
+                     + (cf, vp))
     _build.launch(fn, e_ac.data_ptr(), e_fast.data_ptr(), seeds.data_ptr(),
-                  w_rng.data_ptr(), w_dop_t.data_ptr(), tbuf.data_ptr(),
-                  zr.data_ptr(), zi.data_ptr(), p.data_ptr(),
-                  score.data_ptr(), F, A, C, S, Sc, dev.index,
+                  w_rng.data_ptr(), w_dop_t.data_ptr(),
+                  *[x.data_ptr() for x in outs],
+                  clutter.data_ptr() if clutter is not None else None,
+                  F, A, C, S, Sc, dev.index,
                   *_noise_args(prm, S), *_cfar_args(prm),
+                  *_branch_args(prm),
                   torch.cuda.current_stream(dev).cuda_stream)
-    frontend_kernel_dense.launches += 1
-    return zr, zi, p, score
+    _count(frontend_kernel_dense, prm, clutter)
+    return outs[1:]
 
 
 frontend_kernel_dense.launches = 0
+frontend_kernel_dense.branch_launches = dict.fromkeys(_BRANCHES, 0)
 
 
 def topk_exact(score: torch.Tensor, K: int):
@@ -455,42 +612,33 @@ def frontend_constants(C: int, S: int, mix: torch.Tensor, dc_removal: bool,
     return w_rng.contiguous(), w_dop_t.contiguous()
 
 
-def _check_knobs(noise_domain: str, noise_taps: tuple, noise_impl: str,
-                 cfar_impl: str, clutter, topk_mode: str) -> None:
-    """The knobs K1 and K3 run: range-frequency noise from the "fast"
-    transform, the box-sum CA-CFAR, no clutter input, exact top-K.  The
-    other branches of the reference kernel (K1') raise."""
-    if noise_domain != "range_freq":
-        raise NotImplementedError(
-            f"noise_domain={noise_domain!r}: only 'range_freq' is ported "
-            "(ROADMAP: K1' time-domain noise)")
-    if not noise_taps:
-        raise ValueError("noise_domain='range_freq' needs the window's "
-                         "noise_taps (ops/windows.py:window_freq_taps)")
-    if noise_impl != "fast":
-        raise NotImplementedError(
-            f"noise_impl={noise_impl!r}: only 'fast' is ported "
-            "(ROADMAP: K1' box_muller)")
-    if cfar_impl != "matmul":
-        raise NotImplementedError(
-            f"cfar_impl={cfar_impl!r}: only the box-sum CA-CFAR "
-            "('matmul') is ported (ROADMAP: K1' cumsum)")
-    if clutter is not None:
-        raise NotImplementedError(
-            "the clutter-map input is not ported (ROADMAP: K1' clutter)")
+def _check_topk(topk_mode: str) -> None:
     if topk_mode not in ("two_stage", "sort"):
         raise ValueError(f"Unknown topk_mode: {topk_mode}")
 
 
 def _params(sigma, noise_taps, echo_upper, dc_removal, train, guard,
             neighborhood, offset_db, threshold_db, min_range_bin,
-            max_range_bin) -> FrontendParams:
+            max_range_bin, noise_domain, noise_impl, cfar_impl,
+            clutter_offset_db) -> FrontendParams:
     return FrontendParams(
         sigma=float(sigma), noise_taps=tuple(noise_taps),
         echo_upper=echo_upper, dc_removal=dc_removal, train=train,
         guard=guard, neighborhood=neighborhood, offset_db=offset_db,
         threshold_db=threshold_db, min_range_bin=min_range_bin,
-        max_range_bin=max_range_bin)
+        max_range_bin=max_range_bin, noise_domain=noise_domain,
+        noise_impl=noise_impl, cfar_impl=cfar_impl,
+        clutter_offset_db=float(clutter_offset_db))
+
+
+def _clutter_ds(clutter: Optional[torch.Tensor], F: int, S: int, C: int):
+    """The clutter map [F, R, D] in the kernel's layout [F, D, R]."""
+    if clutter is None:
+        return None
+    if tuple(clutter.shape) != (F, S, C):
+        raise ValueError(f"clutter: need [F, R, D] = {(F, S, C)}, got "
+                         f"{tuple(clutter.shape)}")
+    return clutter.to(torch.float32).transpose(1, 2).contiguous()
 
 
 def scatterer_frontend_split(
@@ -500,36 +648,45 @@ def scatterer_frontend_split(
         K: int, *, train: int, guard: int, neighborhood: int,
         offset_db: float, threshold_db: float, min_range_bin: int,
         max_range_bin: int, clutter: Optional[torch.Tensor] = None,
-        dc_removal: bool = True, doppler_window: Optional[str] = None,
-        noise_impl: str = "fast", topk_mode: str = "two_stage",
-        noise_domain: str = "range_freq", noise_taps: tuple = (),
-        echo_upper: Optional[float] = None, cfar_impl: str = "matmul"):
-    """The one-pass front end over a frame batch (the reference wrapper's
-    split-factor entry point, production knobs only; K1).
+        clutter_offset_db: float = 6.0, dc_removal: bool = True,
+        doppler_window: Optional[str] = None, synth_precision: str = "high",
+        doppler_precision: str = "high", doppler_layout: str = "loop",
+        sig_precision: str = "high", noise_impl: str = "box_muller",
+        topk_mode: str = "sort", noise_domain: str = "time",
+        noise_taps: tuple = (), echo_upper: Optional[float] = None,
+        cfar_impl: str = "matmul"):
+    """The one-pass front end over a frame batch on split synthesis factors
+    (the reference wrapper's signature and defaults; kernel K1).
 
-    ``topk_mode`` "two_stage" and "sort" both select exactly (they are two
-    TPU lowerings of the same answer).  The non-default branches of the
-    reference kernel -- time-domain noise, Box-Muller, the prefix-sum CFAR
-    and the clutter input -- are not ported yet and raise.
+    ``clutter`` is the optional background power map [F, R, D]: a cell
+    must exceed it by ``clutter_offset_db``.  ``topk_mode`` "two_stage" and
+    "sort" both select exactly (two TPU lowerings of the same answer); the
+    precision and layout names are accepted and select nothing (float32
+    throughout).
 
     Returns:
         (p_lin [F, R, D] f32, r_bin [F, K] i32, d_bin [F, K] i32,
          top_vals_db [F, K] f32 with -inf for exhausted slots,
          signatures [F, K, A] complex64 unit-power).
     """
-    _check_knobs(noise_domain, noise_taps, noise_impl, cfar_impl, clutter,
-                 topk_mode)
+    from radar_slam_tpu_torch.signal.rds import _check_precision
+    _check_topk(topk_mode)
+    _check_precision(synth_precision, doppler_precision, sig_precision)
+    if doppler_layout not in ("loop", "wide"):
+        raise ValueError(f"Unknown doppler_layout: {doppler_layout}")
     use_f32_matmuls()
+    F, _, A = ant.shape
     S = t.shape[0]
-    A = ant.shape[-1]
     w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
                                         doppler_window)
     prm = _params(sigma, noise_taps, echo_upper, dc_removal, train, guard,
                   neighborhood, offset_db, threshold_db, min_range_bin,
-                  max_range_bin)
+                  max_range_bin, noise_domain, noise_impl, cfar_impl,
+                  clutter_offset_db)
     zr, zi, p_ds, score_ds = frontend_kernel_split(
         ant, dopp, coarse, fine, tau.to(torch.float32),
-        t.to(torch.float32), seeds.to(torch.int32), w_rng, w_dop_t, prm)
+        t.to(torch.float32), seeds.to(torch.int32), w_rng, w_dop_t, prm,
+        _clutter_ds(clutter, F, S, C))
     return _finalize(zr, zi, p_ds, score_ds, K, A, C, doppler_window)
 
 
@@ -543,32 +700,30 @@ def scatterer_frontend(
         doppler_window: Optional[str] = None, synth_precision: str = "high",
         precision_name: str = "default", doppler_precision: str = "high",
         doppler_layout: str = "loop", sig_precision: str = "high",
-        noise_impl: str = "fast", topk_mode: str = "two_stage",
-        noise_domain: str = "range_freq", noise_taps: tuple = (),
+        noise_impl: str = "box_muller", topk_mode: str = "sort",
+        noise_domain: str = "time", noise_taps: tuple = (),
         cfar_impl: str = "matmul"):
     """The one-pass front end on dense factor planes (the reference's
-    ``scatterer_frontend``; K3): e_ac [F, Sc, A*C] / e_fast [F, Sc, S]
-    complex64 (``signal/synth.py:synthesis_factors``).  Same knob coverage,
-    and the same returns, as :func:`scatterer_frontend_split`; the
-    precision and layout names are accepted and select nothing (float32
-    throughout).  The reference's defaults for ``noise_impl``,
-    ``noise_domain`` and ``topk_mode`` are its K1' branches; the port's
-    are the production knobs every caller passes."""
+    ``scatterer_frontend``; kernel K3): e_ac [F, Sc, A*C] / e_fast
+    [F, Sc, S] complex64 (``signal/synth.py:synthesis_factors``).  Same
+    knobs, defaults and returns as :func:`scatterer_frontend_split`."""
     from radar_slam_tpu_torch.signal.rds import _check_precision
-    _check_knobs(noise_domain, noise_taps, noise_impl, cfar_impl, clutter,
-                 topk_mode)
+    _check_topk(topk_mode)
     _check_precision(synth_precision, precision_name, doppler_precision,
                      sig_precision)
     if doppler_layout not in ("loop", "wide"):
         raise ValueError(f"Unknown doppler_layout: {doppler_layout}")
     use_f32_matmuls()
+    F = e_ac.shape[0]
     S = e_fast.shape[-1]
     A = e_ac.shape[-1] // C
     w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
                                         doppler_window)
     prm = _params(sigma, noise_taps, None, dc_removal, train, guard,
                   neighborhood, offset_db, threshold_db, min_range_bin,
-                  max_range_bin)
+                  max_range_bin, noise_domain, noise_impl, cfar_impl,
+                  clutter_offset_db)
     zr, zi, p_ds, score_ds = frontend_kernel_dense(
-        e_ac, e_fast, seeds.to(torch.int32), w_rng, w_dop_t, prm, C)
+        e_ac, e_fast, seeds.to(torch.int32), w_rng, w_dop_t, prm, C,
+        _clutter_ds(clutter, F, S, C))
     return _finalize(zr, zi, p_ds, score_ds, K, A, C, doppler_window)

@@ -7,8 +7,9 @@ range-gate interval, and the build of :class:`Detections` from raw top-K
 picks (validity, cross-detection NMS, parabolic sub-bin refinement,
 bin-to-metric conversion) that the one-pass front end shares.  The CFAR is
 cell-averaging ("ca") or order-statistic ("os", :func:`_os_noise`).  The
-clutter map raises ``NotImplementedError`` (ROADMAP: the sequential
-drivers).
+sequential drivers carry an EMA background power map (the clutter map,
+:func:`clutter_map_update`) that gates every detector: a cell must exceed
+it by ``clutter_offset_db``.
 """
 
 from __future__ import annotations
@@ -143,10 +144,20 @@ def _threshold_power(p_lin: torch.Tensor, det: DetectionConfig):
     return power_db, is_peak & (power_db > thresh)
 
 
-def _no_clutter(clutter_lin) -> None:
-    if clutter_lin is not None:
-        raise NotImplementedError(
-            "the clutter map is not ported (ROADMAP: sequential drivers)")
+def clutter_map_update(clutter_lin: torch.Tensor, rds: torch.Tensor,
+                       alpha: float) -> torch.Tensor:
+    """One EMA step of the background power map [F, R, D] (linear) from an
+    RDS [F, A, R, D]: persistent returns build up in the map and are gated
+    out, transient ones are not.  The map starts at zero (no effect)."""
+    p = torch.mean(rds.abs() ** 2, dim=-3)
+    return clutter_map_update_from_power(clutter_lin, p, alpha)
+
+
+def clutter_map_update_from_power(clutter_lin: torch.Tensor,
+                                  p_lin: torch.Tensor,
+                                  alpha: float) -> torch.Tensor:
+    """:func:`clutter_map_update` from a linear power map [F, R, D]."""
+    return (1.0 - alpha) * clutter_lin + alpha * p_lin
 
 
 def detect_peaks(rds: torch.Tensor, cfg: RadarConfig, det: DetectionConfig,
@@ -157,8 +168,9 @@ def detect_peaks(rds: torch.Tensor, cfg: RadarConfig, det: DetectionConfig,
     through the CFAR-mask kernel (``ops/cfar.py``: CUDA on a CUDA tensor,
     its plain version on a CPU tensor).  That kernel implements CA only, so
     with ``cfar_mode="os"`` the plain detector runs and no kernel launches,
-    as the reference routes it (its detect.py:150-151)."""
-    _no_clutter(clutter_lin)
+    as the reference routes it (its detect.py:150-151).  ``clutter_lin``
+    [F, R, D] is the optional background power map; the clutter gate
+    follows the kernel as it follows the plain detector."""
     if use_pallas and det.cfar_mode == "ca":
         from radar_slam_tpu_torch.ops.cfar import cfar_mask
         power_db, is_peak_above = cfar_mask(
@@ -168,7 +180,8 @@ def detect_peaks(rds: torch.Tensor, cfg: RadarConfig, det: DetectionConfig,
     else:
         p_lin = torch.mean(rds.abs() ** 2, dim=-3) + 1e-12
         power_db, is_peak_above = _threshold_power(p_lin, det)
-    return _finalize_detections(power_db, is_peak_above, cfg, det)
+    return _finalize_detections(power_db, is_peak_above, cfg, det,
+                                clutter_lin)
 
 
 def detect_peaks_from_power(p_lin: torch.Tensor, cfg: RadarConfig,
@@ -177,21 +190,29 @@ def detect_peaks_from_power(p_lin: torch.Tensor, cfg: RadarConfig,
                             ) -> Detections:
     """:func:`detect_peaks` from a linear power map [F, R, D]
     (``mean_a |rds|^2``, the fused path's input)."""
-    _no_clutter(clutter_lin)
     power_db, is_peak_above = _threshold_power(p_lin + 1e-12, det)
-    return _finalize_detections(power_db, is_peak_above, cfg, det)
+    return _finalize_detections(power_db, is_peak_above, cfg, det,
+                                clutter_lin)
 
 
 def _finalize_detections(power_db: torch.Tensor, is_peak_above: torch.Tensor,
-                         cfg: RadarConfig, det: DetectionConfig
+                         cfg: RadarConfig, det: DetectionConfig,
+                         clutter_lin: Optional[torch.Tensor] = None
                          ) -> Detections:
-    """Range gate, exact top-K over the masked map (flat index r*D + d),
-    then :func:`_detections_from_bins`."""
+    """Range gate, clutter gate (``power_db`` above ``10 log10`` of the
+    background map plus ``clutter_offset_db``), exact top-K over the masked
+    map (flat index r*D + d), then :func:`_detections_from_bins`."""
     F, R, D = power_db.shape
     lo, hi = range_gate_bin_interval(cfg, R, det)
     r_idx = torch.arange(R, device=power_db.device)
     gate = (r_idx >= lo) & (r_idx <= hi)
     mask = is_peak_above & gate[:, None]
+    if clutter_lin is not None:
+        if clutter_lin.shape[-2:] != (R, D):
+            raise ValueError(f"clutter_lin: need [..., {R}, {D}], got "
+                             f"{tuple(clutter_lin.shape)}")
+        clutter_db = 10.0 * torch.log10(torch.clamp(clutter_lin, min=1e-12))
+        mask = mask & (power_db > clutter_db + det.clutter_offset_db)
     score = torch.where(mask, power_db, -float("inf")).reshape(F, R * D)
     top_vals, top_idx = topk_exact(score, det.max_detections)
     return _detections_from_bins(power_db, top_idx // D, top_idx % D,

@@ -382,7 +382,7 @@ def test_wrappers_check_their_inputs(cube):
         signals_from_numpy(sig.astype(np.complex128), "cpu")
     with pytest.raises(ValueError):
         signals_from_numpy(sig[0], "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tdet.detect_peaks_from_power(torch.ones(1, 400, 32), cfg.radar,
                                      cfg.detection,
-                                     clutter_lin=torch.ones(1, 400, 32))
+                                     clutter_lin=torch.ones(1, 32, 400))

@@ -133,7 +133,9 @@ def test_scatterer_driver_materialized_branch():
                                             num_antennas_el=2)),
      NotImplementedError),
     ("cube", dict(fft_mode="dft"), ValueError),
-    ("scatterers", dict(frontend_factors="dense", noise_impl="box_muller"),
+    ("scatterers", dict(frontend_factors="dense",
+                        radar=dataclasses.replace(bench_config().radar,
+                                                  num_antennas_el=2)),
      NotImplementedError),
     ("scatterers", dict(synth_in_kernel=False, chirp_subset=(0, 16)),
      NotImplementedError),

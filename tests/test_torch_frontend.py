@@ -147,14 +147,17 @@ def test_cpu_tensors_run_the_plain_version(outputs):
 
 
 @pytest.mark.parametrize("knob,value,exc", [
-    ("noise_domain", "time", NotImplementedError),
-    ("noise_impl", "box_muller", NotImplementedError),
-    ("cfar_impl", "cumsum", NotImplementedError),
-    ("clutter", torch.zeros(F, 400, 32), NotImplementedError),
+    ("noise_domain", "freq", ValueError),
+    ("noise_impl", "ziggurat", ValueError),
+    ("cfar_impl", "fft", ValueError),
+    ("clutter", torch.zeros(F, 32, 400), ValueError),
     ("noise_taps", (), ValueError),
     ("topk_mode", "heap", ValueError),
 ])
 def test_unported_knobs_raise(knob, value, exc):
+    """Every knob value of the reference's wrapper is ported (K1'); an
+    unknown name, a clutter map in the wrong layout and range-frequency
+    noise without the window's taps raise."""
     cfg = bench_config(noise_power=0.0)
     _, fields, _ = scene_fields(F)
     with pytest.raises(exc):
@@ -174,7 +177,9 @@ def test_wrapper_checks_its_inputs():
     prm = fe.FrontendParams(
         sigma=0.0, noise_taps=window_freq_taps(cfg.window), echo_upper=None,
         dc_removal=True, train=8, guard=2, neighborhood=3, offset_db=12.0,
-        threshold_db=-25.0, min_range_bin=1, max_range_bin=S - 1)
+        threshold_db=-25.0, min_range_bin=1, max_range_bin=S - 1,
+        noise_domain="range_freq", noise_impl="fast", cfar_impl="matmul",
+        clutter_offset_db=6.0)
     args = [split.ant, split.dopp, split.coarse, split.fine, split.tau,
             fast_time_base(cfg.radar), torch.zeros(F, dtype=torch.int32),
             w_rng, w_dop_t]

@@ -112,7 +112,8 @@ def test_spectral_noise_exact_construction():
     prm = fe.FrontendParams(
         sigma=1.0, noise_taps=taps, echo_upper=None, dc_removal=True,
         train=8, guard=2, neighborhood=3, offset_db=12.0, threshold_db=-25.0,
-        min_range_bin=1, max_range_bin=S - 1)
+        min_range_bin=1, max_range_bin=S - 1, noise_domain="range_freq",
+        noise_impl="fast", cfar_impl="matmul", clutter_offset_db=6.0)
     zr, zi, p, _ = fe.scatterer_frontend_split_reference(
         torch.zeros_like(split.ant), split.dopp, split.coarse, split.fine,
         split.tau, fast_time_base(cfg.radar), seeds, w_rng, w_dop_t, prm)

@@ -7,8 +7,9 @@
   pipeline takes another, materialized path and is not the oracle.
 - Alone, with noise: the 64-frame bench scene meets bench.py's accuracy
   gates (bench.py:413-414) on the CPU.
-- Without JAX: every module of the port imports, and the pipeline runs, in a
-  process where ``import jax`` fails.
+- Without JAX: every module of the port imports, and the pipelines run, in
+  a process where neither ``jax`` nor the JAX package ``radar_slam_tpu``
+  can be imported.
 """
 
 import dataclasses
@@ -93,16 +94,20 @@ def test_bench_scene_meets_accuracy_gates_on_cpu():
 
 
 def test_port_imports_and_runs_without_jax():
-    """A process whose ``import jax`` fails imports every module of the
-    port and runs 2-frame pipelines from scatterers (the one-pass route and
-    the OS-CFAR three-dispatch route) and one from ADC cubes."""
+    """A process where ``jax`` and the JAX package ``radar_slam_tpu`` cannot
+    be imported imports every module of the port and runs 2-frame pipelines
+    from scatterers (the one-pass route and the OS-CFAR three-dispatch
+    route; the sequential driver with the clutter map; the chunked driver)
+    and one from ADC cubes."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
+        BLOCKED = ("jax", "jaxlib", "radar_slam_tpu")
+
         class NoJax(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked in this process")
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is blocked in this process")
                 return None
 
         sys.meta_path.insert(0, NoJax())
@@ -140,8 +145,17 @@ def test_port_imports_and_runs_without_jax():
         out = process_signal_sequence_batched(sig, cfg)
         assert out.pose.shape == (2, 3)
         assert bool(torch.isfinite(out.pose).all())
-        assert not any(k.split(".")[0] in ("jax", "jaxlib")
-                       for k in sys.modules)
+
+        from radar_slam_tpu_torch.pipeline.frame import (
+            process_sequence, process_sequence_chunked)
+        clut = dataclasses.replace(cfg, detection=dataclasses.replace(
+            cfg.detection, clutter_map_alpha=0.05))
+        for out in (process_sequence(batch, torch.Generator(), clut),
+                    process_sequence_chunked(batch, torch.Generator(), cfg,
+                                             window=1)):
+            assert out.pose.shape == (2, 3)
+            assert bool(torch.isfinite(out.pose).all())
+        assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
         print("MODULES", len(mods))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -149,14 +163,16 @@ def test_port_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split("MODULES")[-1])
-    assert n >= 31, res.stdout
+    assert n >= 33, res.stdout
 
 
 @pytest.mark.parametrize("knob", [
-    dict(frontend_factors="dense", noise_domain="time"),
+    dict(frontend_factors="dense", chirp_subset=(0, 16)),
     dict(velocity=dataclasses.replace(bench_config().velocity,
                                       association_method="greedy")),
-    dict(noise_domain="time"), dict(noise_impl="box_muller")])
+    dict(aoa=dataclasses.replace(bench_config().aoa, method="music")),
+    dict(radar=dataclasses.replace(bench_config().radar,
+                                   num_antennas_el=2))])
 def test_unported_pipeline_configs_raise(knob):
     cfg = dataclasses.replace(bench_config(), **knob)
     _, fields, _ = scene_fields(2)

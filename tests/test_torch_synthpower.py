@@ -348,7 +348,8 @@ def test_dense_frontend_shares_k1s_body(factors):
         sigma=sigma, noise_taps=window_freq_taps(cfg.window),
         echo_upper=None, dc_removal=True, train=8, guard=2, neighborhood=3,
         offset_db=12.0, threshold_db=-25.0, min_range_bin=1,
-        max_range_bin=S - 1)
+        max_range_bin=S - 1, noise_domain="range_freq", noise_impl="fast",
+        cfar_impl="matmul", clutter_offset_db=6.0)
     k1 = fe.scatterer_frontend_split_reference(
         split.ant, split.dopp, split.coarse, split.fine, split.tau, t,
         _t(SEEDS), w_rng, w_dop_t, prm)
@@ -387,13 +388,15 @@ def test_wrappers_check_their_inputs(factors):
 
 
 @pytest.mark.parametrize("knob,value,exc", [
-    ("noise_domain", "time", NotImplementedError),
-    ("noise_impl", "box_muller", NotImplementedError),
-    ("cfar_impl", "cumsum", NotImplementedError),
-    ("clutter", torch.zeros(F, 400, 32), NotImplementedError),
+    ("noise_domain", "freq", ValueError),
+    ("noise_impl", "ziggurat", ValueError),
+    ("cfar_impl", "fft", ValueError),
+    ("clutter", torch.zeros(F, 32, 400), ValueError),
     ("noise_taps", (), ValueError),
 ])
 def test_dense_frontend_unported_knobs_raise(factors, knob, value, exc):
+    """K3 takes every knob value of the reference's wrapper (K1'); unknown
+    names and a clutter map in the wrong layout raise."""
     cfg, _, e_ac, e_fast, mix, _ = factors
     with pytest.raises(exc):
         _port_dense(cfg, e_ac, e_fast, mix, 0.0, **{knob: value})
