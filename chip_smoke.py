@@ -18,15 +18,20 @@ their validation surface; the prefix-sum CFAR of K1' is a kernel argument;
 no driver launches either.  One JSON line per phase:
 
 1. env              torch / CUDA versions, the card, kernel build times;
-2. kernel_vs_plain  K1 against its plain PyTorch version on the card, 8
-                    frames, at sigma = 0, at the production sigma
-                    (identical noise bits), with reference-fidelity
-                    synthesis, with a scatterer capacity of 100 (no
-                    multiple of the tiles), with 64 chirps, and on the
-                    64-frame batch of the pipeline phase: power map and Z
-                    to 1e-5 of their maxima, detection sets equal up to
-                    one borderline CFAR flip, valid-slot signatures within
-                    2e-4;
+2. kernel_vs_plain  K1 against its plain PyTorch version evaluated in
+                    float64 on the exact DFT (the oracle), 8 frames, at
+                    sigma = 0, at the production sigma (identical noise
+                    bits), with reference-fidelity synthesis, with a
+                    scatterer capacity of 100 (no multiple of the tiles),
+                    with 64 chirps, with 401 samples (the range DFT's dense
+                    route), and on the 64-frame batch of the pipeline
+                    phase: Z within 2e-6 and the power map within 1e-5 of
+                    their maxima, detection sets equal (or each differing
+                    cell within 1e-3 dB of its threshold or neighbour),
+                    valid-slot signatures within 1e-5, outputs repeating
+                    bit for bit; against the reference's float32 range
+                    constant, the map within 1e-4 and Z within 2e-4; the
+                    branch counters (dense_range on the prime length only);
 3. pipeline         64 frames through K1: solve success > 0.9 over frames
                     1..63, final pose error <= 0.35 m, position RMSE
                     <= 0.16 m (bench.py's gates), K1 launch count > 0;
@@ -45,16 +50,19 @@ no driver launches either.  One JSON line per phase:
                     and "fft" + use_pallas (K9, K10): bench.py's gates in
                     each, the matching launch counts > 0, each run's pose
                     difference from the fused run;
-6. synth_kernels_vs_plain  K6, K4, K5 and K3 against their plain versions
-                    on 8 frames and on the 64-frame batch at the production
-                    sigma (identical Philox bits on both sides): K6 within
-                    1e-6 absolute in both transforms ("fast", "box_muller",
-                    whose mean, std and tails beyond 4 sigma are shown); K4
-                    to 1e-5 of the map's maximum, and against K7 on the
-                    explicit cube e_ac^T e_fast + sigma K6; K5 valid slots
-                    within 2e-4, and against detection_signatures on that
-                    cube; K3 to K1's tolerances, and its power map against
-                    K1's (dense vs split factors) to 1e-5 of the maximum;
+6. synth_kernels_vs_plain  K6, K4, K5 and K3 on 8 frames and on the
+                    64-frame batch at the production sigma (identical
+                    Philox bits on both sides): K6 within 1e-6 absolute in
+                    both transforms ("fast", "box_muller", whose mean, std
+                    and tails beyond 4 sigma are shown); K4 to 1e-5 of the
+                    map's maximum against its float64 oracle, to 1e-4
+                    against its plain version on the reference's constant
+                    and against K7 on the explicit cube, repeating bit for
+                    bit; K5 valid slots within 2e-4 of its plain version on
+                    the exact range columns it takes on the card, and of
+                    the reference's columns and detection_signatures on
+                    that cube; K3 to K1's tolerances, its power map within
+                    1e-5 of K1's (dense vs split factors);
 7. three_dispatch_pipeline  the 64-frame scene through the scatterer driver
                     on the three-dispatch route with CA-CFAR
                     (frontend_one_pass=False, generator seed CUBE_SEED: the
@@ -67,12 +75,14 @@ no driver launches either.  One JSON line per phase:
 8. k1prime_kernels_vs_plain  K1 and K3 in each K1' branch (time-domain
                     noise with either transform, range-frequency Box-Muller,
                     the prefix-sum CFAR, the clutter input) against their
-                    plain versions on 8 and 64 frames at the production
-                    sigma: K1's tolerances with identical detection sets,
-                    the launch and branch counts, the noise words bit for
-                    bit in both domains and transforms, K3 on the time
-                    domain against K4 (one noisy cube) to 1e-5 of the
-                    map's maximum, a clutter map gating >= 1/4 of the cells;
+                    float64 oracles on 8 and 64 frames at the production
+                    sigma: K1's tolerances, outputs repeating bit for bit,
+                    the launch and branch counts, the range-frequency noise
+                    words bit for bit and the time-domain ones through the
+                    DFT (within 2e-6), K3 on the time domain against K4
+                    (one noisy cube) to 1e-5 of the map's maximum and K5's
+                    signatures against its Z columns within 2e-4, a clutter
+                    map gating >= 1/4 of the cells;
 9. sequential_pipeline  process_sequence on the 64-frame scene with the
                     clutter map (alpha 0.05, SEQ_SEED) and
                     process_signal_sequence on the 64-frame cubes
@@ -87,16 +97,22 @@ no driver launches either.  One JSON line per phase:
                     transform, and Box-Muller in either domain on the
                     batched driver;
 11. throughput      frames/s of the scatterer pipeline (CUDA events, 2048
-                    vs 512 frames differenced, interleaved trials) and
-                    K1's and its plain version's time per 64-frame call;
+                    vs 512 and 8192 vs 2048 frames differenced, interleaved
+                    trials, peak device memory), K1's and its plain
+                    version's time per 64-frame call, K1's kernels' times
+                    from a profile of one call, and K1's time at F = 1;
 12. cube_throughput the same for the fused cube driver (cubes synthesized
                     before timing) and the time per 64-frame call of K7,
                     K8, K9, K10 and of each plain version (not gated);
 13. three_dispatch_throughput  the same for the OS three-dispatch scatterer
                     driver, and the time per 64-frame call of K3, K4, K5,
-                    K6 and of each plain version (not gated);
-14. k1prime_throughput  K1's time per 64-frame call in each K1' branch and
-                    its plain version's (not gated);
+                    K6 and of each plain version, K3's and K4's kernels
+                    from a profile (not gated);
+14. k1prime_throughput  K1's time per 64-frame call in each K1' branch, its
+                    kernels from a profile, and its plain version's (not
+                    gated); frontend_breakdown: K3's kernels in each noise
+                    domain at product depths 32 and 128 and at sigma 0 and
+                    the production sigma (not gated);
 15. sequential_latency  p50 / p99 of one process_scatterers step (CUDA
                     events and host clock, 256 frames after 16 of
                     warm-up), frames/s of the chunked driver (2048 vs 512),
@@ -111,10 +127,13 @@ no driver launches either.  One JSON line per phase:
                     share, launches, the costliest kernels;
 18. kernels         the per-kernel summary line: launches on the main
                     paths, error against the plain version, kernel and
-                    plain times, the bound (operations or bytes at the
-                    H100's peak rates, each DFT stage counted as an FFT
-                    where that is less work) and the one-call PyTorch time
-                    (none of these kernels has one: null).
+                    plain times, the bound (the largest of the FP32, 3xTF32
+                    tensor-core and INT32 pipes' times for the work and of
+                    the bytes' time, each DFT stage counted as an FFT where
+                    that is less work; bound_pipe names it, bound_fp32_ms
+                    is the FP32-only count), sub-kernel times, K1 at F = 1,
+                    and the one-call PyTorch time (none of these kernels
+                    has one: null).
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
@@ -185,13 +204,37 @@ K1P_LINE = {"time": "time_fast", "time_box_muller": "time_box_muller",
             "box_muller": "freq_box_muller", "cumsum": "cumsum",
             "clutter": "clutter"}
 # Peak rates of one NVIDIA H100 SXM (data sheet, at 700 W): FP32 outside
-# the tensor cores, and HBM3.  A kernel's bound is the larger of the
-# floating-point operations its function needs over the first and the bytes
-# it must move (each input read once, each output written once) over the
-# second.
+# the tensor cores, TF32 on the tensor cores (a 3xTF32 product takes three
+# passes: 495 / 3 TFLOP/s), HBM3; and the INT32 pipe, 64 operations per SM
+# per clock on 132 SMs at the SM clock nvidia-smi reports.  A kernel's
+# bound is the largest of the times its work needs on each pipe and its
+# bytes (each input read once, each output written once) need at the
+# memory rate; bound_fp32_ms is the earlier count (every floating-point
+# operation on the FP32 pipe, no integer work), kept for comparison.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES_S = 3.35e12
-FRONTEND_TOL = {"p_rel": 1e-5, "z_rel": 1e-5, "set_diff": 1, "sig_abs": 2e-4}
+INT32_OPS_PER_SM_CLOCK = 64
+H100_SMS = 132
+# INT32 instructions of one Philox-4x32-10 block: 10 rounds of 2 wide
+# multiplies (one IMAD.WIDE gives both halves), 2 three-input XORs and a
+# key add; and of the "fast" transform's four byte sums.  (A first count,
+# 100 and 40, took hi and lo as two multiplies and the XORs as four: K6
+# then read faster than its bound.)
+PHILOX_BLOCK_OPS = 50
+BYTE_SUM_OPS = 20
+# The one-pass kernels against their plain versions evaluated in float64
+# on the exact DFT (the oracle: the kernels' function, its rounding
+# negligible).  At float32 the plain versions' dense 400-term sums are
+# themselves ~1-2e-6 of max |Z| off the oracle (phase kernel_vs_plain,
+# plain_f32_vs_oracle).  The plain versions' own constant, range_dft_matrix
+# (the reference's, float32 phases up to ~2.5e3 rad), sits 3e-5 of the
+# maximum away in power and 7e-5 in Z (tests/test_torch_range_dft.py);
+# against it the kernels are held to REFERENCE_CONSTANT_TOL and its
+# differing detections are shown.
+FRONTEND_TOL = {"p_rel": 1e-5, "z_rel": 2e-6, "set_diff": 0,
+                "sig_abs": 1e-5}
+REFERENCE_CONSTANT_TOL = {"p_rel": 1e-4, "z_rel": 2e-4}
 
 
 def check(ok, what):
@@ -212,12 +255,17 @@ def nvidia_smi_line():
 
 
 def bench_config(torch_cfg_module, noise_power=None, max_scatterers=128,
-                 num_chirps=None):
+                 num_chirps=None, samples_per_chirp=None):
     import dataclasses
     cfg = dataclasses.replace(torch_cfg_module.complete_analysis_config(),
                               max_scatterers=max_scatterers)
+    # samples_per_chirp is int(chirp_duration * sampling_rate).
+    rate = (None if samples_per_chirp is None else
+            (samples_per_chirp + 0.5) / cfg.radar.chirp_duration)
     radar = {k: v for k, v in (("noise_power", noise_power),
-                               ("num_chirps", num_chirps)) if v is not None}
+                               ("num_chirps", num_chirps),
+                               ("sampling_rate", rate))
+             if v is not None}
     return dataclasses.replace(cfg, radar=dataclasses.replace(cfg.radar,
                                                               **radar))
 
@@ -233,7 +281,8 @@ def scene(n_frames, cfg, device):
 
 
 def kernel_inputs(batch, cfg, seeds, fidelity="tpu"):
-    """The front-end kernel's inputs at the main path's shapes."""
+    """The front-end kernel's inputs at the main path's shapes: (ant, dopp,
+    coarse, fine, tau, t, seeds, mix, w_dop_t) and the knobs."""
     from radar_slam_tpu_torch.ops import frontend as fe
     from radar_slam_tpu_torch.ops.windows import window_freq_taps
     from radar_slam_tpu_torch.signal.detect import range_gate_bin_interval
@@ -246,8 +295,7 @@ def kernel_inputs(batch, cfg, seeds, fidelity="tpu"):
     split = synthesis_factors_split(batch, cfg.radar, fidelity)
     t = fast_time_base(cfg.radar, fidelity, device=dev)
     mix = _mix_vector(cfg.radar, cfg.window, "baseband", S, device=dev)
-    w_rng, w_dop_t = fe.frontend_constants(C, S, mix, True,
-                                           cfg.doppler_window)
+    w_dop_t = fe.doppler_constant(C, cfg.doppler_window, dev)
     lo, hi = range_gate_bin_interval(cfg.radar, S, d)
     prm = fe.FrontendParams(
         sigma=float(cfg.radar.noise_power) ** 0.5,
@@ -260,8 +308,46 @@ def kernel_inputs(batch, cfg, seeds, fidelity="tpu"):
         noise_domain="range_freq", noise_impl="fast", cfar_impl="matmul",
         clutter_offset_db=6.0)
     args = (split.ant, split.dopp, split.coarse, split.fine, split.tau, t,
-            seeds, w_rng, w_dop_t)
+            seeds, mix, w_dop_t)
     return args, prm
+
+
+def exact_dft(mix, dc_removal):
+    """The range DFT [S, S] complex128, diag(mix) W with W[s, r] =
+    e^{+2j pi (s r mod S) / S} built in float64 (column 0 zero with
+    dc_removal)."""
+    import torch
+    S = mix.shape[0]
+    s = torch.arange(S, dtype=torch.float64, device=mix.device)
+    phase = (2.0 * math.pi / S) * torch.remainder(s[:, None] * s[None, :], S)
+    w = torch.polar(torch.ones_like(phase), phase)
+    if dc_removal:
+        w[:, 0] = 0
+    return mix.to(torch.complex128)[:, None] * w
+
+
+def plain_args(args, prm, exact=True):
+    """The kernel's arguments as its plain version takes them, the mix
+    vector (index 7) replaced by a dense range DFT.  exact: the oracle --
+    every complex input in complex128 and the DFT built in float64, so the
+    plain version evaluates the kernel's function in float64; else the
+    reference's float32 constant (range_dft_matrix) at the port's
+    precision."""
+    import torch
+    from radar_slam_tpu_torch.signal.rds import range_dft_matrix
+    mix = args[7]
+    if not exact:
+        return (*args[:7], range_dft_matrix(mix.shape[0], mix,
+                                            prm.dc_removal), *args[8:])
+    c = lambda x: x.to(torch.complex128)
+    return (c(args[0]), c(args[1]), c(args[2]), c(args[3]), args[4],
+            args[5], args[6], exact_dft(mix, prm.dc_removal), c(args[8]))
+
+
+def as_f32(outs):
+    """A float64 oracle's (zr, zi, p, score) rounded once to float32."""
+    import torch
+    return tuple(x.to(torch.float32) for x in outs)
 
 
 def detection_set(rb, db, vals):
@@ -270,37 +356,73 @@ def detection_set(rb, db, vals):
             for r, d, o in zip(rb[f], db[f], ok[f].numpy()) if o}
 
 
+def range_plan(S):
+    from radar_slam_tpu_torch.ops.range_dft import plan
+    radices = plan(S)
+    return "dense route" if radices is None else "factored " + "x".join(
+        map(str, radices))
+
+
 def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
     out = {}
     # The main path's knobs at sigma = 0 and at the production sigma; the
     # reference-fidelity synthesis (the kernel's upper echo gate); a
-    # scatterer capacity that is no multiple of the kernel's tiles; and the
+    # scatterer capacity that is no multiple of the kernel's tiles; the
     # 64-chirp frame of default_config (the largest CFAR map in the repo);
-    # and the 64-frame batch the pipeline phase hands the kernel.
-    for label, npow, fid, cap, chirps, frames in (
-            ("sigma0", 0.0, "tpu", 128, None, 8),
-            ("sigma", None, "tpu", 128, None, 8),
-            ("reference_fidelity", None, "reference", 128, None, 8),
-            ("ragged_capacity", None, "tpu", 100, None, 8),
-            ("chirps64", None, "tpu", 128, 64, 8),
-            ("pipeline_batch", None, "tpu", 128, None, 64)):
-        cfg = bench_config(cfg_mod, npow, cap, chirps)
+    # a prime number of samples (the range DFT's dense route); and the
+    # 64-frame batch the pipeline phase hands the kernel.  Each kernel call
+    # runs twice: its outputs must repeat bit for bit.
+    for label, npow, fid, cap, chirps, samples, frames in (
+            ("sigma0", 0.0, "tpu", 128, None, None, 8),
+            ("sigma", None, "tpu", 128, None, None, 8),
+            ("reference_fidelity", None, "reference", 128, None, None, 8),
+            ("ragged_capacity", None, "tpu", 100, None, None, 8),
+            ("chirps64", None, "tpu", 128, 64, None, 8),
+            ("prime_samples", None, "tpu", 128, None, 401, 8),
+            ("pipeline_batch", None, "tpu", 128, None, None, 64)):
+        cfg = bench_config(cfg_mod, npow, cap, chirps, samples)
         batch, _ = scene(frames, cfg, device)
         seeds = (torch.arange(frames, dtype=torch.int32, device=device)
                  * 7919 - 3)
         args, prm = kernel_inputs(batch, cfg, seeds, fid)
-        before = fe.frontend_kernel_split.launches
+        S = cfg.radar.samples_per_chirp
+        before = branch_counts(fe.frontend_kernel_split)
         kern = fe.frontend_kernel_split(*args, prm)
+        again = fe.frontend_kernel_split(*args, prm)
         torch.cuda.synchronize()
-        check(fe.frontend_kernel_split.launches == before + 1,
-              "launch counter did not move")
-        plain = fe.scatterer_frontend_split_reference(*args, prm)
+        after = branch_counts(fe.frontend_kernel_split)
+        moved = {k: after[k] - before[k] for k in after}
+        dense = range_plan(S) == "dense route"
+        check(moved == {k: 2 * int(k == "launches"
+                                   or (k == "dense_range" and dense))
+                        for k in moved}, f"{label}: counts {moved}")
+        plain = as_f32(fe.scatterer_frontend_split_reference(
+            *plain_args(args, prm), prm))
+        ref = fe.scatterer_frontend_split_reference(
+            *plain_args(args, prm, exact=False), prm)
         torch.cuda.synchronize()
-        out[label] = frontend_errors(torch, fe, cfg, kern, plain, label)
+        out[label] = frontend_errors(torch, fe, cfg, kern, plain, label, prm)
+        out[label]["vs_reference_constant"] = frontend_errors(
+            torch, fe, cfg, kern, ref, label, prm)
+        # The plain version itself at float32 on the exact DFT, against the
+        # float64 oracle: the rounding of its dense 400-term sums.
+        f32 = fe.scatterer_frontend_split_reference(
+            *args[:7], exact_dft(args[7], prm.dc_removal).to(
+                torch.complex64), args[8], prm)
+        out[label]["plain_f32_vs_oracle"] = {
+            k: v for k, v in frontend_errors(
+                torch, fe, cfg, f32, plain, label, prm).items()
+            if k in ("p_rel_err", "z_rel_err", "sig_max_err", "set_diff")}
+        out[label]["range_dft"] = range_plan(S)
+        out[label]["branch_counts"] = moved
         out[label]["outputs_sha256"] = digest(kern)
-    emit("kernel_vs_plain", tolerance=FRONTEND_TOL, **out)
+        out[label]["repeat_sha256"] = digest(again)
+    emit("kernel_vs_plain", tolerance=FRONTEND_TOL,
+         reference_constant_tolerance=REFERENCE_CONSTANT_TOL, **out)
     for label, r in out.items():
         check_frontend(label, r)
+        check(r["outputs_sha256"] == r["repeat_sha256"],
+              f"{label}: outputs differ between two runs")
     return out["pipeline_batch"]["p_max_abs_err"]
 
 
@@ -313,9 +435,32 @@ def digest(tensors):
     return h.hexdigest()[:16]
 
 
-def frontend_errors(torch, fe, cfg, kern, plain, label):
+def cell_margins(torch, fe, p_ds, prm, cells, limit=4):
+    """For detections (frame, range bin, Doppler bin) in one set and not
+    the other: the cell's margin over its CFAR threshold and over its
+    largest neighbour on the plain map (dB)."""
+    rows = []
+    for f, r, d in sorted(cells)[:limit]:
+        p1 = p_ds[f] + 1e-12
+        thresh = (fe._cfar_threshold_cumsum(p1, prm)
+                  if prm.cfar_impl == "cumsum"
+                  else fe._cfar_threshold(p1, prm))
+        v = p1[d, r]
+        h = prm.neighborhood // 2
+        nb = p1[max(d - h, 0):d + h + 1, max(r - h, 0):r + h + 1].flatten()
+        nb = torch.sort(nb, descending=True).values
+        second = nb[1] if nb[0] == v else nb[0]
+        rows.append(dict(
+            cell=[f, r, d],
+            margin_to_threshold_db=float(10 * torch.log10(v) - thresh[d, r]),
+            margin_to_neighbours_db=float(10 * torch.log10(v / second))))
+    return rows
+
+
+def frontend_errors(torch, fe, cfg, kern, plain, label, prm):
     """A one-pass kernel's outputs (zr, zi, p, score) against its plain
-    version's: power map and Z errors, detection sets, signatures."""
+    version's: power map and Z errors, detection sets (with the margins of
+    the cells that differ), signatures."""
     zr_k, zi_k, p_k, s_k = kern
     zr_p, zi_p, p_p, s_p = plain
     for name, x in (("zr", zr_k), ("zi", zi_k), ("p", p_k),
@@ -338,17 +483,33 @@ def frontend_errors(torch, fe, cfg, kern, plain, label):
                if bool(both.any()) else 0.0)
     return dict(p_max_abs_err=p_err, p_rel_err=p_rel, z_rel_err=z_rel,
                 detections=len(set_p), set_diff=len(set_k ^ set_p),
+                differing_cells=cell_margins(torch, fe, p_p, prm,
+                                             set_k ^ set_p),
                 sig_max_err=sig_err)
 
 
-def check_frontend(label, r):
-    check(r["p_rel_err"] < FRONTEND_TOL["p_rel"], f"{label}: power map rel err")
-    check(r["z_rel_err"] < FRONTEND_TOL["z_rel"], f"{label}: Z rel err")
+def explained(r, tol_db=1e-3):
+    """Every differing detection sits within tol_db of its CFAR threshold
+    or of its largest neighbour: a flip of a cell the two maps' rounding
+    can decide either way."""
+    return (len(r["differing_cells"]) == r["set_diff"]
+            and all(min(abs(c["margin_to_threshold_db"]),
+                        abs(c["margin_to_neighbours_db"])) < tol_db
+                    for c in r["differing_cells"]))
+
+
+def check_frontend(label, r, tol=FRONTEND_TOL):
+    check(r["p_rel_err"] < tol["p_rel"], f"{label}: power map rel err")
+    check(r["z_rel_err"] < tol["z_rel"], f"{label}: Z rel err")
     check(r["detections"] > 0, f"{label}: no detections")
-    check(r["set_diff"] <= FRONTEND_TOL["set_diff"],
-          f"{label}: detection sets differ")
-    check(r["sig_max_err"] < FRONTEND_TOL["sig_abs"],
-          f"{label}: signature error")
+    check(r["set_diff"] <= tol["set_diff"] or explained(r),
+          f"{label}: detection sets differ {r['differing_cells']}")
+    check(r["sig_max_err"] < tol["sig_abs"], f"{label}: signature error")
+    ref = r.get("vs_reference_constant")
+    if ref is not None:
+        check(ref["p_rel_err"] < REFERENCE_CONSTANT_TOL["p_rel"]
+              and ref["z_rel_err"] < REFERENCE_CONSTANT_TOL["z_rel"],
+              f"{label}: against the reference's constant {ref}")
 
 
 def pipeline_errors(out, gt, n_frames, label="pipeline"):
@@ -398,43 +559,101 @@ def cuda_time_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def frames_per_s(torch, run_for, sizes, trials=4):
+    """Frames/s from CUDA-event times of whole calls at two batch sizes,
+    differenced (the fixed per-call cost cancels), best of interleaved
+    trials; also the times."""
+    f_lo, f_hi = sizes
+    lo, hi = run_for(f_lo), run_for(f_hi)
+    lo()
+    hi()
+    torch.cuda.synchronize()
+    t_lo = t_hi = float("inf")
+    for _ in range(trials):
+        t_lo = min(t_lo, cuda_time_ms(torch, lo, 1))
+        t_hi = min(t_hi, cuda_time_ms(torch, hi, 1))
+    return (f_hi - f_lo) / max((t_hi - t_lo) / 1e3, 1e-9), t_lo, t_hi
+
+
+def kernel_profile(torch, fn):
+    """Device time (ms) by kernel name of one traced call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            name = kernel_name(ev.name)
+            per[name] = per.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return per
+
+
+def kernel_name(full):
+    """A kernel's short name: its function name and template arguments,
+    without the return type, namespaces and parameter list."""
+    import re
+    name = re.sub(r"\(anonymous namespace\)::|^void |at::native::", "", full)
+    depth, end = 0, len(name)
+    for i, ch in enumerate(name):
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0:
+            end = i
+            break
+    return name[:end][:80]
+
+
 def phase_throughput(torch, fe, cfg_mod, device):
     from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
     cfg = bench_config(cfg_mod)
-    f2, f3 = 512, 2048
-    b2, _ = scene(f2, cfg, device)
-    b3, _ = scene(f3, cfg, device)
+    batches = {}
 
-    def run(b):
+    def run_for(n):
+        if n not in batches:
+            batches[n] = scene(n, cfg, device)[0]
+        b = batches[n]
         return lambda: process_sequence_batched(
             b, torch.Generator().manual_seed(0), cfg)
 
-    run(b2)()
-    run(b3)()
-    torch.cuda.synchronize()
-    t2 = t3 = float("inf")
-    for _ in range(4):
-        t2 = min(t2, cuda_time_ms(torch, run(b2), 1))
-        t3 = min(t3, cuda_time_ms(torch, run(b3), 1))
-    fps = (f3 - f2) / max((t3 - t2) / 1e3, 1e-9)
+    torch.cuda.reset_peak_memory_stats()
+    fps, t512, t2048 = frames_per_s(torch, run_for, (512, 2048))
+    batches.pop(512)
+    fps_hi, _, t8192 = frames_per_s(torch, run_for, (2048, 8192), trials=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    batches.clear()
 
     b64, _ = scene(64, cfg, device)
     seeds = torch.arange(64, dtype=torch.int32, device=device)
     args, prm = kernel_inputs(b64, cfg, seeds)
     kern = lambda: fe.frontend_kernel_split(*args, prm)
-    plain = lambda: fe.scatterer_frontend_split_reference(*args, prm)
+    plain = lambda: fe.scatterer_frontend_split_reference(
+        *plain_args(args, prm, exact=False), prm)
     kern()
     plain()
     torch.cuda.synchronize()
     plain_ms = [cuda_time_ms(torch, plain, 5)]
     kern_ms = [cuda_time_ms(torch, kern, 20), cuda_time_ms(torch, kern, 20)]
     plain_ms.append(cuda_time_ms(torch, plain, 5))
-    emit("throughput", frames_per_s=fps, frames_delta=f3 - f2,
-         t512_ms=t2, t2048_ms=t3,
+    sub = kernel_profile(torch, kern)
+    # One frame: the sequential step's call.
+    b1, _ = scene(1, cfg, device)
+    args1, _ = kernel_inputs(b1, cfg, seeds[:1])
+    one = lambda: fe.frontend_kernel_split(*args1, prm)
+    one()
+    torch.cuda.synchronize()
+    f1_ms = min(cuda_time_ms(torch, one, 50) for _ in range(2))
+    f1_sub = kernel_profile(torch, one)
+    emit("throughput", frames_per_s=fps, frames_delta=2048 - 512,
+         t512_ms=t512, t2048_ms=t2048,
+         frames_per_s_2048_8192=fps_hi, t8192_ms=t8192,
          kernel_ms_per_64f=min(kern_ms), plain_ms_per_64f=min(plain_ms),
          kernel_ms_trials=kern_ms, plain_ms_trials=plain_ms,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return min(kern_ms), min(plain_ms)
+         kernel_sub_ms_per_64f=sub, kernel_ms_f1=f1_ms,
+         kernel_sub_ms_f1=f1_sub, peak_mem_gb=peak)
+    return min(kern_ms), min(plain_ms), sub, f1_ms
 
 
 def cube_signals(n_frames, cfg, device, seed):
@@ -694,9 +913,38 @@ def synth_inputs(batch, cfg):
     return e_ac, e_fast, mix
 
 
+def power_plain_exact(torch, sp, fe, e_ac, e_fast, seeds, mix, C, sigma,
+                      doppler_window, impl):
+    """K4's plain version as the float64 oracle: the cube, its exact range
+    DFT, the Doppler DFT, the antenna mean; [F, S, C] rounded to float32."""
+    c = lambda x: x.to(torch.complex128)
+    x = sp.synthesize_cube(c(e_ac), c(e_fast), seeds, sigma, impl)
+    F, AC, S = x.shape
+    z = x @ exact_dft(mix, True)
+    o = c(fe.doppler_constant(C, doppler_window, x.device)) @ z.reshape(
+        F, AC // C, C, S)
+    p = torch.sum(o.real * o.real + o.imag * o.imag, dim=1) * (C / AC)
+    return p.transpose(1, 2).to(torch.float32)
+
+
+def signatures_plain_exact(sp, e_ac, e_fast, seeds, rb, db, mix, C, sigma,
+                           doppler_window, impl):
+    """K5's plain version on the range columns K5 takes on the card
+    (float32, as K5 computes)."""
+    from radar_slam_tpu_torch.ops.range_dft import range_columns_exact
+    from radar_slam_tpu_torch.signal.rds import (signature_columns,
+                                                 signatures_from_columns)
+    x = sp.synthesize_cube(e_ac, e_fast, seeds, sigma, impl)
+    S = x.shape[-1]
+    _, w_dop = signature_columns(S, C, rb, db, mix, True, doppler_window)
+    return signatures_from_columns(
+        x, range_columns_exact(S, rb, mix, True), w_dop, x.shape[-2] // C)
+
+
 def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
     """K6, K4, K5 and K3 against their plain versions on one batch at the
-    production sigma; K4 / K5 against the explicit cube through K7 /
+    production sigma (K4, K5, K3 on the exact DFT, and against the
+    reference's constant); K4 / K5 against the explicit cube through K7 /
     detection_signatures, K3 against K1."""
     from radar_slam_tpu_torch.signal import detect as detect_mod
     from radar_slam_tpu_torch.signal.rds import detection_signatures
@@ -725,8 +973,12 @@ def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
 
     p_k = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
                              doppler_window=dw, noise_impl=impl)
-    p_p = sp.scatterer_power_reference(e_ac, e_fast, seeds, mix, C, sigma,
-                                       True, dw, impl)
+    p_p = power_plain_exact(torch, sp, fe, e_ac, e_fast, seeds, mix, C,
+                            sigma, dw, impl)
+    p_ref = sp.scatterer_power_reference(e_ac, e_fast, seeds, mix, C, sigma,
+                                         True, dw, impl)
+    p_again = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
+                                 doppler_window=dw, noise_impl=impl)
     cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
             + sigma * sp.noise_cube(seeds, A * C, S, impl)).reshape(
                 F, A, C, S)
@@ -734,29 +986,39 @@ def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(p_k).all()), f"{label}: K4 not finite")
     out["K4_abs"], out["K4_rel"] = rel_err(p_k, p_p)
+    out["K4_vs_reference_constant_rel"] = rel_err(p_k, p_ref)[1]
     out["K4_vs_K7_rel"] = rel_err(p_k, p_7)[1]
+    out["K4_repeats"] = bool(torch.equal(p_k, p_again))
 
     det = detect_mod.detect_peaks_from_power(p_k, cfg.radar, cfg.detection)
     rb, db, valid = det.range_bin, det.doppler_bin, det.valid
     s_k = sp.scatterer_signatures(e_ac, e_fast, seeds, rb, db, mix, C,
                                   sigma, doppler_window=dw, noise_impl=impl)
-    s_p = sp.scatterer_signatures_reference(e_ac, e_fast, seeds, rb, db,
-                                            mix, C, sigma, True, dw, impl)
+    s_p = signatures_plain_exact(sp, e_ac, e_fast, seeds, rb, db, mix, C,
+                                 sigma, dw, impl)
+    s_ref = sp.scatterer_signatures_reference(e_ac, e_fast, seeds, rb, db,
+                                              mix, C, sigma, True, dw, impl)
     s_x = detection_signatures(cube, rb, db, cfg.radar, window=cfg.window,
                                doppler_window=dw)
     torch.cuda.synchronize()
     check(bool(valid.any()), f"{label}: no detections for K5")
     out["K5_valid_slots"] = int(valid.sum())
     out["K5_abs"] = (s_k - s_p).abs()[valid].max().item()
+    out["K5_vs_reference_constant_abs"] = (
+        s_k - s_ref).abs()[valid].max().item()
     out["K5_vs_cube_abs"] = (s_k - s_x).abs()[valid].max().item()
 
     args, prm = kernel_inputs(batch, cfg, seeds)
     dense = (e_ac, e_fast, seeds, args[7], args[8])
     k3 = fe.frontend_kernel_dense(*dense, prm, C)
     torch.cuda.synchronize()
-    plain3 = fe.scatterer_frontend_reference(*dense, prm, C)
+    c = lambda x: x.to(torch.complex128)
+    plain3 = as_f32(fe.scatterer_frontend_reference(
+        c(e_ac), c(e_fast), seeds, exact_dft(mix, True), c(args[8]), prm,
+        C))
     torch.cuda.synchronize()
-    out["K3"] = frontend_errors(torch, fe, cfg, k3, plain3, f"{label} K3")
+    out["K3"] = frontend_errors(torch, fe, cfg, k3, plain3, f"{label} K3",
+                                prm)
     k1 = fe.frontend_kernel_split(*args, prm)
     torch.cuda.synchronize()
     out["K3_vs_K1_p_rel"] = rel_err(k3[2], k1[2])[1]
@@ -775,9 +1037,20 @@ def phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
         out[label] = synth_kernel_checks(torch, sp, fe, power, cfg, batch,
                                          seeds, label)
     emit("synth_kernels_vs_plain",
-         tolerance={"K6_abs": 1e-6, "K4_rel": 1e-5, "K4_vs_K7_rel": 1e-5,
-                    "K5_abs": 2e-4, "K5_vs_cube_abs": 2e-4,
-                    "K3": FRONTEND_TOL, "K3_vs_K1_p_rel": 1e-5}, **out)
+         tolerance={"K6_abs": 1e-6, "K4_rel": 1e-5,
+                    "K4_vs_reference_constant_rel": 1e-4,
+                    "K4_vs_K7_rel": 1e-4, "K4_repeats": True,
+                    "K5_abs": 2e-4, "K5_vs_reference_constant_abs": 5e-4,
+                    "K5_vs_cube_abs": 5e-4, "K3": FRONTEND_TOL,
+                    "K3_vs_K1_p_rel": 1e-5},
+         notes={"K4_vs_K7_rel": "K7 keeps the reference's float32 range "
+                                "constant (3e-5 of the maximum from the "
+                                "exact DFT)",
+                "K5": "K5 takes the exact DFT's range columns on the card; "
+                      "the reference's float32 columns (phases up to "
+                      "~1.2e-4 rad off) move unit-power signatures by "
+                      "up to ~3e-4"},
+         **out)
     for label, r in out.items():
         for ni in ("fast", "box_muller"):
             check(r[f"K6_{ni}_abs"] < 1e-6, f"{label}: K6 {ni}")
@@ -785,15 +1058,18 @@ def phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
         check(abs(st["mean"]) < 0.01 and abs(st["std"] - 1.0) < 0.01
               and st["beyond_4sigma"] > 0, f"{label}: K6 box_muller stats")
         check(r["K4_rel"] < 1e-5, f"{label}: K4 vs plain {r['K4_rel']}")
-        check(r["K4_vs_K7_rel"] < 1e-5,
-              f"{label}: K4 vs K7 {r['K4_vs_K7_rel']}")
+        check(r["K4_vs_reference_constant_rel"] < 1e-4
+              and r["K4_vs_K7_rel"] < 1e-4 and r["K4_repeats"],
+              f"{label}: K4 vs K7 / the reference's constant / itself")
         check(r["K5_abs"] < 2e-4, f"{label}: K5 vs plain {r['K5_abs']}")
-        check(r["K5_vs_cube_abs"] < 2e-4,
+        check(r["K5_vs_reference_constant_abs"] < 5e-4,
+              f"{label}: K5 vs the reference's constant")
+        check(r["K5_vs_cube_abs"] < 5e-4,
               f"{label}: K5 vs cube {r['K5_vs_cube_abs']}")
         check_frontend(f"{label} K3", r["K3"])
         check(r["K3_vs_K1_p_rel"] < 1e-5,
               f"{label}: K3 vs K1 {r['K3_vs_K1_p_rel']}")
-        check(r["launches"] == {"K3": 1, "K4": 1, "K5": 1, "K6": 3},
+        check(r["launches"] == {"K3": 1, "K4": 2, "K5": 1, "K6": 3},
               f"{label}: launch counts {r['launches']}")
     b = out["pipeline_batch"]
     return {"K3": b["K3"]["p_max_abs_err"], "K4": b["K4_abs"],
@@ -898,9 +1174,12 @@ def phase_three_dispatch_throughput(torch, sp, fe, cfg_mod, device):
     rb, db = det.range_bin, det.doppler_bin
     args, prm = kernel_inputs(b64, cfg, seeds)
     dense = (e_ac, e_fast, seeds, args[7], args[8])
+    dense_plain = (e_ac, e_fast, seeds,
+                   plain_args(args, prm, exact=False)[7], args[8])
     pairs = {
         "K3": (lambda: fe.frontend_kernel_dense(*dense, prm, C),
-               lambda: fe.scatterer_frontend_reference(*dense, prm, C)),
+               lambda: fe.scatterer_frontend_reference(*dense_plain, prm,
+                                                       C)),
         "K4": (lambda: sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
                                           doppler_window=dw,
                                           noise_impl=impl),
@@ -928,11 +1207,15 @@ def phase_three_dispatch_throughput(torch, sp, fe, cfg_mod, device):
                            plain_ms_per_64f=min(plain_ms),
                            kernel_ms_trials=kern_ms,
                            plain_ms_trials=plain_ms)
+        if name in ("K3", "K4"):
+            times[name]["kernel_sub_ms_per_64f"] = kernel_profile(torch,
+                                                                  kern)
     emit("three_dispatch_throughput", driver="process_sequence_batched",
          cfar_mode="os", frames_per_s=fps, frames_delta=f3 - f2,
          t512_ms=t2, t2048_ms=t3, noise_impl=impl, kernels=times,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"])
+    return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"],
+                t.get("kernel_sub_ms_per_64f"))
             for n, t in times.items()}
 
 
@@ -985,11 +1268,29 @@ def os_cfar_stage(torch, sp, cfg, batch):
 
 # ---- K1' and the sequential drivers ----------------------------------------
 
-def bound(flops, nbytes):
-    """(least time in ms, "operations" or "bytes") for this much work."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def sm_clock_hz():
+    """The SM clock the INT32 rate is counted at: nvidia-smi's maximum."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(work, clock_hz):
+    """(least time in ms, "operations" or "bytes", the pipe that bounds it,
+    the FP32-SIMT-only bound in ms) for work = {"fp32", "tf32x3", "int32",
+    "bytes"}: the largest of each pipe's time and the bytes' time."""
+    times = {"fp32": work["fp32"] / PEAK_FP32_FLOPS,
+             "tf32x3": work["tf32x3"] / PEAK_TF32X3_FLOPS,
+             "int32": work["int32"] / (INT32_OPS_PER_SM_CLOCK * H100_SMS
+                                       * clock_hz),
+             "bytes": work["bytes"] / PEAK_BYTES_S}
+    pipe = max(times, key=times.get)
+    fp32_only = max((work["fp32"] + work["tf32x3"]) / PEAK_FP32_FLOPS,
+                    times["bytes"])
+    return (times[pipe] * 1e3, "bytes" if pipe == "bytes" else "operations",
+            pipe, fp32_only * 1e3)
 
 
 def dft_ops(n, bins, rows):
@@ -999,47 +1300,69 @@ def dft_ops(n, bins, rows):
     return rows * min(8 * n * bins, 5 * n * math.log2(n))
 
 
+def philox_ops(draws, impl):
+    """INT32 operations of ``draws`` noise pairs: two Philox blocks and the
+    byte sums for the "fast" transform, one block for Box-Muller."""
+    per = (PHILOX_BLOCK_OPS if impl == "box_muller"
+           else 2 * PHILOX_BLOCK_OPS + BYTE_SUM_OPS)
+    return draws * per
+
+
 def kernel_work(name, F, A, C, S, Sc, K, B=128, time_domain=False,
-                clutter=False):
-    """(FP32 operations, bytes) one call of a kernel must do on F frames at
-    these shapes.  The true products -- the synthesis e_at e_fast and the
-    antenna-chirp product e_at T -- at 8 operations per complex MAC, each
-    DFT stage at dft_ops (windows, DC projection, noise, power, the CFAR's
-    few MFLOP and the Philox integer work are not counted); bytes of the
-    data inputs read once and the outputs written once (the DFT tables are
-    not counted: an FFT needs none)."""
+                clutter=False, impl="fast"):
+    """The work one call of a kernel must do on F frames at these shapes,
+    by pipe: {"fp32", "tf32x3", "int32", "bytes"}.  The true products --
+    the synthesis e_at e_fast and the antenna-chirp product e_at T -- at 8
+    operations per complex MAC, each DFT stage at dft_ops; where a kernel
+    runs them as 3xTF32 on the tensor cores (K1, K3, K4: the true product
+    and the Doppler DFT) they count at the tensor-core rate, the FFT and
+    everything in K5 and K7-K10 at the FP32 rate.  The Philox words of
+    every noise value the function draws on the INT32 pipe (windows, DC
+    projection, power and the CFAR's few MFLOP are not counted); bytes of
+    the data inputs read once and the outputs written once (the DFT tables
+    are not counted: an FFT needs none)."""
     M, Q = A * C, -(-S // B)
     cmac = 8
     doppler = dft_ops(C, C, A * S)                # every (antenna, range bin)
     z_out = 2 * S * M * 4 + 2 * C * S * 4         # zr, zi, p, score
+    noise = F * philox_ops(M * S, impl)
+    work = {"fp32": 0.0, "tf32x3": 0.0, "int32": 0.0, "bytes": 0.0}
     if name in ("K1", "K3"):
         # Time domain: X = e_at e_fast, then the range DFT of its M rows;
         # range frequency: the range DFT of e_fast's Sc rows, then e_at T.
-        ops = (cmac * M * Sc * S
-               + dft_ops(S, S, M if time_domain else Sc) + doppler)
         ins = (Sc * (A + C + Q + B) * 8 + Sc * 4 if name == "K1"
                else Sc * (M + S) * 8)
-        nbytes = F * (ins + 4 + z_out + (C * S * 4 if clutter else 0))
-        return F * ops, nbytes + S * 4
-    if name == "K4":
-        return (F * (cmac * M * Sc * S + dft_ops(S, S, M) + doppler),
-                F * (Sc * (M + S) * 8 + 4 + S * C * 4) + S * 8)
-    if name == "K5":
+        work.update(
+            tf32x3=F * (cmac * M * Sc * S + doppler),
+            fp32=F * dft_ops(S, S, M if time_domain else Sc), int32=noise,
+            bytes=F * (ins + 4 + z_out + (C * S * 4 if clutter else 0))
+            + S * 4)
+    elif name == "K4":
+        work.update(tf32x3=F * (cmac * M * Sc * S + doppler),
+                    fp32=F * dft_ops(S, S, M), int32=noise,
+                    bytes=F * (Sc * (M + S) * 8 + 4 + S * C * 4) + S * 8)
+    elif name == "K5":
         # The range DFT at the K detected bins, then one Doppler bin each.
-        return (F * (cmac * M * Sc * S + dft_ops(S, K, M)
-                     + dft_ops(C, 1, A * K)),
-                F * (Sc * (M + S) * 8 + 4 + 2 * K * 4 + K * A * 8) + S * 8)
-    if name == "K6":
-        return F * M * S * 20, F * (4 + M * S * 8)
-    if name in ("K7", "K8"):
+        work.update(fp32=F * (cmac * M * Sc * S + dft_ops(S, K, M)
+                              + dft_ops(C, 1, A * K)),
+                    int32=noise,
+                    bytes=F * (Sc * (M + S) * 8 + 4 + 2 * K * 4 + K * A * 8)
+                    + S * 8)
+    elif name == "K6":
+        work.update(fp32=F * M * S * 20, int32=noise,
+                    bytes=F * (4 + M * S * 8))
+    elif name in ("K7", "K8"):
         out = S * C * 4 if name == "K7" else M * S * 8
-        return (F * (M * S * 10 + dft_ops(S, S, M) + doppler),
-                F * (M * S * 8 + out) + S * 8)
-    if name == "K9":
-        return F * M * S * 10, F * 2 * M * S * 8 + S * 8
-    if name == "K10":
-        return F * S * C * (4 * A + 50), F * (M * S * 8 + S * C * 5)
-    raise ValueError(name)
+        work.update(fp32=F * (M * S * 10 + dft_ops(S, S, M) + doppler),
+                    bytes=F * (M * S * 8 + out) + S * 8)
+    elif name == "K9":
+        work.update(fp32=F * M * S * 10, bytes=F * 2 * M * S * 8 + S * 8)
+    elif name == "K10":
+        work.update(fp32=F * S * C * (4 * A + 50),
+                    bytes=F * (M * S * 8 + S * C * 5))
+    else:
+        raise ValueError(name)
+    return work
 
 
 def zero_counts(*wrappers):
@@ -1063,42 +1386,74 @@ def k1p_clutter(torch, p_ds, seed):
                                     device=p_ds.device)).contiguous()
 
 
+def signatures_at(torch, zr, zi, rb, db, A, C, doppler_window):
+    """Unit-power signatures [F, K, A] of the cells (rb, db) from a
+    one-pass kernel's Z columns: _finalize's math at given cells."""
+    import math
+    from radar_slam_tpu_torch.ops.windows import get_window
+    F, K = rb.shape
+    g = rb.to(torch.int64)[:, :, None].expand(F, K, zr.shape[-1])
+    zcols = torch.complex(torch.gather(zr, 1, g),
+                          torch.gather(zi, 1, g)).reshape(F, K, A, C)
+    c_idx = torch.arange(C, dtype=torch.float32, device=zr.device)
+    f_shift = torch.remainder(db.to(torch.int64) - C // 2, C).float()
+    phase = -((2.0 * math.pi / C) * c_idx[None, :, None]
+              * f_shift[:, None, :])
+    w_dop = torch.polar(torch.ones_like(phase), phase)
+    if doppler_window is not None:
+        w_dop = get_window(doppler_window, C, device=zr.device)[
+            None, :, None] * w_dop
+    sig = torch.einsum("fkac,fck->fka", zcols, w_dop)
+    power = torch.sum(sig.abs() ** 2, dim=-1, keepdim=True)
+    return torch.where(power > 0,
+                       sig / torch.sqrt(torch.clamp(power, min=1e-30)), sig)
+
+
 def k1p_checks(torch, fe, sp, cfg, batch, seeds, label):
-    """Every K1' branch of K1 and K3 against its plain version at the
-    production sigma; the noise words bit for bit; K3 on the time domain
-    against K4 on the same seeds; the clutter map's gating."""
+    """Every K1' branch of K1 and K3 against its plain version on the exact
+    DFT at the production sigma; the noise words; K3 on the time domain
+    against K4 on the same seeds, and K5's synthesis against it; the
+    clutter map's gating."""
     from radar_slam_tpu_torch.ops.noise import standard_normals
+    from radar_slam_tpu_torch.signal import detect as detect_mod
     F = seeds.shape[0]
     A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
     S = cfg.radar.samples_per_chirp
     args, prm = kernel_inputs(batch, cfg, seeds)
     e_ac, e_fast, mix = synth_inputs(batch, cfg)
     dense = (e_ac, e_fast, seeds, args[7], args[8])
-    base_p = fe.scatterer_frontend_split_reference(*args, prm)[2]
+    exact = plain_args(args, prm)
+    dense_exact = (e_ac.to(torch.complex128), e_fast.to(torch.complex128),
+                   seeds, exact[7], exact[8])
+    base_p = fe.scatterer_frontend_split_reference(*exact, prm)[2].to(
+        torch.float32)
     clut = k1p_clutter(torch, base_p, 11)
-    out, counts = {}, {}
+    out = {}
     for branch, knobs in K1P_BRANCHES.items():
         prm_b = dataclasses.replace(prm, **knobs)
         cl = clut if branch == "clutter" else None
         for kname, wrapper, run, plain in (
                 ("K1", fe.frontend_kernel_split,
                  lambda: fe.frontend_kernel_split(*args, prm_b, cl),
-                 lambda: fe.scatterer_frontend_split_reference(
-                     *args, prm_b, cl)),
+                 lambda: as_f32(fe.scatterer_frontend_split_reference(
+                     *exact, prm_b, cl))),
                 ("K3", fe.frontend_kernel_dense,
                  lambda: fe.frontend_kernel_dense(*dense, prm_b, C, cl),
-                 lambda: fe.scatterer_frontend_reference(*dense, prm_b, C,
-                                                         cl))):
+                 lambda: as_f32(fe.scatterer_frontend_reference(
+                     *dense_exact, prm_b, C, cl)))):
             before = branch_counts(wrapper)
             kern = run()
+            again = run()
             torch.cuda.synchronize()
             after = branch_counts(wrapper)
             moved = {k: after[k] - before[k] for k in after}
-            want = {k: int(k == "launches" or k in fe._branches(prm_b, cl))
+            want = {k: 2 * int(k == "launches"
+                               or k in fe._branches(prm_b, cl, S))
                     for k in after}
             check(moved == want, f"{label} {kname} {branch}: counts {moved}")
-            res = frontend_errors(torch, fe, cfg, kern, plain(), f"{label} "
-                                  f"{kname} {branch}")
+            res = frontend_errors(torch, fe, cfg, kern, plain(),
+                                  f"{label} {kname} {branch}", prm_b)
+            res["repeats"] = digest(kern) == digest(again)
             out[f"{kname}_{branch}"] = res
             if kname == "K1" and branch == "clutter":
                 free = fe.frontend_kernel_split(*args, prm_b)[3]
@@ -1107,38 +1462,61 @@ def k1p_checks(torch, fe, sp, cfg, batch, seeds, label):
                 passed = int((kern[3] > -1e29).sum())
                 out["clutter_gated_share"] = 1.0 - passed / passed_free
             if kname == "K3" and branch == "time_fast":
+                # One cube, two kernels: K4's map, and K5's signatures (its
+                # own FP32 synthesis) against K3's Z columns at K4's cells.
                 p4 = sp.scatterer_power(e_ac, e_fast, seeds, mix, C,
                                         prm_b.sigma,
                                         doppler_window=cfg.doppler_window,
                                         noise_impl="fast")
+                det = detect_mod.detect_peaks_from_power(p4, cfg.radar,
+                                                         cfg.detection)
+                s5 = sp.scatterer_signatures(
+                    e_ac, e_fast, seeds, det.range_bin, det.doppler_bin, mix,
+                    C, prm_b.sigma, doppler_window=cfg.doppler_window,
+                    noise_impl="fast")
+                s3 = signatures_at(torch, kern[0], kern[1], det.range_bin,
+                                   det.doppler_bin, A, C, cfg.doppler_window)
                 torch.cuda.synchronize()
                 out["K3_time_vs_K4_rel"] = rel_err(
                     kern[2], p4.transpose(1, 2))[1]
-    # The noise words: zero factors, unit noise on the identity range
-    # product (time) or on one unit tap (range frequency): Z is the drawn
-    # plane, bit for bit against standard_normals on the card.
-    eye = torch.eye(S, dtype=torch.complex64, device=seeds.device)
+                out["K5_vs_K3_time_sig_abs"] = (
+                    s5 - s3).abs()[det.valid].max().item()
+    # The noise words.  Range frequency: zero factors, one unit tap, no DC
+    # removal: Z is the drawn plane, bit for bit against standard_normals.
+    # Time domain: zero factors, sigma 1: Z is the drawn plane through the
+    # range DFT, held against the plain DFT of standard_normals' plane (a
+    # single differing word would move Z by ~5 % of its maximum).
     zeros_ac = torch.zeros_like(e_ac)
     zero_ant = torch.zeros_like(args[0])
-    bits = {}
+    bits, through_dft = {}, {}
     for domain in ("time", "range_freq"):
         for impl in ("fast", "box_muller"):
             prm_n = dataclasses.replace(
                 prm, noise_domain=domain, noise_impl=impl, dc_removal=False,
                 noise_taps=((0, 1.0),),
                 sigma=1.0 if domain == "time" else 1.0 / S ** 0.5)
-            w = eye if domain == "time" else args[7]
             gr, gi = standard_normals(seeds, A * C, S, impl)
             for kname, kern in (
                     ("K1", fe.frontend_kernel_split(
-                        zero_ant, *args[1:7], w, args[8], prm_n)),
+                        zero_ant, *args[1:7], mix, args[8], prm_n)),
                     ("K3", fe.frontend_kernel_dense(
-                        zeros_ac, e_fast, seeds, w, args[8], prm_n, C))):
+                        zeros_ac, e_fast, seeds, mix, args[8], prm_n, C))):
                 torch.cuda.synchronize()
-                bits[f"{kname}_{domain}_{impl}"] = bool(
-                    torch.equal(kern[0], gr.transpose(1, 2))
-                    and torch.equal(kern[1], gi.transpose(1, 2)))
+                key = f"{kname}_{domain}_{impl}"
+                if domain == "range_freq":
+                    bits[key] = bool(
+                        torch.equal(kern[0], gr.transpose(1, 2))
+                        and torch.equal(kern[1], gi.transpose(1, 2)))
+                    continue
+                w = exact_dft(mix, False)
+                z = (torch.complex(gr, gi).to(torch.complex128) @ w
+                     ).transpose(1, 2)
+                through_dft[key] = max(
+                    (kern[0] - z.real).abs().max().item(),
+                    (kern[1] - z.imag).abs().max().item()) / z.abs().max(
+                    ).item()
     out["noise_bits_identical"] = bits
+    out["noise_through_dft_rel"] = through_dft
     return out
 
 
@@ -1151,22 +1529,29 @@ def phase_k1prime_kernels_vs_plain(torch, fe, sp, cfg_mod, device):
                  * 7919 - 3)
         out[label] = k1p_checks(torch, fe, sp, cfg, batch, seeds, label)
     emit("k1prime_kernels_vs_plain",
-         tolerance={"p_rel": 1e-5, "z_rel": 1e-5, "set_diff": 0,
-                    "sig_abs": 2e-4, "K3_time_vs_K4_rel": 1e-5,
+         tolerance={**FRONTEND_TOL, "repeats": True,
+                    "K3_time_vs_K4_rel": 1e-5,
+                    "K5_vs_K3_time_sig_abs": 2e-4,
                     "clutter_gated_share": ">= 0.25",
-                    "noise_bits_identical": True}, **out)
+                    "noise_bits_identical": True,
+                    "noise_through_dft_rel": 2e-6}, **out)
     for label, r in out.items():
         for key, res in r.items():
             if not key.startswith(("K1_", "K3_")) or key.endswith("_rel"):
                 continue
             check_frontend(f"{label} {key}", res)
-            check(res["set_diff"] == 0, f"{label} {key}: detection sets")
+            check(res["repeats"], f"{label} {key}: outputs differ between "
+                  "two runs")
         check(r["K3_time_vs_K4_rel"] < 1e-5,
               f"{label}: K3 time vs K4 {r['K3_time_vs_K4_rel']}")
+        check(r["K5_vs_K3_time_sig_abs"] < 2e-4,
+              f"{label}: K5 vs K3 time {r['K5_vs_K3_time_sig_abs']}")
         check(r["clutter_gated_share"] >= 0.25,
               f"{label}: clutter gated {r['clutter_gated_share']}")
         check(all(r["noise_bits_identical"].values()),
               f"{label}: noise words {r['noise_bits_identical']}")
+        check(all(v < 2e-6 for v in r["noise_through_dft_rel"].values()),
+              f"{label}: time-domain noise {r['noise_through_dft_rel']}")
     b = out["pipeline_batch"]
     return {br: max(b[f"K1_{br}"]["p_max_abs_err"],
                     b[f"K3_{br}"]["p_max_abs_err"]) for br in K1P_BRANCHES}
@@ -1306,14 +1691,15 @@ def phase_k1prime_throughput(torch, fe, cfg_mod, device):
     b64, _ = scene(64, cfg, device)
     seeds = torch.arange(64, dtype=torch.int32, device=device)
     args, prm = kernel_inputs(b64, cfg, seeds)
+    ref = plain_args(args, prm, exact=False)
     clut = k1p_clutter(torch, fe.scatterer_frontend_split_reference(
-        *args, prm)[2], 11)
+        *ref, prm)[2], 11)
     times = {}
     for branch in K1P_LINE.values():
         prm_b = dataclasses.replace(prm, **K1P_BRANCHES[branch])
         cl = clut if branch == "clutter" else None
         kern = lambda: fe.frontend_kernel_split(*args, prm_b, cl)
-        plain = lambda: fe.scatterer_frontend_split_reference(*args, prm_b,
+        plain = lambda: fe.scatterer_frontend_split_reference(*ref, prm_b,
                                                               cl)
         kern()
         plain()
@@ -1325,11 +1711,38 @@ def phase_k1prime_throughput(torch, fe, cfg_mod, device):
         times[branch] = dict(kernel_ms_per_64f=min(kern_ms),
                              plain_ms_per_64f=min(plain_ms),
                              kernel_ms_trials=kern_ms,
-                             plain_ms_trials=plain_ms)
+                             plain_ms_trials=plain_ms,
+                             kernel_sub_ms_per_64f=kernel_profile(torch,
+                                                                  kern))
     emit("k1prime_throughput", kernel="K1 frontend_split", frames=64,
          branches=times)
-    return {b: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"])
-            for b, t in times.items()}
+    return {b: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"],
+                t["kernel_sub_ms_per_64f"]) for b, t in times.items()}
+
+
+def phase_frontend_breakdown(torch, fe, cfg_mod, device):
+    """Where the one-pass kernels' time goes (printed, not gated): K3's
+    kernels in each noise domain, 64 frames, at product depths Sc = 32 and
+    128 (the slope is the true product's cost) and at sigma 0 and the
+    production sigma (the difference is the noise's)."""
+    cfg = bench_config(cfg_mod)
+    batch, _ = scene(64, cfg, device)
+    seeds = torch.arange(64, dtype=torch.int32, device=device)
+    args, prm = kernel_inputs(batch, cfg, seeds)
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    C = cfg.radar.num_chirps
+    out = {}
+    for Sc in (32, 128):
+        ea, ef = e_ac[:, :Sc].contiguous(), e_fast[:, :Sc].contiguous()
+        for domain in ("range_freq", "time"):
+            for sigma in (0.0, prm.sigma):
+                prm_b = dataclasses.replace(prm, sigma=sigma,
+                                            noise_domain=domain)
+                out[f"{domain}_Sc{Sc}_sigma{sigma:g}"] = kernel_profile(
+                    torch, lambda: fe.frontend_kernel_dense(
+                        ea, ef, seeds, mix, args[8], prm_b, C))
+    emit("frontend_breakdown", kernel="K3 frontend_dense", frames=64,
+         sub_ms=out)
 
 
 def phase_sequential_latency(torch, fe, cfg_mod, device):
@@ -1438,10 +1851,29 @@ def build_kernels(_build):
     ptxas = {}
     for name in names:
         log = _build.library_path(name).with_suffix(".log")
-        ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
-                        if "registers" in ln or "spill" in ln]
-                       if log.exists() else [])
+        ptxas[name] = ptxas_report(log.read_text()) if log.exists() else []
     return secs, ptxas
+
+
+def ptxas_report(text):
+    """Per kernel: its name (from the mangled symbol: the identifier and
+    its template arguments), registers, spill stores and loads."""
+    import re
+    rows, kernel = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"\d+([a-z][a-z_]*kernel)(I.*?EE)?", sym)
+            kernel = (k.group(1) + (k.group(2) or "")) if k else sym[:40]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and kernel:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernel:
+            rows.append([kernel, int(m.group(1)), *spill])
+            kernel = None
+    return rows
 
 
 def main():
@@ -1488,11 +1920,13 @@ def main():
         torch, fe, sp, power, cfg_mod, device)}
     k1p_launches.update(phase_driver_consistency(torch, fe, sp, cfg_mod,
                                                  device))
-    ms, plain_ms = phase_throughput(torch, fe, cfg_mod, device)
+    ms, plain_ms, k1_sub, k1_f1 = phase_throughput(torch, fe, cfg_mod,
+                                                   device)
     cube_ms = phase_cube_throughput(torch, k, cfg_mod, device)
     synth_ms = phase_three_dispatch_throughput(torch, sp, fe, cfg_mod,
                                                device)
     k1p_ms = phase_k1prime_throughput(torch, fe, cfg_mod, device)
+    phase_frontend_breakdown(torch, fe, cfg_mod, device)
     phase_sequential_latency(torch, fe, cfg_mod, device)
     phase_seed_spread(torch, cfg_mod, device)
 
@@ -1517,19 +1951,25 @@ def main():
     A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
     S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
     shapes = dict(F=64, A=A, C=C, S=S, Sc=Sc, K=cfg.detection.max_detections)
+    clock = sm_clock_hz()
 
     def entry(name, wrapper, source, replaces, launches, err, times,
               **work):
-        b_ms, b_by = bound(*kernel_work(name.split()[0].rstrip("'"),
-                                        **shapes, **work))
-        return {"name": f"{name} {wrapper}", "route": "cuda",
-                "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": times[0],
-                "plain_ms": times[1], "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None}
+        b_ms, b_by, pipe, fp32_ms = bound(kernel_work(
+            name.split()[0].rstrip("'"), **shapes, **work), clock)
+        e = {"name": f"{name} {wrapper}", "route": "cuda",
+             "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": times[0],
+             "plain_ms": times[1], "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "bound_pipe": pipe,
+             "bound_fp32_ms": fp32_ms}
+        if len(times) > 2 and times[2]:
+            e["sub_ms"] = times[2]
+        return e
 
     kernels = [entry("K1", "frontend_split", KERNEL_SOURCE, KERNEL_REPLACES,
-                     launches, max_err, (ms, plain_ms))]
+                     launches, max_err, (ms, plain_ms, k1_sub))]
+    kernels[0]["ms_f1"] = k1_f1
     for name, wrapper in (("K3", "frontend_dense"),
                           ("K4", "scatterer_power"),
                           ("K5", "scatterer_signatures"),
@@ -1537,7 +1977,7 @@ def main():
         kernels.append(entry(
             name, wrapper, KERNEL_SOURCE if name == "K3" else SYNTH_SOURCE,
             SYNTH_REPLACES[name], synth_launches.get(name, 0),
-            synth_err[name], synth_ms[name]))
+            synth_err[name], synth_ms[name], impl=cfg.noise_impl))
     # K6 is the validation surface of K4 and K5 (it draws their noise) and
     # is on no driver path, as in the reference: its main-path count is 0.
     kernels[-1]["on_driver_path"] = False
@@ -1557,7 +1997,8 @@ def main():
             "radar_slam_tpu/ops/frontend_pallas.py:186",
             k1p_launches.get(branch, 0), k1p_err[setting], k1p_ms[setting],
             time_domain=setting.startswith("time"),
-            clutter=setting == "clutter"))
+            clutter=setting == "clutter",
+            impl=K1P_BRANCHES[setting].get("noise_impl", "fast")))
         if branch == "cumsum":
             kernels[-1]["on_driver_path"] = False
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,15 +12,16 @@ from __future__ import annotations
 import torch
 
 from radar_slam_tpu_torch.core.config import AoAConfig, RadarConfig
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 from radar_slam_tpu_torch.core.geometry import steering_matrix
 
 
-def azimuth_grid_deg(aoa: AoAConfig, device=None) -> torch.Tensor:
+def azimuth_grid_deg(aoa: AoAConfig, device=DEFAULT) -> torch.Tensor:
     """Search grid in degrees [G], evaluated in float64 and rounded once
     (the reference's float32 ``jnp.linspace`` lands within 2 ulps)."""
     return torch.linspace(aoa.search_min_deg, aoa.search_max_deg,
                           aoa.num_grid_points, dtype=torch.float64,
-                          device=device).to(torch.float32)
+                          device=resolve(device)).to(torch.float32)
 
 
 def _require_ula(cfg: RadarConfig):
@@ -31,7 +32,7 @@ def _require_ula(cfg: RadarConfig):
 
 
 def grid_steering_matrix(cfg: RadarConfig, aoa: AoAConfig,
-                         device=None) -> torch.Tensor:
+                         device=DEFAULT) -> torch.Tensor:
     """Steering matrix over the azimuth grid: [G, A] complex64 (ULA)."""
     _require_ula(cfg)
     grid_rad = torch.deg2rad(azimuth_grid_deg(aoa, device))

@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from radar_slam_tpu_torch.core.config import AoAConfig
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 
 
 class SmootherState(NamedTuple):
@@ -34,7 +35,10 @@ class SmootherState(NamedTuple):
     age: torch.Tensor      # [Cs] int32 frames since the last update
 
 
-def init_state(aoa: AoAConfig, device=None) -> SmootherState:
+def init_state(aoa: AoAConfig, device=DEFAULT) -> SmootherState:
+    """An empty slot table on ``device`` (the card unless the caller names
+    another)."""
+    device = resolve(device)
     Cs, W = aoa.track_capacity, aoa.temporal_window
     return SmootherState(
         keys=torch.full((Cs,), -1, dtype=torch.int32, device=device),

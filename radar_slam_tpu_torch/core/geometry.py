@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
+
 
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     """Wrap angle(s) to (-pi, pi]."""
@@ -20,10 +22,10 @@ def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
 
 
 def antenna_positions(num_antennas: int, spacing: float,
-                      device=None) -> torch.Tensor:
+                      device=DEFAULT) -> torch.Tensor:
     """ULA element positions [A]."""
     return torch.arange(num_antennas, dtype=torch.float32,
-                        device=device) * spacing
+                        device=resolve(device)) * spacing
 
 
 def steering_vector(azimuth_rad: torch.Tensor, num_antennas: int,

@@ -1,4 +1,5 @@
-// One-pass radar front end for NVIDIA Hopper (sm_90a), FP32 SIMT.
+// One-pass radar front end for NVIDIA Hopper (sm_90a): factored range DFT,
+// 3xTF32 tensor-core products, the time-domain cube kept on chip.
 //
 // Replaces, in every branch of their shared body _frontend_body (:186), the
 // two kernels of radar_slam_tpu/ops/frontend_pallas.py:
@@ -7,60 +8,59 @@
 //       route;
 //   K3  radar_frontend_dense  _frontend_kernel (:296), dense factor planes
 //       e_ac [F, Sc, A*C] and e_fast [F, Sc, S] (frontend_factors="dense").
-// The two differ only in how the products' factor tiles are loaded (a
-// template parameter SPLIT); everything after the loads is one code path.
+// The two differ only in how the factor tiles are loaded (a template
+// parameter SPLIT: composed from the split tables, or copied by cp.async);
+// everything after the loads is one code path.
 //
-// Branches (K1' are the non-default ones; launch arguments select them, and
-// the production knobs' code path is the one K1 always had):
-//   noise domain  range-frequency (T = e_fast W_rng, Z = e_at T + sigma
-//                 sqrt(S) (g (*) taps), column 0 zeroed) or time
-//                 (X = e_at e_fast + sigma n, the ADC cube, then Z = X W_rng;
-//                 n at element (a*C + c) * S + s, the index of synthpower.cu
-//                 and of the port's synthesize_frame, so K3 on the time
-//                 domain builds the same cube as K4);
-//   noise impl    the "fast" transform or Box-Muller (ops/noise.py);
+// Branches (K1' are the non-default ones; launch arguments select them):
+//   noise domain  range-frequency (T = rows of e_fast through the range DFT,
+//                 Z = e_at T + sigma sqrt(S) (g (*) taps), column 0 zeroed)
+//                 or time (X = e_at e_fast + sigma n, the ADC cube, kept on
+//                 chip, then its range DFT: cube_onchip.cuh, shared with K4;
+//                 n at element (a*C + c) * S + s, so K3 on the time domain
+//                 builds K4's cube from the same seeds);
+//   noise impl    the "fast" transform or Box-Muller (philox.cuh);
 //   CFAR          clipped box sums (the reference's banded products) or
 //                 log-shift prefix sums in the reference's add order
 //                 (_cfar_threshold_cumsum, :118);
 //   clutter       an optional background power map [F, C, S]: a cell must
-//                 exceed ln(max(c, 1e-12)) * 10 / ln 10 + clutter_offset_db.
+//                 exceed ln(max(c, 1e-12)) * 10 / ln 10 + clutter_offset_db;
+//   range DFT     the mixed-radix FFT of range_fft.cuh, or its dense route
+//                 where S has a prime factor above 5 (the wrapper counts it).
 //
-// What bounds it on this card: arithmetic.  Per frame (A*C = 256, S = 400,
-// Sc = 128) the range-frequency products T = e_fast W_rng and Z = e_at T
-// are 33.6 M complex MACs, ~270 MFLOP; the time-domain products X = e_at
-// e_fast and Z = X W_rng 54.1 M, ~430 MFLOP; against ~1.3 MB (range-
-// frequency) or ~2.9 MB (time: X out and in) of device-memory traffic --
-// 150-200 FLOP per byte, above the FP32 SIMT ridge of the H100 (67 TFLOP/s
-// over 3.35 TB/s = 20 FLOP/byte).  The Doppler power, noise and CFAR
-// stages are ~15 MFLOP per frame.
+// What bounds it on this card.  Per frame (A*C = 256, S = 400, Sc = 128):
+// the one true product (e_at T, or e_at e_fast in the time domain) is
+// 13.1 M complex MACs, 315 M TF32 MACs in 3xTF32; the factored range DFT
+// 0.9 M (range frequency: Sc rows) or 1.8 M (time: A*C rows) complex MACs
+// where the dense one took 20.5 M or 41 M; the Doppler DFT 3.3 M in
+// 3xTF32; the Philox noise ~0.1 M draws of two Philox-4x32-10 blocks (one
+// for Box-Muller), ~300 integer operations a draw on the INT32 pipe --
+// with the product, the largest term.  Against ~1.3 MB of device memory
+// (factors in; Z, p, score out; T 0.41 MB out and in through L2).
 //
-// What the design does about it: the products run as shared-memory-tiled
-// FP32 SIMT matmuls (64 x 64 output tile, depth 16, 4 x 4 complex
-// accumulators per thread, four real FMAs per complex MAC); K1 recomposes
-// both factor planes from their per-axis tables while the tiles are
-// loaded, so e_at [A*C, Sc] and e_fast [Sc, S] never exist in device
-// memory; K3 reads them (e_ac transposed in the load, no copy).  The
-// range-frequency noise is drawn once per Z tile (plus a halo for the
-// window taps) from Philox-4x32-10 into shared memory; the time-domain
-// noise is drawn in the synthesis epilogue.  The time domain writes X
-// (0.82 MB per frame) to a scratch buffer and reads it back, as K4 does;
-// keeping it on chip is later work.  The prefix-sum CFAR holds the map and
-// two scan planes in shared memory (3 C S floats, 154 KB at C = 32).
-// Tensor cores (wgmma, TMA, 3xTF32) are not used yet: the precision
-// contract is FP32.
-//
-// Launch sequence, all on the caller's stream:
-//   range-frequency domain:
-//   1. range_dft_kernel   T[f] = e_fast[f] @ W_rng           [Sc, S] complex
-//   2. z_kernel           Z[f] = e_at[f] @ T[f] + noise, DC zeroed, stored
-//                         transposed as zr/zi [S, A*C]
-//   time domain:
-//   1. synth_x_kernel     X[f] = e_at[f] @ e_fast[f] + sigma n   [A*C, S]
-//   2. z_time_kernel      Z[f] = X[f] @ W_rng, stored transposed
-//   then:
-//   3. doppler_power_kernel  p[f, d, s] = mean_a |sum_c Wdop^T[d, c] Z|^2
-//   4. cfar_kernel / cfar_cumsum_kernel   CA-CFAR threshold + local max +
-//                         range gate (+ clutter gate) -> score
+// What the design does about it.
+// - Range frequency, three launches: range_fft_kernel (8 rows of e_fast
+//   per block through the FFT -> T [F, Sc, S]); z_power_kernel (one block
+//   of 16 warps per 32 range bins of a frame: Z = e_at T for all A*C rows
+//   in 3xTF32 mma.sync.m16n8k8, its operands on a two-stage cp.async ring
+//   -- K1 stages the split tables' dopp and ant rows and forms e_at in the
+//   fragment loads, K3 stages e_ac --, the noise drawn once per tile plus
+//   a halo of the window taps' reach (4 of 36 columns redrawn), DC zeroed,
+//   Z kept in shared memory, written transposed, and its Doppler power, a
+//   second 3xTF32 product per antenna, summed over antennas in antenna
+//   order in registers -> p); then the CFAR.
+// - Time domain, three launches: cube_onchip_kernel (X never leaves shared
+//   memory; Z and one power plane per antenna out), antenna_sum_kernel,
+//   the CFAR.
+// - The CFAR kernels hold a frame's [C, S] map in shared memory; the
+//   prefix-sum CFAR the map and two scan planes (154 KB at C = 32).  The
+//   box-sum CFAR spreads a small batch's frames over up to four blocks
+//   each (a block per frame leaves most SMs idle below 132 frames).
+// What still holds it back (PERF.md, sub-kernel times): the product is
+// held by its fragment loads and hi / lo splits rather than the tensor
+// cores, the noise sits near its INT32 bound, and one block per SM leaves
+// the two unoverlapped.
+// No floating-point atomics: every output repeats bit for bit.
 //
 // Built as a shared library with a plain C interface (no PyTorch headers):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -71,21 +71,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cube_onchip.cuh"
+#include "philox.cuh"
+#include "range_fft.cuh"
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BM = 64;          // output tile rows
-constexpr int BN = 64;          // output tile columns
-constexpr int BK = 16;          // reduction depth per stage
-constexpr int TPB = 256;        // 16 x 16 threads, 4 x 4 outputs each
 constexpr int MAX_TAPS = 5;     // a 3-term cosine window has 5 taps
 constexpr int MAX_HALO = 2;
-constexpr int PS = 16;          // range bins per Doppler-power block
 constexpr int CFAR_THREADS = 512;
 constexpr float NEG_SCORE = -1e30f;
 constexpr float LOG10E_10 = 4.3429448190325176f;   // 10 / ln(10)
-constexpr int LDX = BM + 1;     // padded A-tile pitch of z_time_kernel
-constexpr int IMPL_FAST = 0;    // noise transforms (ops/noise.py)
-constexpr int IMPL_BOX_MULLER = 1;
 constexpr int DOMAIN_RANGE_FREQ = 0;
 constexpr int DOMAIN_TIME = 1;
 constexpr int CFAR_BOX = 0;     // cfar_impl "matmul": clipped box sums
@@ -98,471 +95,345 @@ struct NoiseTaps {
   float coef[MAX_TAPS];
 };
 
-// ---- counter-based Gaussian generator (ops/noise.py is the plain form) --
+// ---- 1. T[f] = (e_fast[f] * mix) W_rng, DC zeroed: RF_ROWS rows a block --
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const unsigned lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
+constexpr int RF_ROWS = 8;
+constexpr int RF_THREADS = 256;
+
+__host__ __forceinline__ size_t rf_smem_bytes(int S, bool dense) {
+  return sizeof(float2) * ((size_t)RF_ROWS * S + S +
+                           (dense ? (size_t)(RF_THREADS / 32) * S : 0)) +
+         sizeof(int) * (size_t)S;
 }
 
-__device__ __forceinline__ float byte_sum(unsigned w) {
-  // Logical shifts on unsigned words (an arithmetic shift NaN'd the
-  // reference's noise on chip).
-  return (float)((w & 255u) + ((w >> 8) & 255u) + ((w >> 16) & 255u) +
-                 (w >> 24)) - 510.0f;
-}
-
-// Two standard normals for element idx = row * S + col of a frame's
-// [A*C, S] noise plane, through the "fast" transform (words w0..w3 of block
-// 0, w0 of block 1) or Box-Muller (u1 from w0, u2 from w1 of block 0).  The
-// _rn intrinsics keep nvcc from contracting into FMAs, so the arithmetic
-// rounds as the plain version's does.
-template <int IMPL>
-__device__ __forceinline__ float2 normal_pair(unsigned seed, unsigned idx) {
-  const uint4 a = philox4x32_10(make_uint4(idx, 0u, 0u, 0u),
-                                make_uint2(seed, 0u));
-  const float u1 = __fadd_rn(__fmul_rn((float)(a.x >> 8), 1.0f / 16777216.0f),
-                             0.5f / 16777216.0f);
-  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-  if (IMPL == IMPL_BOX_MULLER) {
-    const float u2 = __fmul_rn((float)(a.y >> 8), 1.0f / 16777216.0f);
-    const float ang = __fmul_rn(6.283185307179586f, u2);
-    return make_float2(__fmul_rn(r, cosf(ang)), __fmul_rn(r, sinf(ang)));
-  }
-  const uint4 b = philox4x32_10(make_uint4(idx, 1u, 0u, 0u),
-                                make_uint2(seed, 0u));
-  const float g1 = byte_sum(a.y), g2 = byte_sum(a.z);
-  const float h1 = byte_sum(a.w), h2 = byte_sum(b.x);
-  const float v1 = __fadd_rn(g1, __fmul_rn(0.7071067811865476f,
-                                           __fsub_rn(h1, h2)));
-  const float v2 = __fadd_rn(g2, __fmul_rn(0.7071067811865476f,
-                                           __fadd_rn(h1, h2)));
-  const float inv = 1.0f / sqrtf(__fadd_rn(
-      __fadd_rn(__fmul_rn(v1, v1), __fmul_rn(v2, v2)), 1e-6f));
-  return make_float2(__fmul_rn(__fmul_rn(r, v1), inv),
-                     __fmul_rn(__fmul_rn(r, v2), inv));
-}
-
-// ---- shared tiled complex matmul core ----------------------------------
-// smem layout: Ar, Ai [BK][LDA] then Br, Bi [BK][BN] (LDA = BM, or BM + 1
-// where the A tile is stored transposed).  Thread (ty, tx) accumulates rows
-// rm + 16 i and columns cn + 16 j of the output tile.
-
-template <int LDA = BM>
-__device__ __forceinline__ void mma_stage(const float* __restrict__ sm,
-                                          int rm, int cn,
-                                          float (&accr)[4][4],
-                                          float (&acci)[4][4]) {
-  const float* Ar = sm;
-  const float* Ai = sm + BK * LDA;
-  const float* Br = sm + 2 * BK * LDA;
-  const float* Bi = sm + 2 * BK * LDA + BK * BN;
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float ar[4], ai[4], br[4], bi[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      ar[i] = Ar[kk * LDA + rm + 16 * i];
-      ai[i] = Ai[kk * LDA + rm + 16 * i];
-      br[i] = Br[kk * BN + cn + 16 * i];
-      bi[i] = Bi[kk * BN + cn + 16 * i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        accr[i][j] = fmaf(ar[i], br[j], accr[i][j]);
-        accr[i][j] = fmaf(-ai[i], bi[j], accr[i][j]);
-        acci[i][j] = fmaf(ar[i], bi[j], acci[i][j]);
-        acci[i][j] = fmaf(ai[i], br[j], acci[i][j]);
-      }
-    }
-  }
-}
-
-// 1. T[f] = e_fast[f] @ W_rng.  K1 (SPLIT): e_fast[sc, s] =
-// coarse[sc, s / B] * fine[sc, s % B] * [t_s >= tau_sc] (* [t_s - tau_sc
-// <= T] at reference fidelity), composed while loading the A tile; K3:
-// e_fast (in coarse, already echo-gated) read as it is.  M = Sc, N = K = S.
 template <bool SPLIT>
-__global__ void __launch_bounds__(TPB)
-range_dft_kernel(const float2* __restrict__ coarse,
-                 const float2* __restrict__ fine,
-                 const float* __restrict__ tau,
-                 const float* __restrict__ tvec,
-                 const float2* __restrict__ wrng,
-                 float2* __restrict__ tout,
-                 int Sc, int S, int B, int Q, int has_upper,
-                 float echo_upper) {
-  __shared__ float sm[2 * BK * BM + 2 * BK * BN];
-  const int f = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float accr[4][4] = {}, acci[4][4] = {};
-  const float2* co = coarse + (size_t)f * Sc * (SPLIT ? Q : S);
-  const float2* fi = SPLIT ? fine + (size_t)f * Sc * B : nullptr;
-  const float* ta = SPLIT ? tau + (size_t)f * Sc : nullptr;
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += TPB) {
-      const int mm = e % BM, kk = e / BM;
-      const int sc = m0 + mm, s = k0 + kk;
-      float er = 0.f, ei = 0.f;
-      if (SPLIT && sc < Sc && s < S) {
-        const int q = s / B, j = s - q * B;
-        const float2 c = co[sc * Q + q];
-        const float2 fn = fi[sc * B + j];
-        const float ts = tvec[s], tt = ta[sc];
-        float arrived = (ts >= tt) ? 1.f : 0.f;
-        if (has_upper && !(ts - tt <= echo_upper)) arrived = 0.f;
-        er = (c.x * fn.x - c.y * fn.y) * arrived;
-        ei = (c.x * fn.y + c.y * fn.x) * arrived;
-      } else if (!SPLIT && sc < Sc && s < S) {
-        // Read along sc (a warp touches 32 rows of e_fast): uncoalesced,
-        // but each [BM, BK] tile is small and e_fast stays in L2 across
-        // the S / BN column tiles.  A coalesced transposing load is later
-        // work.
-        const float2 v = co[(size_t)sc * S + s];
-        er = v.x;
-        ei = v.y;
-      }
-      sm[kk * BM + mm] = er;
-      sm[BK * BM + kk * BM + mm] = ei;
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
-      const int nn = e % BN, kk = e / BN;
-      const int s = k0 + kk, n = n0 + nn;
-      const float2 w = (s < S && n < S) ? wrng[(size_t)s * S + n]
-                                        : make_float2(0.f, 0.f);
-      sm[2 * BK * BM + kk * BN + nn] = w.x;
-      sm[2 * BK * BM + BK * BN + kk * BN + nn] = w.y;
-    }
-    __syncthreads();
-    mma_stage(sm, ty, tx, accr, acci);
-    __syncthreads();
-  }
-  float2* out = tout + (size_t)f * Sc * S;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < Sc && n < S)
-        out[(size_t)m * S + n] = make_float2(accr[i][j], acci[i][j]);
-    }
-  }
-}
-
-// 2. Z[f] = e_at[f] @ T[f] + sigma sqrt(S) (g (*) taps), column 0 zeroed,
-// stored transposed: zr/zi[f, s, a*C + c].  K1 (SPLIT): e_at[a*C + c, sc]
-// = dopp[sc, c] * ant[sc, a], composed while loading the A tile; K3:
-// e_at[m, sc] = e_ac[sc, m] (in ant) read along m, coalesced.
-// M = A*C, N = S, K = Sc.  Thread (ty, tx) owns rows tx + 16 i and
-// columns ty + 16 j so the transposed store is contiguous along rows.
-template <bool SPLIT, int IMPL>
-__global__ void __launch_bounds__(TPB)
-z_kernel(const float2* __restrict__ ant, const float2* __restrict__ dopp,
-         const float2* __restrict__ tin, const int* __restrict__ seeds,
-         float* __restrict__ zr, float* __restrict__ zi,
-         int A, int C, int S, int Sc, float sn, NoiseTaps taps,
-         int dc_removal) {
-  constexpr int GW = BN + 2 * MAX_HALO;
-  // The matmul stages and the noise tile share one buffer.
-  __shared__ __align__(16) float sm[2 * BM * GW];
-  const int f = blockIdx.z;
-  const int M = A * C;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float accr[4][4] = {}, acci[4][4] = {};
-  const float2* an = ant + (size_t)f * Sc * (SPLIT ? A : M);
-  const float2* dp = SPLIT ? dopp + (size_t)f * Sc * C : nullptr;
-  const float2* tf = tin + (size_t)f * Sc * S;
-
-  for (int k0 = 0; k0 < Sc; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += TPB) {
-      const int mm = e % BM, kk = e / BM;
-      const int m = m0 + mm, sc = k0 + kk;
-      float er = 0.f, ei = 0.f;
-      if (SPLIT && m < M && sc < Sc) {
-        const int a = m / C, c = m - a * C;
-        const float2 d = dp[sc * C + c];
-        const float2 w = an[sc * A + a];
-        er = d.x * w.x - d.y * w.y;
-        ei = d.x * w.y + d.y * w.x;
-      } else if (!SPLIT && m < M && sc < Sc) {
-        const float2 v = an[(size_t)sc * M + m];
-        er = v.x;
-        ei = v.y;
-      }
-      sm[kk * BM + mm] = er;
-      sm[BK * BM + kk * BM + mm] = ei;
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
-      const int nn = e % BN, kk = e / BN;
-      const int sc = k0 + kk, n = n0 + nn;
-      const float2 v = (sc < Sc && n < S) ? tf[(size_t)sc * S + n]
-                                          : make_float2(0.f, 0.f);
-      sm[2 * BK * BM + kk * BN + nn] = v.x;
-      sm[2 * BK * BM + BK * BN + kk * BN + nn] = v.y;
-    }
-    __syncthreads();
-    mma_stage(sm, tx, ty, accr, acci);
-    __syncthreads();
-  }
-
-  float2* g = reinterpret_cast<float2*>(sm);   // [BM][GW] noise tile
-  const bool noisy = sn != 0.0f;
-  if (noisy) {
-    // Columns n0 - H .. n0 + BN + H - 1 (mod S) of rows m0 .. m0 + BM - 1:
-    // each value drawn once, the window taps read it from shared memory.
-    const unsigned seed = (unsigned)seeds[f];
-    const int H = taps.halo;
-    const int w = BN + 2 * H;
-    for (int e = threadIdx.x; e < BM * w; e += TPB) {
-      const int mm = e / w, jj = e % w;
-      const int m = m0 + mm;
-      const int col = ((n0 - H + jj) % S + S) % S;
-      g[mm * GW + jj] = (m < M)
-                            ? normal_pair<IMPL>(seed, (unsigned)(m * S + col))
-                            : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-  }
-
-  float* zro = zr + (size_t)f * S * M;
-  float* zio = zi + (size_t)f * S * M;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int mm = tx + 16 * i, nn = ty + 16 * j;
-      const int m = m0 + mm, n = n0 + nn;
-      if (m >= M || n >= S) continue;
-      float vr = accr[i][j], vi = acci[i][j];
-      if (noisy) {
-        float cr = 0.f, ci = 0.f;
-        for (int t = 0; t < taps.n; ++t) {
-          // roll by off: the tap reads column n - off.
-          const float2 gv = g[mm * GW + nn + taps.halo - taps.off[t]];
-          const float tr = __fmul_rn(taps.coef[t], gv.x);
-          const float ti = __fmul_rn(taps.coef[t], gv.y);
-          cr = (t == 0) ? tr : __fadd_rn(cr, tr);
-          ci = (t == 0) ? ti : __fadd_rn(ci, ti);
-        }
-        vr = __fadd_rn(vr, __fmul_rn(sn, cr));
-        vi = __fadd_rn(vi, __fmul_rn(sn, ci));
-      }
-      if (dc_removal && n == 0) {
-        vr = 0.f;
-        vi = 0.f;
-      }
-      zro[(size_t)n * M + m] = vr;
-      zio[(size_t)n * M + m] = vi;
-    }
-  }
-}
-
-// 1t. Time domain: X[f] = e_at[f] @ e_fast[f] + sigma n, the ADC cube
-// [A*C, S] row-major in xout.  The A tile is z_kernel's (e_at composed for
-// K1, e_ac read transposed for K3), the B tile range_dft_kernel's A tile
-// (e_fast composed from the split tables and the echo gate for K1, read
-// for K3).  The epilogue adds sigma (n_re + j n_im) at element m * S + n
-// under frame f's seed, as synthpower.cu's synthesis does.
-// M = A*C, N = S, K = Sc.
-template <bool SPLIT, int IMPL>
-__global__ void __launch_bounds__(TPB)
-synth_x_kernel(const float2* __restrict__ ant, const float2* __restrict__ dopp,
-               const float2* __restrict__ coarse,
-               const float2* __restrict__ fine, const float* __restrict__ tau,
-               const float* __restrict__ tvec, const int* __restrict__ seeds,
-               float2* __restrict__ xout, int A, int C, int S, int Sc, int B,
-               int Q, int has_upper, float echo_upper, float sigma) {
-  __shared__ float sm[2 * BK * BM + 2 * BK * BN];
-  const int f = blockIdx.z;
-  const int M = A * C;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float accr[4][4] = {}, acci[4][4] = {};
-  const float2* an = ant + (size_t)f * Sc * (SPLIT ? A : M);
-  const float2* dp = SPLIT ? dopp + (size_t)f * Sc * C : nullptr;
-  const float2* co = coarse + (size_t)f * Sc * (SPLIT ? Q : S);
-  const float2* fi = SPLIT ? fine + (size_t)f * Sc * B : nullptr;
-  const float* ta = SPLIT ? tau + (size_t)f * Sc : nullptr;
-
-  for (int k0 = 0; k0 < Sc; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += TPB) {
-      const int mm = e % BM, kk = e / BM;
-      const int m = m0 + mm, sc = k0 + kk;
-      float er = 0.f, ei = 0.f;
-      if (SPLIT && m < M && sc < Sc) {
-        const int a = m / C, c = m - a * C;
-        const float2 d = dp[sc * C + c];
-        const float2 w = an[sc * A + a];
-        er = d.x * w.x - d.y * w.y;
-        ei = d.x * w.y + d.y * w.x;
-      } else if (!SPLIT && m < M && sc < Sc) {
-        const float2 v = an[(size_t)sc * M + m];
-        er = v.x;
-        ei = v.y;
-      }
-      sm[kk * BM + mm] = er;
-      sm[BK * BM + kk * BM + mm] = ei;
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
-      const int nn = e % BN, kk = e / BN;
-      const int sc = k0 + kk, s = n0 + nn;
-      float er = 0.f, ei = 0.f;
-      if (SPLIT && sc < Sc && s < S) {
-        const int q = s / B, j = s - q * B;
-        const float2 c = co[sc * Q + q];
-        const float2 fn = fi[sc * B + j];
-        const float ts = tvec[s], tt = ta[sc];
-        float arrived = (ts >= tt) ? 1.f : 0.f;
-        if (has_upper && !(ts - tt <= echo_upper)) arrived = 0.f;
-        er = (c.x * fn.x - c.y * fn.y) * arrived;
-        ei = (c.x * fn.y + c.y * fn.x) * arrived;
-      } else if (!SPLIT && sc < Sc && s < S) {
-        const float2 v = co[(size_t)sc * S + s];
-        er = v.x;
-        ei = v.y;
-      }
-      sm[2 * BK * BM + kk * BN + nn] = er;
-      sm[2 * BK * BM + BK * BN + kk * BN + nn] = ei;
-    }
-    __syncthreads();
-    mma_stage(sm, ty, tx, accr, acci);
-    __syncthreads();
-  }
-  const bool noisy = sigma != 0.0f;
-  const unsigned seed = noisy ? (unsigned)seeds[f] : 0u;
-  float2* xo = xout + (size_t)f * M * S;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m >= M || n >= S) continue;
-      float vr = accr[i][j], vi = acci[i][j];
-      if (noisy) {
-        const float2 g = normal_pair<IMPL>(seed, (unsigned)(m * S + n));
-        vr = __fadd_rn(vr, __fmul_rn(sigma, g.x));
-        vi = __fadd_rn(vi, __fmul_rn(sigma, g.y));
-      }
-      xo[(size_t)m * S + n] = make_float2(vr, vi);
-    }
-  }
-}
-
-// 2t. Time domain: Z[f] = X[f] @ W_rng, stored transposed zr/zi[f, s, m].
-// The A tile is read along k (coalesced) into a padded transposed tile;
-// no noise (X carries it) and no column zeroing (W_rng folds the DC
-// projector, its column 0 is zero).  M = A*C, N = K = S.
-__global__ void __launch_bounds__(TPB)
-z_time_kernel(const float2* __restrict__ x, const float2* __restrict__ wrng,
-              float* __restrict__ zr, float* __restrict__ zi, int M, int S) {
-  __shared__ float sm[2 * BK * LDX + 2 * BK * BN];
-  const int f = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float accr[4][4] = {}, acci[4][4] = {};
-  const float2* xf = x + (size_t)f * M * S;
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += TPB) {
-      const int kk = e % BK, mm = e / BK;
-      const int m = m0 + mm, k = k0 + kk;
-      const float2 v = (m < M && k < S) ? xf[(size_t)m * S + k]
-                                        : make_float2(0.f, 0.f);
-      sm[kk * LDX + mm] = v.x;
-      sm[BK * LDX + kk * LDX + mm] = v.y;
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
-      const int nn = e % BN, kk = e / BN;
-      const int k = k0 + kk, n = n0 + nn;
-      const float2 w = (k < S && n < S) ? wrng[(size_t)k * S + n]
-                                        : make_float2(0.f, 0.f);
-      sm[2 * BK * LDX + kk * BN + nn] = w.x;
-      sm[2 * BK * LDX + BK * BN + kk * BN + nn] = w.y;
-    }
-    __syncthreads();
-    mma_stage<LDX>(sm, tx, ty, accr, acci);
-    __syncthreads();
-  }
-  float* zro = zr + (size_t)f * S * M;
-  float* zio = zi + (size_t)f * S * M;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + tx + 16 * i, n = n0 + ty + 16 * j;
-      if (m >= M || n >= S) continue;
-      zro[(size_t)n * M + m] = accr[i][j];
-      zio[(size_t)n * M + m] = acci[i][j];
-    }
-  }
-}
-
-// 3. p[f, d, s] = (1/A) sum_a |sum_c WdopT[d, c] Z[f, s, a*C + c]|^2.
-// One block per (PS range bins, frame); Z rows and WdopT staged in shared
-// memory (rows padded by one float against bank conflicts).
-__global__ void __launch_bounds__(TPB)
-doppler_power_kernel(const float* __restrict__ zr,
-                     const float* __restrict__ zi,
-                     const float2* __restrict__ wdt, float* __restrict__ p,
-                     int A, int C, int S) {
-  extern __shared__ float dsm[];
-  const int M = A * C, ld = M + 1;
-  float* zsr = dsm;
-  float* zsi = zsr + PS * ld;
-  float* wr = zsi + PS * ld;
-  float* wi = wr + C * C;
-  const int f = blockIdx.y, s0 = blockIdx.x * PS;
-  const float* zrf = zr + (size_t)f * S * M;
-  const float* zif = zi + (size_t)f * S * M;
-  for (int e = threadIdx.x; e < PS * M; e += blockDim.x) {
-    const int sl = e / M, col = e % M;
-    const int s = s0 + sl;
-    zsr[sl * ld + col] = (s < S) ? zrf[(size_t)s * M + col] : 0.f;
-    zsi[sl * ld + col] = (s < S) ? zif[(size_t)s * M + col] : 0.f;
-  }
-  for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
-    wr[e] = wdt[e].x;
-    wi[e] = wdt[e].y;
+__global__ void __launch_bounds__(RF_THREADS)
+range_fft_kernel(Factors fa, const float2* __restrict__ mix,
+                 const float2* __restrict__ twg, const int* __restrict__ posg,
+                 FftPlan plan, int dc_removal, float2* __restrict__ tout,
+                 int S, int Sc) {
+  extern __shared__ __align__(16) float2 rsm[];
+  const int f = blockIdx.y, r0 = blockIdx.x * RF_ROWS;
+  float2* X = rsm;                                  // [RF_ROWS][S]
+  float2* tw = X + RF_ROWS * S;                     // [S]
+  float2* scratch = tw + S;                         // dense route: [8][S]
+  int* pos = reinterpret_cast<int*>(
+      scratch + (plan.nst == 0 ? (RF_THREADS / 32) * S : 0));
+  for (int e = threadIdx.x; e < S; e += RF_THREADS) {
+    tw[e] = twg[e];
+    pos[e] = posg[e];
   }
   __syncthreads();
-  const float inv_a = 1.0f / (float)A;
-  for (int o = threadIdx.x; o < PS * C; o += blockDim.x) {
-    const int sl = o % PS, d = o / PS;
-    const int s = s0 + sl;
-    if (s >= S) continue;
-    float acc = 0.f;
-    for (int a = 0; a < A; ++a) {
-      float orr = 0.f, oii = 0.f;
-      const float* zra = zsr + sl * ld + a * C;
-      const float* zia = zsi + sl * ld + a * C;
-      for (int c = 0; c < C; ++c) {
-        const float w_r = wr[d * C + c], w_i = wi[d * C + c];
-        orr = fmaf(w_r, zra[c], orr);
-        orr = fmaf(-w_i, zia[c], orr);
-        oii = fmaf(w_r, zia[c], oii);
-        oii = fmaf(w_i, zra[c], oii);
-      }
-      acc += orr * orr + oii * oii;
+  // Four elements a pass, their loads made before their stores.
+  for (int e0 = threadIdx.x; e0 < RF_ROWS * S; e0 += 4 * RF_THREADS) {
+    float2 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * RF_THREADS;
+      const int row = e / S, s = e - row * S, sc = r0 + row;
+      v[u] = (e < RF_ROWS * S && sc < Sc)
+                 ? cmul(efast_at<SPLIT>(fa, f, sc, s, Sc, S), mix[s])
+                 : make_float2(0.f, 0.f);
     }
-    p[((size_t)f * C + d) * S + s] = acc * inv_a;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * RF_THREADS;
+      if (e < RF_ROWS * S) X[(e / S) * S + pos[e % S]] = v[u];
+    }
+  }
+  fft_rows(X, RF_ROWS, S, S, plan, tw, scratch);
+  for (int e = threadIdx.x; e < RF_ROWS * S; e += RF_THREADS) {
+    const int row = e / S, k = e - row * S, sc = r0 + row;
+    if (sc >= Sc) continue;
+    tout[((size_t)f * Sc + sc) * S + k] =
+        (dc_removal && k == 0) ? make_float2(0.f, 0.f) : X[row * S + k];
   }
 }
+
+// ---- 2. Z = e_at T + noise, Doppler power: one block per ZK_NT range bins
+
+constexpr int ZK_THREADS = 512;  // 16 warps: 8 row strips x 2 column halves
+constexpr int ZK_MC = 256;      // rows per chunk: 8 x 32
+constexpr int ZK_NT = 32;       // range bins per block
+constexpr int ZK_KC = 16;       // reduction depth per ring stage (dense)
+constexpr int ZK_KCS = 32;      // the same for the split tables
+constexpr int ZK_LDA = 260;     // frag_pitch(ZK_MC)
+constexpr int ZK_LDB = 36;      // frag_pitch(ZK_NT)
+constexpr int ZK_LDZ = 36;      // Z tile pitch
+constexpr int ZK_GW = ZK_NT + 2 * MAX_HALO;          // noise tile pitch
+
+// A ring stage (float2): dense, the e_ac rows [ZK_KC][ZK_LDA] and the T
+// tile [ZK_KC][ZK_LDB]; split, the dopp rows [ZK_KCS][frag_pitch(C)], the
+// ant rows [ZK_KCS][frag_pitch(A)] and the T tile [ZK_KCS][ZK_LDB].
+__host__ __device__ __forceinline__ int zk_stage(bool split, int A, int C) {
+  return split ? ZK_KCS * (frag_pitch(C) + frag_pitch(A) + ZK_LDB)
+               : ZK_KC * (ZK_LDA + ZK_LDB);
+}
+
+// The first region of shared memory (float2): the ring, then the noise
+// tile, then W_dop^T [C16][frag_pitch(Cp)].
+__host__ __device__ __forceinline__ int zk_r0(bool split, int A, int C) {
+  const int ring = 2 * zk_stage(split, A, C), noise = ZK_MC * ZK_GW;
+  const int w = ((C + 15) & ~15) * frag_pitch((C + 7) & ~7);
+  const int r = ring > noise ? ring : noise;
+  return r > w ? r : w;
+}
+
+// The region, and the Z tile [M + 8][ZK_LDZ] (bytes).
+__host__ __forceinline__ size_t zk_smem_bytes(bool split, int A, int C) {
+  return sizeof(float2) * ((size_t)zk_r0(split, A, C) +
+                           (size_t)(A * C + 8) * ZK_LDZ);
+}
+
+template <bool SPLIT, int IMPL>
+__global__ void __launch_bounds__(ZK_THREADS, 1)
+z_power_kernel(Factors fa, const float2* __restrict__ tin,
+               const int* __restrict__ seeds, const float2* __restrict__ wdt,
+               float* __restrict__ zr, float* __restrict__ zi,
+               float* __restrict__ p, int A, int C, int S, int Sc, float sn,
+               NoiseTaps taps, int dc_removal, float inv_a) {
+  extern __shared__ __align__(16) float2 zsm[];
+  constexpr int KC = SPLIT ? ZK_KCS : ZK_KC;
+  const int f = blockIdx.y, n0 = blockIdx.x * ZK_NT;
+  const int M = A * C;
+  const int stage = zk_stage(SPLIT, A, C);
+  const int ldd = frag_pitch(C), ldn = frag_pitch(A);
+  float2* R0 = zsm;
+  float2* Zt = zsm + zk_r0(SPLIT, A, C);            // [M + 8][ZK_LDZ]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mw = warp & 7, nw = warp >> 3;   // rows 32 mw.., cols 16 nw..
+  const int nk = (Sc + KC - 1) / KC;
+  const bool noisy = sn != 0.0f;
+  const unsigned seed = noisy ? (unsigned)seeds[f] : 0u;
+  const float2* tf = tin + (size_t)f * Sc * S;
+  // Rows M..M+7 are read by the Doppler product's last tile: zeros.
+  for (int e = threadIdx.x; e < 8 * ZK_LDZ; e += ZK_THREADS)
+    Zt[M * ZK_LDZ + e] = make_float2(0.f, 0.f);
+
+  for (int m0 = 0; m0 < M; m0 += ZK_MC) {
+    // Every stage arrives by cp.async: the e_ac rows, or the split
+    // tables' dopp and ant rows, whose products the fragment loads form.
+    auto load_stage = [&](int it) {
+      float2* As = R0 + (it & 1) * stage;
+      float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
+      const int k0 = it * KC;
+      if constexpr (SPLIT) {
+        float2* Ns = As + KC * ldd;
+        for (int e = threadIdx.x; e < KC * C; e += ZK_THREADS) {
+          const int kk = e / C, c = e % C, sc = k0 + kk;
+          const bool ok = sc < Sc;
+          cp_async8(&As[kk * ldd + c],
+                    ok ? fa.dopp + ((size_t)f * Sc + sc) * C + c : fa.dopp,
+                    ok);
+        }
+        for (int e = threadIdx.x; e < KC * A; e += ZK_THREADS) {
+          const int kk = e / A, aa = e % A, sc = k0 + kk;
+          const bool ok = sc < Sc;
+          cp_async8(&Ns[kk * ldn + aa],
+                    ok ? fa.ant + ((size_t)f * Sc + sc) * A + aa : fa.ant,
+                    ok);
+        }
+      } else {
+        for (int e = threadIdx.x; e < KC * ZK_MC; e += ZK_THREADS) {
+          const int kk = e / ZK_MC, mm = e % ZK_MC;
+          const int sc = k0 + kk, m = m0 + mm;
+          const bool ok = sc < Sc && m < M;
+          cp_async8(&As[kk * ZK_LDA + mm],
+                    ok ? fa.ant + ((size_t)f * Sc + sc) * M + m : fa.ant,
+                    ok);
+        }
+      }
+      for (int e = threadIdx.x; e < KC * ZK_NT; e += ZK_THREADS) {
+        const int kk = e / ZK_NT, nn = e % ZK_NT;
+        const int sc = k0 + kk, n = n0 + nn;
+        const bool ok = sc < Sc && n < S;
+        cp_async8(&Bs[kk * ZK_LDB + nn],
+                  ok ? tf + (size_t)sc * S + n : tf, ok);
+      }
+      cp_async_commit();
+    };
+    // The split tables: this thread's fragment rows m = m0 + 32 mw +
+    // 16 h + g + 8 j as (chirp, antenna), or -1 beyond M.
+    int row_c[2][2], row_a[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int m = m0 + 32 * mw + 16 * h + g + 8 * j;
+        row_a[h][j] = m < M ? m / C : -1;
+        row_c[h][j] = m < M ? m - (m / C) * C : 0;
+      }
+
+    float accr[2][2][4], acci[2][2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) accr[h][j][i] = acci[h][j][i] = 0.f;
+    const bool active = m0 + 32 * mw < M;
+    load_stage(0);
+    for (int it = 0; it < nk; ++it) {
+      if (it + 1 < nk) load_stage(it + 1);
+      else cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float2* As = R0 + (it & 1) * stage;
+      const float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
+      if (active) {
+        for (int ks = 0; ks < KC && it * KC + ks < Sc; ks += 8) {
+          FragA a0, a1;
+          if constexpr (SPLIT) {
+            // e_at[m, k] = dopp[k, c] ant[k, a].
+            const float2* Ns = As + KC * ldd;
+            float2 v[2][4];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int j = i & 1, k = ks + t + 4 * (i >> 1);
+                const float2 d = As[k * ldd + row_c[h][j]];
+                const float2 w = row_a[h][j] >= 0 ? Ns[k * ldn + row_a[h][j]]
+                                                  : make_float2(0.f, 0.f);
+                v[h][i] = make_float2(d.x * w.x - d.y * w.y,
+                                      d.x * w.y + d.y * w.x);
+              }
+            a0 = make_frag_a(v[0]);
+            a1 = make_frag_a(v[1]);
+          } else {
+            a0 = load_frag_a(As, 1, ZK_LDA, 32 * mw, ks);
+            a1 = load_frag_a(As, 1, ZK_LDA, 32 * mw + 16, ks);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int nb = 16 * nw + 8 * nt;
+            if (n0 + nb >= S) continue;
+            const FragB fb = load_frag_b(Bs, ZK_LDB, ks, nb);
+            cmma3(accr[0][nt], acci[0][nt], a0, fb);
+            cmma3(accr[1][nt], acci[1][nt], a1, fb);
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // Epilogue: sigma sqrt(S) (g (*) taps), each value drawn once per tile
+    // (columns n0 - H .. n0 + ZK_NT + H - 1 mod S) into the free ring.
+    float2* G = R0;                                 // [ZK_MC][ZK_GW]
+    const int H = taps.halo, w = ZK_NT + 2 * H;
+    if (noisy) {
+      // Four draws per pass, unconditionally: independent Philox chains.
+      const int n_g = ZK_MC * w;
+      for (int e0 = threadIdx.x; e0 < n_g; e0 += 4 * ZK_THREADS) {
+        float2 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * ZK_THREADS;
+          const int mm = e / w, jj = e - mm * w;
+          const int col = ((n0 - H + jj) % S + S) % S;
+          v[u] = normal_pair<IMPL>(seed, (unsigned)((m0 + mm) * S + col));
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * ZK_THREADS;
+          const int mm = e / w, jj = e - mm * w;
+          if (e < n_g)
+            G[mm * ZK_GW + jj] = m0 + mm < M ? v[u] : make_float2(0.f, 0.f);
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int mm = 32 * mw + 16 * h + g + 8 * (i >> 1);
+            const int nn = 16 * nw + 8 * nt + 2 * t + (i & 1);
+            const int m = m0 + mm, n = n0 + nn;
+            if (m >= M) continue;
+            float vr = accr[h][nt][i], vi = acci[h][nt][i];
+            if (n >= S) {
+              vr = vi = 0.f;
+            } else {
+              if (noisy) {
+                float cr = 0.f, ci = 0.f;
+                for (int q = 0; q < taps.n; ++q) {
+                  // roll by off: the tap reads column n - off.
+                  const float2 gv = G[mm * ZK_GW + nn + H - taps.off[q]];
+                  const float tr = __fmul_rn(taps.coef[q], gv.x);
+                  const float ti = __fmul_rn(taps.coef[q], gv.y);
+                  cr = (q == 0) ? tr : __fadd_rn(cr, tr);
+                  ci = (q == 0) ? ti : __fadd_rn(ci, ti);
+                }
+                vr = __fadd_rn(vr, __fmul_rn(sn, cr));
+                vi = __fadd_rn(vi, __fmul_rn(sn, ci));
+              }
+              if (dc_removal && n == 0) vr = vi = 0.f;
+            }
+            Zt[m * ZK_LDZ + nn] = make_float2(vr, vi);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Z transposed: zr/zi[f, n, m], consecutive threads on consecutive m.
+  for (int e = threadIdx.x; e < M * ZK_NT; e += ZK_THREADS) {
+    const int m = e % M, nn = e / M, n = n0 + nn;
+    if (n >= S) continue;
+    const float2 v = Zt[m * ZK_LDZ + nn];
+    const size_t o = ((size_t)f * S + n) * M + m;
+    zr[o] = v.x;
+    zi[o] = v.y;
+  }
+
+  // Doppler power p[f, d, n] = inv_a sum_a |sum_c W_dop^T[d, c]
+  // Z[a*C + c, n]|^2: per (16 Doppler bins x 8 range bins) tile, one 3xTF32
+  // product per antenna, the |.|^2 summed in registers in antenna order.
+  const int Cp = (C + 7) & ~7, C16 = (C + 15) & ~15;
+  const int ldw = frag_pitch(Cp);
+  float2* Ws = R0;                                  // [C16][ldw]
+  for (int e = threadIdx.x; e < C16 * ldw; e += ZK_THREADS) {
+    const int d = e / ldw, c = e % ldw;
+    Ws[e] = (d < C && c < C) ? wdt[d * C + c] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  const int mtiles = C16 / 16;
+  for (int ti = warp; ti < mtiles * (ZK_NT / 8); ti += ZK_THREADS / 32) {
+    const int m16 = (ti % mtiles) * 16, nb = (ti / mtiles) * 8;
+    if (n0 + nb >= S) continue;
+    float ps[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int a = 0; a < A; ++a) {
+      float orr[4] = {}, oii[4] = {}, err[4] = {}, eii[4] = {};
+      for (int kb = 0; kb < Cp; kb += 8) {
+        const FragA wf = load_frag_a(Ws, ldw, 1, m16, kb);
+        const FragB zf = load_frag_b(Zt + (size_t)a * C * ZK_LDZ, ZK_LDZ, kb,
+                                     nb);
+        cmma3_split(orr, oii, err, eii, wf, zf);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float o_r = orr[i] + err[i], o_i = oii[i] + eii[i];
+        const float pw = __fadd_rn(__fmul_rn(o_r, o_r),
+                                   __fmul_rn(o_i, o_i));
+        ps[i] = (a == 0) ? pw : __fadd_rn(ps[i], pw);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = m16 + g + 8 * (i >> 1), n = n0 + nb + 2 * t + (i & 1);
+      if (d < C && n < S) p[((size_t)f * C + d) * S + n] = __fmul_rn(ps[i],
+                                                                     inv_a);
+    }
+  }
+}
+
+// ---- 3. the CFAR ----------------------------------------------------------
 
 __device__ __forceinline__ float window_count(int i, int pad, int n) {
   return (float)(min(i + pad, n - 1) - max(i - pad, 0) + 1);
@@ -573,7 +444,7 @@ __device__ __forceinline__ float clutter_level(float c, float offset_db) {
   return __fadd_rn(__fmul_rn(logf(fmaxf(c, 1e-12f)), LOG10E_10), offset_db);
 }
 
-// 4. CA-CFAR + local max + range gate (+ clutter gate) -> score.  One
+// 3a. CA-CFAR + local max + range gate (+ clutter gate) -> score.  One
 // block per frame; the whole [C, S] map and its Doppler-axis
 // training-window sums live in shared memory (2 C S floats: 205 KB at
 // C = 64, S = 400).  Box sums run along Doppler first, then range, as the
@@ -583,18 +454,25 @@ cfar_kernel(const float* __restrict__ p, float* __restrict__ score,
             const float* __restrict__ clutter,
             int C, int S, int train, int guard, int neighborhood,
             float offset_db, float threshold_db, int gate_lo, int gate_hi,
-            float clutter_offset_db) {
+            float clutter_offset_db, int parts) {
   extern __shared__ float csm[];
   const int n = C * S;
   float* p1 = csm;
   float* tcol = p1 + n;     // training-window sums along Doppler
-  const int f = blockIdx.x;
+  // Block (f, part) scores the cells [e0, e1) of frame f: a few blocks per
+  // frame when there are few frames.
+  const int f = blockIdx.x / parts, part = blockIdx.x % parts;
+  const int e0 = (int)((long long)n * part / parts);
+  const int e1 = (int)((long long)n * (part + 1) / parts);
   const float* pf = p + (size_t)f * n;
   const int tpad = train + guard, gpad = guard;
+#pragma unroll 4
   for (int e = threadIdx.x; e < n; e += blockDim.x) p1[e] = pf[e] + 1e-12f;
   __syncthreads();
   if (train > 0) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    // The row sums the cells [e0, e1) read: their rows, +-tpad columns.
+    const int t0 = max(e0 - tpad, 0), t1 = min(e1 + tpad, n);
+    for (int e = t0 + threadIdx.x; e < t1; e += blockDim.x) {
       const int d = e / S, s = e % S;
       float ts = 0.f;
       for (int dd = max(d - tpad, 0); dd <= min(d + tpad, C - 1); ++dd)
@@ -608,7 +486,7 @@ cfar_kernel(const float* __restrict__ p, float* __restrict__ score,
   const int r = neighborhood / 2;
   float* out = score + (size_t)f * n;
   const float* cl = clutter ? clutter + (size_t)f * n : nullptr;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+  for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
     const int d = e / S, s = e % S;
     const float v = p1[e];
     const float pd = logf(v) * LOG10E_10;
@@ -651,7 +529,7 @@ cfar_kernel(const float* __restrict__ p, float* __restrict__ score,
   }
 }
 
-// ---- 4c. the prefix-sum CA-CFAR (cfar_impl "cumsum") ---------------------
+// ---- 3b. the prefix-sum CA-CFAR (cfar_impl "cumsum") ---------------------
 
 // Inclusive log-shift prefix sum of a [C, S] plane along Doppler (axis 0)
 // or range (axis 1): x[i] += x[i - sh] for sh = 1, 2, 4, ... < n, each step
@@ -777,25 +655,28 @@ cfar_cumsum_kernel(const float* __restrict__ p, float* __restrict__ score,
   }
 }
 
-// The four launches.  SPLIT: (ant, dopp, coarse, fine, tau, tvec) are the
-// split tables; otherwise ant is e_ac [F, Sc, A*C] and coarse e_fast
-// [F, Sc, S] (the rest unused).  scratch holds T [F, Sc, S] in the
-// range-frequency domain and X [F, A*C, S] in the time domain; sn is
-// sigma sqrt(S) on the window taps in the former, sigma in the latter.
+// The launches.  SPLIT: fa holds the split tables; otherwise ant is e_ac
+// [F, Sc, A*C] and coarse e_fast [F, Sc, S].  tw / pos / plan: the range
+// DFT's twiddle table, input positions and radices (ops/range_dft.py).
+// scratch holds T [F, Sc, S] (complex) in the range-frequency domain and
+// the per-antenna power planes [F, A, C, S] (float) in the time domain,
+// where efast [F, Sc, S] (complex; SPLIT only) takes the composed e_fast;
+// sn is sigma sqrt(S) on the window taps in the former, sigma in the
+// latter.
 template <bool SPLIT>
-int launch_frontend(const void* ant, const void* dopp, const void* coarse,
-                    const void* fine, const void* tau, const void* tvec,
-                    const void* seeds, const void* wrng, const void* wdopt,
-                    void* scratch, void* zr, void* zi, void* p, void* score,
+int launch_frontend(const Factors& fa, const void* seeds, const void* mix,
+                    const void* tw, const void* pos, int nst,
+                    const int* radix, const void* wdopt, void* scratch,
+                    void* efast, void* zr, void* zi, void* p, void* score,
                     const void* clutter, int F, int A, int C, int S, int Sc,
-                    int B, int Q, int device, int has_upper, float echo_upper,
-                    float sn, int n_taps, const int* tap_off,
+                    int device, float sn, int n_taps, const int* tap_off,
                     const float* tap_coef, int dc_removal, int train,
                     int guard, int neighborhood, float offset_db,
                     float threshold_db, int gate_lo, int gate_hi, int domain,
                     int impl, int cfar_impl, float clutter_offset_db,
                     void* stream) {
-  if (F <= 0 || F > 65535 || n_taps < 0 || n_taps > MAX_TAPS ||
+  if (F <= 0 || F > 65535 || A <= 0 || C <= 0 || S <= 0 || Sc <= 0 ||
+      n_taps < 0 || n_taps > MAX_TAPS || nst < 0 || nst > FFT_MAX_STAGES ||
       neighborhood < 1 || (neighborhood & 1) == 0 ||
       (domain != DOMAIN_RANGE_FREQ && domain != DOMAIN_TIME) ||
       (impl != IMPL_FAST && impl != IMPL_BOX_MULLER) ||
@@ -811,57 +692,52 @@ int launch_frontend(const void* ant, const void* dopp, const void* coarse,
     if (h > MAX_HALO) return (int)cudaErrorInvalidValue;
     if (h > taps.halo) taps.halo = h;
   }
+  FftPlan plan{};
+  plan.nst = nst;
+  for (int t = 0; t < nst; ++t) plan.radix[t] = radix[t];
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = A * C;
-  const float2* an = static_cast<const float2*>(ant);
-  const float2* dp = static_cast<const float2*>(dopp);
-  const float2* co = static_cast<const float2*>(coarse);
-  const float2* fi = static_cast<const float2*>(fine);
-  const float* ta = static_cast<const float*>(tau);
-  const float* tv = static_cast<const float*>(tvec);
+  const float inv_a = 1.0f / (float)A;
   const int* sd = static_cast<const int*>(seeds);
-  const float2* wr = static_cast<const float2*>(wrng);
-  float2* scr = static_cast<float2*>(scratch);
+  const float2* mx = static_cast<const float2*>(mix);
+  const float2* twp = static_cast<const float2*>(tw);
+  const int* psp = static_cast<const int*>(pos);
+  const float2* wd = static_cast<const float2*>(wdopt);
   float* zro = static_cast<float*>(zr);
   float* zio = static_cast<float*>(zi);
+  float* pp = static_cast<float*>(p);
 
-  dim3 g2((S + BN - 1) / BN, (M + BM - 1) / BM, F);
   if (domain == DOMAIN_RANGE_FREQ) {
-    dim3 g1((S + BN - 1) / BN, (Sc + BM - 1) / BM, F);
-    range_dft_kernel<SPLIT><<<g1, TPB, 0, st>>>(
-        co, fi, ta, tv, wr, scr, Sc, S, B, Q, has_upper, echo_upper);
+    const size_t rf_smem = rf_smem_bytes(S, nst == 0);
+    const size_t zk_smem = zk_smem_bytes(SPLIT, A, C);
+    if (rf_smem > 232448 || zk_smem > 232448)
+      return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(range_fft_kernel<SPLIT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)rf_smem);
+    if (err != cudaSuccess) return (int)err;
+    float2* T = static_cast<float2*>(scratch);
+    range_fft_kernel<SPLIT><<<dim3((Sc + RF_ROWS - 1) / RF_ROWS, F),
+                              RF_THREADS, rf_smem, st>>>(
+        fa, mx, twp, psp, plan, dc_removal, T, S, Sc);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (impl == IMPL_FAST)
-      z_kernel<SPLIT, IMPL_FAST><<<g2, TPB, 0, st>>>(
-          an, dp, scr, sd, zro, zio, A, C, S, Sc, sn, taps, dc_removal);
-    else
-      z_kernel<SPLIT, IMPL_BOX_MULLER><<<g2, TPB, 0, st>>>(
-          an, dp, scr, sd, zro, zio, A, C, S, Sc, sn, taps, dc_removal);
+    auto zk = impl == IMPL_BOX_MULLER ? z_power_kernel<SPLIT, IMPL_BOX_MULLER>
+                                      : z_power_kernel<SPLIT, IMPL_FAST>;
+    err = cudaFuncSetAttribute(zk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)zk_smem);
+    if (err != cudaSuccess) return (int)err;
+    zk<<<dim3((S + ZK_NT - 1) / ZK_NT, F), ZK_THREADS, zk_smem, st>>>(
+        fa, T, sd, wd, zro, zio, pp, A, C, S, Sc, sn, taps, dc_removal,
+        inv_a);
   } else {
-    if (impl == IMPL_FAST)
-      synth_x_kernel<SPLIT, IMPL_FAST><<<g2, TPB, 0, st>>>(
-          an, dp, co, fi, ta, tv, sd, scr, A, C, S, Sc, B, Q, has_upper,
-          echo_upper, sn);
-    else
-      synth_x_kernel<SPLIT, IMPL_BOX_MULLER><<<g2, TPB, 0, st>>>(
-          an, dp, co, fi, ta, tv, sd, scr, A, C, S, Sc, B, Q, has_upper,
-          echo_upper, sn);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    z_time_kernel<<<g2, TPB, 0, st>>>(scr, wr, zro, zio, M, S);
+    if (SPLIT && efast == nullptr) return (int)cudaErrorInvalidValue;
+    err = launch_cube_onchip<SPLIT, true, false>(
+        fa, static_cast<float2*>(efast), sd, mx, twp, psp, plan, dc_removal,
+        wd, zro, zio, static_cast<float*>(scratch), pp, F, A, C, S, Sc, sn,
+        impl, inv_a, st);
+    if (err != cudaSuccess) return (int)err;
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t pow_smem = sizeof(float) * (2 * PS * (M + 1) + 2 * C * C);
-  err = cudaFuncSetAttribute(doppler_power_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)pow_smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 g3((S + PS - 1) / PS, F);
-  doppler_power_kernel<<<g3, TPB, pow_smem, st>>>(
-      zro, zio, static_cast<const float2*>(wdopt), static_cast<float*>(p), A,
-      C, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const float* cl = static_cast<const float*>(clutter);
@@ -871,10 +747,12 @@ int launch_frontend(const void* ant, const void* dopp, const void* coarse,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfar_smem);
     if (err != cudaSuccess) return (int)err;
-    cfar_kernel<<<F, CFAR_THREADS, cfar_smem, st>>>(
-        static_cast<const float*>(p), static_cast<float*>(score), cl, C, S,
-        train, guard, neighborhood, offset_db, threshold_db, gate_lo,
-        gate_hi, clutter_offset_db);
+    // Up to four blocks per frame while they fill no more than the card
+    // twice (two blocks fit an SM): each scores a quarter of the map.
+    const int parts = F >= 264 ? 1 : (F >= 132 ? 2 : 4);
+    cfar_kernel<<<F * parts, CFAR_THREADS, cfar_smem, st>>>(
+        pp, static_cast<float*>(score), cl, C, S, train, guard, neighborhood,
+        offset_db, threshold_db, gate_lo, gate_hi, clutter_offset_db, parts);
   } else {
     const size_t cfar_smem = sizeof(float) * 3 * (size_t)C * S;
     err = cudaFuncSetAttribute(cfar_cumsum_kernel,
@@ -882,9 +760,8 @@ int launch_frontend(const void* ant, const void* dopp, const void* coarse,
                                (int)cfar_smem);
     if (err != cudaSuccess) return (int)err;
     cfar_cumsum_kernel<<<F, CFAR_THREADS, cfar_smem, st>>>(
-        static_cast<const float*>(p), static_cast<float*>(score), cl, C, S,
-        train, guard, neighborhood, offset_db, threshold_db, gate_lo,
-        gate_hi, clutter_offset_db);
+        pp, static_cast<float*>(score), cl, C, S, train, guard, neighborhood,
+        offset_db, threshold_db, gate_lo, gate_hi, clutter_offset_db);
   }
   return (int)cudaGetLastError();
 }
@@ -894,36 +771,49 @@ int launch_frontend(const void* ant, const void* dopp, const void* coarse,
 // K1: split synthesis factors.
 extern "C" int radar_frontend_split(
     const void* ant, const void* dopp, const void* coarse, const void* fine,
-    const void* tau, const void* tvec, const void* seeds, const void* wrng,
-    const void* wdopt, void* scratch, void* zr, void* zi, void* p,
-    void* score, const void* clutter, int F, int A, int C, int S, int Sc,
-    int B, int Q, int device, int has_upper, float echo_upper, float sn,
+    const void* tau, const void* tvec, const void* seeds, const void* mix,
+    const void* tw, const void* pos, int nst, const int* radix,
+    const void* wdopt, void* scratch, void* efast, void* zr, void* zi,
+    void* p, void* score, const void* clutter, int F, int A, int C, int S,
+    int Sc, int B, int Q, int device, int has_upper, float echo_upper, float sn,
     int n_taps, const int* tap_off, const float* tap_coef, int dc_removal,
     int train, int guard, int neighborhood, float offset_db,
     float threshold_db, int gate_lo, int gate_hi, int domain, int impl,
     int cfar_impl, float clutter_offset_db, void* stream) {
+  if (B <= 0 || Q <= 0 || (long long)B * Q < S)
+    return (int)cudaErrorInvalidValue;
+  const Factors fa{static_cast<const float2*>(ant),
+                   static_cast<const float2*>(dopp),
+                   static_cast<const float2*>(coarse),
+                   static_cast<const float2*>(fine),
+                   static_cast<const float*>(tau),
+                   static_cast<const float*>(tvec), B, Q, has_upper,
+                   echo_upper};
   return launch_frontend<true>(
-      ant, dopp, coarse, fine, tau, tvec, seeds, wrng, wdopt, scratch, zr,
-      zi, p, score, clutter, F, A, C, S, Sc, B, Q, device, has_upper,
-      echo_upper, sn, n_taps, tap_off, tap_coef, dc_removal, train, guard,
-      neighborhood, offset_db, threshold_db, gate_lo, gate_hi, domain, impl,
-      cfar_impl, clutter_offset_db, stream);
+      fa, seeds, mix, tw, pos, nst, radix, wdopt, scratch, efast, zr, zi, p,
+      score, clutter, F, A, C, S, Sc, device, sn, n_taps, tap_off, tap_coef,
+      dc_removal, train, guard, neighborhood, offset_db, threshold_db,
+      gate_lo, gate_hi, domain, impl, cfar_impl, clutter_offset_db, stream);
 }
 
 // K3: dense factor planes e_ac [F, Sc, A*C] and e_fast [F, Sc, S].
 extern "C" int radar_frontend_dense(
-    const void* e_ac, const void* e_fast, const void* seeds,
-    const void* wrng, const void* wdopt, void* scratch, void* zr, void* zi,
-    void* p, void* score, const void* clutter, int F, int A, int C, int S,
-    int Sc, int device, float sn, int n_taps, const int* tap_off,
+    const void* e_ac, const void* e_fast, const void* seeds, const void* mix,
+    const void* tw, const void* pos, int nst, const int* radix,
+    const void* wdopt, void* scratch, void* zr, void* zi, void* p,
+    void* score, const void* clutter, int F, int A, int C, int S, int Sc,
+    int device, float sn, int n_taps, const int* tap_off,
     const float* tap_coef, int dc_removal, int train, int guard,
     int neighborhood, float offset_db, float threshold_db, int gate_lo,
     int gate_hi, int domain, int impl, int cfar_impl,
     float clutter_offset_db, void* stream) {
+  const Factors fa{static_cast<const float2*>(e_ac), nullptr,
+                   static_cast<const float2*>(e_fast), nullptr, nullptr,
+                   nullptr, 1, 1, 0, 0.0f};
   return launch_frontend<false>(
-      e_ac, nullptr, e_fast, nullptr, nullptr, nullptr, seeds, wrng, wdopt,
-      scratch, zr, zi, p, score, clutter, F, A, C, S, Sc, 1, 1, device, 0,
-      0.0f, sn, n_taps, tap_off, tap_coef, dc_removal, train, guard,
-      neighborhood, offset_db, threshold_db, gate_lo, gate_hi, domain, impl,
-      cfar_impl, clutter_offset_db, stream);
+      fa, seeds, mix, tw, pos, nst, radix, wdopt, scratch, nullptr, zr, zi,
+      p, score, clutter, F, A, C, S, Sc, device, sn, n_taps, tap_off,
+      tap_coef, dc_removal, train, guard, neighborhood, offset_db,
+      threshold_db, gate_lo, gate_hi, domain, impl, cfar_impl,
+      clutter_offset_db, stream);
 }

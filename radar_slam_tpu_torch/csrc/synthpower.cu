@@ -1,4 +1,4 @@
-// Three-dispatch synthetic front end for NVIDIA Hopper (sm_90a), FP32 SIMT.
+// Three-dispatch synthetic front end for NVIDIA Hopper (sm_90a).
 //
 // Three kernels of the scatterer path's three-dispatch branch, each
 // replacing one TPU kernel of radar_slam_tpu/ops/synthpower_pallas.py:
@@ -8,52 +8,43 @@
 //       "fast" or "box_muller".
 //   K4  synth_power       _power_kernel :153 (wrapper scatterer_power
 //       :175): the ADC cube X = e_at e_fast + sigma (n_re + j n_im)
-//       [F, A*C, S], then the range product Z = X W_rng (mix and DC
-//       projector folded in), per antenna the Doppler DFT, |.|^2 and the
-//       mean over antennas -> power map [F, S, D] (range, Doppler), written
-//       in the detection layout.
+//       [F, A*C, S], its range DFT Z (mix and DC projector folded in), per
+//       antenna the Doppler DFT, |.|^2 and the mean over antennas -> power
+//       map [F, S, D] (range, Doppler), written in the detection layout.
 //   K5  synth_signatures  _sig_kernel :248 (wrapper scatterer_signatures
-//       :278): the same X (same seeds, same noise, bit for bit),
+//       :278): the same X (same seeds, same noise words),
 //       G = X W_rc[f] [A*C, K] against the detected cells' range columns,
 //       then sig[f, a, k] = sum_c G[a*C + c, k] wd[f, c, k] -> [F, A, K].
 //
-// The noise is the port's counter-based generator (ops/noise.py is the
-// plain form): Philox-4x32-10 under key (frame seed, 0) at counter
-// (row * S + col, block, 0, 0), through the "fast" or the Box-Muller
-// transform, with the same words and the same float operations (the _rn
-// intrinsics keep nvcc from contracting them into FMAs).  Element
-// (a*C + c, s) of X draws index (a*C + c) * S + s, as the port's
-// synthesize_frame does, so the three-dispatch and the materialized paths
-// see one noise realization per generator state.
+// The noise is the port's counter-based generator (philox.cuh; ops/noise.py
+// is the plain form).  Element (a*C + c, s) of X draws index
+// (a*C + c) * S + s, as the port's synthesize_frame does, so the
+// three-dispatch and the materialized paths see one noise realization per
+// generator state.
 //
-// Deviations from the TPU kernels:
-// - The TPU kernels never write X to device memory: each keeps the cube in
-//   VMEM between the synthesis and the range product.  This port writes X
-//   (0.82 MB per frame at A*C = 256, S = 400) to a scratch buffer and
-//   reads it back, and K4 writes Z as well (as K7 does).  Keeping X on chip
-//   is later work (ROADMAP).
-// - Every product runs in FP32.  On the TPU, K4's range product runs as one
-//   bf16 MXU pass by default (PipelineConfig.power_precision = "default"),
-//   the deviation already recorded for K7; the port's power map is held to
-//   1e-5 of its maximum, which bf16 cannot meet.
+// K4 (cube_onchip.cuh, shared with frontend.cu's time domain).  What bounds
+// it: per frame (A*C = 256, Sc = 128, S = 400) the synthesis product, 13.1 M
+// complex MACs (315 M TF32 MACs in 3xTF32), and the Philox noise, 102 k
+// draws of two Philox-4x32-10 blocks (one for Box-Muller); the factored
+// range DFT is 1.8 M complex MACs (the dense product was 41 M) and the
+// Doppler DFT 3.3 M.  Design: one block per (antenna, frame) keeps the
+// antenna's C x S cube rows in shared memory from the synthesis (3xTF32
+// mma.sync on a cp.async ring, noise in the epilogue) through the FFT and
+// the Doppler product; only the antenna's power plane leaves the chip, and
+// a second small launch sums the planes in antenna order.  Neither X nor Z
+// is written to device memory, as on the TPU.  C <= 32: the block holds all
+// of an antenna's chirps.
 //
-// What bounds them on this card: arithmetic.  Per frame (A*C = 256,
-// Sc = 128, S = 400, K = 64): the synthesis is 13.1 M complex MACs
-// (105 MFLOP at four real products per complex MAC), K4's range product
-// 41 M (328 MFLOP) and its Doppler stage 26 MFLOP; K5's product against
-// the columns 6.6 M (52 MFLOP).  Against that, K4 moves ~4.2 MB per frame
-// (factors 0.67 MB, X out and in, Z out and in) -- ~110 FLOP per byte,
-// above the FP32 SIMT ridge of the H100 (67 TFLOP/s over 3.35 TB/s =
-// 20 FLOP per byte).  The Philox draws (10 rounds, two blocks per element
-// for "fast") add ~0.1 M integer multiplies per frame.  Design: one
-// shared-memory-tiled FP32 SIMT complex product (64 x 64 output tile,
-// depth 16, 4 x 4 complex accumulators per thread, four real FMAs per
-// complex MAC) serves the synthesis (A operand e_ac [Sc, A*C] read
-// transposed, no copy; noise added in the epilogue), the range product and
-// K5's per-frame column product; the Doppler stage stages 32 range bins of
-// Z and W_dop^T in shared memory (K7's design); K5's chirp reduction is a
-// small launch, one thread per (frame, antenna, cell).  K6 is elementwise:
-// one thread per element.
+// K5 and K6 (FP32 SIMT, unchanged by the redesign of K4): one
+// shared-memory-tiled complex product (64 x 64 output tile, depth 16,
+// 4 x 4 complex accumulators per thread) serves K5's synthesis (noise in
+// its epilogue) and its per-frame column product, which writes X to a
+// scratch buffer (0.82 MB per frame) and reads it back; K5's chirp
+// reduction is one thread per (frame, antenna, cell).  K6 is elementwise.
+// Every product keeps FP32 accuracy: on the TPU, K4's range product runs as
+// one bf16 MXU pass by default (PipelineConfig.power_precision = "default");
+// the port's power map is held to 1e-5 of its maximum, which bf16 cannot
+// meet.
 //
 // Built as a shared library with a plain C interface (no PyTorch headers):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -63,6 +54,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cube_onchip.cuh"
+#include "philox.cuh"
+
 namespace {
 
 constexpr int BM = 64;          // output tile rows
@@ -70,67 +64,7 @@ constexpr int BN = 64;          // output tile columns
 constexpr int BK = 16;          // reduction depth per stage
 constexpr int LDA = BM + 1;     // A-tile row pitch (transposing store)
 constexpr int TPB = 256;        // 16 x 16 threads, 4 x 4 outputs each
-constexpr int PS = 32;          // range bins per Doppler block
 constexpr int EW = 256;         // threads per elementwise block
-constexpr int IMPL_FAST = 0;    // noise transforms (ops/noise.py)
-constexpr int IMPL_BOX_MULLER = 1;
-
-// ---- counter-based Gaussian generator ----------------------------------
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const unsigned lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float byte_sum(unsigned w) {
-  // Logical shifts on unsigned words (an arithmetic shift NaN'd the
-  // reference's noise on chip).
-  return (float)((w & 255u) + ((w >> 8) & 255u) + ((w >> 16) & 255u) +
-                 (w >> 24)) - 510.0f;
-}
-
-// u1 = (w >> 8) 2^-24 + 2^-25 in (0, 1) and the exact Rayleigh radius.
-__device__ __forceinline__ float rayleigh(unsigned w) {
-  const float u1 = __fadd_rn(__fmul_rn((float)(w >> 8), 1.0f / 16777216.0f),
-                             0.5f / 16777216.0f);
-  return sqrtf(__fmul_rn(-2.0f, logf(u1)));
-}
-
-// Two standard normals for element idx of a frame's noise plane.
-__device__ __forceinline__ float2 normal_pair(unsigned seed, unsigned idx,
-                                              int impl) {
-  const uint4 a = philox4x32_10(make_uint4(idx, 0u, 0u, 0u),
-                                make_uint2(seed, 0u));
-  const float r = rayleigh(a.x);
-  if (impl == IMPL_BOX_MULLER) {
-    const float u2 = __fmul_rn((float)(a.y >> 8), 1.0f / 16777216.0f);
-    const float ang = __fmul_rn(6.283185307179586f, u2);
-    return make_float2(__fmul_rn(r, cosf(ang)), __fmul_rn(r, sinf(ang)));
-  }
-  const uint4 b = philox4x32_10(make_uint4(idx, 1u, 0u, 0u),
-                                make_uint2(seed, 0u));
-  const float g1 = byte_sum(a.y), g2 = byte_sum(a.z);
-  const float h1 = byte_sum(a.w), h2 = byte_sum(b.x);
-  const float v1 = __fadd_rn(g1, __fmul_rn(0.7071067811865476f,
-                                           __fsub_rn(h1, h2)));
-  const float v2 = __fadd_rn(g2, __fmul_rn(0.7071067811865476f,
-                                           __fadd_rn(h1, h2)));
-  const float inv = 1.0f / sqrtf(__fadd_rn(
-      __fadd_rn(__fmul_rn(v1, v1), __fmul_rn(v2, v2)), 1e-6f));
-  return make_float2(__fmul_rn(__fmul_rn(r, v1), inv),
-                     __fmul_rn(__fmul_rn(r, v2), inv));
-}
 
 // ---- K6: noise planes, one thread per element ---------------------------
 __global__ void __launch_bounds__(EW)
@@ -251,59 +185,6 @@ product_kernel(const float2* __restrict__ a, const float2* __restrict__ b,
   }
 }
 
-// ---- K4's Doppler stage over PS range bins of one frame ------------------
-// p[f, s, d] = inv_a sum_a |sum_c WdT[d, c] Z[a*C + c, s]|^2.  Z rows and
-// WdT staged in shared memory (WdT rows padded by one float against bank
-// conflicts); thread o -> (s = o / C, d = o % C), so a warp reads one Z
-// value (broadcast) and stores contiguous Doppler bins.
-__global__ void __launch_bounds__(TPB)
-doppler_power_kernel(const float2* __restrict__ z,
-                     const float2* __restrict__ wdt, float* __restrict__ p,
-                     int A, int C, int S, float inv_a) {
-  extern __shared__ float dsm[];
-  const int M = A * C, ldw = C + 1;
-  float* zr = dsm;                  // [M][PS]
-  float* zi = zr + M * PS;
-  float* wr = zi + M * PS;          // [C][C + 1]
-  float* wi = wr + C * ldw;
-  const int f = blockIdx.y, s0 = blockIdx.x * PS;
-  const float2* zf = z + (size_t)f * M * S;
-  for (int e = threadIdx.x; e < M * PS; e += blockDim.x) {
-    const int row = e / PS, sl = e % PS;
-    const int s = s0 + sl;
-    const float2 v = (s < S) ? zf[(size_t)row * S + s] : make_float2(0.f, 0.f);
-    zr[e] = v.x;
-    zi[e] = v.y;
-  }
-  for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
-    const int d = e / C, c = e % C;
-    wr[d * ldw + c] = wdt[e].x;
-    wi[d * ldw + c] = wdt[e].y;
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < PS * C; o += blockDim.x) {
-    const int sl = o / C, d = o % C;
-    const int s = s0 + sl;
-    if (s >= S) continue;
-    float acc = 0.f;
-    for (int a = 0; a < A; ++a) {
-      float orr = 0.f, oii = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float w_r = wr[d * ldw + c], w_i = wi[d * ldw + c];
-        const float v_r = zr[(a * C + c) * PS + sl];
-        const float v_i = zi[(a * C + c) * PS + sl];
-        orr = fmaf(w_r, v_r, orr);
-        orr = fmaf(-w_i, v_i, orr);
-        oii = fmaf(w_r, v_i, oii);
-        oii = fmaf(w_i, v_r, oii);
-      }
-      acc = __fadd_rn(acc, __fadd_rn(__fmul_rn(orr, orr),
-                                     __fmul_rn(oii, oii)));
-    }
-    p[((size_t)f * S + s) * C + d] = __fmul_rn(acc, inv_a);
-  }
-}
-
 // ---- K5's chirp reduction: sig[f, a, k] = sum_c G[f, a*C + c, k] wd[f, c, k]
 __global__ void __launch_bounds__(EW)
 chirp_reduce_kernel(const float2* __restrict__ g,
@@ -366,38 +247,33 @@ extern "C" int synth_noise(const void* seeds, void* out, int F,
   return (int)cudaGetLastError();
 }
 
-// K4: power map p [F, S, C] of the synthesized cubes.
+// K4: power map p [F, S, C] of the synthesized cubes, the cube kept on
+// chip (cube_onchip.cuh); pa holds the per-antenna power planes
+// [F, A, S, C].  tw / pos / nst / radix: the range DFT's table, input
+// positions and radices (ops/range_dft.py).
 extern "C" int synth_power(const void* e_ac, const void* e_fast,
-                           const void* seeds, const void* wrng,
-                           const void* wdopt, void* xbuf, void* zbuf,
+                           const void* seeds, const void* mix,
+                           const void* tw, const void* pos, int nst,
+                           const int* radix, const void* wdopt, void* pa,
                            void* p, int F, int A, int C, int S, int Sc,
-                           float sigma, int impl, float inv_a, int device,
-                           void* stream) {
-  if (bad_shape(F, A, C, S, Sc, impl)) return (int)cudaErrorInvalidValue;
+                           float sigma, int impl, float inv_a,
+                           int dc_removal, int device, void* stream) {
+  if (bad_shape(F, A, C, S, Sc, impl) || nst < 0 || nst > FFT_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = A * C;
-  if ((err = launch_synthesis(e_ac, e_fast, seeds, xbuf, F, M, S, Sc, sigma,
-                              impl, st)) != cudaSuccess)
-    return (int)err;
-
-  dim3 g1((S + BN - 1) / BN, (M + BM - 1) / BM, F);
-  product_kernel<false><<<g1, TPB, 0, st>>>(
-      static_cast<const float2*>(xbuf), static_cast<const float2*>(wrng),
-      static_cast<float2*>(zbuf), M, S, S, 0LL, nullptr, 0.0f, impl);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t smem = sizeof(float) * (2 * (size_t)M * PS + 2 * C * (C + 1));
-  err = cudaFuncSetAttribute(doppler_power_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 g2((S + PS - 1) / PS, F);
-  doppler_power_kernel<<<g2, TPB, smem, st>>>(
-      static_cast<const float2*>(zbuf), static_cast<const float2*>(wdopt),
-      static_cast<float*>(p), A, C, S, inv_a);
-  return (int)cudaGetLastError();
+  FftPlan plan{};
+  plan.nst = nst;
+  for (int t = 0; t < nst; ++t) plan.radix[t] = radix[t];
+  const Factors fa{static_cast<const float2*>(e_ac), nullptr,
+                   static_cast<const float2*>(e_fast), nullptr, nullptr,
+                   nullptr, 1, 1, 0, 0.0f};
+  return (int)launch_cube_onchip<false, false, true>(
+      fa, nullptr, static_cast<const int*>(seeds), static_cast<const float2*>(mix),
+      static_cast<const float2*>(tw), static_cast<const int*>(pos), plan,
+      dc_removal, static_cast<const float2*>(wdopt), nullptr, nullptr,
+      static_cast<float*>(pa), static_cast<float*>(p), F, A, C, S, Sc, sigma,
+      impl, inv_a, static_cast<cudaStream_t>(stream));
 }
 
 // K5: signatures sig [F, A, K] (complex, before normalization) of the

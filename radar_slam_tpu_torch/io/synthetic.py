@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 from radar_slam_tpu_torch.core.types import scatterer_batch_from_numpy
 
 
@@ -105,11 +106,13 @@ def constant_motion_scene(seed: int, num_frames: int, dt: float,
                           v_body: Tuple[float, float],
                           yaw_rate: float,
                           scene: SceneConfig = SceneConfig(),
-                          device="cpu"):
+                          device=DEFAULT):
     """Frame sequence under constant body velocity + yaw rate.
 
-    Returns (ScattererBatch [F, S] on ``device``, gt dict of numpy arrays:
+    Returns (ScattererBatch [F, S] on ``device`` -- the card unless the
+    caller names another --, gt dict of numpy arrays:
     poses [F, 3] (x, y, yaw), velocity_body [3], yaw_rate, timestamps [F])."""
+    device = resolve(device)
     vb = np.array([v_body[0], v_body[1]], np.float64)
     w = float(yaw_rate)
 

@@ -3,8 +3,9 @@
 Each source is compiled once by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` -- no PyTorch headers, so a
 build takes seconds.  Libraries land in ``radar_slam_tpu_torch/_build/``
-(git-ignored), keyed by a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing is built
+(git-ignored), keyed by a hash of the source, every ``csrc`` header it
+includes (transitively) and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  Nothing is built
 at import time: the first call that needs a kernel builds it.
 """
 
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,12 +37,30 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (PATH or /usr/local/cuda)")
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def sources(name: str, csrc: Path = CSRC_DIR) -> list:
+    """``<csrc>/<name>.cu`` and every header it includes with quotes,
+    transitively, in first-include order."""
+    seen, todo = [], [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
+def library_path(name: str, csrc: Path = CSRC_DIR) -> Path:
+    """Where the library built from ``<csrc>/<name>.cu`` lives: named by a
+    hash of the source, its included headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)

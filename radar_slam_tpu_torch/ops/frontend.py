@@ -33,13 +33,21 @@ prefix sums (``"cumsum"``, the reference's add order); the optional clutter
 map [F, R, D] gates cells at ``ln(max(c, 1e-12)) * 10 / ln 10 +
 clutter_offset_db`` -- the kernel's form, not detect.py's ``10 log10``.
 
+The kernels run the range DFT (W_rng = diag(mix) W, column 0 zeroed with
+``dc_removal``) as the factored FFT of ``ops/range_dft.py``, so they take
+the mix vector [S] where the plain versions take the dense matrix; the
+plain versions keep ``signal/rds.py:range_dft_matrix``, the reference's
+constant.
+
 Three layers per kernel:
 
 - :func:`frontend_kernel_split` (K1) / :func:`frontend_kernel_dense` (K3)
   -- the kernel wrappers.  On a CUDA tensor each launches its hand-written
   kernel of ``csrc/frontend.cu`` (or raises); on a CPU tensor it runs its
-  plain version.  ``.launches`` counts the CUDA launches and
-  ``.branch_launches`` those that ran each non-default branch.
+  plain version on ``range_dft_matrix(S, mix, dc_removal)``.  ``.launches``
+  counts the CUDA launches and ``.branch_launches`` those that ran each
+  non-default branch ("dense_range": an S with a prime factor above 5,
+  whose range DFT has no factored plan).
 - :func:`scatterer_frontend_split_reference` /
   :func:`scatterer_frontend_reference` -- the plain versions: the factor
   planes, then one shared body (:func:`_frontend_body_reference`), the
@@ -53,13 +61,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as tfn
 
-from radar_slam_tpu_torch.ops import _build
+from radar_slam_tpu_torch.ops import _build, range_dft
 from radar_slam_tpu_torch.ops.noise import standard_normals
 from radar_slam_tpu_torch.ops.windows import get_window
 
@@ -67,6 +76,9 @@ _NEG = -1e30          # score sentinel; power_db >= -120 so -1e29 separates
 _LOG10E_10 = 4.3429448190325176   # 10 / ln(10)
 _MAX_TAPS = 5         # csrc/frontend.cu: MAX_TAPS (a 3-term cosine window)
 _MAX_SMEM = 232448    # shared memory one block may use on Hopper (bytes)
+# csrc/cube_onchip.cuh: the cube rows a time-domain block holds, its ring
+# (float2: two stages of OC_KC x (OC_LDA + 1 + OC_LDB)).
+_OC_ROWS, _OC_RING = 32, 2 * 32 * (36 + 1 + 132)
 
 
 def use_f32_matmuls() -> None:
@@ -99,15 +111,18 @@ class FrontendParams:
 _DOMAINS = {"range_freq": 0, "time": 1}    # csrc/frontend.cu: DOMAIN_*
 _IMPLS = {"fast": 0, "box_muller": 1}      # csrc/frontend.cu: IMPL_*
 _CFARS = {"matmul": 0, "cumsum": 1}        # csrc/frontend.cu: CFAR_*
-_BRANCHES = ("time", "box_muller", "cumsum", "clutter")
+_BRANCHES = ("time", "box_muller", "cumsum", "clutter", "dense_range")
 
 
-def _branches(prm: FrontendParams, clutter) -> Tuple[str, ...]:
-    """The non-default branches a launch with ``prm`` runs (K1')."""
+def _branches(prm: FrontendParams, clutter,
+              S: Optional[int] = None) -> Tuple[str, ...]:
+    """The non-default branches a launch with ``prm`` (and, where given,
+    S samples per chirp) runs (K1')."""
     on = {"time": prm.noise_domain == "time",
           "box_muller": prm.noise_impl == "box_muller",
           "cumsum": prm.cfar_impl == "cumsum",
-          "clutter": clutter is not None}
+          "clutter": clutter is not None,
+          "dense_range": S is not None and range_dft.plan(S) is None}
     return tuple(b for b in _BRANCHES if on[b])
 
 
@@ -341,7 +356,7 @@ def _check_clutter(clutter, F: int, C: int, S: int, dev) -> None:
         _build.check_input("clutter", clutter, torch.float32, dev, (F, C, S))
 
 
-def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
+def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, mix, w_dop_t,
                   prm: FrontendParams, clutter=None):
     F, Sc, A = ant.shape
     C = dopp.shape[-1]
@@ -351,7 +366,7 @@ def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
     shapes = {"ant": (ant, (F, Sc, A)), "dopp": (dopp, (F, Sc, C)),
               "coarse": (coarse, (F, Sc, Q)), "fine": (fine, (F, Sc, B)),
               "tau": (tau, (F, Sc)), "t": (t, (S,)), "seeds": (seeds, (F,)),
-              "w_rng": (w_rng, (S, S)), "w_dop_t": (w_dop_t, (C, C))}
+              "mix": (mix, (S,)), "w_dop_t": (w_dop_t, (C, C))}
     dtypes = {"tau": torch.float32, "t": torch.float32,
               "seeds": torch.int32}
     for name, (x, shape) in shapes.items():
@@ -371,41 +386,60 @@ def _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
     return F, Sc, A, C, B, Q, S
 
 
-def _outputs(F: int, A: int, C: int, S: int, Sc: int, prm: FrontendParams,
+def _scratch(F: int, A: int, C: int, S: int, Sc: int, prm: FrontendParams,
              dev):
-    """The kernel's scratch (T [F, Sc, S] in the range-frequency domain, X
-    [F, A*C, S] in the time domain) and outputs zr, zi, p, score."""
-    rows = A * C if prm.noise_domain == "time" else Sc
-    scratch = torch.empty((F, rows, S), dtype=torch.complex64, device=dev)
+    """The kernel's scratch: T [F, Sc, S] complex in the range-frequency
+    domain; the per-antenna power planes [F, A, C, S] in the time domain,
+    where the cube and Z never leave the chip."""
+    if prm.noise_domain == "time":
+        return torch.empty((F, A, C, S), dtype=torch.float32, device=dev)
+    return torch.empty((F, Sc, S), dtype=torch.complex64, device=dev)
+
+
+def _outputs(F: int, A: int, C: int, S: int, dev):
+    """zr, zi [F, S, A*C] and p, score [F, C, S]."""
     zr = torch.empty((F, S, A * C), dtype=torch.float32, device=dev)
     zi = torch.empty_like(zr)
     p = torch.empty((F, C, S), dtype=torch.float32, device=dev)
-    score = torch.empty_like(p)
-    return scratch, zr, zi, p, score
+    return zr, zi, p, torch.empty_like(p)
 
 
-def _count(wrapper, prm: FrontendParams, clutter) -> None:
+def _count(wrapper, prm: FrontendParams, clutter, S: int) -> None:
     wrapper.launches += 1
-    for b in _branches(prm, clutter):
+    for b in _branches(prm, clutter, S):
         wrapper.branch_launches[b] += 1
 
 
-def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
+def range_fft_args(S: int, dev):
+    """(twiddle table, input positions, number of stages, radices) of the
+    range DFT for the C launchers (``ops/range_dft.py``)."""
+    nst, radices = range_dft.stage_args(S)
+    radix = (ctypes.c_int * range_dft.MAX_STAGES)(*radices)
+    return (range_dft.twiddles(S, dev), range_dft.input_positions(S, dev),
+            nst, ctypes.cast(radix, ctypes.c_void_p))
+
+
+def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, mix, w_dop_t,
                  prm: FrontendParams, clutter):
     F, Sc, A, C, B, Q, S = _check_inputs(ant, dopp, coarse, fine, tau, t,
-                                         seeds, w_rng, w_dop_t, prm, clutter)
-    if F > 65535:
-        raise ValueError(f"F={F} frames exceeds the grid's z limit 65535")
-    _check_smem(A, C, S, prm)
+                                         seeds, mix, w_dop_t, prm, clutter)
+    _check_launch(F, A, C, S, prm)
     dev = ant.device
-    ins = (ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t)
-    outs = _outputs(F, A, C, S, Sc, prm, dev)
+    tw, pos, nst, radix = range_fft_args(S, dev)
+    ins = (ant, dopp, coarse, fine, tau, t, seeds, mix, tw, pos)
+    scratch = _scratch(F, A, C, S, Sc, prm, dev)
+    # The time domain composes e_fast [F, Sc, S] once per frame.
+    efast = (torch.empty((F, Sc, S), dtype=torch.complex64, device=dev)
+             if prm.noise_domain == "time" else None)
+    outs = _outputs(F, A, C, S, dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind("frontend", "radar_frontend_split",
-                     (vp,) * 15 + (ci,) * 8 + (ci, cf, cf, ci, vp, vp)
-                     + (ci,) * 4 + (cf, cf, ci, ci) + (ci,) * 3
-                     + (cf, vp))
-    _build.launch(fn, *[x.data_ptr() for x in ins],
+                     (vp,) * 10 + (ci, vp) + (vp,) * 8 + (ci,) * 8
+                     + (ci, cf, cf, ci, vp, vp) + (ci,) * 4
+                     + (cf, cf, ci, ci) + (ci,) * 3 + (cf, vp))
+    _build.launch(fn, *[x.data_ptr() for x in ins], nst, radix,
+                  w_dop_t.data_ptr(), scratch.data_ptr(),
+                  efast.data_ptr() if efast is not None else None,
                   *[x.data_ptr() for x in outs],
                   clutter.data_ptr() if clutter is not None else None,
                   F, A, C, S, Sc, B, Q, dev.index,
@@ -415,30 +449,37 @@ def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t,
                   *_noise_args(prm, S), *_cfar_args(prm),
                   *_branch_args(prm),
                   torch.cuda.current_stream(dev).cuda_stream)
-    _count(frontend_kernel_split, prm, clutter)
-    return outs[1:]
+    _count(frontend_kernel_split, prm, clutter, S)
+    return outs
 
 
-def frontend_kernel_split(ant, dopp, coarse, fine, tau, t, seeds, w_rng,
+def frontend_kernel_split(ant, dopp, coarse, fine, tau, t, seeds, mix,
                           w_dop_t, prm: FrontendParams, clutter=None):
-    """The one-pass kernel: same arguments and outputs as
-    :func:`scatterer_frontend_split_reference`.  A CUDA tensor launches the
-    hand-written kernel (``csrc/frontend.cu``) or raises; a CPU tensor runs
-    the plain version, because there is no card to run the kernel on."""
+    """The one-pass kernel: the arguments of
+    :func:`scatterer_frontend_split_reference` with the mix vector [S] in
+    place of the dense range DFT, and its outputs.  A CUDA tensor launches
+    the hand-written kernel (``csrc/frontend.cu``) or raises; a CPU tensor
+    runs the plain version on ``range_dft_matrix(S, mix, dc_removal)``,
+    because there is no card to run the kernel on."""
     if ant.device.type == "cuda":
-        return _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, w_rng,
+        return _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, mix,
                             w_dop_t, prm, clutter)
     if ant.device.type == "cpu":
-        _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, w_rng,
-                      w_dop_t, prm, clutter)
+        _check_inputs(ant, dopp, coarse, fine, tau, t, seeds, mix, w_dop_t,
+                      prm, clutter)
         return scatterer_frontend_split_reference(
-            ant, dopp, coarse, fine, tau, t, seeds, w_rng, w_dop_t, prm,
-            clutter)
+            ant, dopp, coarse, fine, tau, t, seeds,
+            _range_matrix(t.shape[0], mix, prm), w_dop_t, prm, clutter)
     raise ValueError(f"no front-end kernel for device {ant.device}")
 
 
 frontend_kernel_split.launches = 0
 frontend_kernel_split.branch_launches = dict.fromkeys(_BRANCHES, 0)
+
+
+def _range_matrix(S: int, mix: torch.Tensor, prm: FrontendParams):
+    from radar_slam_tpu_torch.signal.rds import range_dft_matrix
+    return range_dft_matrix(S, mix, prm.dc_removal).contiguous()
 
 
 def _check_params(prm: FrontendParams) -> None:
@@ -457,18 +498,60 @@ def _check_params(prm: FrontendParams) -> None:
         raise ValueError("neighborhood must be odd")
 
 
-def _check_smem(A: int, C: int, S: int, prm: FrontendParams) -> None:
-    # csrc/frontend.cu: doppler_power_kernel stages 16 rows of Z and W_dop^T;
-    # cfar_kernel holds the [C, S] map and its Doppler box sums,
-    # cfar_cumsum_kernel the map and two scan planes.
+def frag_pitch(n: int) -> int:
+    """csrc/tf32x3.cuh: the smallest pitch >= n that is 4 mod 16."""
+    return n + (20 - n % 16) % 16
+
+
+def _z_power_smem(split: bool, A: int, C: int) -> int:
+    """csrc/frontend.cu: zk_smem_bytes."""
+    stage = (32 * (frag_pitch(C) + frag_pitch(A) + 36) if split
+             else 16 * (260 + 36))
+    r0 = max(2 * stage, 256 * 36,
+             -(-C // 16) * 16 * frag_pitch(-(-C // 8) * 8))
+    return 8 * (r0 + (A * C + 8) * 36)
+
+
+def _check_launch(F: int, A: int, C: int, S: int, prm: FrontendParams,
+                  split: bool = True) -> None:
+    """Raise, with the reason, for shapes the kernel does not take."""
+    if not 0 < F <= 65535:
+        raise ValueError(f"F={F} frames: the kernel takes 1..65535")
+    # The CFAR holds the [C, S] map and its Doppler box sums (two planes)
+    # or two scan planes (three).
     planes = 3 if prm.cfar_impl == "cumsum" else 2
-    smem = max(4 * (2 * 16 * (A * C + 1) + 2 * C * C), 4 * planes * C * S)
+    need = {"the CFAR": 4 * planes * C * S}
+    if prm.noise_domain == "time":
+        cube_onchip_limits(C, S)
+    else:
+        dense = range_dft.plan(S) is None
+        need["range_fft_kernel"] = 8 * (8 * S + S + (8 * S if dense else 0)) \
+            + 4 * S
+        need["z_power_kernel"] = _z_power_smem(split, A, C)
+    for what, smem in need.items():
+        if smem > _MAX_SMEM:
+            raise ValueError(f"A={A}, C={C}, S={S}: {what} needs {smem} "
+                             f"bytes of shared memory per block; a block "
+                             f"has {_MAX_SMEM}")
+
+
+def cube_onchip_limits(C: int, S: int) -> None:
+    """Raise, with the reason, where the time-domain kernel of
+    ``csrc/cube_onchip.cuh`` (K1', K3 and K4) cannot hold one antenna's
+    cube rows on chip."""
+    if C > _OC_ROWS:
+        raise ValueError(f"C={C} chirps: the time-domain kernel holds one "
+                         f"antenna's C x S cube rows on chip, C <= "
+                         f"{_OC_ROWS}")
+    ldx = frag_pitch(-(-S // 8) * 8)
+    smem = 8 * (_OC_ROWS * ldx + _OC_RING + S) + 4 * S
     if smem > _MAX_SMEM:
-        raise ValueError(f"A={A}, C={C}, S={S} needs {smem} bytes of shared "
-                         f"memory per block; the kernel has {_MAX_SMEM}")
+        raise ValueError(f"S={S}: the time-domain kernel needs {smem} bytes "
+                         f"of shared memory per block; a block has "
+                         f"{_MAX_SMEM}")
 
 
-def _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t, C: int,
+def _check_dense_inputs(e_ac, e_fast, seeds, mix, w_dop_t, C: int,
                         prm: FrontendParams, clutter=None):
     if e_ac.dim() != 3 or e_fast.dim() != 3:
         raise ValueError(f"e_ac / e_fast: need [F, Sc, A*C] / [F, Sc, S], "
@@ -482,7 +565,7 @@ def _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t, C: int,
             ("e_ac", e_ac, torch.complex64, (F, Sc, AC)),
             ("e_fast", e_fast, torch.complex64, (F, Sc, S)),
             ("seeds", seeds, torch.int32, (F,)),
-            ("w_rng", w_rng, torch.complex64, (S, S)),
+            ("mix", mix, torch.complex64, (S,)),
             ("w_dop_t", w_dop_t, torch.complex64, (C, C))):
         _build.check_input(name, x, dtype, dev, shape)
     _check_clutter(clutter, F, C, S, dev)
@@ -518,39 +601,40 @@ def _branch_args(prm: FrontendParams):
             _CFARS[prm.cfar_impl], float(prm.clutter_offset_db))
 
 
-def frontend_kernel_dense(e_ac, e_fast, seeds, w_rng, w_dop_t,
+def frontend_kernel_dense(e_ac, e_fast, seeds, mix, w_dop_t,
                           prm: FrontendParams, C: int, clutter=None):
-    """K3, the one-pass kernel on dense factor planes: same arguments and
-    outputs as :func:`scatterer_frontend_reference`.  A CUDA tensor
-    launches the hand-written kernel (``csrc/frontend.cu``,
-    ``radar_frontend_dense``) or raises; a CPU tensor runs the plain
-    version, because there is no card to run the kernel on."""
-    F, Sc, A, S = _check_dense_inputs(e_ac, e_fast, seeds, w_rng, w_dop_t,
+    """K3, the one-pass kernel on dense factor planes: the arguments of
+    :func:`scatterer_frontend_reference` with the mix vector [S] in place
+    of the dense range DFT, and its outputs.  A CUDA tensor launches the
+    hand-written kernel (``csrc/frontend.cu``, ``radar_frontend_dense``)
+    or raises; a CPU tensor runs the plain version, because there is no
+    card to run the kernel on."""
+    F, Sc, A, S = _check_dense_inputs(e_ac, e_fast, seeds, mix, w_dop_t,
                                       C, prm, clutter)
     dev = e_ac.device
     if dev.type == "cpu":
-        return scatterer_frontend_reference(e_ac, e_fast, seeds, w_rng,
+        return scatterer_frontend_reference(e_ac, e_fast, seeds,
+                                            _range_matrix(S, mix, prm),
                                             w_dop_t, prm, C, clutter)
     if dev.type != "cuda":
         raise ValueError(f"no front-end kernel for device {dev}")
-    if not 0 < F <= 65535:
-        raise ValueError(f"F={F} frames: the kernel takes 1..65535")
-    _check_smem(A, C, S, prm)
-    outs = _outputs(F, A, C, S, Sc, prm, dev)
+    _check_launch(F, A, C, S, prm, split=False)
+    tw, pos, nst, radix = range_fft_args(S, dev)
+    outs = (_scratch(F, A, C, S, Sc, prm, dev), *_outputs(F, A, C, S, dev))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind("frontend", "radar_frontend_dense",
-                     (vp,) * 11 + (ci,) * 6 + (cf, ci, vp, vp)
-                     + (ci,) * 4 + (cf, cf, ci, ci) + (ci,) * 3
-                     + (cf, vp))
+                     (vp,) * 6 + (ci, vp) + (vp,) * 7 + (ci,) * 6
+                     + (cf, ci, vp, vp) + (ci,) * 4 + (cf, cf, ci, ci)
+                     + (ci,) * 3 + (cf, vp))
     _build.launch(fn, e_ac.data_ptr(), e_fast.data_ptr(), seeds.data_ptr(),
-                  w_rng.data_ptr(), w_dop_t.data_ptr(),
-                  *[x.data_ptr() for x in outs],
+                  mix.data_ptr(), tw.data_ptr(), pos.data_ptr(), nst, radix,
+                  w_dop_t.data_ptr(), *[x.data_ptr() for x in outs],
                   clutter.data_ptr() if clutter is not None else None,
                   F, A, C, S, Sc, dev.index,
                   *_noise_args(prm, S), *_cfar_args(prm),
                   *_branch_args(prm),
                   torch.cuda.current_stream(dev).cuda_stream)
-    _count(frontend_kernel_dense, prm, clutter)
+    _count(frontend_kernel_dense, prm, clutter, S)
     return outs[1:]
 
 
@@ -600,16 +684,18 @@ def _finalize(zr, zi, p_ds, score_ds, K: int, A: int, C: int,
     return (p_lin, rb.to(torch.int32), db.to(torch.int32), vals, sig)
 
 
-def frontend_constants(C: int, S: int, mix: torch.Tensor, dc_removal: bool,
-                       doppler_window):
-    """Frame-independent kernel inputs: the mix-and-DC-folded range DFT
-    [S, S] and the transposed Doppler DFT [C, C] (complex64)."""
-    from radar_slam_tpu_torch.signal.rds import (doppler_dft_matrix,
-                                                 range_dft_matrix)
-    w_rng = range_dft_matrix(S, mix, dc_removal)
-    w_dop_t = doppler_dft_matrix(C, doppler_window,
-                                 device=mix.device).transpose(0, 1)
-    return w_rng.contiguous(), w_dop_t.contiguous()
+def doppler_constant(C: int, doppler_window, device) -> torch.Tensor:
+    """The transposed Doppler DFT [C, C] complex64 the kernels take (the
+    range DFT is theirs: they take the mix vector); built once per (C,
+    window, device) and shared, read-only, by every call."""
+    return _doppler_constant(C, doppler_window, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _doppler_constant(C: int, doppler_window, device: str) -> torch.Tensor:
+    from radar_slam_tpu_torch.signal.rds import doppler_dft_matrix
+    return doppler_dft_matrix(C, doppler_window,
+                              device=device).transpose(0, 1).contiguous()
 
 
 def _check_topk(topk_mode: str) -> None:
@@ -677,15 +763,15 @@ def scatterer_frontend_split(
     use_f32_matmuls()
     F, _, A = ant.shape
     S = t.shape[0]
-    w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
-                                        doppler_window)
+    w_dop_t = doppler_constant(C, doppler_window, mix.device)
     prm = _params(sigma, noise_taps, echo_upper, dc_removal, train, guard,
                   neighborhood, offset_db, threshold_db, min_range_bin,
                   max_range_bin, noise_domain, noise_impl, cfar_impl,
                   clutter_offset_db)
     zr, zi, p_ds, score_ds = frontend_kernel_split(
         ant, dopp, coarse, fine, tau.to(torch.float32),
-        t.to(torch.float32), seeds.to(torch.int32), w_rng, w_dop_t, prm,
+        t.to(torch.float32), seeds.to(torch.int32),
+        mix.to(torch.complex64).contiguous(), w_dop_t, prm,
         _clutter_ds(clutter, F, S, C))
     return _finalize(zr, zi, p_ds, score_ds, K, A, C, doppler_window)
 
@@ -717,13 +803,13 @@ def scatterer_frontend(
     F = e_ac.shape[0]
     S = e_fast.shape[-1]
     A = e_ac.shape[-1] // C
-    w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
-                                        doppler_window)
+    w_dop_t = doppler_constant(C, doppler_window, mix.device)
     prm = _params(sigma, noise_taps, None, dc_removal, train, guard,
                   neighborhood, offset_db, threshold_db, min_range_bin,
                   max_range_bin, noise_domain, noise_impl, cfar_impl,
                   clutter_offset_db)
     zr, zi, p_ds, score_ds = frontend_kernel_dense(
-        e_ac, e_fast, seeds.to(torch.int32), w_rng, w_dop_t, prm, C,
+        e_ac, e_fast, seeds.to(torch.int32),
+        mix.to(torch.complex64).contiguous(), w_dop_t, prm, C,
         _clutter_ds(clutter, F, S, C))
     return _finalize(zr, zi, p_ds, score_ds, K, A, C, doppler_window)

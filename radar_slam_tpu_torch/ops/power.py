@@ -62,7 +62,8 @@ def range_product_launch(symbol: str, signals: torch.Tensor,
     """Launch ``cube_rds_power`` (K7) or ``cube_rds`` (K8) of
     ``csrc/cube.cu`` into ``out``: the range product into a Z scratch
     [F, A*C, S], then the Doppler stage."""
-    from radar_slam_tpu_torch.ops.frontend import frontend_constants
+    from radar_slam_tpu_torch.ops.frontend import doppler_constant
+    from radar_slam_tpu_torch.signal.rds import range_dft_matrix
     _, F, A, C, S = check_cube(signals, mix)
     if not 0 < F <= 65535:
         raise ValueError(f"F={F} frames: the kernel takes 1..65535")
@@ -71,8 +72,8 @@ def range_product_launch(symbol: str, signals: torch.Tensor,
         raise ValueError(f"A={A}, C={C} needs {smem} bytes of shared memory "
                          f"per block; the kernel has {_MAX_SMEM}")
     dev = signals.device
-    w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
-                                        doppler_window)
+    w_rng = range_dft_matrix(S, mix, dc_removal).contiguous()
+    w_dop_t = doppler_constant(C, doppler_window, dev)
     z = torch.empty((F, A * C, S), dtype=torch.complex64, device=dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     extra_types = tuple(cf for _ in extra)

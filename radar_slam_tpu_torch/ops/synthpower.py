@@ -14,8 +14,10 @@ generator state gives the three-dispatch path and the materialized path
 the same noisy cube.
 
 - :func:`noise_cube` (K6) -- the noise planes [F, rows, cols] complex64.
-- :func:`scatterer_power` (K4) -- X, then the range product, Doppler DFT,
-  |.|^2 and antenna mean -> power map [F, R, D] (detection layout).
+- :func:`scatterer_power` (K4) -- X, then the range DFT, Doppler DFT,
+  |.|^2 and antenna mean -> power map [F, R, D] (detection layout); on
+  the card the cube stays on chip (``csrc/cube_onchip.cuh``) and the range
+  DFT is the factored FFT of ``ops/range_dft.py``.
 - :func:`scatterer_signatures` (K5) -- the same X contracted with the
   detected cells' DFT columns -> unit-power signatures [F, K, A].
 
@@ -36,19 +38,20 @@ from typing import Optional
 
 import torch
 
-from radar_slam_tpu_torch.ops import _build
-from radar_slam_tpu_torch.ops.frontend import frontend_constants
+from radar_slam_tpu_torch.ops import _build, range_dft
+from radar_slam_tpu_torch.ops.frontend import (cube_onchip_limits,
+                                               doppler_constant,
+                                               range_fft_args)
 from radar_slam_tpu_torch.ops.noise import standard_normals
 from radar_slam_tpu_torch.ops.power import rds_power_reference
 from radar_slam_tpu_torch.signal.rds import (_check_precision,
+                                             doppler_columns,
                                              signature_columns,
                                              signatures_from_columns,
                                              unit_power)
 
 _IMPLS = {"fast": 0, "box_muller": 1}    # csrc/synthpower.cu: IMPL_*
 _LAYOUTS = ("loop", "wide")
-_MAX_SMEM = 232448    # shared memory one block may use on Hopper (bytes)
-_PS = 32              # csrc/synthpower.cu: range bins per Doppler block
 
 
 def _check_names(noise_impl: str, *precisions: str,
@@ -179,28 +182,30 @@ def scatterer_power(e_ac: torch.Tensor, e_fast: torch.Tensor,
                                          noise_impl)
     if dev.type != "cuda":
         raise ValueError(f"no power kernel for device {dev}")
-    smem = 4 * (2 * A * C * _PS + 2 * C * (C + 1))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"A={A}, C={C} needs {smem} bytes of shared memory "
-                         f"per block; the kernel has {_MAX_SMEM}")
-    w_rng, w_dop_t = frontend_constants(C, S, mix, dc_removal,
-                                        doppler_window)
-    x = torch.empty((F, A * C, S), dtype=torch.complex64, device=dev)
-    z = torch.empty_like(x)
+    cube_onchip_limits(C, S)
+    w_dop_t = doppler_constant(C, doppler_window, dev)
+    tw, pos, nst, radix = range_fft_args(S, dev)
+    # Per-antenna power planes [F, A, S, C], summed in antenna order.
+    pa = torch.empty((F, A, S, C), dtype=torch.float32, device=dev)
     p = torch.empty((F, S, C), dtype=torch.float32, device=dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind("synthpower", "synth_power",
-                     (vp,) * 8 + (ci,) * 5 + (cf, ci, cf, ci, vp))
+                     (vp,) * 6 + (ci, vp) + (vp,) * 3 + (ci,) * 5
+                     + (cf, ci, cf, ci, ci, vp))
     _build.launch(fn, e_ac.data_ptr(), e_fast.data_ptr(), seeds.data_ptr(),
-                  w_rng.data_ptr(), w_dop_t.data_ptr(), x.data_ptr(),
-                  z.data_ptr(), p.data_ptr(), F, A, C, S, Sc, float(sigma),
-                  _IMPLS[noise_impl], float(1.0 / A), dev.index,
-                  torch.cuda.current_stream(dev).cuda_stream)
+                  mix.data_ptr(), tw.data_ptr(), pos.data_ptr(), nst, radix,
+                  w_dop_t.data_ptr(), pa.data_ptr(),
+                  p.data_ptr(), F, A, C, S, Sc, float(sigma),
+                  _IMPLS[noise_impl], float(1.0 / A), int(dc_removal),
+                  dev.index, torch.cuda.current_stream(dev).cuda_stream)
     scatterer_power.launches += 1
+    if range_dft.plan(S) is None:
+        scatterer_power.branch_launches["dense_range"] += 1
     return p
 
 
 scatterer_power.launches = 0
+scatterer_power.branch_launches = {"dense_range": 0}
 
 
 def scatterer_signatures_reference(
@@ -232,7 +237,9 @@ def scatterer_signatures(e_ac: torch.Tensor, e_fast: torch.Tensor,
     synthesis factors, with the SAME noise realization as
     :func:`scatterer_power` for the same seeds.  The cells' range columns
     [F, S, K] (DC projector on r = 0 before the mix) and Doppler columns
-    [F, C, K] are built in torch, as the reference builds them in XLA."""
+    [F, C, K] are built in torch, as the reference builds them in XLA; on
+    the card the range columns are those of the exact DFT
+    (``ops/range_dft.py:range_columns_exact``)."""
     _check_names(noise_impl, synth_precision, sig_precision)
     seeds = seeds.to(torch.int32)
     F, Sc, A, S = _check_factors(e_ac, e_fast, seeds, mix, C)
@@ -249,10 +256,12 @@ def scatterer_signatures(e_ac: torch.Tensor, e_fast: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no signature kernel for device {dev}")
     K = range_bin.shape[-1]
-    w_rng, w_dop = signature_columns(S, C, range_bin.to(dev),
-                                     doppler_bin.to(dev), mix, dc_removal,
-                                     doppler_window)
-    w_rng = w_rng.to(torch.complex64).contiguous()
+    w_dop = doppler_columns(C, doppler_bin, doppler_window, dev)
+    # The range columns of the transform K4 and the one-pass kernels run
+    # on the card (float64-built phases), not the reference's float32
+    # constant, which sits ~5e-5 of the maximum away (ops/range_dft.py).
+    w_rng = range_dft.range_columns_exact(S, range_bin, mix,
+                                          dc_removal).contiguous()
     w_dop = w_dop.to(torch.complex64).contiguous()
     x = torch.empty((F, A * C, S), dtype=torch.complex64, device=dev)
     g = torch.empty((F, A * C, K), dtype=torch.complex64, device=dev)

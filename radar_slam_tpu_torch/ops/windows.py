@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
+
 
 def _cosine_window(n: int, coeffs, periodic: bool, device) -> torch.Tensor:
     denom = n if periodic else max(n - 1, 1)
@@ -28,8 +30,9 @@ _COEFFS = {"hann": (0.5, 0.5), "hamming": (0.54, 0.46),
 
 
 def get_window(name, n: int, periodic: bool = False,
-               device=None) -> torch.Tensor:
-    """Named window [n] float32 ("rect"/None = ones)."""
+               device=DEFAULT) -> torch.Tensor:
+    """Named window [n] float32 ("rect"/None = ones) on ``device``."""
+    device = resolve(device)
     if name == "rect" or name is None:
         return torch.ones(n, dtype=torch.float32, device=device)
     return _cosine_window(n, cosine_coeffs(name), periodic, device)

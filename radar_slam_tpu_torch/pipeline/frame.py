@@ -53,6 +53,7 @@ from radar_slam_tpu_torch.aoa import confidence as conf_mod
 from radar_slam_tpu_torch.aoa import estimators, smoothing
 from radar_slam_tpu_torch.aoa.robust import process_targets_robust
 from radar_slam_tpu_torch.core.config import PipelineConfig
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 from radar_slam_tpu_torch.core.types import (Associations, Detections,
                                              FrameOutput, MotionEstimate,
                                              ScattererBatch, Targets)
@@ -459,10 +460,12 @@ def _clutter_shape(cfg: PipelineConfig) -> Tuple[int, int]:
 
 
 def init_state(cfg: PipelineConfig, initial_pose=None,
-               device=None) -> FrameState:
-    """The state before the first frame: an empty smoother table, no
-    previous targets, zero motion, the initial pose ([3], default 0), and
-    a zero clutter map when ``clutter_map_alpha > 0``."""
+               device=DEFAULT) -> FrameState:
+    """The state before the first frame, on ``device`` (the card unless the
+    caller names another): an empty smoother table, no previous targets,
+    zero motion, the initial pose ([3], default 0), and a zero clutter map
+    when ``clutter_map_alpha > 0``."""
+    device = resolve(device)
     pose = torch.zeros((1, 3), dtype=torch.float32, device=device)
     if initial_pose is not None:
         pose = torch.as_tensor(initial_pose, dtype=torch.float32,

@@ -16,26 +16,27 @@ import numpy as np
 import torch
 
 from radar_slam_tpu_torch.core.config import RadarConfig
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 from radar_slam_tpu_torch.ops.windows import get_window
 from radar_slam_tpu_torch.signal.synth import reference_chirp
 
 
 def range_axis_m(cfg: RadarConfig, range_bins: Optional[int] = None,
-                 device=None) -> torch.Tensor:
+                 device=DEFAULT) -> torch.Tensor:
     """Range value of each bin [m]: bin * c/(2B) * (fs T / S)."""
     n = range_bins or cfg.samples_per_chirp
     bin_hz = cfg.sampling_rate / n
     metres_per_hz = cfg.c / (2.0 * cfg.chirp_rate)
     return torch.arange(n, dtype=torch.float32,
-                        device=device) * (bin_hz * metres_per_hz)
+                        device=resolve(device)) * (bin_hz * metres_per_hz)
 
 
 def doppler_axis_hz(cfg: RadarConfig, doppler_bins: Optional[int] = None,
-                    device=None) -> torch.Tensor:
+                    device=DEFAULT) -> torch.Tensor:
     """Doppler frequency of each (fftshifted) bin [Hz], spanning +/- PRF/2."""
     n = doppler_bins or cfg.num_chirps
     return torch.fft.fftshift(torch.fft.fftfreq(
-        n, d=cfg.pri, dtype=torch.float32, device=device))
+        n, d=cfg.pri, dtype=torch.float32, device=resolve(device)))
 
 
 def doppler_to_radial_velocity(doppler_hz: torch.Tensor,
@@ -57,9 +58,10 @@ def range_dft_matrix(S: int, mix: torch.Tensor,
 
 
 def doppler_dft_matrix(C: int, doppler_window: Optional[str],
-                       device=None) -> torch.Tensor:
+                       device=DEFAULT) -> torch.Tensor:
     """[C, C] complex64 matrix folding the Doppler chain: optional slow-time
     window on the rows, e^{-j} DFT, fftshift baked into the column order."""
+    device = resolve(device)
     c = torch.arange(C, dtype=torch.float32, device=device)
     k_shifted = torch.roll(torch.arange(C, dtype=torch.float32,
                                         device=device), C // 2)
@@ -72,7 +74,7 @@ def doppler_dft_matrix(C: int, doppler_window: Optional[str],
 
 
 def _mix_vector(cfg: RadarConfig, window: str, input_domain: str, S: int,
-                device=None) -> torch.Tensor:
+                device=DEFAULT) -> torch.Tensor:
     """Dechirp x fast-time-window vector [S] (complex64): the window, times
     conj(reference chirp) for raw input."""
     w = get_window(window, S, device=device)
@@ -175,17 +177,22 @@ def signature_columns(S: int, C: int, range_bin: torch.Tensor,
     if dc_removal:
         w_rng = w_rng - (range_bin[:, None, :] == 0).to(torch.complex64)
     w_rng = mix[None, :, None] * w_rng
+    return w_rng, doppler_columns(C, doppler_bin, doppler_window, dev)
 
-    # Column d of doppler_dft_matrix: window * e^{-2j pi c f(d) / C}, with
-    # the fftshift column order f(d) = (d - C//2) mod C.
-    c = torch.arange(C, dtype=torch.float32, device=dev)
-    f = torch.remainder(doppler_bin.to(torch.int64) - C // 2,
-                        C).to(torch.float32)
+
+def doppler_columns(C: int, doppler_bin: torch.Tensor,
+                    doppler_window: Optional[str], device) -> torch.Tensor:
+    """Columns [F, C, K] of ``doppler_dft_matrix`` at the Doppler bins
+    [F, K]: window * e^{-2j pi c f(d) / C}, with the fftshift column order
+    f(d) = (d - C//2) mod C."""
+    c = torch.arange(C, dtype=torch.float32, device=device)
+    f = torch.remainder(doppler_bin.to(device=device, dtype=torch.int64)
+                        - C // 2, C).to(torch.float32)
     phase = -((2.0 * math.pi / C) * (c[None, :, None] * f[:, None, :]))
     w_dop = torch.polar(torch.ones_like(phase), phase)            # [F, C, K]
     if doppler_window is not None:
-        w_dop = get_window(doppler_window, C, device=dev)[:, None] * w_dop
-    return w_rng, w_dop
+        w_dop = get_window(doppler_window, C, device=device)[:, None] * w_dop
+    return w_dop
 
 
 def unit_power(sig: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from radar_slam_tpu_torch.core.config import RadarConfig
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 from radar_slam_tpu_torch.core.types import ScattererBatch
 from radar_slam_tpu_torch.ops.noise import frame_seeds, standard_normals
 
@@ -39,11 +40,11 @@ def expj_cycles(cycles: torch.Tensor) -> torch.Tensor:
 
 
 def fast_time_base(cfg: RadarConfig, fidelity: str = "tpu",
-                   device=None) -> torch.Tensor:
+                   device=DEFAULT) -> torch.Tensor:
     """ADC fast-time sample instants [S]: ``linspace(0, T, S)``
     ("reference") or the exact ``s / fs`` base ("tpu")."""
     S = cfg.samples_per_chirp
-    s = torch.arange(S, dtype=torch.float32, device=device)
+    s = torch.arange(S, dtype=torch.float32, device=resolve(device))
     if fidelity == "reference":
         return s * (cfg.chirp_duration / max(S - 1, 1))
     if fidelity == "tpu":
@@ -146,13 +147,13 @@ def synthesis_factors(scatterers: ScattererBatch, cfg: RadarConfig,
     return e_ac, e_fast
 
 
-def reference_chirp(cfg: RadarConfig, device=None) -> torch.Tensor:
+def reference_chirp(cfg: RadarConfig, device=DEFAULT) -> torch.Tensor:
     """Transmit chirp at the ADC sample instants s / fs [S] (complex64):
     exp(j 2 pi (fc_alias t + k t^2 / 2)), whole cycles of fc per sample
     dropped (they are invisible at the sample times and float32 cannot
     carry them)."""
     t = (torch.arange(cfg.samples_per_chirp, dtype=torch.float32,
-                      device=device) / cfg.sampling_rate)
+                      device=resolve(device)) / cfg.sampling_rate)
     fc_alias = (cfg.fc - math.floor(cfg.fc / cfg.sampling_rate)
                 * cfg.sampling_rate)
     cycles = fc_alias * t + 0.5 * cfg.chirp_rate * t * t

@@ -35,7 +35,7 @@ ATOL = 1e-6
                                         (32, False), (32, True)])
 def test_windows_and_taps_match(name, n, periodic):
     np.testing.assert_allclose(
-        to_np(twin.get_window(name, n, periodic)),
+        to_np(twin.get_window(name, n, periodic, device="cpu")),
         to_np(jwin.get_window(name, n, periodic)), rtol=0, atol=ATOL)
     assert twin.window_freq_taps(name) == jwin.window_freq_taps(name)
 
@@ -43,7 +43,8 @@ def test_windows_and_taps_match(name, n, periodic):
 def test_dft_constants_mix_gate_and_grid_match():
     cfg = bench_config()
     S, C = cfg.radar.samples_per_chirp, cfg.radar.num_chirps
-    mix_t = trds._mix_vector(cfg.radar, cfg.window, "baseband", S)
+    mix_t = trds._mix_vector(cfg.radar, cfg.window, "baseband", S,
+                             device="cpu")
     mix_j = jrds._mix_vector(cfg.radar, cfg.window, "baseband", S)
     np.testing.assert_allclose(to_np(mix_t), to_np(mix_j), rtol=0,
                                atol=ATOL)
@@ -53,25 +54,29 @@ def test_dft_constants_mix_gate_and_grid_match():
             to_np(jrds.range_dft_matrix(S, mix_j, dc)), rtol=0, atol=ATOL)
     for win in ("hann", None):
         np.testing.assert_allclose(
-            to_np(trds.doppler_dft_matrix(C, win)),
+            to_np(trds.doppler_dft_matrix(C, win, device="cpu")),
             to_np(jrds.doppler_dft_matrix(C, win)), rtol=0, atol=ATOL)
-    np.testing.assert_allclose(to_np(trds.range_axis_m(cfg.radar)),
+    np.testing.assert_allclose(to_np(trds.range_axis_m(cfg.radar,
+                                                       device="cpu")),
                                to_np(jrds.range_axis_m(cfg.radar)),
                                rtol=1e-7)
-    np.testing.assert_allclose(to_np(trds.doppler_axis_hz(cfg.radar)),
+    np.testing.assert_allclose(to_np(trds.doppler_axis_hz(cfg.radar,
+                                                          device="cpu")),
                                to_np(jrds.doppler_axis_hz(cfg.radar)),
                                rtol=1e-7)
     assert (tdet.range_gate_bin_interval(cfg.radar, S, cfg.detection)
             == jdet.range_gate_bin_interval(cfg.radar, S, cfg.detection))
     # The reference's float32 linspace misses some integer grid points by
     # an ulp (XLA's own rounding); the port rounds exact values once.
-    np.testing.assert_allclose(to_np(t_est.azimuth_grid_deg(cfg.aoa)),
+    np.testing.assert_allclose(to_np(t_est.azimuth_grid_deg(cfg.aoa,
+                                                            device="cpu")),
                                to_np(jest.azimuth_grid_deg(cfg.aoa)),
                                rtol=0, atol=2 * np.spacing(np.float32(90)))
     # The steering phase (2 pi / lambda) sin(az) n d reaches 7 pi sin(az):
     # one float32 ulp of sin(az) between the two libms is ~1.3e-6 rad.
     np.testing.assert_allclose(
-        to_np(t_est.grid_steering_matrix(cfg.radar, cfg.aoa)),
+        to_np(t_est.grid_steering_matrix(cfg.radar, cfg.aoa,
+                                         device="cpu")),
         to_np(jest.grid_steering_matrix(cfg.radar, cfg.aoa)), rtol=0,
         atol=4 * ATOL)
 
@@ -126,7 +131,7 @@ def test_synthesis_factors_split_match(fid):
                                atol=ATOL * amp)
     np.testing.assert_array_equal(to_np(got.tau), to_np(ref.tau))
     np.testing.assert_allclose(
-        to_np(tsynth.fast_time_base(cfg.radar, fid)),
+        to_np(tsynth.fast_time_base(cfg.radar, fid, device="cpu")),
         to_np(jsynth.fast_time_base(cfg.radar, fid)), rtol=0, atol=0)
 
 
@@ -146,7 +151,8 @@ def test_constant_motion_scene_bit_equal():
     batch, gt_t = tsyn.constant_motion_scene(
         7, num_frames=16, dt=cfg.frame_dt, v_body=(8.0, 0.5),
         yaw_rate=0.05,
-        scene=tsyn.SceneConfig(num_points=96, max_scatterers=128))
+        scene=tsyn.SceneConfig(num_points=96, max_scatterers=128),
+        device="cpu")
     for name, ref in fields.items():
         got = to_np(getattr(batch, name))
         assert got.dtype == ref.dtype, name

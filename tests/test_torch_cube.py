@@ -69,7 +69,8 @@ def rand_complex(rng, shape):
 def test_reference_chirp_and_dense_factors_match(fidelity):
     cfg = bench_config()
     jbatch, fields, _ = scene_fields(F)
-    np.testing.assert_array_equal(to_np(tsynth.reference_chirp(cfg.radar)),
+    np.testing.assert_array_equal(to_np(tsynth.reference_chirp(
+        cfg.radar, device="cpu")),
                                   np.asarray(jsynth.reference_chirp(cfg.radar)))
     e_ac_j, e_fast_j = jax.vmap(
         lambda s: jsynth.synthesis_factors(s, cfg.radar, fidelity))(jbatch)
@@ -128,7 +129,8 @@ def test_cube_noise_statistics():
 def test_plain_power_matches_reference_oracles(cube):
     cfg, sig = cube
     S = sig.shape[-1]
-    mix = trds._mix_vector(cfg.radar, cfg.window, "baseband", S)
+    mix = trds._mix_vector(cfg.radar, cfg.window, "baseband", S,
+                             device="cpu")
     got = to_np(power.rds_power_fused(signals_from_numpy(sig, "cpu"), mix,
                                       True, cfg.doppler_window))
     want = np.asarray(power_pallas.rds_power_reference(
@@ -175,7 +177,8 @@ def test_plain_rds_matches_reference(cube):
     S = sig.shape[-1]
     x = signals_from_numpy(sig, "cpu")
     got = to_np(trds_op.rds_fused(
-        x, trds._mix_vector(cfg.radar, cfg.window, "baseband", S), True,
+        x, trds._mix_vector(cfg.radar, cfg.window, "baseband", S,
+                             device="cpu"), True,
         cfg.doppler_window))
     assert got.shape == (F, 8, 400, 32) and got.dtype == np.complex64
     jmix = jrds._mix_vector(cfg.radar, cfg.window, "baseband", S)
@@ -343,7 +346,8 @@ def test_cpu_tensors_run_the_plain_versions(cube):
     card, and each wrapper returns its plain version's result."""
     cfg, sig = cube
     x = signals_from_numpy(sig, "cpu")
-    mix = trds._mix_vector(cfg.radar, cfg.window, "baseband", 400)
+    mix = trds._mix_vector(cfg.radar, cfg.window, "baseband", 400,
+                           device="cpu")
     wrappers = (power.rds_power_fused, trds_op.rds_fused,
                 dechirp.dechirp_window_dc, cfar.cfar_mask)
     before = [w.launches for w in wrappers]
@@ -365,7 +369,8 @@ def test_cpu_tensors_run_the_plain_versions(cube):
 def test_wrappers_check_their_inputs(cube):
     cfg, sig = cube
     x = signals_from_numpy(sig, "cpu")
-    mix = trds._mix_vector(cfg.radar, cfg.window, "baseband", 400)
+    mix = trds._mix_vector(cfg.radar, cfg.window, "baseband", 400,
+                           device="cpu")
     for fn in (power.rds_power_fused, trds_op.rds_fused,
                dechirp.dechirp_window_dc):
         with pytest.raises(TypeError):

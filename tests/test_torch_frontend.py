@@ -52,8 +52,8 @@ def _port_frontend(cfg, fields, seeds, **over):
     kw.update(over)
     return fe.scatterer_frontend_split(
         split.ant, split.dopp, split.coarse, split.fine, split.tau,
-        fast_time_base(cfg.radar), seeds,
-        _mix_vector(cfg.radar, cfg.window, "baseband", S), C,
+        fast_time_base(cfg.radar, device="cpu"), seeds,
+        _mix_vector(cfg.radar, cfg.window, "baseband", S, device="cpu"), C,
         float(cfg.radar.noise_power) ** 0.5, d.max_detections, **kw)
 
 
@@ -171,9 +171,8 @@ def test_wrapper_checks_its_inputs():
     _, fields, _ = scene_fields(F)
     split = synthesis_factors_split(scatterer_batch_from_numpy(fields, "cpu"),
                                     cfg.radar)
-    w_rng, w_dop_t = fe.frontend_constants(
-        C, S, _mix_vector(cfg.radar, cfg.window, "baseband", S), True,
-        cfg.doppler_window)
+    mix = _mix_vector(cfg.radar, cfg.window, "baseband", S, device="cpu")
+    w_dop_t = fe.doppler_constant(C, cfg.doppler_window, "cpu")
     prm = fe.FrontendParams(
         sigma=0.0, noise_taps=window_freq_taps(cfg.window), echo_upper=None,
         dc_removal=True, train=8, guard=2, neighborhood=3, offset_db=12.0,
@@ -181,15 +180,16 @@ def test_wrapper_checks_its_inputs():
         noise_domain="range_freq", noise_impl="fast", cfar_impl="matmul",
         clutter_offset_db=6.0)
     args = [split.ant, split.dopp, split.coarse, split.fine, split.tau,
-            fast_time_base(cfg.radar), torch.zeros(F, dtype=torch.int32),
-            w_rng, w_dop_t]
+            fast_time_base(cfg.radar, device="cpu"),
+            torch.zeros(F, dtype=torch.int32),
+            mix, w_dop_t]
     fe.frontend_kernel_split(*args, prm)
     bad_dtype = list(args)
     bad_dtype[6] = torch.zeros(F, dtype=torch.float32)
     with pytest.raises(TypeError):
         fe.frontend_kernel_split(*bad_dtype, prm)
     bad_shape = list(args)
-    bad_shape[7] = w_rng[:, :-1]
+    bad_shape[7] = mix[:-1]
     with pytest.raises(ValueError):
         fe.frontend_kernel_split(*bad_shape, prm)
     with pytest.raises(ValueError):

@@ -90,11 +90,12 @@ def _reference(sc, kind, **kw):
 def _port(sc, kind, **kw):
     cfg = sc["cfg"]
     C, S = sc["C"], sc["S"]
-    mix = _mix_vector(cfg.radar, cfg.window, "baseband", S)
+    mix = _mix_vector(cfg.radar, cfg.window, "baseband", S, device="cpu")
     if kind == "split":
         f = synthesis_factors_split(sc["batch"], cfg.radar)
         out = fe.scatterer_frontend_split(
-            f.ant, f.dopp, f.coarse, f.fine, f.tau, fast_time_base(cfg.radar),
+            f.ant, f.dopp, f.coarse, f.fine, f.tau,
+            fast_time_base(cfg.radar, device="cpu"),
             torch.tensor(SEEDS), mix, C, 0.0, sc["K"], **sc["required"],
             **kw)
     else:
@@ -218,7 +219,7 @@ def test_branch_noise_is_the_seeded_plane(domain, impl):
     e_fast = torch.zeros((Fn, Sc, S), dtype=torch.complex64)
     w_rng = torch.eye(S, dtype=torch.complex64)
     w_dop_t = torch.eye(C, dtype=torch.complex64)
-    zr, zi, _, _ = fe.frontend_kernel_dense(
+    zr, zi, _, _ = fe.scatterer_frontend_reference(
         e_ac, e_fast, seeds, w_rng, w_dop_t, _noise_prm(domain, impl, S), C)
     gr, gi = standard_normals(seeds, A * C, S, impl)
     assert torch.equal(zr, gr.transpose(1, 2))

@@ -23,6 +23,7 @@ from radar_slam_tpu_torch.core.types import scatterer_batch_from_numpy
 from radar_slam_tpu_torch.ops import frontend as fe
 from radar_slam_tpu_torch.ops.noise import philox4x32, standard_normals
 from radar_slam_tpu_torch.ops.windows import window_freq_taps
+from radar_slam_tpu_torch.signal.rds import range_dft_matrix
 from radar_slam_tpu_torch.signal.synth import (fast_time_base,
                                                synthesis_factors_split)
 
@@ -106,8 +107,8 @@ def test_spectral_noise_exact_construction():
     seeds = torch.tensor([29, -5], dtype=torch.int32)
     mix = torch.tensor(np.asarray(
         jax_get_window(cfg.window, S))).to(torch.complex64)
-    w_rng, w_dop_t = fe.frontend_constants(C, S, mix, True,
-                                           cfg.doppler_window)
+    w_rng = range_dft_matrix(S, mix, True)
+    w_dop_t = fe.doppler_constant(C, cfg.doppler_window, "cpu")
     taps = window_freq_taps(cfg.window)
     prm = fe.FrontendParams(
         sigma=1.0, noise_taps=taps, echo_upper=None, dc_removal=True,
@@ -116,7 +117,8 @@ def test_spectral_noise_exact_construction():
         noise_impl="fast", cfar_impl="matmul", clutter_offset_db=6.0)
     zr, zi, p, _ = fe.scatterer_frontend_split_reference(
         torch.zeros_like(split.ant), split.dopp, split.coarse, split.fine,
-        split.tau, fast_time_base(cfg.radar), seeds, w_rng, w_dop_t, prm)
+        split.tau, fast_time_base(cfg.radar, device="cpu"), seeds, w_rng,
+        w_dop_t, prm)
 
     gr, gi = (to_np(x).astype(np.float64)
               for x in standard_normals(seeds, A * C, S))

@@ -127,7 +127,7 @@ def test_port_imports_and_runs_without_jax():
                                   max_scatterers=128)
         batch, _ = constant_motion_scene(
             7, 2, cfg.frame_dt, (8.0, 0.5), 0.05,
-            SceneConfig(num_points=96, max_scatterers=128))
+            SceneConfig(num_points=96, max_scatterers=128), device="cpu")
         out = process_sequence_batched(batch, torch.Generator(), cfg)
         assert out.pose.shape == (2, 3)
         assert bool(torch.isfinite(out.pose).all())

@@ -188,7 +188,7 @@ def test_smoother_update_matches_reference():
     kw = dict(track_capacity=8, temporal_window=3, track_max_age=2)
     jaoa, aoa = jcfg.AoAConfig(**kw), tcfg.AoAConfig(**kw)
     rng = np.random.default_rng(0)
-    js, ts = jsm.init_state(jaoa), tsm.init_state(aoa)
+    js, ts = jsm.init_state(jaoa), tsm.init_state(aoa, device="cpu")
     K = 6
     evicted = stale = False
     for f in range(12):
@@ -264,7 +264,7 @@ def test_process_targets_robust_matches_reference():
     F, K, D = 3, 64, 32
     fields = _random_detections(rng, F, K, 400, D)
     sigs = _signatures(rng, F, K, cfg)
-    state_t = tsm.init_state(cfg.aoa)
+    state_t = tsm.init_state(cfg.aoa, device="cpu")
     got, state_t = trobust.process_targets_robust(
         None, ttypes.Detections(**{k: torch.tensor(v)
                                    for k, v in fields.items()}),

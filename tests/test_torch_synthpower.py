@@ -45,7 +45,8 @@ from radar_slam_tpu_torch.ops import synthpower as sp
 from radar_slam_tpu_torch.ops.noise import philox4x32, standard_normals
 from radar_slam_tpu_torch.ops.windows import window_freq_taps
 from radar_slam_tpu_torch.signal import detect as tdet
-from radar_slam_tpu_torch.signal.rds import detection_signatures, rds_power
+from radar_slam_tpu_torch.signal.rds import (detection_signatures,
+                                             range_dft_matrix, rds_power)
 from radar_slam_tpu_torch.signal.synth import (fast_time_base,
                                                synthesis_factors_split)
 
@@ -322,7 +323,7 @@ def test_dense_frontend_matches_split_with_noise(factors):
         kw.pop(name)
     want = tuple(map(to_np, fe.scatterer_frontend_split(
         split.ant, split.dopp, split.coarse, split.fine, split.tau,
-        fast_time_base(cfg.radar), _t(SEEDS), _t(mix), C, sigma,
+        fast_time_base(cfg.radar, device="cpu"), _t(SEEDS), _t(mix), C, sigma,
         cfg.detection.max_detections, **kw)))
     _detection_sets_match(want, dense)
     # The noise is on: the map differs from the noiseless one.
@@ -338,12 +339,12 @@ def test_dense_frontend_shares_k1s_body(factors):
                                     cfg.radar)
     e_at = (split.dopp.transpose(1, 2)[:, None]
             * split.ant.transpose(1, 2)[:, :, None]).reshape(F, 8 * C, -1)
-    t = fast_time_base(cfg.radar)
+    t = fast_time_base(cfg.radar, device="cpu")
     e_fast = (split.coarse[..., :, None] * split.fine[..., None, :]).reshape(
         F, split.coarse.shape[1], -1)[..., :S]
     e_fast = e_fast * (t[None, None, :] >= split.tau[..., None]).float()
-    w_rng, w_dop_t = fe.frontend_constants(C, S, _t(mix), True,
-                                           cfg.doppler_window)
+    w_rng = range_dft_matrix(S, _t(mix), True)
+    w_dop_t = fe.doppler_constant(C, cfg.doppler_window, "cpu")
     prm = fe.FrontendParams(
         sigma=sigma, noise_taps=window_freq_taps(cfg.window),
         echo_upper=None, dc_removal=True, train=8, guard=2, neighborhood=3,
@@ -354,7 +355,7 @@ def test_dense_frontend_shares_k1s_body(factors):
         split.ant, split.dopp, split.coarse, split.fine, split.tau, t,
         _t(SEEDS), w_rng, w_dop_t, prm)
     k3 = fe.frontend_kernel_dense(e_at.transpose(1, 2).contiguous(),
-                                  e_fast.contiguous(), _t(SEEDS), w_rng,
+                                  e_fast.contiguous(), _t(SEEDS), _t(mix),
                                   w_dop_t, prm, C)
     for a, b in zip(k1, k3):
         np.testing.assert_array_equal(to_np(a), to_np(b))

@@ -94,8 +94,8 @@ def stages():
     split = synthesis_factors_split(batch, cfg.radar)
     raw = fe.scatterer_frontend_split(
         split.ant, split.dopp, split.coarse, split.fine, split.tau,
-        fast_time_base(cfg.radar), seeds,
-        _mix_vector(cfg.radar, cfg.window, "baseband", S), C,
+        fast_time_base(cfg.radar, device="cpu"), seeds,
+        _mix_vector(cfg.radar, cfg.window, "baseband", S, device="cpu"), C,
         float(cfg.radar.noise_power) ** 0.5, d.max_detections,
         train=d.cfar_train_cells, guard=d.guard_cells,
         neighborhood=d.neighborhood, offset_db=d.cfar_offset_db,
