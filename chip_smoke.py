@@ -39,7 +39,9 @@ no driver launches either.  One JSON line per phase:
                     (CFAR mask) against their plain versions on 8 frames of
                     bench-scene cubes synthesized on the card at the
                     production sigma and on the 64-frame pipeline batch:
-                    K7 to 1e-5 of the map's maximum, K8 to 1e-5 of max
+                    K7 to 1e-5 of the map's maximum (against its plain
+                    version on the reference's range constant and against
+                    the float64 oracle on the exact DFT), K8 to 1e-5 of max
                     |rds|, K9 to 1e-5 of max |y| (both dc_removal values
                     and a [3, 5, 173] cube), K10 power_db within 1e-4 dB,
                     masks equal on > 99.9 % of cells, planted peaks found
@@ -56,13 +58,21 @@ no driver launches either.  One JSON line per phase:
                     both transforms ("fast", "box_muller", whose mean, std
                     and tails beyond 4 sigma are shown); K4 to 1e-5 of the
                     map's maximum against its float64 oracle, to 1e-4
-                    against its plain version on the reference's constant
-                    and against K7 on the explicit cube, repeating bit for
-                    bit; K5 valid slots within 2e-4 of its plain version on
-                    the exact range columns it takes on the card, and of
-                    the reference's columns and detection_signatures on
-                    that cube; K3 to K1's tolerances, its power map within
-                    1e-5 of K1's (dense vs split factors);
+                    against its plain version on the reference's constant,
+                    to 1e-5 against K7 on the explicit cube (one
+                    transform), repeating bit for bit; K5 within 1e-5 of
+                    its float64 oracle, valid slots within 2e-4 of its
+                    plain version on the exact range columns and of
+                    detection_signatures on that cube, 5e-4 of the
+                    reference's columns, zero slots zero, repeating; K3 to
+                    K1's tolerances, its power map within 1e-5 of K1's
+                    (dense vs split factors);
+6b. onchip_routes   the shape routes, 8 frames: K4, K5, K7, K1' and K3 in
+                    the time domain at C = 64 (a cluster of two blocks per
+                    antenna) and K1, K3 in the range-frequency domain at
+                    A = 16, C = 64 (Z rows tiled over antenna groups)
+                    against their float64 oracles at K1's tolerances, each
+                    route's branch counter moved;
 7. three_dispatch_pipeline  the 64-frame scene through the scatterer driver
                     on the three-dispatch route with CA-CFAR
                     (frontend_one_pass=False, generator seed CUBE_SEED: the
@@ -81,7 +91,7 @@ no driver launches either.  One JSON line per phase:
                     words bit for bit and the time-domain ones through the
                     DFT (within 2e-6), K3 on the time domain against K4
                     (one noisy cube) to 1e-5 of the map's maximum and K5's
-                    signatures against its Z columns within 2e-4, a clutter
+                    signatures against its Z columns within 1e-5, a clutter
                     map gating >= 1/4 of the cells;
 9. sequential_pipeline  process_sequence on the 64-frame scene with the
                     clutter map (alpha 0.05, SEQ_SEED) and
@@ -102,12 +112,19 @@ no driver launches either.  One JSON line per phase:
                     version's time per 64-frame call, K1's kernels' times
                     from a profile of one call, and K1's time at F = 1;
 12. cube_throughput the same for the fused cube driver (cubes synthesized
-                    before timing) and the time per 64-frame call of K7,
-                    K8, K9, K10 and of each plain version (not gated);
+                    before timing; 2048 vs 512 and 8192 vs 2048 frames)
+                    and the time per 64-frame call of K7, K8, K9, K10 and
+                    of each plain version, K7's kernels from a profile
+                    (not gated);
 13. three_dispatch_throughput  the same for the OS three-dispatch scatterer
                     driver, and the time per 64-frame call of K3, K4, K5,
-                    K6 and of each plain version, K3's and K4's kernels
-                    from a profile (not gated);
+                    K6 and of each plain version, K3's, K4's and K5's
+                    kernels from a profile (not gated; K5's call must be
+                    two device launches);
+13b. route_throughput  time per 64-frame call of each shape route of
+                    phase onchip_routes (K4, K5, K7, K1' and K3 time at
+                    C = 64; K1 and K3 range frequency at A = 16, C = 64),
+                    its plain version's, its bound (not gated);
 14. k1prime_throughput  K1's time per 64-frame call in each K1' branch, its
                     kernels from a profile, and its plain version's (not
                     gated); frontend_breakdown: K3's kernels in each noise
@@ -575,8 +592,9 @@ def frames_per_s(torch, run_for, sizes, trials=4):
     return (f_hi - f_lo) / max((t_hi - t_lo) / 1e3, 1e-9), t_lo, t_hi
 
 
-def kernel_profile(torch, fn):
-    """Device time (ms) by kernel name of one traced call."""
+def kernel_profile(torch, fn, launches=None):
+    """Device time (ms) by kernel name of one traced call; with a dict
+    ``launches``, the number of device launches by name into it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -588,6 +606,8 @@ def kernel_profile(torch, fn):
         if str(ev.device_type).endswith("CUDA"):
             name = kernel_name(ev.name)
             per[name] = per.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            if launches is not None:
+                launches[name] = launches.get(name, 0) + 1
     return per
 
 
@@ -694,12 +714,14 @@ def cube_kernel_checks(torch, k, cfg, sig, label):
     out = {}
     p_k = power.rds_power_fused(sig, mix, True, cfg.doppler_window)
     p_p = power.rds_power_reference(sig, mix, True, cfg.doppler_window)
+    p_o = cube_power_oracle(torch, sig, mix, cfg.doppler_window)
     r_k = rds_op.rds_fused(sig, mix, True, cfg.doppler_window)
     r_p = rds_op.rds_fused_reference(sig, mix, True, cfg.doppler_window)
     torch.cuda.synchronize()
     for name, x in (("p", p_k), ("rds", torch.view_as_real(r_k))):
         check(bool(torch.isfinite(x).all()), f"{label}: {name} not finite")
     out["K7_abs"], out["K7_rel"] = rel_err(p_k, p_p)
+    out["K7_oracle_abs"], out["K7_oracle_rel"] = rel_err(p_k, p_o)
     out["K8_abs"], out["K8_rel"] = rel_err(r_k, r_p)
     k9 = []
     for dc in (True, False):
@@ -772,12 +794,13 @@ def phase_cube_kernels_vs_plain(torch, k, cfg_mod, device):
             peaks_found=all(bool(m_k[0, r, d]) and bool(m_p[0, r, d])
                             for r, d, _ in peaks))
     emit("cube_kernels_vs_plain",
-         tolerance={"K7_rel": 1e-5, "K8_rel": 1e-5, "K9_rel": 1e-5,
+         tolerance={"K7_rel": 1e-5, "K7_oracle_rel": 1e-5, "K8_rel": 1e-5,
+                    "K9_rel": 1e-5,
                     "K10_pdb_abs_db": 1e-4, "K10_mask_agree": "> 0.999",
                     "set_diff": 1}, **out)
     for label in ("frames8", "pipeline_batch"):
         r = out[label]
-        for name in ("K7_rel", "K8_rel", "K9_rel"):
+        for name in ("K7_rel", "K7_oracle_rel", "K8_rel", "K9_rel"):
             check(r[name] < 1e-5, f"{label}: {name} {r[name]}")
         check(r["K10_pdb_abs"] < 1e-4, f"{label}: K10 power_db")
         check(r["K10_mask_agree"] > 0.999, f"{label}: K10 masks")
@@ -844,24 +867,22 @@ def phase_cube_throughput(torch, k, cfg_mod, device):
     from radar_slam_tpu_torch.signal.rds import _mix_vector
     power, rds_op, dechirp, cfar = k
     cfg = bench_config(cfg_mod)
-    f2, f3 = 512, 2048
-    s2, _ = cube_signals(f2, cfg, device, 0)
-    s3, _ = cube_signals(f3, cfg, device, 0)
+    cubes = {}
 
-    def run(sig):
+    def run_for(n):
+        # Cubes synthesized before timing, once per size.
+        if n not in cubes:
+            cubes[n] = cube_signals(n, cfg, device, 0)[0]
+        sig = cubes[n]
         return lambda: process_signal_sequence_batched(sig, cfg)
 
-    run(s2)()
-    run(s3)()
-    torch.cuda.synchronize()
-    t2 = t3 = float("inf")
-    for _ in range(4):
-        t2 = min(t2, cuda_time_ms(torch, run(s2), 1))
-        t3 = min(t3, cuda_time_ms(torch, run(s3), 1))
-    fps = (f3 - f2) / max((t3 - t2) / 1e3, 1e-9)
-    del s3
-
-    sig = s2[:64].contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    fps, t2, t3 = frames_per_s(torch, run_for, (512, 2048))
+    cubes.pop(512)
+    fps_hi, _, t4 = frames_per_s(torch, run_for, (2048, 8192), trials=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sig = cubes[2048][:64].contiguous()
+    cubes.clear()
     d = cfg.detection
     mix = _mix_vector(cfg.radar, cfg.window, "baseband", sig.shape[-1],
                       device=device)
@@ -895,10 +916,14 @@ def phase_cube_throughput(torch, k, cfg_mod, device):
                            plain_ms_per_64f=min(plain_ms),
                            kernel_ms_trials=kern_ms,
                            plain_ms_trials=plain_ms)
-    emit("cube_throughput", frames_per_s=fps, frames_delta=f3 - f2,
-         t512_ms=t2, t2048_ms=t3, kernels=times,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"])
+        if name == "K7":
+            times[name]["kernel_sub_ms_per_64f"] = kernel_profile(torch,
+                                                                  kern)
+    emit("cube_throughput", frames_per_s=fps, frames_delta=2048 - 512,
+         t512_ms=t2, t2048_ms=t3, frames_per_s_2048_8192=fps_hi,
+         t8192_ms=t4, kernels=times, peak_mem_gb=peak)
+    return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"],
+                t.get("kernel_sub_ms_per_64f"))
             for n, t in times.items()}
 
 
@@ -913,18 +938,49 @@ def synth_inputs(batch, cfg):
     return e_ac, e_fast, mix
 
 
-def power_plain_exact(torch, sp, fe, e_ac, e_fast, seeds, mix, C, sigma,
+def cube_power_oracle(torch, cube, mix, doppler_window):
+    """The power map [F, S, C] of cubes [F, A, C, S] in float64 on the
+    exact DFT (the oracle of K4 and K7): the range DFT, the Doppler
+    constant, the antenna mean; rounded once to float32."""
+    from radar_slam_tpu_torch.ops.frontend import doppler_constant
+    x = cube.to(torch.complex128)
+    z = x @ exact_dft(mix, True)
+    o = doppler_constant(x.shape[-2], doppler_window, x.device).to(
+        torch.complex128) @ z
+    p = torch.mean(o.real * o.real + o.imag * o.imag, dim=1)
+    return p.transpose(1, 2).to(torch.float32)
+
+
+def power_plain_exact(torch, sp, e_ac, e_fast, seeds, mix, C, sigma,
                       doppler_window, impl):
-    """K4's plain version as the float64 oracle: the cube, its exact range
-    DFT, the Doppler DFT, the antenna mean; [F, S, C] rounded to float32."""
+    """K4's plain version as the float64 oracle: the cube (float64
+    product, the kernel's float32 noise words), then cube_power_oracle."""
+    c = lambda x: x.to(torch.complex128)
+    x = sp.synthesize_cube(c(e_ac), c(e_fast), seeds, sigma, impl)
+    F, AC, S = x.shape
+    return cube_power_oracle(torch, x.reshape(F, AC // C, C, S), mix,
+                             doppler_window)
+
+
+def signatures_oracle(torch, sp, fe, e_ac, e_fast, seeds, rb, db, mix, C,
+                      sigma, doppler_window, impl):
+    """K5's function in float64 on the exact DFT: the cube, column r_k of
+    its range DFT, row d_k of the Doppler constant, unit power over the
+    antennas; [F, K, A] rounded once to complex64."""
     c = lambda x: x.to(torch.complex128)
     x = sp.synthesize_cube(c(e_ac), c(e_fast), seeds, sigma, impl)
     F, AC, S = x.shape
     z = x @ exact_dft(mix, True)
-    o = c(fe.doppler_constant(C, doppler_window, x.device)) @ z.reshape(
-        F, AC // C, C, S)
-    p = torch.sum(o.real * o.real + o.imag * o.imag, dim=1) * (C / AC)
-    return p.transpose(1, 2).to(torch.float32)
+    r = torch.remainder(rb.to(torch.int64), S)
+    d = torch.remainder(db.to(torch.int64), C)
+    zc = torch.gather(z, 2, r[:, None, :].expand(F, AC, r.shape[-1]))
+    w = c(fe.doppler_constant(C, doppler_window, x.device))[d]  # [F, K, C]
+    sig = torch.einsum("fkc,fack->fka", w, zc.reshape(F, AC // C, C, -1))
+    pw = torch.sum(sig.real * sig.real + sig.imag * sig.imag, dim=-1,
+                   keepdim=True)
+    sig = torch.where(pw > 0, sig / torch.sqrt(torch.clamp(pw, min=1e-300)),
+                      sig)
+    return sig.to(torch.complex64)
 
 
 def signatures_plain_exact(sp, e_ac, e_fast, seeds, rb, db, mix, C, sigma,
@@ -973,8 +1029,8 @@ def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
 
     p_k = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
                              doppler_window=dw, noise_impl=impl)
-    p_p = power_plain_exact(torch, sp, fe, e_ac, e_fast, seeds, mix, C,
-                            sigma, dw, impl)
+    p_p = power_plain_exact(torch, sp, e_ac, e_fast, seeds, mix, C, sigma,
+                            dw, impl)
     p_ref = sp.scatterer_power_reference(e_ac, e_fast, seeds, mix, C, sigma,
                                          True, dw, impl)
     p_again = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
@@ -994,8 +1050,13 @@ def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
     rb, db, valid = det.range_bin, det.doppler_bin, det.valid
     s_k = sp.scatterer_signatures(e_ac, e_fast, seeds, rb, db, mix, C,
                                   sigma, doppler_window=dw, noise_impl=impl)
+    s_again = sp.scatterer_signatures(e_ac, e_fast, seeds, rb, db, mix, C,
+                                      sigma, doppler_window=dw,
+                                      noise_impl=impl)
     s_p = signatures_plain_exact(sp, e_ac, e_fast, seeds, rb, db, mix, C,
                                  sigma, dw, impl)
+    s_o = signatures_oracle(torch, sp, fe, e_ac, e_fast, seeds, rb, db, mix,
+                            C, sigma, dw, impl)
     s_ref = sp.scatterer_signatures_reference(e_ac, e_fast, seeds, rb, db,
                                               mix, C, sigma, True, dw, impl)
     s_x = detection_signatures(cube, rb, db, cfg.radar, window=cfg.window,
@@ -1004,6 +1065,10 @@ def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
     check(bool(valid.any()), f"{label}: no detections for K5")
     out["K5_valid_slots"] = int(valid.sum())
     out["K5_abs"] = (s_k - s_p).abs()[valid].max().item()
+    out["K5_oracle_abs"] = (s_k - s_o).abs().max().item()
+    out["K5_zero_slots_stay_zero"] = bool(
+        (s_k[~valid] == 0).all() and (s_o[~valid] == 0).all())
+    out["K5_repeats"] = bool(torch.equal(s_k, s_again))
     out["K5_vs_reference_constant_abs"] = (
         s_k - s_ref).abs()[valid].max().item()
     out["K5_vs_cube_abs"] = (s_k - s_x).abs()[valid].max().item()
@@ -1039,17 +1104,22 @@ def phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
     emit("synth_kernels_vs_plain",
          tolerance={"K6_abs": 1e-6, "K4_rel": 1e-5,
                     "K4_vs_reference_constant_rel": 1e-4,
-                    "K4_vs_K7_rel": 1e-4, "K4_repeats": True,
-                    "K5_abs": 2e-4, "K5_vs_reference_constant_abs": 5e-4,
-                    "K5_vs_cube_abs": 5e-4, "K3": FRONTEND_TOL,
+                    "K4_vs_K7_rel": 1e-5, "K4_repeats": True,
+                    "K5_abs": 2e-4, "K5_oracle_abs": 1e-5,
+                    "K5_zero_slots_stay_zero": True, "K5_repeats": True,
+                    "K5_vs_reference_constant_abs": 5e-4,
+                    "K5_vs_cube_abs": 2e-4, "K3": FRONTEND_TOL,
                     "K3_vs_K1_p_rel": 1e-5},
-         notes={"K4_vs_K7_rel": "K7 keeps the reference's float32 range "
-                                "constant (3e-5 of the maximum from the "
-                                "exact DFT)",
-                "K5": "K5 takes the exact DFT's range columns on the card; "
-                      "the reference's float32 columns (phases up to "
-                      "~1.2e-4 rad off) move unit-power signatures by "
-                      "up to ~3e-4"},
+         notes={"K4_vs_K7_rel": "one transform (the factored FFT, the "
+                                "3xTF32 Doppler product) on two cubes: "
+                                "K4's 3xTF32 synthesis, torch's float32 "
+                                "one",
+                "K5": "K5 takes column r_k of the factored range FFT and "
+                      "row d_k of K4's Doppler constant; the reference's "
+                      "float32 columns (phases up to ~1.2e-4 rad off) "
+                      "move unit-power signatures by up to ~3e-4; "
+                      "detection_signatures on the card takes the exact "
+                      "columns too"},
          **out)
     for label, r in out.items():
         for ni in ("fast", "box_muller"):
@@ -1059,22 +1129,251 @@ def phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
               and st["beyond_4sigma"] > 0, f"{label}: K6 box_muller stats")
         check(r["K4_rel"] < 1e-5, f"{label}: K4 vs plain {r['K4_rel']}")
         check(r["K4_vs_reference_constant_rel"] < 1e-4
-              and r["K4_vs_K7_rel"] < 1e-4 and r["K4_repeats"],
+              and r["K4_vs_K7_rel"] < 1e-5 and r["K4_repeats"],
               f"{label}: K4 vs K7 / the reference's constant / itself")
         check(r["K5_abs"] < 2e-4, f"{label}: K5 vs plain {r['K5_abs']}")
+        check(r["K5_oracle_abs"] < 1e-5,
+              f"{label}: K5 vs oracle {r['K5_oracle_abs']}")
+        check(r["K5_zero_slots_stay_zero"] and r["K5_repeats"],
+              f"{label}: K5 zero slots / repeat")
         check(r["K5_vs_reference_constant_abs"] < 5e-4,
               f"{label}: K5 vs the reference's constant")
-        check(r["K5_vs_cube_abs"] < 5e-4,
+        check(r["K5_vs_cube_abs"] < 2e-4,
               f"{label}: K5 vs cube {r['K5_vs_cube_abs']}")
         check_frontend(f"{label} K3", r["K3"])
         check(r["K3_vs_K1_p_rel"] < 1e-5,
               f"{label}: K3 vs K1 {r['K3_vs_K1_p_rel']}")
-        check(r["launches"] == {"K3": 1, "K4": 2, "K5": 1, "K6": 3},
+        check(r["launches"] == {"K3": 1, "K4": 2, "K5": 2, "K6": 3},
               f"{label}: launch counts {r['launches']}")
     b = out["pipeline_batch"]
     return {"K3": b["K3"]["p_max_abs_err"], "K4": b["K4_abs"],
             "K5": b["K5_abs"],
             "K6": max(b["K6_fast_abs"], b["K6_box_muller_abs"])}
+
+
+def onchip_c64_checks(torch, sp, fe, power, cfg, batch, seeds):
+    """K4, K5, K7, K1' and K3 in the time domain at C = 64 (a cluster of
+    two blocks per antenna) against their float64 oracles: the power maps
+    to 1e-5 and Z to 2e-6 of their maxima, signatures to 1e-5."""
+    from radar_slam_tpu_torch.signal.detect import detect_peaks_from_power
+    C, S = cfg.radar.num_chirps, cfg.radar.samples_per_chirp
+    A = cfg.radar.num_antennas
+    F = seeds.shape[0]
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    dw, impl = cfg.doppler_window, cfg.noise_impl
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    out = {}
+    p4 = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
+                            doppler_window=dw, noise_impl=impl)
+    out["K4_oracle_rel"] = rel_err(p4, power_plain_exact(
+        torch, sp, e_ac, e_fast, seeds, mix, C, sigma, dw, impl))[1]
+    det = detect_peaks_from_power(p4, cfg.radar, cfg.detection)
+    s5 = sp.scatterer_signatures(e_ac, e_fast, seeds, det.range_bin,
+                                 det.doppler_bin, mix, C, sigma,
+                                 doppler_window=dw, noise_impl=impl)
+    s5o = signatures_oracle(torch, sp, fe, e_ac, e_fast, seeds,
+                            det.range_bin, det.doppler_bin, mix, C, sigma,
+                            dw, impl)
+    s5p = signatures_plain_exact(sp, e_ac, e_fast, seeds, det.range_bin,
+                                 det.doppler_bin, mix, C, sigma, dw, impl)
+    torch.cuda.synchronize()
+    check(bool(det.valid.any()), "C=64: no detections for K5")
+    out["K5_oracle_abs"] = (s5 - s5o).abs().max().item()
+    out["K5_abs"] = (s5 - s5p).abs()[det.valid].max().item()
+    cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
+            + sigma * sp.noise_cube(seeds, A * C, S, impl)).reshape(
+                F, A, C, S)
+    p7 = power.rds_power_fused(cube, mix, True, dw)
+    out["K7_oracle_rel"] = rel_err(p7, cube_power_oracle(torch, cube, mix,
+                                                         dw))[1]
+    out["K7_rel"] = rel_err(p7, power.rds_power_reference(cube, mix, True,
+                                                          dw))[1]
+    out["K4_vs_K7_rel"] = rel_err(p4, p7)[1]
+    args, prm = kernel_inputs(batch, cfg, seeds)
+    prm_t = dataclasses.replace(prm, **K1P_BRANCHES["time_fast"])
+    k1 = fe.frontend_kernel_split(*args, prm_t)
+    out["K1p_time"] = frontend_errors(
+        torch, fe, cfg, k1, as_f32(fe.scatterer_frontend_split_reference(
+            *plain_args(args, prm_t), prm_t)), "C=64 K1' time", prm_t)
+    c = lambda x: x.to(torch.complex128)
+    k3 = fe.frontend_kernel_dense(e_ac, e_fast, seeds, mix, args[8], prm_t,
+                                  C)
+    out["K3_time"] = frontend_errors(
+        torch, fe, cfg, k3, as_f32(fe.scatterer_frontend_reference(
+            c(e_ac), c(e_fast), seeds, exact_dft(mix, True), c(args[8]),
+            prm_t, C)), "C=64 K3 time", prm_t)
+    out["K3_time_vs_K4_rel"] = rel_err(k3[2], p4.transpose(1, 2))[1]
+    return out
+
+
+def rangefreq_a16_checks(torch, fe, cfg, batch, seeds):
+    """K1 and K3 in the range-frequency domain at A = 16, C = 64 (their Z
+    rows tiled over antenna groups) against their float64 oracles."""
+    args, prm = kernel_inputs(batch, cfg, seeds)
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    C = cfg.radar.num_chirps
+    c = lambda x: x.to(torch.complex128)
+    out = {}
+    k1 = fe.frontend_kernel_split(*args, prm)
+    out["K1"] = frontend_errors(
+        torch, fe, cfg, k1, as_f32(fe.scatterer_frontend_split_reference(
+            *plain_args(args, prm), prm)), "A=16 K1", prm)
+    k3 = fe.frontend_kernel_dense(e_ac, e_fast, seeds, mix, args[8], prm, C)
+    out["K3"] = frontend_errors(
+        torch, fe, cfg, k3, as_f32(fe.scatterer_frontend_reference(
+            c(e_ac), c(e_fast), seeds, exact_dft(mix, True), c(args[8]),
+            prm, C)), "A=16 K3", prm)
+    return out
+
+
+def route_cfg(cfg_mod, antennas, chirps=64):
+    base = bench_config(cfg_mod, num_chirps=chirps)
+    return dataclasses.replace(base, radar=dataclasses.replace(
+        base.radar, num_antennas=antennas))
+
+
+def route_times(torch, sp, fe, power, cfg_mod, device, clock):
+    """Time per 64-frame call (CUDA events, best of 2 x 20 kernel and
+    2 x 3 plain calls) of each shape route, its plain version's and its
+    bound: K4, K5, K7, K1' time and K3 time at C = 64 ("cluster_rows"),
+    K1 and K3 in the range-frequency domain at A = 16, C = 64
+    ("tiled_rows")."""
+    from radar_slam_tpu_torch.signal.detect import detect_peaks_from_power
+    out = {}
+    for label, antennas in (("C64", 8), ("A16_C64", 16)):
+        cfg = route_cfg(cfg_mod, antennas)
+        A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
+        S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
+        K = cfg.detection.max_detections
+        sigma = float(cfg.radar.noise_power) ** 0.5
+        dw, impl = cfg.doppler_window, cfg.noise_impl
+        batch, _ = scene(64, cfg, device)
+        seeds = torch.arange(64, dtype=torch.int32, device=device)
+        args, prm = kernel_inputs(batch, cfg, seeds)
+        ref = plain_args(args, prm, exact=False)
+        e_ac, e_fast, mix = synth_inputs(batch, cfg)
+        dense_ref = (e_ac, e_fast, seeds, ref[7], args[8])
+        if label == "C64":
+            prm_t = dataclasses.replace(prm, **K1P_BRANCHES["time_fast"])
+            det = detect_peaks_from_power(
+                sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
+                                   doppler_window=dw, noise_impl=impl),
+                cfg.radar, cfg.detection)
+            rb, db = det.range_bin, det.doppler_bin
+            cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
+                    + sigma * sp.noise_cube(seeds, A * C, S, impl)).reshape(
+                        64, A, C, S)
+            pairs = {
+                "K4": (lambda: sp.scatterer_power(
+                           e_ac, e_fast, seeds, mix, C, sigma,
+                           doppler_window=dw, noise_impl=impl),
+                       lambda: sp.scatterer_power_reference(
+                           e_ac, e_fast, seeds, mix, C, sigma, True, dw,
+                           impl), {}),
+                "K5": (lambda: sp.scatterer_signatures(
+                           e_ac, e_fast, seeds, rb, db, mix, C, sigma,
+                           doppler_window=dw, noise_impl=impl),
+                       lambda: sp.scatterer_signatures_reference(
+                           e_ac, e_fast, seeds, rb, db, mix, C, sigma, True,
+                           dw, impl), {}),
+                "K7": (lambda: power.rds_power_fused(cube, mix, True, dw),
+                       lambda: power.rds_power_reference(cube, mix, True,
+                                                         dw), {}),
+                "K1' time": (lambda: fe.frontend_kernel_split(*args, prm_t),
+                             lambda: fe.scatterer_frontend_split_reference(
+                                 *ref, prm_t),
+                             dict(time_domain=True)),
+                "K3 time": (lambda: fe.frontend_kernel_dense(
+                                e_ac, e_fast, seeds, mix, args[8], prm_t, C),
+                            lambda: fe.scatterer_frontend_reference(
+                                *dense_ref, prm_t, C),
+                            dict(time_domain=True)),
+            }
+        else:
+            pairs = {
+                "K1": (lambda: fe.frontend_kernel_split(*args, prm),
+                       lambda: fe.scatterer_frontend_split_reference(
+                           *ref, prm), {}),
+                "K3": (lambda: fe.frontend_kernel_dense(
+                           e_ac, e_fast, seeds, mix, args[8], prm, C),
+                       lambda: fe.scatterer_frontend_reference(
+                           *dense_ref, prm, C), {}),
+            }
+        times = {}
+        for name, (kern, plain, work) in pairs.items():
+            kern()
+            plain()
+            torch.cuda.synchronize()
+            plain_ms = [cuda_time_ms(torch, plain, 3)]
+            kern_ms = [cuda_time_ms(torch, kern, 20),
+                       cuda_time_ms(torch, kern, 20)]
+            plain_ms.append(cuda_time_ms(torch, plain, 3))
+            b_ms, b_by, pipe, _ = bound(kernel_work(
+                name.split()[0].rstrip("'"), 64, A, C, S, Sc, K,
+                impl=impl, **work), clock)
+            times[name] = dict(kernel_ms_per_64f=min(kern_ms),
+                               plain_ms_per_64f=min(plain_ms),
+                               kernel_ms_trials=kern_ms, bound_ms=b_ms,
+                               bound_by=b_by, bound_pipe=pipe,
+                               kernel_sub_ms_per_64f=kernel_profile(torch,
+                                                                    kern))
+        out[label] = times
+    emit("route_throughput", frames=64, shapes={"C64": "A=8, C=64, S=400",
+                                                "A16_C64": "A=16, C=64, "
+                                                           "S=400"}, **out)
+    return out
+
+
+def phase_onchip_routes(torch, sp, fe, power, cfg_mod, device):
+    """The shape routes: C = 64 on the on-chip cube kernel (K4, K5, K7,
+    K1' and K3 in the time domain: "cluster_rows"), A = 16 with C = 64 on
+    the range-frequency kernels (K1, K3: "tiled_rows"), 8 frames each, A=8
+    and S=400 otherwise; every route's counter must move."""
+    wrappers = {"K1": fe.frontend_kernel_split,
+                "K3": fe.frontend_kernel_dense, "K4": sp.scatterer_power,
+                "K5": sp.scatterer_signatures, "K7": power.rds_power_fused}
+    out = {}
+    for label, antennas, checks in (("C64", 8, "onchip"),
+                                    ("A16_C64", 16, "rangefreq")):
+        cfg = route_cfg(cfg_mod, antennas)
+        batch, _ = scene(8, cfg, device)
+        seeds = (torch.arange(8, dtype=torch.int32, device=device) * 7919
+                 - 3)
+        zero_counts(*wrappers.values())
+        if checks == "onchip":
+            out[label] = onchip_c64_checks(torch, sp, fe, power, cfg, batch,
+                                           seeds)
+        else:
+            out[label] = rangefreq_a16_checks(torch, fe, cfg, batch, seeds)
+        torch.cuda.synchronize()
+        out[label]["branch_counts"] = {n: branch_counts(w)
+                                       for n, w in wrappers.items()}
+    emit("onchip_routes", frames=8,
+         tolerance={"p_rel": 1e-5, "z_rel": 2e-6, "sig_abs": 1e-5,
+                    "K5_abs (valid slots, exact columns)": 2e-4,
+                    "K7_rel (reference constant)": 1e-5,
+                    "K4_vs_K7_rel": 1e-5, "K3_time_vs_K4_rel": 1e-5},
+         **out)
+    r = out["C64"]
+    for key in ("K4_oracle_rel", "K7_oracle_rel", "K7_rel", "K4_vs_K7_rel",
+                "K3_time_vs_K4_rel"):
+        check(r[key] < 1e-5, f"C=64: {key} {r[key]}")
+    check(r["K5_oracle_abs"] < 1e-5 and r["K5_abs"] < 2e-4,
+          f"C=64: K5 {r['K5_oracle_abs']} / {r['K5_abs']}")
+    check_frontend("C=64 K1' time", r["K1p_time"])
+    check_frontend("C=64 K3 time", r["K3_time"])
+    bc = r["branch_counts"]
+    for n in ("K1", "K3", "K4", "K5", "K7"):
+        check(bc[n]["launches"] >= 1
+              and bc[n]["cluster_rows"] == bc[n]["launches"],
+              f"C=64: {n} counts {bc[n]}")
+    a16 = out["A16_C64"]
+    for n in ("K1", "K3"):
+        check_frontend(f"A=16 C=64 {n}", a16[n])
+        c = a16["branch_counts"][n]
+        check(c["launches"] == 1 and c["tiled_rows"] == 1,
+              f"A=16 C=64: {n} counts {c}")
+    return {n: bc[n]["cluster_rows"] for n in ("K4", "K5", "K7")}
 
 
 def phase_three_dispatch_pipeline(torch, sp, fe, cfg_mod, device,
@@ -1207,13 +1506,19 @@ def phase_three_dispatch_throughput(torch, sp, fe, cfg_mod, device):
                            plain_ms_per_64f=min(plain_ms),
                            kernel_ms_trials=kern_ms,
                            plain_ms_trials=plain_ms)
-        if name in ("K3", "K4"):
-            times[name]["kernel_sub_ms_per_64f"] = kernel_profile(torch,
-                                                                  kern)
+        if name in ("K3", "K4", "K5"):
+            launches = {}
+            times[name]["kernel_sub_ms_per_64f"] = kernel_profile(
+                torch, kern, launches)
+            times[name]["device_launches_per_call"] = launches
     emit("three_dispatch_throughput", driver="process_sequence_batched",
          cfar_mode="os", frames_per_s=fps, frames_delta=f3 - f2,
          t512_ms=t2, t2048_ms=t3, noise_impl=impl, kernels=times,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # K5 on the card: the on-chip kernel and the normalization, nothing
+    # else (no torch arithmetic around them).
+    k5 = times["K5"]["device_launches_per_call"]
+    check(sum(k5.values()) == 2, f"K5 device launches per call {k5}")
     return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"],
                 t.get("kernel_sub_ms_per_64f"))
             for n, t in times.items()}
@@ -1314,9 +1619,10 @@ def kernel_work(name, F, A, C, S, Sc, K, B=128, time_domain=False,
     by pipe: {"fp32", "tf32x3", "int32", "bytes"}.  The true products --
     the synthesis e_at e_fast and the antenna-chirp product e_at T -- at 8
     operations per complex MAC, each DFT stage at dft_ops; where a kernel
-    runs them as 3xTF32 on the tensor cores (K1, K3, K4: the true product
-    and the Doppler DFT) they count at the tensor-core rate, the FFT and
-    everything in K5 and K7-K10 at the FP32 rate.  The Philox words of
+    runs them as 3xTF32 on the tensor cores (K1, K3, K4, K5: the true
+    product and the Doppler DFT; K7: the Doppler DFT) they count at the
+    tensor-core rate, the FFT, K5's per-cell sums and everything in K8-K10
+    at the FP32 rate.  The Philox words of
     every noise value the function draws on the INT32 pipe (windows, DC
     projection, power and the CFAR's few MFLOP are not counted); bytes of
     the data inputs read once and the outputs written once (the DFT tables
@@ -1342,19 +1648,23 @@ def kernel_work(name, F, A, C, S, Sc, K, B=128, time_domain=False,
                     fp32=F * dft_ops(S, S, M), int32=noise,
                     bytes=F * (Sc * (M + S) * 8 + 4 + S * C * 4) + S * 8)
     elif name == "K5":
-        # The range DFT at the K detected bins, then one Doppler bin each.
-        work.update(fp32=F * (cmac * M * Sc * S + dft_ops(S, K, M)
-                              + dft_ops(C, 1, A * K)),
+        # K4's synthesis and range DFT at the K detected bins, then one
+        # Doppler bin each.
+        work.update(tf32x3=F * cmac * M * Sc * S,
+                    fp32=F * (dft_ops(S, K, M) + dft_ops(C, 1, A * K)),
                     int32=noise,
                     bytes=F * (Sc * (M + S) * 8 + 4 + 2 * K * 4 + K * A * 8)
                     + S * 8)
     elif name == "K6":
         work.update(fp32=F * M * S * 20, int32=noise,
                     bytes=F * (4 + M * S * 8))
-    elif name in ("K7", "K8"):
-        out = S * C * 4 if name == "K7" else M * S * 8
+    elif name == "K7":
+        work.update(tf32x3=F * doppler,
+                    fp32=F * (M * S * 10 + dft_ops(S, S, M)),
+                    bytes=F * (M * S * 8 + S * C * 4) + S * 8)
+    elif name == "K8":
         work.update(fp32=F * (M * S * 10 + dft_ops(S, S, M) + doppler),
-                    bytes=F * (M * S * 8 + out) + S * 8)
+                    bytes=F * 2 * M * S * 8 + S * 8)
     elif name == "K9":
         work.update(fp32=F * M * S * 10, bytes=F * 2 * M * S * 8 + S * 8)
     elif name == "K10":
@@ -1462,8 +1772,8 @@ def k1p_checks(torch, fe, sp, cfg, batch, seeds, label):
                 passed = int((kern[3] > -1e29).sum())
                 out["clutter_gated_share"] = 1.0 - passed / passed_free
             if kname == "K3" and branch == "time_fast":
-                # One cube, two kernels: K4's map, and K5's signatures (its
-                # own FP32 synthesis) against K3's Z columns at K4's cells.
+                # One cube, one transform: K4's map, and K5's signatures
+                # against K3's Z columns at K4's cells.
                 p4 = sp.scatterer_power(e_ac, e_fast, seeds, mix, C,
                                         prm_b.sigma,
                                         doppler_window=cfg.doppler_window,
@@ -1531,7 +1841,7 @@ def phase_k1prime_kernels_vs_plain(torch, fe, sp, cfg_mod, device):
     emit("k1prime_kernels_vs_plain",
          tolerance={**FRONTEND_TOL, "repeats": True,
                     "K3_time_vs_K4_rel": 1e-5,
-                    "K5_vs_K3_time_sig_abs": 2e-4,
+                    "K5_vs_K3_time_sig_abs": 1e-5,
                     "clutter_gated_share": ">= 0.25",
                     "noise_bits_identical": True,
                     "noise_through_dft_rel": 2e-6}, **out)
@@ -1544,7 +1854,7 @@ def phase_k1prime_kernels_vs_plain(torch, fe, sp, cfg_mod, device):
                   "two runs")
         check(r["K3_time_vs_K4_rel"] < 1e-5,
               f"{label}: K3 time vs K4 {r['K3_time_vs_K4_rel']}")
-        check(r["K5_vs_K3_time_sig_abs"] < 2e-4,
+        check(r["K5_vs_K3_time_sig_abs"] < 1e-5,
               f"{label}: K5 vs K3 time {r['K5_vs_K3_time_sig_abs']}")
         check(r["clutter_gated_share"] >= 0.25,
               f"{label}: clutter gated {r['clutter_gated_share']}")
@@ -1913,6 +2223,8 @@ def main():
     cube_launches, cube_pose = phase_cube_pipeline(torch, k, cfg_mod, device)
     synth_err = phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod,
                                              device)
+    cluster_launches = phase_onchip_routes(torch, sp, fe, power, cfg_mod,
+                                           device)
     synth_launches = phase_three_dispatch_pipeline(
         torch, sp, fe, cfg_mod, device, cube_pose, split_pose)
     k1p_err = phase_k1prime_kernels_vs_plain(torch, fe, sp, cfg_mod, device)
@@ -1926,6 +2238,8 @@ def main():
     synth_ms = phase_three_dispatch_throughput(torch, sp, fe, cfg_mod,
                                                device)
     k1p_ms = phase_k1prime_throughput(torch, fe, cfg_mod, device)
+    clock = sm_clock_hz()
+    route_ms = route_times(torch, sp, fe, power, cfg_mod, device, clock)
     phase_frontend_breakdown(torch, fe, cfg_mod, device)
     phase_sequential_latency(torch, fe, cfg_mod, device)
     phase_seed_spread(torch, cfg_mod, device)
@@ -1951,7 +2265,6 @@ def main():
     A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
     S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
     shapes = dict(F=64, A=A, C=C, S=S, Sc=Sc, K=cfg.detection.max_detections)
-    clock = sm_clock_hz()
 
     def entry(name, wrapper, source, replaces, launches, err, times,
               **work):
@@ -1987,6 +2300,21 @@ def main():
         kernels.append(entry(name, wrapper, CUBE_SOURCE, CUBE_REPLACES[name],
                              cube_launches[name], cube_err[name],
                              cube_ms[name]))
+    # The shape routes (phases onchip_routes and route_throughput, not a
+    # main path): their launches there, times, plain times and bounds.
+    routes = {"K1": (("A16_C64", "K1"),), "K3": (("C64", "K3 time"),
+                                                  ("A16_C64", "K3")),
+              "K4": (("C64", "K4"),), "K5": (("C64", "K5"),),
+              "K7": (("C64", "K7"),)}
+    for e in kernels:
+        key = e["name"].split()[0]
+        if key in cluster_launches:
+            e["cluster_rows_launches"] = cluster_launches[key]
+        for shape, name in routes.get(key, ()):
+            e.setdefault("routes", {})[f"{shape} {name}"] = {
+                k: route_ms[shape][name][k] for k in (
+                    "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
+                    "bound_pipe")}
     # K1' (K1's other branches): main-path launches through each branch --
     # the clutter input on the sequential driver, time-domain and
     # Box-Muller noise on the driver-consistency runs; the prefix-sum CFAR
@@ -2001,6 +2329,11 @@ def main():
             impl=K1P_BRANCHES[setting].get("noise_impl", "fast")))
         if branch == "cumsum":
             kernels[-1]["on_driver_path"] = False
+        if branch == "time":
+            kernels[-1]["routes"] = {"C64 K1' time": {
+                k: route_ms["C64"]["K1' time"][k] for k in (
+                    "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
+                    "bound_pipe")}}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

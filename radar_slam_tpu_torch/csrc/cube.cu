@@ -1,16 +1,16 @@
-// Cube-input front-end kernels for NVIDIA Hopper (sm_90a), FP32 SIMT.
+// Cube-input front-end kernels for NVIDIA Hopper (sm_90a).
 //
 // Four kernels of the ADC-cube path, each replacing one TPU kernel:
 //
 //   K7  cube_rds_power  radar_slam_tpu/ops/power_pallas.py:_kernel
-//       (rds_power_fused): cube [F, A*C, S] x W_rng [S, S] (mix, DC
-//       projector and e^{+j} range DFT folded into one matrix), then per
-//       antenna the Doppler DFT W_dop^T [D, C], |.|^2, mean over antennas
-//       -> power map [F, S, D] (range, Doppler), written in the detection
-//       layout directly.
+//       (rds_power_fused): cube [F, A, C, S] times the mix, its range DFT
+//       (e^{+j}, DC bin zeroed with the DC projector), then per antenna the
+//       Doppler DFT W_dop^T [D, C], |.|^2, mean over antennas -> power map
+//       [F, S, D] (range, Doppler), written in the detection layout.
 //   K8  cube_rds        radar_slam_tpu/ops/rds_pallas.py:_kernel (rds_fused):
-//       the same range product, then the complex Doppler DFT with the
-//       fftshift in W_dop's column order -> RDS [F, A, S, D] complex.
+//       cube x W_rng [S, S] (mix, DC projector and e^{+j} range DFT folded
+//       into one matrix), then the complex Doppler DFT with the fftshift in
+//       W_dop's column order -> RDS [F, A, S, D] complex.
 //   K9  cube_dechirp    radar_slam_tpu/ops/dechirp_pallas.py:_kernel
 //       (dechirp_window_dc): y = x * mix minus the per-row mean over S.
 //   K10 cube_cfar       radar_slam_tpu/ops/cfar_pallas.py:_kernel (cfar_mask):
@@ -18,25 +18,33 @@
 //       max with -inf fill, CA-CFAR with guard band on p (no 1e-12),
 //       threshold -> power_db [F, R, D], mask [F, R, D] (uint8).
 //
-// Precision: every product runs in FP32.  On the TPU, K7's range product
-// runs as one bf16 MXU pass by default (PipelineConfig.power_precision =
-// "default"); the port does not copy that deviation: its power map is held
-// to 1e-5 of its maximum, which bf16 cannot meet.
+// Precision: every product keeps FP32 accuracy.  On the TPU, K7's range
+// product runs as one bf16 MXU pass by default
+// (PipelineConfig.power_precision = "default"); the port does not copy that
+// deviation: its power map is held to 1e-5 of its maximum, which bf16
+// cannot meet.
 //
 // What bounds them on this card:
-// - K7/K8: arithmetic.  Per frame at A*C = 256, S = 400, C = 32 the range
-//   product is 41 M complex MACs (328 MFLOP at four real products per
-//   complex MAC) and the Doppler stage 26 MFLOP, about 354 MFLOP against
-//   0.82 MB of cube read (plus the Z scratch out and back in, 1.6 MB) --
-//   ~140 FLOP per byte, above the FP32 SIMT ridge of the H100 (67 TFLOP/s
-//   over 3.35 TB/s = 20 FLOP/byte).  Design: the range product is a
-//   shared-memory-tiled FP32 SIMT matmul (64 x 64 output tile, depth 16,
-//   4 x 4 complex accumulators per thread, four real FMAs per complex MAC)
-//   into a Z scratch [F, A*C, S]; a second launch stages 32 range bins of Z
-//   and W_dop^T in shared memory and either accumulates the antenna-mean
-//   power (K7) or stores the complex RDS (K8).  Fusing the Doppler stage
-//   into the product's epilogue (Z never in device memory) and tensor
-//   cores (3xTF32 on wgmma) are later work.
+// - K7: the cube's bytes.  Per frame (A*C = 256, S = 400, C = 32) the cube
+//   read is 0.82 MB; the factored range DFT is 1.8 M complex MACs and the
+//   Doppler DFT 3.3 M (in 3xTF32 on the tensor cores).  Design: the
+//   on-chip cube kernel of cube_onchip.cuh with its load producer -- one
+//   block per (antenna, frame), a cluster of ceil(C / 32) blocks where
+//   C > 32, loads its rows by 8-byte cp.async straight to the FFT's input
+//   positions, runs the FFT and the Doppler product in shared memory and
+//   writes the antenna's power plane; a second launch sums the planes in
+//   antenna order.  The per-antenna planes (0.41 MB a frame out and back
+//   in) are the traffic beyond the cube.
+// - K8: arithmetic.  The range product is 41 M complex MACs (328 MFLOP at
+//   four real products per complex MAC) and the Doppler stage 26 MFLOP
+//   against 0.82 MB of cube read (plus the Z scratch out and back in,
+//   1.6 MB) -- ~140 FLOP per byte, above the FP32 SIMT ridge of the H100
+//   (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte).  Design: the range product
+//   is a shared-memory-tiled FP32 SIMT matmul (64 x 64 output tile, depth
+//   16, 4 x 4 complex accumulators per thread, four real FMAs per complex
+//   MAC) into a Z scratch [F, A*C, S]; a second launch stages 32 range bins
+//   of Z and W_dop^T in shared memory and stores the complex RDS.  K7's
+//   design (the factored FFT, the cube on chip) is its next step.
 // - K9: memory.  8 bytes read and 8 written per sample, ~6 FLOP: one warp
 //   per row, the row read twice (the second read hits L1/L2), a warp
 //   shuffle reduction for the mean; no shared memory.
@@ -57,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cube_onchip.cuh"
 
 namespace {
 
@@ -153,17 +163,14 @@ range_product_kernel(const float2* __restrict__ x,
   }
 }
 
-// ---- Doppler stage over PS range bins of one frame ----------------------
-// o[a, s, d] = sum_c WdT[d, c] Z[a*C + c, s].  POWER: p[f, s, d] =
-// inv_a * sum_a |o|^2 (K7); otherwise rds[f, a, s, d] = o (K8).  Z rows
-// and WdT staged in shared memory (WdT rows padded by one float against
-// bank conflicts); thread o -> (s = o / C, d = o % C), so a warp reads one
-// Z value (broadcast) and stores contiguous Doppler bins.
-template <bool POWER>
+// ---- K8's Doppler stage over PS range bins of one frame -----------------
+// rds[f, a, s, d] = sum_c WdT[d, c] Z[a*C + c, s].  Z rows and WdT staged
+// in shared memory (WdT rows padded by one float against bank conflicts);
+// thread o -> (s = o / C, d = o % C), so a warp reads one Z value
+// (broadcast) and stores contiguous Doppler bins.
 __global__ void __launch_bounds__(TPB)
 doppler_kernel(const float2* __restrict__ z, const float2* __restrict__ wdt,
-               float* __restrict__ p, float2* __restrict__ rds, int A,
-               int C, int S, float inv_a) {
+               float2* __restrict__ rds, int A, int C, int S) {
   extern __shared__ float dsm[];
   const int M = A * C, ldw = C + 1;
   float* zr = dsm;                  // [M][PS]
@@ -189,7 +196,6 @@ doppler_kernel(const float2* __restrict__ z, const float2* __restrict__ wdt,
     const int sl = o / C, d = o % C;
     const int s = s0 + sl;
     if (s >= S) continue;
-    float acc = 0.f;
     for (int a = 0; a < A; ++a) {
       float orr = 0.f, oii = 0.f;
       for (int c = 0; c < C; ++c) {
@@ -201,19 +207,13 @@ doppler_kernel(const float2* __restrict__ z, const float2* __restrict__ wdt,
         oii = fmaf(w_r, v_i, oii);
         oii = fmaf(w_i, v_r, oii);
       }
-      if (POWER) {
-        acc = __fadd_rn(acc, __fadd_rn(__fmul_rn(orr, orr),
-                                       __fmul_rn(oii, oii)));
-      } else {
-        rds[(((size_t)f * A + a) * S + s) * C + d] = make_float2(orr, oii);
-      }
+      rds[(((size_t)f * A + a) * S + s) * C + d] = make_float2(orr, oii);
     }
-    if (POWER) p[((size_t)f * S + s) * C + d] = __fmul_rn(acc, inv_a);
   }
 }
 
 // ---- K9: y = x * mix - mean_s(x * mix), one warp per row -----------------
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+__device__ __forceinline__ float2 cmul_rn(float2 a, float2 b) {
   return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
                      __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
 }
@@ -231,7 +231,7 @@ dechirp_kernel(const float2* __restrict__ x, const float2* __restrict__ mix,
   if (dc) {
     float sr = 0.f, si = 0.f;
     for (int s = lane; s < S; s += 32) {
-      const float2 v = cmul(xr[s], mix[s]);
+      const float2 v = cmul_rn(xr[s], mix[s]);
       sr = __fadd_rn(sr, v.x);
       si = __fadd_rn(si, v.y);
     }
@@ -244,7 +244,7 @@ dechirp_kernel(const float2* __restrict__ x, const float2* __restrict__ mix,
     mi = __fdiv_rn(si, (float)S);
   }
   for (int s = lane; s < S; s += 32) {
-    const float2 v = cmul(xr[s], mix[s]);
+    const float2 v = cmul_rn(xr[s], mix[s]);
     yr[s] = make_float2(__fsub_rn(v.x, mr), __fsub_rn(v.y, mi));
   }
 }
@@ -354,11 +354,43 @@ cfar_kernel(const float2* __restrict__ rds, float* __restrict__ pdb_out,
 
 }  // namespace
 
-namespace {
+// K7: power map p [F, S, C] of cubes x [F, A, C, S], the rows kept on chip
+// (cube_onchip.cuh); pa holds the per-antenna power planes [F, A, S, C].
+// tw / pos / nst / radix: the range DFT's table, input positions and
+// radices (ops/range_dft.py).
+extern "C" int cube_rds_power(const void* x, const void* mix, const void* tw,
+                              const void* pos, int nst, const int* radix,
+                              const void* wdopt, void* pa, void* p, int F,
+                              int A, int C, int S, float inv_a,
+                              int dc_removal, int device, void* stream) {
+  if (F <= 0 || A <= 0 || C <= 0 || S <= 0 || nst < 0 ||
+      nst > FFT_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  OcArgs a{};
+  a.cube = static_cast<const float2*>(x);
+  a.mix = static_cast<const float2*>(mix);
+  a.tw = static_cast<const float2*>(tw);
+  a.pos = static_cast<const int*>(pos);
+  a.plan.nst = nst;
+  for (int t = 0; t < nst; ++t) a.plan.radix[t] = radix[t];
+  a.wdt = static_cast<const float2*>(wdopt);
+  a.pa = static_cast<float*>(pa);
+  a.A = A;
+  a.C = C;
+  a.S = S;
+  a.dc_removal = dc_removal;
+  return (int)launch_cube_onchip<SRC_CUBE, OUT_PSC>(
+      a, nullptr, static_cast<float*>(p), F, IMPL_FAST, inv_a,
+      static_cast<cudaStream_t>(stream));
+}
 
-int launch_cube(const void* x, const void* wrng, const void* wdopt,
-                void* zbuf, void* p, void* rds, int F, int A, int C, int S,
-                float inv_a, int device, void* stream) {
+// K8: RDS [F, A, S, C] of cubes x [F, A*C, S] against the dense range
+// constant wrng [S, S] (Z scratch zbuf [F, A*C, S]).
+extern "C" int cube_rds(const void* x, const void* wrng, const void* wdopt,
+                        void* zbuf, void* out, int F, int A, int C, int S,
+                        int device, void* stream) {
   if (F <= 0 || F > 65535 || A <= 0 || C <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -370,44 +402,15 @@ int launch_cube(const void* x, const void* wrng, const void* wdopt,
       static_cast<const float2*>(x), static_cast<const float2*>(wrng),
       static_cast<float2*>(zbuf), M, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
   const size_t smem = sizeof(float) * (2 * (size_t)M * PS + 2 * C * (C + 1));
-  dim3 g2((S + PS - 1) / PS, F);
-  if (p != nullptr) {
-    err = cudaFuncSetAttribute(doppler_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    doppler_kernel<true><<<g2, TPB, smem, st>>>(
-        static_cast<const float2*>(zbuf), static_cast<const float2*>(wdopt),
-        static_cast<float*>(p), nullptr, A, C, S, inv_a);
-  } else {
-    err = cudaFuncSetAttribute(doppler_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    doppler_kernel<false><<<g2, TPB, smem, st>>>(
-        static_cast<const float2*>(zbuf), static_cast<const float2*>(wdopt),
-        nullptr, static_cast<float2*>(rds), A, C, S, inv_a);
-  }
+  err = cudaFuncSetAttribute(doppler_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  doppler_kernel<<<dim3((S + PS - 1) / PS, F), TPB, smem, st>>>(
+      static_cast<const float2*>(zbuf), static_cast<const float2*>(wdopt),
+      static_cast<float2*>(out), A, C, S);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int cube_rds_power(const void* x, const void* wrng,
-                              const void* wdopt, void* zbuf, void* p, int F,
-                              int A, int C, int S, float inv_a, int device,
-                              void* stream) {
-  return launch_cube(x, wrng, wdopt, zbuf, p, nullptr, F, A, C, S, inv_a,
-                     device, stream);
-}
-
-extern "C" int cube_rds(const void* x, const void* wrng, const void* wdopt,
-                        void* zbuf, void* out, int F, int A, int C, int S,
-                        int device, void* stream) {
-  return launch_cube(x, wrng, wdopt, zbuf, nullptr, out, F, A, C, S, 1.0f,
-                     device, stream);
 }
 
 // K9: y = x * mix (- row mean) over rows [rows, S].

@@ -48,10 +48,14 @@
 //   a halo of the window taps' reach (4 of 36 columns redrawn), DC zeroed,
 //   Z kept in shared memory, written transposed, and its Doppler power, a
 //   second 3xTF32 product per antenna, summed over antennas in antenna
-//   order in registers -> p); then the CFAR.
+//   order in registers -> p); then the CFAR.  Where the A*C rows of Z do
+//   not fit a block (A*C > ~540: A = 16 at C = 64), the block runs the
+//   product, Z store and Doppler power per group of antennas ("tiled
+//   rows"), the running power sum carried across groups in antenna order.
 // - Time domain, three launches: cube_onchip_kernel (X never leaves shared
-//   memory; Z and one power plane per antenna out), antenna_sum_kernel,
-//   the CFAR.
+//   memory; Z and one power plane per antenna out; a cluster of
+//   ceil(C / 32) blocks per antenna where C > 32), antenna_sum_kernel, the
+//   CFAR.
 // - The CFAR kernels hold a frame's [C, S] map in shared memory; the
 //   prefix-sum CFAR the map and two scan planes (154 KB at C = 32).  The
 //   box-sum CFAR spreads a small batch's frames over up to four blocks
@@ -179,19 +183,36 @@ __host__ __device__ __forceinline__ int zk_r0(bool split, int A, int C) {
   return r > w ? r : w;
 }
 
-// The region, and the Z tile [M + 8][ZK_LDZ] (bytes).
-__host__ __forceinline__ size_t zk_smem_bytes(bool split, int A, int C) {
+// The region, and the Z tile [rows + 8][ZK_LDZ] for rows = ag C of ag
+// antennas (bytes).
+__host__ __forceinline__ size_t zk_smem_bytes(bool split, int A, int C,
+                                              int ag) {
   return sizeof(float2) * ((size_t)zk_r0(split, A, C) +
-                           (size_t)(A * C + 8) * ZK_LDZ);
+                           ((size_t)ag * C + 8) * ZK_LDZ);
 }
 
-template <bool SPLIT, int IMPL>
+// Antennas whose Z rows a block holds at once: all A, or, where their
+// (A C + 8) rows do not fit (A C > ~540), the most that do ("tiled rows":
+// the block then runs the product, Z store and Doppler power per group of
+// antennas, the power carried across groups in antenna order); 0 where not
+// even one antenna fits.
+__host__ __forceinline__ int zk_group_antennas(bool split, int A, int C) {
+  if (zk_smem_bytes(split, A, C, A) <= 232448) return A;
+  const long long room = 232448 / (long long)sizeof(float2) -
+                         zk_r0(split, A, C);
+  const long long ag = (room / ZK_LDZ - 8) / C;
+  return ag < 1 ? 0 : (int)(ag < A ? ag : A);
+}
+
+// TILED: the rows of ag antennas a pass (zk_group_antennas); otherwise all
+// A in one pass, the loop below folded away at compile time.
+template <bool SPLIT, int IMPL, bool TILED>
 __global__ void __launch_bounds__(ZK_THREADS, 1)
 z_power_kernel(Factors fa, const float2* __restrict__ tin,
                const int* __restrict__ seeds, const float2* __restrict__ wdt,
                float* __restrict__ zr, float* __restrict__ zi,
                float* __restrict__ p, int A, int C, int S, int Sc, float sn,
-               NoiseTaps taps, int dc_removal, float inv_a) {
+               NoiseTaps taps, int dc_removal, float inv_a, int ag) {
   extern __shared__ __align__(16) float2 zsm[];
   constexpr int KC = SPLIT ? ZK_KCS : ZK_KC;
   const int f = blockIdx.y, n0 = blockIdx.x * ZK_NT;
@@ -199,7 +220,7 @@ z_power_kernel(Factors fa, const float2* __restrict__ tin,
   const int stage = zk_stage(SPLIT, A, C);
   const int ldd = frag_pitch(C), ldn = frag_pitch(A);
   float2* R0 = zsm;
-  float2* Zt = zsm + zk_r0(SPLIT, A, C);            // [M + 8][ZK_LDZ]
+  float2* Zt = zsm + zk_r0(SPLIT, A, C);            // [ag C + 8][ZK_LDZ]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int mw = warp & 7, nw = warp >> 3;   // rows 32 mw.., cols 16 nw..
@@ -207,229 +228,251 @@ z_power_kernel(Factors fa, const float2* __restrict__ tin,
   const bool noisy = sn != 0.0f;
   const unsigned seed = noisy ? (unsigned)seeds[f] : 0u;
   const float2* tf = tin + (size_t)f * Sc * S;
-  // Rows M..M+7 are read by the Doppler product's last tile: zeros.
+  // Rows ag C.. ag C + 7 are read by the Doppler product's last tile:
+  // zeros (a smaller last group reads finite rows of the one before,
+  // against zero columns of W_dop^T).
   for (int e = threadIdx.x; e < 8 * ZK_LDZ; e += ZK_THREADS)
-    Zt[M * ZK_LDZ + e] = make_float2(0.f, 0.f);
+    Zt[ag * C * ZK_LDZ + e] = make_float2(0.f, 0.f);
 
-  for (int m0 = 0; m0 < M; m0 += ZK_MC) {
-    // Every stage arrives by cp.async: the e_ac rows, or the split
-    // tables' dopp and ant rows, whose products the fragment loads form.
-    auto load_stage = [&](int it) {
-      float2* As = R0 + (it & 1) * stage;
-      float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
-      const int k0 = it * KC;
-      if constexpr (SPLIT) {
-        float2* Ns = As + KC * ldd;
-        for (int e = threadIdx.x; e < KC * C; e += ZK_THREADS) {
-          const int kk = e / C, c = e % C, sc = k0 + kk;
-          const bool ok = sc < Sc;
-          cp_async8(&As[kk * ldd + c],
-                    ok ? fa.dopp + ((size_t)f * Sc + sc) * C + c : fa.dopp,
-                    ok);
-        }
-        for (int e = threadIdx.x; e < KC * A; e += ZK_THREADS) {
-          const int kk = e / A, aa = e % A, sc = k0 + kk;
-          const bool ok = sc < Sc;
-          cp_async8(&Ns[kk * ldn + aa],
-                    ok ? fa.ant + ((size_t)f * Sc + sc) * A + aa : fa.ant,
-                    ok);
-        }
-      } else {
-        for (int e = threadIdx.x; e < KC * ZK_MC; e += ZK_THREADS) {
-          const int kk = e / ZK_MC, mm = e % ZK_MC;
-          const int sc = k0 + kk, m = m0 + mm;
-          const bool ok = sc < Sc && m < M;
-          cp_async8(&As[kk * ZK_LDA + mm],
-                    ok ? fa.ant + ((size_t)f * Sc + sc) * M + m : fa.ant,
-                    ok);
-        }
-      }
-      for (int e = threadIdx.x; e < KC * ZK_NT; e += ZK_THREADS) {
-        const int kk = e / ZK_NT, nn = e % ZK_NT;
-        const int sc = k0 + kk, n = n0 + nn;
-        const bool ok = sc < Sc && n < S;
-        cp_async8(&Bs[kk * ZK_LDB + nn],
-                  ok ? tf + (size_t)sc * S + n : tf, ok);
-      }
-      cp_async_commit();
-    };
-    // The split tables: this thread's fragment rows m = m0 + 32 mw +
-    // 16 h + g + 8 j as (chirp, antenna), or -1 beyond M.
-    int row_c[2][2], row_a[2][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int m = m0 + 32 * mw + 16 * h + g + 8 * j;
-        row_a[h][j] = m < M ? m / C : -1;
-        row_c[h][j] = m < M ? m - (m / C) * C : 0;
-      }
-
-    float accr[2][2][4], acci[2][2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) accr[h][j][i] = acci[h][j][i] = 0.f;
-    const bool active = m0 + 32 * mw < M;
-    load_stage(0);
-    for (int it = 0; it < nk; ++it) {
-      if (it + 1 < nk) load_stage(it + 1);
-      else cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const float2* As = R0 + (it & 1) * stage;
-      const float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
-      if (active) {
-        for (int ks = 0; ks < KC && it * KC + ks < Sc; ks += 8) {
-          FragA a0, a1;
-          if constexpr (SPLIT) {
-            // e_at[m, k] = dopp[k, c] ant[k, a].
-            const float2* Ns = As + KC * ldd;
-            float2 v[2][4];
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const int j = i & 1, k = ks + t + 4 * (i >> 1);
-                const float2 d = As[k * ldd + row_c[h][j]];
-                const float2 w = row_a[h][j] >= 0 ? Ns[k * ldn + row_a[h][j]]
-                                                  : make_float2(0.f, 0.f);
-                v[h][i] = make_float2(d.x * w.x - d.y * w.y,
-                                      d.x * w.y + d.y * w.x);
-              }
-            a0 = make_frag_a(v[0]);
-            a1 = make_frag_a(v[1]);
-          } else {
-            a0 = load_frag_a(As, 1, ZK_LDA, 32 * mw, ks);
-            a1 = load_frag_a(As, 1, ZK_LDA, 32 * mw + 16, ks);
+  // Antennas a0.. a1 - 1 a pass: Z rows mlo..mhi-1.
+  const int passes = TILED ? (A + ag - 1) / ag : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int a0 = TILED ? pass * ag : 0;
+    const int a1 = TILED ? min(A, a0 + ag) : A;
+    const int mlo = a0 * C, mhi = a1 * C;
+    for (int m0 = mlo; m0 < mhi; m0 += ZK_MC) {
+      // Every stage arrives by cp.async: the e_ac rows, or the split
+      // tables' dopp and ant rows, whose products the fragment loads form.
+      auto load_stage = [&](int it) {
+        float2* As = R0 + (it & 1) * stage;
+        float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
+        const int k0 = it * KC;
+        if constexpr (SPLIT) {
+          float2* Ns = As + KC * ldd;
+          for (int e = threadIdx.x; e < KC * C; e += ZK_THREADS) {
+            const int kk = e / C, c = e % C, sc = k0 + kk;
+            const bool ok = sc < Sc;
+            cp_async8(&As[kk * ldd + c],
+                      ok ? fa.dopp + ((size_t)f * Sc + sc) * C + c : fa.dopp,
+                      ok);
           }
+          for (int e = threadIdx.x; e < KC * A; e += ZK_THREADS) {
+            const int kk = e / A, aa = e % A, sc = k0 + kk;
+            const bool ok = sc < Sc;
+            cp_async8(&Ns[kk * ldn + aa],
+                      ok ? fa.ant + ((size_t)f * Sc + sc) * A + aa : fa.ant,
+                      ok);
+          }
+        } else {
+          for (int e = threadIdx.x; e < KC * ZK_MC; e += ZK_THREADS) {
+            const int kk = e / ZK_MC, mm = e % ZK_MC;
+            const int sc = k0 + kk, m = m0 + mm;
+            const bool ok = sc < Sc && m < mhi;
+            cp_async8(&As[kk * ZK_LDA + mm],
+                      ok ? fa.ant + ((size_t)f * Sc + sc) * M + m : fa.ant,
+                      ok);
+          }
+        }
+        for (int e = threadIdx.x; e < KC * ZK_NT; e += ZK_THREADS) {
+          const int kk = e / ZK_NT, nn = e % ZK_NT;
+          const int sc = k0 + kk, n = n0 + nn;
+          const bool ok = sc < Sc && n < S;
+          cp_async8(&Bs[kk * ZK_LDB + nn],
+                    ok ? tf + (size_t)sc * S + n : tf, ok);
+        }
+        cp_async_commit();
+      };
+      // The split tables: this thread's fragment rows m = m0 + 32 mw +
+      // 16 h + g + 8 j as (chirp, antenna), or -1 beyond M.
+      int row_c[2][2], row_a[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int m = m0 + 32 * mw + 16 * h + g + 8 * j;
+          row_a[h][j] = m < mhi ? m / C : -1;
+          row_c[h][j] = m < mhi ? m - (m / C) * C : 0;
+        }
+
+      float accr[2][2][4], acci[2][2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) accr[h][j][i] = acci[h][j][i] = 0.f;
+      const bool active = m0 + 32 * mw < mhi;
+      load_stage(0);
+      for (int it = 0; it < nk; ++it) {
+        if (it + 1 < nk) load_stage(it + 1);
+        else cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const float2* As = R0 + (it & 1) * stage;
+        const float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
+        if (active) {
+          for (int ks = 0; ks < KC && it * KC + ks < Sc; ks += 8) {
+            FragA a0, a1;
+            if constexpr (SPLIT) {
+              // e_at[m, k] = dopp[k, c] ant[k, a].
+              const float2* Ns = As + KC * ldd;
+              float2 v[2][4];
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const int j = i & 1, k = ks + t + 4 * (i >> 1);
+                  const float2 d = As[k * ldd + row_c[h][j]];
+                  const float2 w = row_a[h][j] >= 0 ? Ns[k * ldn + row_a[h][j]]
+                                                    : make_float2(0.f, 0.f);
+                  v[h][i] = make_float2(d.x * w.x - d.y * w.y,
+                                        d.x * w.y + d.y * w.x);
+                }
+              a0 = make_frag_a(v[0]);
+              a1 = make_frag_a(v[1]);
+            } else {
+              a0 = load_frag_a(As, 1, ZK_LDA, 32 * mw, ks);
+              a1 = load_frag_a(As, 1, ZK_LDA, 32 * mw + 16, ks);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const int nb = 16 * nw + 8 * nt;
+              if (n0 + nb >= S) continue;
+              const FragB fb = load_frag_b(Bs, ZK_LDB, ks, nb);
+              cmma3(accr[0][nt], acci[0][nt], a0, fb);
+              cmma3(accr[1][nt], acci[1][nt], a1, fb);
+            }
+          }
+        }
+        __syncthreads();
+      }
+
+      // Epilogue: sigma sqrt(S) (g (*) taps), each value drawn once per tile
+      // (columns n0 - H .. n0 + ZK_NT + H - 1 mod S) into the free ring.
+      float2* G = R0;                                 // [ZK_MC][ZK_GW]
+      const int H = taps.halo, w = ZK_NT + 2 * H;
+      if (noisy) {
+        // Four draws per pass, unconditionally: independent Philox chains.
+        const int n_g = ZK_MC * w;
+        for (int e0 = threadIdx.x; e0 < n_g; e0 += 4 * ZK_THREADS) {
+          float2 v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * ZK_THREADS;
+            const int mm = e / w, jj = e - mm * w;
+            const int col = ((n0 - H + jj) % S + S) % S;
+            v[u] = normal_pair<IMPL>(seed, (unsigned)((m0 + mm) * S + col));
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * ZK_THREADS;
+            const int mm = e / w, jj = e - mm * w;
+            if (e < n_g)
+              G[mm * ZK_GW + jj] =
+                  m0 + mm < mhi ? v[u] : make_float2(0.f, 0.f);
+          }
+        }
+        __syncthreads();
+      }
+      if (active) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt) {
-            const int nb = 16 * nw + 8 * nt;
-            if (n0 + nb >= S) continue;
-            const FragB fb = load_frag_b(Bs, ZK_LDB, ks, nb);
-            cmma3(accr[0][nt], acci[0][nt], a0, fb);
-            cmma3(accr[1][nt], acci[1][nt], a1, fb);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int mm = 32 * mw + 16 * h + g + 8 * (i >> 1);
+              const int nn = 16 * nw + 8 * nt + 2 * t + (i & 1);
+              const int m = m0 + mm, n = n0 + nn;
+              if (m >= mhi) continue;
+              float vr = accr[h][nt][i], vi = acci[h][nt][i];
+              if (n >= S) {
+                vr = vi = 0.f;
+              } else {
+                if (noisy) {
+                  float cr = 0.f, ci = 0.f;
+                  for (int q = 0; q < taps.n; ++q) {
+                    // roll by off: the tap reads column n - off.
+                    const float2 gv = G[mm * ZK_GW + nn + H - taps.off[q]];
+                    const float tr = __fmul_rn(taps.coef[q], gv.x);
+                    const float ti = __fmul_rn(taps.coef[q], gv.y);
+                    cr = (q == 0) ? tr : __fadd_rn(cr, tr);
+                    ci = (q == 0) ? ti : __fadd_rn(ci, ti);
+                  }
+                  vr = __fadd_rn(vr, __fmul_rn(sn, cr));
+                  vi = __fadd_rn(vi, __fmul_rn(sn, ci));
+                }
+                if (dc_removal && n == 0) vr = vi = 0.f;
+              }
+              Zt[(m - mlo) * ZK_LDZ + nn] = make_float2(vr, vi);
+            }
           }
         }
       }
       __syncthreads();
     }
 
-    // Epilogue: sigma sqrt(S) (g (*) taps), each value drawn once per tile
-    // (columns n0 - H .. n0 + ZK_NT + H - 1 mod S) into the free ring.
-    float2* G = R0;                                 // [ZK_MC][ZK_GW]
-    const int H = taps.halo, w = ZK_NT + 2 * H;
-    if (noisy) {
-      // Four draws per pass, unconditionally: independent Philox chains.
-      const int n_g = ZK_MC * w;
-      for (int e0 = threadIdx.x; e0 < n_g; e0 += 4 * ZK_THREADS) {
-        float2 v[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = e0 + u * ZK_THREADS;
-          const int mm = e / w, jj = e - mm * w;
-          const int col = ((n0 - H + jj) % S + S) % S;
-          v[u] = normal_pair<IMPL>(seed, (unsigned)((m0 + mm) * S + col));
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = e0 + u * ZK_THREADS;
-          const int mm = e / w, jj = e - mm * w;
-          if (e < n_g)
-            G[mm * ZK_GW + jj] = m0 + mm < M ? v[u] : make_float2(0.f, 0.f);
-        }
-      }
-      __syncthreads();
+    // Z transposed: zr/zi[f, n, m], consecutive threads on consecutive m.
+    const int Mg = mhi - mlo;
+    for (int e = threadIdx.x; e < Mg * ZK_NT; e += ZK_THREADS) {
+      const int mm = e % Mg, nn = e / Mg, n = n0 + nn;
+      if (n >= S) continue;
+      const float2 v = Zt[mm * ZK_LDZ + nn];
+      const size_t o = ((size_t)f * S + n) * M + mlo + mm;
+      zr[o] = v.x;
+      zi[o] = v.y;
     }
-    if (active) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int mm = 32 * mw + 16 * h + g + 8 * (i >> 1);
-            const int nn = 16 * nw + 8 * nt + 2 * t + (i & 1);
-            const int m = m0 + mm, n = n0 + nn;
-            if (m >= M) continue;
-            float vr = accr[h][nt][i], vi = acci[h][nt][i];
-            if (n >= S) {
-              vr = vi = 0.f;
-            } else {
-              if (noisy) {
-                float cr = 0.f, ci = 0.f;
-                for (int q = 0; q < taps.n; ++q) {
-                  // roll by off: the tap reads column n - off.
-                  const float2 gv = G[mm * ZK_GW + nn + H - taps.off[q]];
-                  const float tr = __fmul_rn(taps.coef[q], gv.x);
-                  const float ti = __fmul_rn(taps.coef[q], gv.y);
-                  cr = (q == 0) ? tr : __fadd_rn(cr, tr);
-                  ci = (q == 0) ? ti : __fadd_rn(ci, ti);
-                }
-                vr = __fadd_rn(vr, __fmul_rn(sn, cr));
-                vi = __fadd_rn(vi, __fmul_rn(sn, ci));
-              }
-              if (dc_removal && n == 0) vr = vi = 0.f;
-            }
-            Zt[m * ZK_LDZ + nn] = make_float2(vr, vi);
-          }
-        }
-      }
+
+    // Doppler power p[f, d, n] = inv_a sum_a |sum_c W_dop^T[d, c]
+    // Z[a*C + c, n]|^2: per (16 Doppler bins x 8 range bins) tile, one 3xTF32
+    // product per antenna, the |.|^2 summed in registers in antenna order;
+    // across antenna groups the running sum waits in p (the thread that
+    // wrote it reads it back).
+    const int Cp = (C + 7) & ~7, C16 = (C + 15) & ~15;
+    const int ldw = frag_pitch(Cp);
+    float2* Ws = R0;                                  // [C16][ldw]
+    for (int e = threadIdx.x; e < C16 * ldw; e += ZK_THREADS) {
+      const int d = e / ldw, c = e % ldw;
+      Ws[e] = (d < C && c < C) ? wdt[d * C + c] : make_float2(0.f, 0.f);
     }
     __syncthreads();
-  }
-
-  // Z transposed: zr/zi[f, n, m], consecutive threads on consecutive m.
-  for (int e = threadIdx.x; e < M * ZK_NT; e += ZK_THREADS) {
-    const int m = e % M, nn = e / M, n = n0 + nn;
-    if (n >= S) continue;
-    const float2 v = Zt[m * ZK_LDZ + nn];
-    const size_t o = ((size_t)f * S + n) * M + m;
-    zr[o] = v.x;
-    zi[o] = v.y;
-  }
-
-  // Doppler power p[f, d, n] = inv_a sum_a |sum_c W_dop^T[d, c]
-  // Z[a*C + c, n]|^2: per (16 Doppler bins x 8 range bins) tile, one 3xTF32
-  // product per antenna, the |.|^2 summed in registers in antenna order.
-  const int Cp = (C + 7) & ~7, C16 = (C + 15) & ~15;
-  const int ldw = frag_pitch(Cp);
-  float2* Ws = R0;                                  // [C16][ldw]
-  for (int e = threadIdx.x; e < C16 * ldw; e += ZK_THREADS) {
-    const int d = e / ldw, c = e % ldw;
-    Ws[e] = (d < C && c < C) ? wdt[d * C + c] : make_float2(0.f, 0.f);
-  }
-  __syncthreads();
-  const int mtiles = C16 / 16;
-  for (int ti = warp; ti < mtiles * (ZK_NT / 8); ti += ZK_THREADS / 32) {
-    const int m16 = (ti % mtiles) * 16, nb = (ti / mtiles) * 8;
-    if (n0 + nb >= S) continue;
-    float ps[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int a = 0; a < A; ++a) {
-      float orr[4] = {}, oii[4] = {}, err[4] = {}, eii[4] = {};
-      for (int kb = 0; kb < Cp; kb += 8) {
-        const FragA wf = load_frag_a(Ws, ldw, 1, m16, kb);
-        const FragB zf = load_frag_b(Zt + (size_t)a * C * ZK_LDZ, ZK_LDZ, kb,
-                                     nb);
-        cmma3_split(orr, oii, err, eii, wf, zf);
+    const int mtiles = C16 / 16;
+    for (int ti = warp; ti < mtiles * (ZK_NT / 8); ti += ZK_THREADS / 32) {
+      const int m16 = (ti % mtiles) * 16, nb = (ti / mtiles) * 8;
+      if (n0 + nb >= S) continue;
+      float ps[4] = {0.f, 0.f, 0.f, 0.f};
+      if (a0 > 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = m16 + g + 8 * (i >> 1), n = n0 + nb + 2 * t + (i & 1);
+          if (d < C && n < S) ps[i] = p[((size_t)f * C + d) * S + n];
+        }
+      }
+      for (int a = a0; a < a1; ++a) {
+        float orr[4] = {}, oii[4] = {}, err[4] = {}, eii[4] = {};
+        for (int kb = 0; kb < Cp; kb += 8) {
+          const FragA wf = load_frag_a(Ws, ldw, 1, m16, kb);
+          const FragB zf = load_frag_b(Zt + (size_t)(a - a0) * C * ZK_LDZ,
+                                       ZK_LDZ, kb, nb);
+          cmma3_split(orr, oii, err, eii, wf, zf);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float o_r = orr[i] + err[i], o_i = oii[i] + eii[i];
+          const float pw = __fadd_rn(__fmul_rn(o_r, o_r),
+                                     __fmul_rn(o_i, o_i));
+          ps[i] = (a == 0) ? pw : __fadd_rn(ps[i], pw);
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float o_r = orr[i] + err[i], o_i = oii[i] + eii[i];
-        const float pw = __fadd_rn(__fmul_rn(o_r, o_r),
-                                   __fmul_rn(o_i, o_i));
-        ps[i] = (a == 0) ? pw : __fadd_rn(ps[i], pw);
+        const int d = m16 + g + 8 * (i >> 1), n = n0 + nb + 2 * t + (i & 1);
+        if (d < C && n < S)
+          p[((size_t)f * C + d) * S + n] =
+              a1 == A ? __fmul_rn(ps[i], inv_a) : ps[i];
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d = m16 + g + 8 * (i >> 1), n = n0 + nb + 2 * t + (i & 1);
-      if (d < C && n < S) p[((size_t)f * C + d) * S + n] = __fmul_rn(ps[i],
-                                                                     inv_a);
-    }
+    __syncthreads();   // the next group reuses the ring and the Z tile
   }
 }
 
@@ -710,9 +753,9 @@ int launch_frontend(const Factors& fa, const void* seeds, const void* mix,
 
   if (domain == DOMAIN_RANGE_FREQ) {
     const size_t rf_smem = rf_smem_bytes(S, nst == 0);
-    const size_t zk_smem = zk_smem_bytes(SPLIT, A, C);
-    if (rf_smem > 232448 || zk_smem > 232448)
-      return (int)cudaErrorInvalidValue;
+    const int ag = zk_group_antennas(SPLIT, A, C);
+    if (rf_smem > 232448 || ag == 0) return (int)cudaErrorInvalidValue;
+    const size_t zk_smem = zk_smem_bytes(SPLIT, A, C, ag);
     err = cudaFuncSetAttribute(range_fft_kernel<SPLIT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)rf_smem);
@@ -722,20 +765,39 @@ int launch_frontend(const Factors& fa, const void* seeds, const void* mix,
                               RF_THREADS, rf_smem, st>>>(
         fa, mx, twp, psp, plan, dc_removal, T, S, Sc);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    auto zk = impl == IMPL_BOX_MULLER ? z_power_kernel<SPLIT, IMPL_BOX_MULLER>
-                                      : z_power_kernel<SPLIT, IMPL_FAST>;
+    const bool tiled = ag < A;
+    auto zk = impl == IMPL_BOX_MULLER
+                  ? (tiled ? z_power_kernel<SPLIT, IMPL_BOX_MULLER, true>
+                           : z_power_kernel<SPLIT, IMPL_BOX_MULLER, false>)
+                  : (tiled ? z_power_kernel<SPLIT, IMPL_FAST, true>
+                           : z_power_kernel<SPLIT, IMPL_FAST, false>);
     err = cudaFuncSetAttribute(zk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)zk_smem);
     if (err != cudaSuccess) return (int)err;
     zk<<<dim3((S + ZK_NT - 1) / ZK_NT, F), ZK_THREADS, zk_smem, st>>>(
         fa, T, sd, wd, zro, zio, pp, A, C, S, Sc, sn, taps, dc_removal,
-        inv_a);
+        inv_a, ag);
   } else {
     if (SPLIT && efast == nullptr) return (int)cudaErrorInvalidValue;
-    err = launch_cube_onchip<SPLIT, true, false>(
-        fa, static_cast<float2*>(efast), sd, mx, twp, psp, plan, dc_removal,
-        wd, zro, zio, static_cast<float*>(scratch), pp, F, A, C, S, Sc, sn,
-        impl, inv_a, st);
+    OcArgs oc{};
+    oc.fa = fa;
+    oc.seeds = sd;
+    oc.mix = mx;
+    oc.tw = twp;
+    oc.pos = psp;
+    oc.plan = plan;
+    oc.wdt = wd;
+    oc.zr = zro;
+    oc.zi = zio;
+    oc.pa = static_cast<float*>(scratch);
+    oc.A = A;
+    oc.C = C;
+    oc.S = S;
+    oc.Sc = Sc;
+    oc.sigma = sn;
+    oc.dc_removal = dc_removal;
+    err = launch_cube_onchip<SPLIT ? SRC_SPLIT : SRC_DENSE, OUT_Z_PCS>(
+        oc, static_cast<float2*>(efast), pp, F, impl, inv_a, st);
     if (err != cudaSuccess) return (int)err;
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -47,7 +47,9 @@ Three layers per kernel:
   plain version on ``range_dft_matrix(S, mix, dc_removal)``.  ``.launches``
   counts the CUDA launches and ``.branch_launches`` those that ran each
   non-default branch ("dense_range": an S with a prime factor above 5,
-  whose range DFT has no factored plan).
+  whose range DFT has no factored plan; "cluster_rows": the time domain at
+  C > 32, a cluster of blocks per antenna; "tiled_rows": the range
+  frequency with more Z rows than a block holds, A*C > ~540).
 - :func:`scatterer_frontend_split_reference` /
   :func:`scatterer_frontend_reference` -- the plain versions: the factor
   planes, then one shared body (:func:`_frontend_body_reference`), the
@@ -76,9 +78,10 @@ _NEG = -1e30          # score sentinel; power_db >= -120 so -1e29 separates
 _LOG10E_10 = 4.3429448190325176   # 10 / ln(10)
 _MAX_TAPS = 5         # csrc/frontend.cu: MAX_TAPS (a 3-term cosine window)
 _MAX_SMEM = 232448    # shared memory one block may use on Hopper (bytes)
-# csrc/cube_onchip.cuh: the cube rows a time-domain block holds, its ring
-# (float2: two stages of OC_KC x (OC_LDA + 1 + OC_LDB)).
-_OC_ROWS, _OC_RING = 32, 2 * 32 * (36 + 1 + 132)
+# csrc/cube_onchip.cuh: the cube rows a block holds, the blocks of a
+# cluster (one antenna of one frame), its ring (float2: two stages of
+# OC_KC x (OC_LDA + 1 + OC_LDB)).
+_OC_ROWS, _OC_MAX_CLUSTER, _OC_RING = 32, 8, 2 * 32 * (36 + 1 + 132)
 
 
 def use_f32_matmuls() -> None:
@@ -111,18 +114,22 @@ class FrontendParams:
 _DOMAINS = {"range_freq": 0, "time": 1}    # csrc/frontend.cu: DOMAIN_*
 _IMPLS = {"fast": 0, "box_muller": 1}      # csrc/frontend.cu: IMPL_*
 _CFARS = {"matmul": 0, "cumsum": 1}        # csrc/frontend.cu: CFAR_*
-_BRANCHES = ("time", "box_muller", "cumsum", "clutter", "dense_range")
+_BRANCHES = ("time", "box_muller", "cumsum", "clutter", "dense_range",
+             "cluster_rows", "tiled_rows")
 
 
-def _branches(prm: FrontendParams, clutter,
-              S: Optional[int] = None) -> Tuple[str, ...]:
+def _branches(prm: FrontendParams, clutter, S: Optional[int] = None,
+              route: Optional[str] = None) -> Tuple[str, ...]:
     """The non-default branches a launch with ``prm`` (and, where given,
-    S samples per chirp) runs (K1')."""
+    S samples per chirp and the shape route of :func:`_check_launch`)
+    runs (K1')."""
     on = {"time": prm.noise_domain == "time",
           "box_muller": prm.noise_impl == "box_muller",
           "cumsum": prm.cfar_impl == "cumsum",
           "clutter": clutter is not None,
-          "dense_range": S is not None and range_dft.plan(S) is None}
+          "dense_range": S is not None and range_dft.plan(S) is None,
+          "cluster_rows": route == "cluster_rows",
+          "tiled_rows": route == "tiled_rows"}
     return tuple(b for b in _BRANCHES if on[b])
 
 
@@ -404,9 +411,10 @@ def _outputs(F: int, A: int, C: int, S: int, dev):
     return zr, zi, p, torch.empty_like(p)
 
 
-def _count(wrapper, prm: FrontendParams, clutter, S: int) -> None:
+def _count(wrapper, prm: FrontendParams, clutter, S: int,
+           route: str) -> None:
     wrapper.launches += 1
-    for b in _branches(prm, clutter, S):
+    for b in _branches(prm, clutter, S, route):
         wrapper.branch_launches[b] += 1
 
 
@@ -423,7 +431,7 @@ def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, mix, w_dop_t,
                  prm: FrontendParams, clutter):
     F, Sc, A, C, B, Q, S = _check_inputs(ant, dopp, coarse, fine, tau, t,
                                          seeds, mix, w_dop_t, prm, clutter)
-    _check_launch(F, A, C, S, prm)
+    route = _check_launch(F, A, C, S, prm)
     dev = ant.device
     tw, pos, nst, radix = range_fft_args(S, dev)
     ins = (ant, dopp, coarse, fine, tau, t, seeds, mix, tw, pos)
@@ -449,7 +457,7 @@ def _launch_cuda(ant, dopp, coarse, fine, tau, t, seeds, mix, w_dop_t,
                   *_noise_args(prm, S), *_cfar_args(prm),
                   *_branch_args(prm),
                   torch.cuda.current_stream(dev).cuda_stream)
-    _count(frontend_kernel_split, prm, clutter, S)
+    _count(frontend_kernel_split, prm, clutter, S, route)
     return outs
 
 
@@ -503,18 +511,41 @@ def frag_pitch(n: int) -> int:
     return n + (20 - n % 16) % 16
 
 
-def _z_power_smem(split: bool, A: int, C: int) -> int:
-    """csrc/frontend.cu: zk_smem_bytes."""
+def _z_r0(split: bool, A: int, C: int) -> int:
+    """csrc/frontend.cu: zk_r0 (float2), the ring / noise / W_dop^T
+    region."""
     stage = (32 * (frag_pitch(C) + frag_pitch(A) + 36) if split
              else 16 * (260 + 36))
-    r0 = max(2 * stage, 256 * 36,
-             -(-C // 16) * 16 * frag_pitch(-(-C // 8) * 8))
-    return 8 * (r0 + (A * C + 8) * 36)
+    return max(2 * stage, 256 * 36,
+               -(-C // 16) * 16 * frag_pitch(-(-C // 8) * 8))
+
+
+def _z_power_smem(split: bool, A: int, C: int,
+                  ag: Optional[int] = None) -> int:
+    """csrc/frontend.cu: zk_smem_bytes, the Z rows of ``ag`` antennas
+    (all A by default)."""
+    ag = A if ag is None else ag
+    return 8 * (_z_r0(split, A, C) + (ag * C + 8) * 36)
+
+
+def z_power_groups(split: bool, A: int, C: int) -> int:
+    """csrc/frontend.cu: zk_group_antennas -- the antennas whose Z rows
+    ``z_power_kernel`` holds at once: A, or the most that fit (the tiled
+    route); 0 where not even one antenna's rows fit."""
+    if _z_power_smem(split, A, C) <= _MAX_SMEM:
+        return A
+    room = _MAX_SMEM // 8 - _z_r0(split, A, C)
+    return max(0, min(A, (room // 36 - 8) // C))
 
 
 def _check_launch(F: int, A: int, C: int, S: int, prm: FrontendParams,
-                  split: bool = True) -> None:
-    """Raise, with the reason, for shapes the kernel does not take."""
+                  split: bool = True) -> str:
+    """Raise, with the reason, for shapes the kernel does not take; else
+    return the shape route it takes: in the time domain that of
+    :func:`cube_onchip_limits`, in the range-frequency domain "all_rows"
+    (one block holds all A*C rows of Z for its 32 range bins) or
+    "tiled_rows" (groups of antennas, the power carried across them in
+    antenna order)."""
     if not 0 < F <= 65535:
         raise ValueError(f"F={F} frames: the kernel takes 1..65535")
     # The CFAR holds the [C, S] map and its Doppler box sums (two planes)
@@ -522,33 +553,54 @@ def _check_launch(F: int, A: int, C: int, S: int, prm: FrontendParams,
     planes = 3 if prm.cfar_impl == "cumsum" else 2
     need = {"the CFAR": 4 * planes * C * S}
     if prm.noise_domain == "time":
-        cube_onchip_limits(C, S)
+        route = cube_onchip_limits(C, S)
     else:
         dense = range_dft.plan(S) is None
         need["range_fft_kernel"] = 8 * (8 * S + S + (8 * S if dense else 0)) \
             + 4 * S
-        need["z_power_kernel"] = _z_power_smem(split, A, C)
+        ag = z_power_groups(split, A, C)
+        if ag == 0:
+            need["z_power_kernel"] = _z_power_smem(split, A, C, 1)
+        route = "all_rows" if ag == A else "tiled_rows"
     for what, smem in need.items():
         if smem > _MAX_SMEM:
             raise ValueError(f"A={A}, C={C}, S={S}: {what} needs {smem} "
                              f"bytes of shared memory per block; a block "
                              f"has {_MAX_SMEM}")
+    return route
 
 
-def cube_onchip_limits(C: int, S: int) -> None:
-    """Raise, with the reason, where the time-domain kernel of
-    ``csrc/cube_onchip.cuh`` (K1', K3 and K4) cannot hold one antenna's
-    cube rows on chip."""
-    if C > _OC_ROWS:
-        raise ValueError(f"C={C} chirps: the time-domain kernel holds one "
-                         f"antenna's C x S cube rows on chip, C <= "
-                         f"{_OC_ROWS}")
+def cube_onchip_limits(C: int, S: int) -> str:
+    """Raise, with the reason, where the on-chip cube kernel of
+    ``csrc/cube_onchip.cuh`` (K1' and K3 in the time domain, K4, K5, K7)
+    cannot hold one antenna's cube rows on chip; else return its route:
+    "one_block" (C <= 32: one block per antenna and frame) or
+    "cluster_rows" (a cluster of ceil(C / 32) blocks, 32 chirp rows each,
+    the Doppler stage reading the others' rows through distributed shared
+    memory)."""
+    if not 0 < C <= _OC_ROWS * _OC_MAX_CLUSTER:
+        raise ValueError(f"C={C} chirps: the on-chip kernel holds an "
+                         f"antenna's rows in a cluster of at most "
+                         f"{_OC_MAX_CLUSTER} blocks of {_OC_ROWS} chirps, "
+                         f"C <= {_OC_ROWS * _OC_MAX_CLUSTER}")
     ldx = frag_pitch(-(-S // 8) * 8)
     smem = 8 * (_OC_ROWS * ldx + _OC_RING + S) + 4 * S
     if smem > _MAX_SMEM:
-        raise ValueError(f"S={S}: the time-domain kernel needs {smem} bytes "
+        raise ValueError(f"S={S}: the on-chip kernel needs {smem} bytes "
                          f"of shared memory per block; a block has "
                          f"{_MAX_SMEM}")
+    return "one_block" if C <= _OC_ROWS else "cluster_rows"
+
+
+def count_onchip(wrapper, S: int, route: str) -> None:
+    """Count one launch of the on-chip cube kernel by K4, K5 or K7's
+    wrapper, and its non-default routes ("dense_range": S has no factored
+    plan; "cluster_rows": C > 32)."""
+    wrapper.launches += 1
+    if range_dft.plan(S) is None:
+        wrapper.branch_launches["dense_range"] += 1
+    if route == "cluster_rows":
+        wrapper.branch_launches["cluster_rows"] += 1
 
 
 def _check_dense_inputs(e_ac, e_fast, seeds, mix, w_dop_t, C: int,
@@ -618,7 +670,7 @@ def frontend_kernel_dense(e_ac, e_fast, seeds, mix, w_dop_t,
                                             w_dop_t, prm, C, clutter)
     if dev.type != "cuda":
         raise ValueError(f"no front-end kernel for device {dev}")
-    _check_launch(F, A, C, S, prm, split=False)
+    route = _check_launch(F, A, C, S, prm, split=False)
     tw, pos, nst, radix = range_fft_args(S, dev)
     outs = (_scratch(F, A, C, S, Sc, prm, dev), *_outputs(F, A, C, S, dev))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -634,7 +686,7 @@ def frontend_kernel_dense(e_ac, e_fast, seeds, mix, w_dop_t,
                   *_noise_args(prm, S), *_cfar_args(prm),
                   *_branch_args(prm),
                   torch.cuda.current_stream(dev).cuda_stream)
-    _count(frontend_kernel_dense, prm, clutter, S)
+    _count(frontend_kernel_dense, prm, clutter, S, route)
     return outs[1:]
 
 

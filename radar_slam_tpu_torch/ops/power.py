@@ -1,17 +1,22 @@
 """ADC cube -> non-coherent range-Doppler power map, without the RDS cube.
 
 Counterpart of ``radar_slam_tpu/ops/power_pallas.py`` (K7).  Per frame:
-Z = X @ W_rng (dechirp mix, DC projector and e^{+j} range DFT folded into
-one [S, S] matrix), then per antenna the Doppler DFT, |.|^2 and the mean
-over antennas, in the detection layout [..., R, D] (range unshifted,
-Doppler fftshifted).
+Z = X @ W_rng (dechirp mix, DC projector and e^{+j} range DFT), then per
+antenna the Doppler DFT, |.|^2 and the mean over antennas, in the
+detection layout [..., R, D] (range unshifted, Doppler fftshifted).
 
 - :func:`rds_power_fused` -- the kernel wrapper.  On a CUDA tensor it
-  launches the hand-written kernel of ``csrc/cube.cu`` (``cube_rds_power``)
-  or raises; on a CPU tensor it runs :func:`rds_power_reference`.
-  ``rds_power_fused.launches`` counts the CUDA launches.
+  launches the hand-written kernel of ``csrc/cube.cu`` (``cube_rds_power``:
+  the on-chip cube kernel of ``csrc/cube_onchip.cuh`` fed by loads, the
+  range DFT as the factored FFT of ``ops/range_dft.py``) or raises; on a
+  CPU tensor it runs :func:`rds_power_reference`.  ``.launches`` counts
+  the CUDA launches, ``.branch_launches`` those of the non-default routes
+  ("dense_range", "cluster_rows": C > 32).
 - :func:`rds_power_reference` -- the plain version: the two DFT products
-  of ``signal/rds.py:_rds_matmul`` in float32, then the antenna mean.
+  of ``signal/rds.py:_rds_matmul`` (the reference's range constant) in
+  float32, then the antenna mean.
+- :func:`rds_power_factored_reference` -- the kernel's own order in plain
+  PyTorch: the factored range DFT, the Doppler constant, the mean.
 
 The TPU kernel's range product defaults to one bf16 pass; the port runs
 it in float32 (ROADMAP, Port conventions).
@@ -24,10 +29,14 @@ from typing import Optional
 
 import torch
 
-from radar_slam_tpu_torch.ops import _build
+from radar_slam_tpu_torch.ops import _build, range_dft
+from radar_slam_tpu_torch.ops.frontend import (count_onchip,
+                                               cube_onchip_limits,
+                                               doppler_constant,
+                                               range_fft_args)
 
 _MAX_SMEM = 232448    # shared memory one block may use on Hopper (bytes)
-_PS = 32              # csrc/cube.cu: range bins per Doppler block
+_PS = 32              # csrc/cube.cu: range bins per Doppler block (K8)
 
 
 def rds_power_reference(signals: torch.Tensor, mix: torch.Tensor,
@@ -38,6 +47,22 @@ def rds_power_reference(signals: torch.Tensor, mix: torch.Tensor,
     from radar_slam_tpu_torch.signal.rds import _rds_matmul
     rds = _rds_matmul(signals, mix, dc_removal, doppler_window)
     return torch.mean(rds.abs() ** 2, dim=-3)
+
+
+def rds_power_factored_reference(signals: torch.Tensor, mix: torch.Tensor,
+                                 dc_removal: bool = True,
+                                 doppler_window: Optional[str] = None
+                                 ) -> torch.Tensor:
+    """K7 in the kernel's order, in plain PyTorch: the rows through the
+    factored range DFT (``range_dft_factored_reference``, the exact DFT's
+    float64-built twiddles), the Doppler constant K4 takes, |.|^2, the
+    mean over antennas.  Power map [..., S, C] of cubes [..., A, C, S]."""
+    z = range_dft.range_dft_factored_reference(signals, mix, dc_removal)
+    w_dop_t = doppler_constant(signals.shape[-2], doppler_window,
+                               signals.device).to(z.dtype)
+    o = w_dop_t @ z                                        # [..., A, D, S]
+    p = torch.mean(o.real * o.real + o.imag * o.imag, dim=-3)
+    return p.transpose(-1, -2)
 
 
 def check_cube(signals: torch.Tensor, mix: torch.Tensor):
@@ -59,10 +84,9 @@ def range_product_launch(symbol: str, signals: torch.Tensor,
                          mix: torch.Tensor, dc_removal: bool,
                          doppler_window: Optional[str], out: torch.Tensor,
                          *extra):
-    """Launch ``cube_rds_power`` (K7) or ``cube_rds`` (K8) of
-    ``csrc/cube.cu`` into ``out``: the range product into a Z scratch
+    """Launch ``cube_rds`` (K8) of ``csrc/cube.cu`` into ``out``: the
+    range product on the reference's dense constant into a Z scratch
     [F, A*C, S], then the Doppler stage."""
-    from radar_slam_tpu_torch.ops.frontend import doppler_constant
     from radar_slam_tpu_torch.signal.rds import range_dft_matrix
     _, F, A, C, S = check_cube(signals, mix)
     if not 0 < F <= 65535:
@@ -93,12 +117,26 @@ def rds_power_fused(signals: torch.Tensor, mix: torch.Tensor,
     is the dechirp x fast-time-window vector.  A CUDA tensor launches the
     kernel or raises; a CPU tensor runs the plain version."""
     if signals.device.type == "cuda":
-        batch, _, A, C, S = check_cube(signals, mix)
-        out = torch.empty((*batch, S, C), dtype=torch.float32,
-                          device=signals.device)
-        range_product_launch("cube_rds_power", signals, mix, dc_removal,
-                             doppler_window, out, float(1.0 / A))
-        rds_power_fused.launches += 1
+        batch, F, A, C, S = check_cube(signals, mix)
+        if not 0 < F <= 65535:
+            raise ValueError(f"F={F} frames: the kernel takes 1..65535")
+        route = cube_onchip_limits(C, S)
+        dev = signals.device
+        w_dop_t = doppler_constant(C, doppler_window, dev)
+        tw, pos, nst, radix = range_fft_args(S, dev)
+        # Per-antenna power planes [F, A, S, C], summed in antenna order.
+        pa = torch.empty((F, A, S, C), dtype=torch.float32, device=dev)
+        out = torch.empty((*batch, S, C), dtype=torch.float32, device=dev)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = _build.bind("cube", "cube_rds_power",
+                         (vp,) * 4 + (ci,) + (vp,) * 4 + (ci,) * 4
+                         + (cf, ci, ci, vp))
+        _build.launch(fn, signals.data_ptr(), mix.data_ptr(), tw.data_ptr(),
+                      pos.data_ptr(), nst, radix, w_dop_t.data_ptr(),
+                      pa.data_ptr(), out.data_ptr(), F, A, C, S,
+                      float(1.0 / A), int(dc_removal), dev.index,
+                      torch.cuda.current_stream(dev).cuda_stream)
+        count_onchip(rds_power_fused, S, route)
         return out
     if signals.device.type == "cpu":
         check_cube(signals, mix)
@@ -107,3 +145,4 @@ def rds_power_fused(signals: torch.Tensor, mix: torch.Tensor,
 
 
 rds_power_fused.launches = 0
+rds_power_fused.branch_launches = {"dense_range": 0, "cluster_rows": 0}

@@ -19,13 +19,20 @@ the same noisy cube.
   the card the cube stays on chip (``csrc/cube_onchip.cuh``) and the range
   DFT is the factored FFT of ``ops/range_dft.py``.
 - :func:`scatterer_signatures` (K5) -- the same X contracted with the
-  detected cells' DFT columns -> unit-power signatures [F, K, A].
+  detected cells' DFT columns -> unit-power signatures [F, K, A]; on the
+  card the same on-chip kernel as K4, whose consumer gathers column r_k of
+  the range FFT and takes row d_k of K4's Doppler constant, so K4's map
+  and K5's signatures are one transform.
 
 Each wrapper launches its hand-written kernel of ``csrc/synthpower.cu`` on
 a CUDA tensor (or raises) and runs its plain version
 (``*_reference``: the cube materialized, then K7's plain power form or
 ``detection_signatures``' column math) on a CPU tensor; ``.launches``
-counts the CUDA launches.  The precision and layout names of the reference
+counts the CUDA launches and ``.branch_launches`` the launches of the
+non-default routes ("dense_range": no factored plan for S;
+"cluster_rows": C > 32).  :func:`scatterer_signatures_factored_reference`
+is K5's own order in plain PyTorch (the factored FFT rows, the gather, the
+constant's row).  The precision and layout names of the reference
 (``synth_precision``, ``precision_name``, ``doppler_precision``,
 ``doppler_layout``, ``sig_precision``) are accepted and select nothing:
 the port computes in float32 (ROADMAP, Port conventions).
@@ -39,13 +46,13 @@ from typing import Optional
 import torch
 
 from radar_slam_tpu_torch.ops import _build, range_dft
-from radar_slam_tpu_torch.ops.frontend import (cube_onchip_limits,
+from radar_slam_tpu_torch.ops.frontend import (count_onchip,
+                                               cube_onchip_limits,
                                                doppler_constant,
                                                range_fft_args)
 from radar_slam_tpu_torch.ops.noise import standard_normals
 from radar_slam_tpu_torch.ops.power import rds_power_reference
 from radar_slam_tpu_torch.signal.rds import (_check_precision,
-                                             doppler_columns,
                                              signature_columns,
                                              signatures_from_columns,
                                              unit_power)
@@ -182,7 +189,7 @@ def scatterer_power(e_ac: torch.Tensor, e_fast: torch.Tensor,
                                          noise_impl)
     if dev.type != "cuda":
         raise ValueError(f"no power kernel for device {dev}")
-    cube_onchip_limits(C, S)
+    route = cube_onchip_limits(C, S)
     w_dop_t = doppler_constant(C, doppler_window, dev)
     tw, pos, nst, radix = range_fft_args(S, dev)
     # Per-antenna power planes [F, A, S, C], summed in antenna order.
@@ -198,14 +205,12 @@ def scatterer_power(e_ac: torch.Tensor, e_fast: torch.Tensor,
                   p.data_ptr(), F, A, C, S, Sc, float(sigma),
                   _IMPLS[noise_impl], float(1.0 / A), int(dc_removal),
                   dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    scatterer_power.launches += 1
-    if range_dft.plan(S) is None:
-        scatterer_power.branch_launches["dense_range"] += 1
+    count_onchip(scatterer_power, S, route)
     return p
 
 
 scatterer_power.launches = 0
-scatterer_power.branch_launches = {"dense_range": 0}
+scatterer_power.branch_launches = {"dense_range": 0, "cluster_rows": 0}
 
 
 def scatterer_signatures_reference(
@@ -224,6 +229,33 @@ def scatterer_signatures_reference(
     return signatures_from_columns(x, w_rng, w_dop, x.shape[-2] // C)
 
 
+def scatterer_signatures_factored_reference(
+        e_ac: torch.Tensor, e_fast: torch.Tensor, seeds: torch.Tensor,
+        range_bin: torch.Tensor, doppler_bin: torch.Tensor,
+        mix: torch.Tensor, C: int, sigma: float, dc_removal: bool = True,
+        doppler_window: Optional[str] = None,
+        noise_impl: str = "box_muller") -> torch.Tensor:
+    """K5 in the kernel's own order, in plain PyTorch: the materialized
+    cube through the factored range DFT (``range_dft_factored_reference``,
+    DC bin zeroed), column r_k gathered, then row d_k of the Doppler
+    constant K4 takes (``doppler_constant``) against it, and unit power
+    over the antennas.  Bins are taken mod S and mod C, as the kernel and
+    the column builders take them.  Returns [F, K, A] complex64."""
+    x = synthesize_cube(e_ac, e_fast, seeds, sigma, noise_impl)
+    F, AC, S = x.shape
+    A = AC // C
+    z = range_dft.range_dft_factored_reference(x, mix, dc_removal)
+    rb = torch.remainder(range_bin.to(device=x.device, dtype=torch.int64), S)
+    db = torch.remainder(doppler_bin.to(device=x.device, dtype=torch.int64),
+                         C)
+    K = rb.shape[-1]
+    zcols = torch.gather(z, 2, rb[:, None, :].expand(F, AC, K))  # [F, AC, K]
+    w = doppler_constant(C, doppler_window, x.device)[db]        # [F, K, C]
+    sig = torch.einsum("fkc,fack->fka", w.to(z.dtype),
+                       zcols.reshape(F, A, C, K))
+    return unit_power(sig)
+
+
 def scatterer_signatures(e_ac: torch.Tensor, e_fast: torch.Tensor,
                          seeds: torch.Tensor, range_bin: torch.Tensor,
                          doppler_bin: torch.Tensor, mix: torch.Tensor,
@@ -235,11 +267,12 @@ def scatterer_signatures(e_ac: torch.Tensor, e_fast: torch.Tensor,
     """Unit-power spatial signatures [F, K, A] complex64 of the detected
     cells (``range_bin`` / ``doppler_bin`` [F, K]) straight from the
     synthesis factors, with the SAME noise realization as
-    :func:`scatterer_power` for the same seeds.  The cells' range columns
-    [F, S, K] (DC projector on r = 0 before the mix) and Doppler columns
-    [F, C, K] are built in torch, as the reference builds them in XLA; on
-    the card the range columns are those of the exact DFT
-    (``ops/range_dft.py:range_columns_exact``)."""
+    :func:`scatterer_power` for the same seeds.  On a CPU tensor the cells'
+    range columns [F, S, K] (DC projector on r = 0 before the mix) and
+    Doppler columns [F, C, K] are built in torch, as the reference builds
+    them in XLA.  On the card K4's kernel synthesizes the cube again and
+    its consumer takes column r_k of the factored range DFT and row d_k of
+    K4's Doppler constant: two launches, no torch arithmetic."""
     _check_names(noise_impl, synth_precision, sig_precision)
     seeds = seeds.to(torch.int32)
     F, Sc, A, S = _check_factors(e_ac, e_fast, seeds, mix, C)
@@ -255,27 +288,28 @@ def scatterer_signatures(e_ac: torch.Tensor, e_fast: torch.Tensor,
             dc_removal, doppler_window, noise_impl)
     if dev.type != "cuda":
         raise ValueError(f"no signature kernel for device {dev}")
+    route = cube_onchip_limits(C, S)
     K = range_bin.shape[-1]
-    w_dop = doppler_columns(C, doppler_bin, doppler_window, dev)
-    # The range columns of the transform K4 and the one-pass kernels run
-    # on the card (float64-built phases), not the reference's float32
-    # constant, which sits ~5e-5 of the maximum away (ops/range_dft.py).
-    w_rng = range_dft.range_columns_exact(S, range_bin, mix,
-                                          dc_removal).contiguous()
-    w_dop = w_dop.to(torch.complex64).contiguous()
-    x = torch.empty((F, A * C, S), dtype=torch.complex64, device=dev)
-    g = torch.empty((F, A * C, K), dtype=torch.complex64, device=dev)
-    sig = torch.empty((F, A, K), dtype=torch.complex64, device=dev)
+    # The main path's bins are int32 already: .to returns them unlaunched.
+    rb, db = range_bin.to(torch.int32), doppler_bin.to(torch.int32)
+    _build.check_input("range_bin", rb, torch.int32, dev, (F, K))
+    _build.check_input("doppler_bin", db, torch.int32, dev, (F, K))
+    w_dop_t = doppler_constant(C, doppler_window, dev)
+    tw, pos, nst, radix = range_fft_args(S, dev)
+    sig = torch.empty((F, K, A), dtype=torch.complex64, device=dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind("synthpower", "synth_signatures",
-                     (vp,) * 8 + (ci,) * 6 + (cf, ci, ci, vp))
+                     (vp,) * 6 + (ci,) + (vp,) * 5 + (ci,) * 6
+                     + (cf, ci, ci, ci, vp))
     _build.launch(fn, e_ac.data_ptr(), e_fast.data_ptr(), seeds.data_ptr(),
-                  w_rng.data_ptr(), w_dop.data_ptr(), x.data_ptr(),
-                  g.data_ptr(), sig.data_ptr(), F, A, C, S, Sc, K,
-                  float(sigma), _IMPLS[noise_impl], dev.index,
+                  mix.data_ptr(), tw.data_ptr(), pos.data_ptr(), nst, radix,
+                  w_dop_t.data_ptr(), rb.data_ptr(), db.data_ptr(),
+                  sig.data_ptr(), F, A, C, S, Sc, K, float(sigma),
+                  _IMPLS[noise_impl], int(dc_removal), dev.index,
                   torch.cuda.current_stream(dev).cuda_stream)
-    scatterer_signatures.launches += 1
-    return unit_power(sig.transpose(1, 2))
+    count_onchip(scatterer_signatures, S, route)
+    return sig
 
 
 scatterer_signatures.launches = 0
+scatterer_signatures.branch_launches = {"dense_range": 0, "cluster_rows": 0}

@@ -88,8 +88,10 @@ def _check_common(cfg: PipelineConfig) -> None:
 
 
 def _no_clutter_map(cfg: PipelineConfig, driver: str) -> None:
-    """The reference's rule for its batched and chunked drivers: the
-    clutter EMA feeds detection, which makes the front end sequential."""
+    """The reference's rule for its chunked driver
+    (``process_sequence_chunked``): the clutter EMA feeds detection, which
+    makes the front end sequential.  Its batched drivers ignore the map
+    (they never read ``clutter_map_alpha``), and so do the port's."""
     if cfg.detection.clutter_map_alpha > 0:
         raise ValueError(f"{driver} requires clutter_map_alpha == 0 (the "
                          "clutter EMA makes detection sequential); use "
@@ -384,7 +386,6 @@ def process_sequence_batched(scatterers: ScattererBatch,
     :func:`frame_features`.  Returns a :class:`FrameOutput` with leading
     frame axis [F]."""
     _check_supported(cfg)
-    _no_clutter_map(cfg, "process_sequence_batched")
     fe.use_f32_matmuls()
     if _phase_a_route(cfg) != "materialized":
         features = sequence_features_scatterers_fused(scatterers, generator,
@@ -403,7 +404,6 @@ def process_signal_sequence_batched(signals: torch.Tensor,
     (baseband): :func:`frame_features` over all frames, then phase B.
     Returns a :class:`FrameOutput` with leading frame axis [F]."""
     _check_cube_supported(cfg)
-    _no_clutter_map(cfg, "process_signal_sequence_batched")
     _check_signals(signals, cfg)
     fe.use_f32_matmuls()
     features = frame_features(signals, cfg)

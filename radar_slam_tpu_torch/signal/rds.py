@@ -221,12 +221,18 @@ def detection_signatures(signals: torch.Tensor, range_bin: torch.Tensor,
                          ) -> torch.Tensor:
     """Unit-power spatial signatures [F, K, A] of K detected cells per
     frame, evaluated from the cubes [F, A, C, S] as only the K needed DFT
-    coefficients (float32).  ``range_bin`` / ``doppler_bin`` are [F, K]."""
+    coefficients (float32).  ``range_bin`` / ``doppler_bin`` are [F, K].
+    On a CUDA tensor the range columns are those of the exact DFT that K7
+    runs (``ops/range_dft.py:range_columns_exact``), so the cube route's
+    map and signatures are one transform; on the CPU the reference's."""
     signals = _subset(signals, chirp_subset)
     F, A, C, S = signals.shape
     mix = _mix_vector(cfg, window, input_domain, S, device=signals.device)
     w_rng, w_dop = signature_columns(S, C, range_bin, doppler_bin, mix,
                                      dc_removal, doppler_window)
+    if signals.device.type == "cuda":
+        from radar_slam_tpu_torch.ops.range_dft import range_columns_exact
+        w_rng = range_columns_exact(S, range_bin, mix, dc_removal)
     return signatures_from_columns(signals.reshape(F, A * C, S), w_rng,
                                    w_dop, A)
 

@@ -84,7 +84,7 @@ def test_init_state_is_wholly_on_the_device():
 
 def test_library_name_covers_included_headers(tmp_path):
     """An edit to a header that a source includes renames the source's
-    library (so a stale build is never loaded); a header it does not
+    library (so a stale build is never loaded); a file it does not
     include leaves it alone.  Nothing is compiled."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
@@ -92,12 +92,16 @@ def test_library_name_covers_included_headers(tmp_path):
     assert names[0] == "frontend.cu"
     assert {"range_fft.cuh", "tf32x3.cuh", "philox.cuh",
             "cube_onchip.cuh"} <= set(names)
-    assert [p.name for p in _build.sources("cube", csrc)] == ["cube.cu"]
+    assert [p.name for p in _build.sources("cube", csrc)] == [
+        "cube.cu", "cube_onchip.cuh", "philox.cuh", "range_fft.cuh",
+        "tf32x3.cuh"]
     front, cube = (_build.library_path(n, csrc) for n in ("frontend", "cube"))
     assert front == _build.library_path("frontend")
     header = csrc / "range_fft.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    assert _build.library_path("frontend", csrc) != front
-    assert _build.library_path("synthpower", csrc) != _build.library_path(
-        "synthpower")
+    for name in ("frontend", "synthpower", "cube"):
+        assert _build.library_path(name, csrc) != _build.library_path(name)
+    cube = _build.library_path("cube", csrc)
+    source = csrc / "frontend.cu"
+    source.write_bytes(source.read_bytes() + b"\n// edited\n")
     assert _build.library_path("cube", csrc) == cube

@@ -540,20 +540,41 @@ def test_drivers_share_one_noise_realization():
                                rtol=0, atol=1e-5)
 
 
+def _same_outputs(a, b):
+    """Two driver outputs equal bit for bit, field by field."""
+    for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+        np.testing.assert_array_equal(to_np(x), to_np(y))
+
+
 def test_clutter_map_rules():
-    """The batched and chunked drivers refuse the clutter map (the
-    reference's own rule); an unknown prior raises."""
-    _, cfg = _bench()
+    """The reference's rules: the chunked driver refuses the clutter map;
+    the batched drivers ignore it (at alpha 0.05 their outputs equal those
+    at 0 bit for bit, noise on); an unknown prior raises."""
+    _, cfg = _bench(noise_power=1e-6)
     clut = _with_clutter(cfg, 0.05)
     _, fields, _ = scene_fields(2)
     batch = scatterer_batch_from_numpy(fields, "cpu")
-    for driver in (tframe.process_sequence_batched,
-                   tframe.process_sequence_chunked):
-        with pytest.raises(ValueError):
-            driver(batch, torch.Generator(), clut)
     with pytest.raises(ValueError):
-        tframe.process_signal_sequence_batched(
-            torch.zeros(2, 8, 32, 400, dtype=torch.complex64), clut)
+        tframe.process_sequence_chunked(batch, torch.Generator(), clut)
+    gen = lambda: torch.Generator().manual_seed(4)
+    _same_outputs(tframe.process_sequence_batched(batch, gen(), clut),
+                  tframe.process_sequence_batched(batch, gen(), cfg))
+    sig = synthesize_frames_batch(batch, cfg.radar, gen())
+    _same_outputs(tframe.process_signal_sequence_batched(sig, clut),
+                  tframe.process_signal_sequence_batched(sig, cfg))
     with pytest.raises(ValueError):
         tframe.process_sequence_chunked(batch, torch.Generator(), cfg,
                                         prior="gauss_seidel")
+
+
+def test_reference_batched_driver_ignores_the_clutter_map():
+    """The rule the port follows: the reference's batched cube driver at
+    alpha 0.05 gives its own output at 0 (it never reads the map)."""
+    ref_cfg, cfg = _narrow()
+    _, batch = _narrow_scene(3)
+    sig = jnp.asarray(to_np(synthesize_frames_batch(
+        batch, cfg.radar, torch.Generator().manual_seed(2))))
+    _same_outputs(
+        jframe.process_signal_sequence_batched(
+            sig, _with_clutter(ref_cfg, 0.05)),
+        jframe.process_signal_sequence_batched(sig, ref_cfg))
