@@ -8,9 +8,10 @@
 //       Doppler DFT W_dop^T [D, C], |.|^2, mean over antennas -> power map
 //       [F, S, D] (range, Doppler), written in the detection layout.
 //   K8  cube_rds        radar_slam_tpu/ops/rds_pallas.py:_kernel (rds_fused):
-//       cube x W_rng [S, S] (mix, DC projector and e^{+j} range DFT folded
-//       into one matrix), then the complex Doppler DFT with the fftshift in
-//       W_dop's column order -> RDS [F, A, S, D] complex.
+//       cube [F, A, C, S] times the mix, its range DFT (e^{+j}, DC bin
+//       zeroed), then per antenna the complex Doppler DFT W_dop^T [D, C]
+//       with the fftshift in its row order -> RDS [F, A, S, D] complex
+//       (range unshifted).
 //   K9  cube_dechirp    radar_slam_tpu/ops/dechirp_pallas.py:_kernel
 //       (dechirp_window_dc): y = x * mix minus the per-row mean over S.
 //   K10 cube_cfar       radar_slam_tpu/ops/cfar_pallas.py:_kernel (cfar_mask):
@@ -35,27 +36,35 @@
 //   writes the antenna's power plane; a second launch sums the planes in
 //   antenna order.  The per-antenna planes (0.41 MB a frame out and back
 //   in) are the traffic beyond the cube.
-// - K8: arithmetic.  The range product is 41 M complex MACs (328 MFLOP at
-//   four real products per complex MAC) and the Doppler stage 26 MFLOP
-//   against 0.82 MB of cube read (plus the Z scratch out and back in,
-//   1.6 MB) -- ~140 FLOP per byte, above the FP32 SIMT ridge of the H100
-//   (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte).  Design: the range product
-//   is a shared-memory-tiled FP32 SIMT matmul (64 x 64 output tile, depth
-//   16, 4 x 4 complex accumulators per thread, four real FMAs per complex
-//   MAC) into a Z scratch [F, A*C, S]; a second launch stages 32 range bins
-//   of Z and W_dop^T in shared memory and stores the complex RDS.  K7's
-//   design (the factored FFT, the cube on chip) is its next step.
+// - K8: the bytes.  Per frame the cube read and the RDS written are 0.82 MB
+//   each; the factored range DFT (1.8 M complex MACs) and the Doppler DFT
+//   (3.3 M, 3xTF32) sit below the tensor cores' and the FP32 pipe's rates
+//   for that traffic.  The TPU kernel's dense [S, S] range product (41 M
+//   complex MACs a frame) and its Z round trip through memory are gone.
+//   Design: K7's kernel with the complex-RDS consumer (cube_onchip.cuh:
+//   SRC_CUBE, OUT_RDS) -- one launch, one block per (antenna, frame) or a
+//   cluster of ceil(C / 32) blocks where C > 32; the rows stay on chip
+//   from the load to the Doppler product; the output is staged in the ring
+//   a chunk of range bins at a time and leaves as contiguous runs.
 // - K9: memory.  8 bytes read and 8 written per sample, ~6 FLOP: one warp
 //   per row, the row read twice (the second read hits L1/L2), a warp
 //   shuffle reduction for the mean; no shared memory.
-// - K10: the shared-memory passes.  One block per frame holds the [R, D]
-//   power map and the range-axis training sums (2 R D floats, 102 KB at
-//   R = 400, D = 32); the cube read (A R D complex, 0.82 MB per frame) is
-//   the device-memory traffic.  Sums and maxima run in the reference
-//   kernel's order (centre, +1, -1, +2, -2, ... along range, then along
-//   Doppler), and the round-to-nearest intrinsics keep nvcc from
-//   contracting the float arithmetic into FMAs, so the kernel rounds as
-//   its plain PyTorch version does.
+// - K10: the bytes.  The RDS read (A R D complex, 0.82 MB a frame) against
+//   5 bytes a cell written; the box sums and maxima are ~100 operations a
+//   cell.  Design: one block per (tile of T range rows, frame), T chosen by
+//   the wrapper (ops/cfar.py:cfar_tile_plan) so that two or more blocks
+//   fit an SM; each block computes the power of its rows plus a halo of
+//   max(train + guard, neighborhood / 2) rows each side (the neighbours'
+//   rows read again, 1.63x the cube at T = 32 with a halo of 10) with
+//   16-byte loads (two Doppler bins) and the antenna loads of a cell in
+//   flight together, then the range-axis training and guard sums once per
+//   cell, the dB map with the CFAR test, the local max: three barriers.
+//   The buffers carry zero (sums) and -inf (dB map) borders, so no window
+//   loop tests a bound.  Sums and maxima run in the reference kernel's order
+//   (centre, +1, -1, +2, -2, ... along range, then along Doppler), and the
+//   round-to-nearest intrinsics keep nvcc from contracting the float
+//   arithmetic into FMAs, so the kernel rounds as its plain PyTorch version
+//   does.
 //
 // Built as a shared library with a plain C interface (no PyTorch headers):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -70,147 +79,11 @@
 
 namespace {
 
-constexpr int BM = 64;          // output tile rows
-constexpr int BN = 64;          // output tile columns
-constexpr int BK = 16;          // reduction depth per stage
-constexpr int LDA = BM + 1;     // A-tile row pitch (transposing store)
-constexpr int TPB = 256;        // 16 x 16 threads, 4 x 4 outputs each
-constexpr int PS = 32;          // range bins per Doppler block
 constexpr int ROWS_PER_BLOCK = 8;   // K9: one warp per row
-constexpr int CFAR_THREADS = 512;
+constexpr int CFAR_THREADS = 256;
+constexpr int CFAR_AB = 8;        // antenna loads of a cell in flight
+constexpr int CFAR_RB = 4;        // cells whose box sums a thread takes
 constexpr float LOG10E = 0.4342944819032518f;   // 1 / ln(10)
-
-// ---- range product: Z[f] = X[f] @ W_rng, M = A*C, N = K = S ------------
-// smem layout: Ar, Ai [BK][LDA] then Br, Bi [BK][BN].  Thread (ty, tx)
-// accumulates rows ty + 16 i and columns tx + 16 j of the output tile.
-// The A tile is read from the cube along k (coalesced) and stored
-// transposed; the padded pitch keeps that store nearly free of bank
-// conflicts.
-
-__device__ __forceinline__ void mma_stage(const float* __restrict__ sm,
-                                          int rm, int cn,
-                                          float (&accr)[4][4],
-                                          float (&acci)[4][4]) {
-  const float* Ar = sm;
-  const float* Ai = sm + BK * LDA;
-  const float* Br = sm + 2 * BK * LDA;
-  const float* Bi = sm + 2 * BK * LDA + BK * BN;
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float ar[4], ai[4], br[4], bi[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      ar[i] = Ar[kk * LDA + rm + 16 * i];
-      ai[i] = Ai[kk * LDA + rm + 16 * i];
-      br[i] = Br[kk * BN + cn + 16 * i];
-      bi[i] = Bi[kk * BN + cn + 16 * i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        accr[i][j] = fmaf(ar[i], br[j], accr[i][j]);
-        accr[i][j] = fmaf(-ai[i], bi[j], accr[i][j]);
-        acci[i][j] = fmaf(ar[i], bi[j], acci[i][j]);
-        acci[i][j] = fmaf(ai[i], br[j], acci[i][j]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(TPB)
-range_product_kernel(const float2* __restrict__ x,
-                     const float2* __restrict__ wrng,
-                     float2* __restrict__ z, int M, int S) {
-  __shared__ float sm[2 * BK * LDA + 2 * BK * BN];
-  const int f = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float accr[4][4] = {}, acci[4][4] = {};
-  const float2* xf = x + (size_t)f * M * S;
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    // A tile: 16 consecutive samples of a row per 16 threads.
-    for (int e = threadIdx.x; e < BM * BK; e += TPB) {
-      const int kk = e % BK, mm = e / BK;
-      const int m = m0 + mm, k = k0 + kk;
-      const float2 v = (m < M && k < S) ? xf[(size_t)m * S + k]
-                                        : make_float2(0.f, 0.f);
-      sm[kk * LDA + mm] = v.x;
-      sm[BK * LDA + kk * LDA + mm] = v.y;
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += TPB) {
-      const int nn = e % BN, kk = e / BN;
-      const int k = k0 + kk, n = n0 + nn;
-      const float2 w = (k < S && n < S) ? wrng[(size_t)k * S + n]
-                                        : make_float2(0.f, 0.f);
-      sm[2 * BK * LDA + kk * BN + nn] = w.x;
-      sm[2 * BK * LDA + BK * BN + kk * BN + nn] = w.y;
-    }
-    __syncthreads();
-    mma_stage(sm, ty, tx, accr, acci);
-    __syncthreads();
-  }
-  float2* zf = z + (size_t)f * M * S;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < S)
-        zf[(size_t)m * S + n] = make_float2(accr[i][j], acci[i][j]);
-    }
-  }
-}
-
-// ---- K8's Doppler stage over PS range bins of one frame -----------------
-// rds[f, a, s, d] = sum_c WdT[d, c] Z[a*C + c, s].  Z rows and WdT staged
-// in shared memory (WdT rows padded by one float against bank conflicts);
-// thread o -> (s = o / C, d = o % C), so a warp reads one Z value
-// (broadcast) and stores contiguous Doppler bins.
-__global__ void __launch_bounds__(TPB)
-doppler_kernel(const float2* __restrict__ z, const float2* __restrict__ wdt,
-               float2* __restrict__ rds, int A, int C, int S) {
-  extern __shared__ float dsm[];
-  const int M = A * C, ldw = C + 1;
-  float* zr = dsm;                  // [M][PS]
-  float* zi = zr + M * PS;
-  float* wr = zi + M * PS;          // [C][C + 1]
-  float* wi = wr + C * ldw;
-  const int f = blockIdx.y, s0 = blockIdx.x * PS;
-  const float2* zf = z + (size_t)f * M * S;
-  for (int e = threadIdx.x; e < M * PS; e += blockDim.x) {
-    const int row = e / PS, sl = e % PS;
-    const int s = s0 + sl;
-    const float2 v = (s < S) ? zf[(size_t)row * S + s] : make_float2(0.f, 0.f);
-    zr[e] = v.x;
-    zi[e] = v.y;
-  }
-  for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
-    const int d = e / C, c = e % C;
-    wr[d * ldw + c] = wdt[e].x;
-    wi[d * ldw + c] = wdt[e].y;
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < PS * C; o += blockDim.x) {
-    const int sl = o / C, d = o % C;
-    const int s = s0 + sl;
-    if (s >= S) continue;
-    for (int a = 0; a < A; ++a) {
-      float orr = 0.f, oii = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float w_r = wr[d * ldw + c], w_i = wi[d * ldw + c];
-        const float v_r = zr[(a * C + c) * PS + sl];
-        const float v_i = zi[(a * C + c) * PS + sl];
-        orr = fmaf(w_r, v_r, orr);
-        orr = fmaf(-w_i, v_i, orr);
-        oii = fmaf(w_r, v_i, oii);
-        oii = fmaf(w_i, v_r, oii);
-      }
-      rds[(((size_t)f * A + a) * S + s) * C + d] = make_float2(orr, oii);
-    }
-  }
-}
 
 // ---- K9: y = x * mix - mean_s(x * mix), one warp per row -----------------
 __device__ __forceinline__ float2 cmul_rn(float2 a, float2 b) {
@@ -255,109 +128,274 @@ __device__ __forceinline__ float db10(float v) {
   return __fmul_rn(10.0f, __fmul_rn(logf(v), LOG10E));
 }
 
-// Sum of map[r + k, d] for k in (0, +1, -1, ..., +h, -h), zero outside.
-__device__ __forceinline__ float range_sum(const float* map, int r, int d,
-                                           int h, int R, int D) {
-  float acc = map[r * D + d];
+// Box sums of CFAR_RB cells x[j l] (j < CFAR_RB), each x[j l] + x[(j+1) l]
+// + x[(j-1) l] + ... + x[(j+h) l] + x[(j-h) l] in the reference kernel's
+// order, on a buffer padded with zeros (adding +0.0 to a sum of powers
+// leaves it unchanged, as skipping the term would).  The window's values
+// roll through registers, so a step loads two.  acc: the sums; mid: the
+// sums after g steps (the guard box, g <= h).
+__device__ __forceinline__ void box_sums(const float* x, int l, int h, int g,
+                                         float (&acc)[CFAR_RB],
+                                         float (&mid)[CFAR_RB]) {
+  float up[CFAR_RB], dn[CFAR_RB];
+#pragma unroll
+  for (int j = 0; j < CFAR_RB; ++j) acc[j] = mid[j] = up[j] = dn[j] = x[j * l];
   for (int k = 1; k <= h; ++k) {
-    if (r + k < R) acc = __fadd_rn(acc, map[(r + k) * D + d]);
-    if (r - k >= 0) acc = __fadd_rn(acc, map[(r - k) * D + d]);
+#pragma unroll
+    for (int j = 0; j < CFAR_RB - 1; ++j) up[j] = up[j + 1];
+    up[CFAR_RB - 1] = x[(CFAR_RB - 1 + k) * l];
+#pragma unroll
+    for (int j = CFAR_RB - 1; j > 0; --j) dn[j] = dn[j - 1];
+    dn[0] = x[-k * l];
+#pragma unroll
+    for (int j = 0; j < CFAR_RB; ++j)
+      acc[j] = __fadd_rn(__fadd_rn(acc[j], up[j]), dn[j]);
+    if (k == g) {
+#pragma unroll
+      for (int j = 0; j < CFAR_RB; ++j) mid[j] = acc[j];
+    }
   }
-  return acc;
 }
 
 __device__ __forceinline__ float window_count(int i, int h, int n) {
   return (float)(min(i, h) + min(max(n - 1 - i, 0), h) + 1);
 }
 
+// The power (1/A) sum_a |rds[a]|^2 of two Doppler bins d, d + 1 (d + 1 < D
+// when two) at src, the antennas n apart, summed in order with the loads
+// of CFAR_AB antennas in flight.  VEC: one 16-byte load for both bins.
+template <bool VEC>
+__device__ __forceinline__ float2 power_pair(const float2* src, size_t n,
+                                             int A, bool two, float inv_a) {
+  float acc0 = 0.f, acc1 = 0.f;
+  for (int a0 = 0; a0 < A; a0 += CFAR_AB) {
+    float4 v[CFAR_AB];
+#pragma unroll
+    for (int j = 0; j < CFAR_AB; ++j) {
+      if (a0 + j >= A) break;
+      const float2* q = src + (size_t)(a0 + j) * n;
+      if constexpr (VEC) {
+        v[j] = __ldg(reinterpret_cast<const float4*>(q));
+      } else {
+        const float2 x0 = __ldg(q);
+        const float2 x1 = two ? __ldg(q + 1) : make_float2(0.f, 0.f);
+        v[j] = make_float4(x0.x, x0.y, x1.x, x1.y);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CFAR_AB; ++j) {
+      if (a0 + j >= A) break;
+      acc0 = __fadd_rn(acc0, __fadd_rn(__fmul_rn(v[j].x, v[j].x),
+                                       __fmul_rn(v[j].y, v[j].y)));
+      acc1 = __fadd_rn(acc1, __fadd_rn(__fmul_rn(v[j].z, v[j].z),
+                                       __fmul_rn(v[j].w, v[j].w)));
+    }
+  }
+  return make_float2(__fmul_rn(acc0, inv_a), __fmul_rn(acc1, inv_a));
+}
+
+// Row pitches of K10's buffers (floats): odd, so CFAR_RB-cell blocks of
+// consecutive rows fall in distinct banks.
+__device__ __forceinline__ int cfar_pitch(int n) { return n | 1; }
+
+// One block per (range tile, frame): tile t of frame f is block
+// f * tiles + t.  The block owns rows [r0, r0 + T) and holds the power of
+// rows [r0 - halo, r0 + T + halo), zero outside the map, with nh border
+// columns (-inf in the dB map), and the training and guard sums of its own
+// rows with th and guard zero columns each side, so no window loop tests a
+// bound.  VEC: D even and the RDS 16-byte aligned, so two Doppler bins
+// arrive in one load.
+template <bool VEC>
 __global__ void __launch_bounds__(CFAR_THREADS)
 cfar_kernel(const float2* __restrict__ rds, float* __restrict__ pdb_out,
-            uint8_t* __restrict__ mask_out, int A, int R, int D,
-            float inv_a, float threshold_db, int neighborhood, int train,
-            int guard, float offset_db, float t2, float g2) {
+            uint8_t* __restrict__ mask_out, int A, int R, int D, int T,
+            int halo, int tiles, float inv_a, float threshold_db,
+            int neighborhood, int train, int guard, float offset_db,
+            float t2, float g2) {
   extern __shared__ float csm[];
-  const int n = R * D;
-  float* p = csm;           // power map
-  float* buf = p + n;       // range-axis training sums, then the dB map
-  const int f = blockIdx.x;
+  const int f = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x - f * tiles) * T;
+  const int own = min(T, R - r0);
+  const bool cfar = train > 0, gsum = cfar && guard > 0;
+  const int th = train + guard, nh = neighborhood / 2;
+  const int rows = T + 2 * halo;     // buffer row i: map row r0 - halo + i
+  const int pd = cfar_pitch(D + 2 * nh), tp = cfar_pitch(D + 2 * th),
+            gp = cfar_pitch(D + 2 * guard);
+  // The layout ops/cfar.py:_smem_bytes sizes.
+  float* p = csm;                                          // [rows][pd]
+  float* tbuf = p + rows * pd + CFAR_RB;                   // [T][tp]
+  float* gbuf = tbuf + (cfar ? T * tp + CFAR_RB : 0);      // [T][gp]
+  uint8_t* hit = reinterpret_cast<uint8_t*>(
+      gbuf + (gsum ? T * gp + CFAR_RB : 0));               // [T][D]
+  const size_t n = (size_t)R * D;
   const float2* rf = rds + (size_t)f * A * n;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    float acc = 0.f;
-    for (int a = 0; a < A; ++a) {
-      const float2 v = rf[(size_t)a * n + e];
-      acc = __fadd_rn(acc, __fadd_rn(__fmul_rn(v.x, v.x),
-                                     __fmul_rn(v.y, v.y)));
-    }
-    p[e] = __fmul_rn(acc, inv_a);
+
+  // 1. The power of the buffer's rows (zero outside the map), two Doppler
+  // bins a thread; the sums' zero columns.
+  const int Dh = (D + 1) / 2;
+  for (int e = threadIdx.x; e < rows * Dh; e += CFAR_THREADS) {
+    const int i = e / Dh, d = 2 * (e - i * Dh);
+    const int r = r0 - halo + i;
+    const bool two = d + 1 < D;
+    float2 v = make_float2(0.f, 0.f);
+    if (r >= 0 && r < R)
+      v = power_pair<VEC>(rf + (size_t)r * D + d, n, A, two, inv_a);
+    p[i * pd + nh + d] = v.x;
+    if (two) p[i * pd + nh + d + 1] = v.y;
   }
+  if (cfar)
+    for (int e = threadIdx.x; e < T * 2 * th; e += CFAR_THREADS) {
+      const int i = e / (2 * th), c = e - i * 2 * th;
+      tbuf[i * tp + (c < th ? c : D + c)] = 0.f;
+      if (gsum && c < 2 * guard)
+        gbuf[i * gp + (c < guard ? c : D + c)] = 0.f;
+    }
   __syncthreads();
-  const int th = train + guard;
-  if (train > 0) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      buf[e] = range_sum(p, e / D, e % D, th, R, D);
+
+  // 2. Range-axis training and guard sums of the own cells, CFAR_RB rows
+  // of one column a thread.
+  const int nrb = (own + CFAR_RB - 1) / CFAR_RB;
+  if (cfar) {
+    for (int e = threadIdx.x; e < nrb * D; e += CFAR_THREADS) {
+      const int d = e % D, il0 = (e / D) * CFAR_RB;
+      float acc[CFAR_RB], mid[CFAR_RB];
+      box_sums(p + (halo + il0) * pd + nh + d, pd, th, guard, acc, mid);
+#pragma unroll
+      for (int j = 0; j < CFAR_RB; ++j) {
+        if (il0 + j >= own) break;
+        tbuf[(il0 + j) * tp + th + d] = acc[j];
+        if (gsum) gbuf[(il0 + j) * gp + guard + d] = mid[j];
+      }
+    }
     __syncthreads();
   }
-  float* pdb = pdb_out + (size_t)f * n;
-  uint8_t* mask = mask_out + (size_t)f * n;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int r = e / D, d = e % D;
-    const float v = db10(__fadd_rn(p[e], 1e-12f));
-    float thresh = threshold_db;
-    if (train > 0) {
-      float ts = buf[e];
-      for (int k = 1; k <= th; ++k) {
-        if (d + k < D) ts = __fadd_rn(ts, buf[e + k]);
-        if (d - k >= 0) ts = __fadd_rn(ts, buf[e - k]);
-      }
-      const float tc = __fmul_rn(window_count(r, th, R),
-                                 window_count(d, th, D));
-      float noise = __fdiv_rn(ts, tc);
-      if (guard > 0) {
-        float gs = range_sum(p, r, d, guard, R, D);
-        for (int k = 1; k <= guard; ++k) {
-          if (d + k < D) gs = __fadd_rn(gs, range_sum(p, r, d + k, guard, R, D));
-          if (d - k >= 0) gs = __fadd_rn(gs, range_sum(p, r, d - k, guard, R, D));
+
+  // 3. power_db and the CFAR test of the own cells, CFAR_RB Doppler bins
+  // of one row a thread (the cell's dB written in place); the dB map (-inf
+  // outside the map) of the other cells the local max reads.
+  const int ncb = (D + CFAR_RB - 1) / CFAR_RB;
+  float* pdb = pdb_out + (size_t)f * n + (size_t)r0 * D;
+  uint8_t* mask = mask_out + (size_t)f * n + (size_t)r0 * D;
+  const bool vec4 = D % CFAR_RB == 0;    // whole blocks: 16-byte stores
+  for (int e = threadIdx.x; e < own * ncb; e += CFAR_THREADS) {
+    const int il = e / ncb, d0 = (e - il * ncb) * CFAR_RB, r = r0 + il;
+    float ts[CFAR_RB], gs[CFAR_RB], unused[CFAR_RB];
+    if (cfar) box_sums(tbuf + il * tp + th + d0, 1, th, 0, ts, unused);
+    if (gsum) box_sums(gbuf + il * gp + guard + d0, 1, guard, 0, gs, unused);
+    float* cell = p + (halo + il) * pd + nh + d0;
+    float vs[CFAR_RB] = {};
+    uint8_t hs[CFAR_RB] = {};
+#pragma unroll
+    for (int j = 0; j < CFAR_RB; ++j) {
+      const int d = d0 + j;
+      if (d >= D) break;
+      const float v = db10(__fadd_rn(cell[j], 1e-12f));
+      cell[j] = v;
+      float thresh = threshold_db;
+      if (cfar) {
+        const float tc = __fmul_rn(window_count(r, th, R),
+                                   window_count(d, th, D));
+        float noise = __fdiv_rn(ts[j], tc);
+        if (gsum) {
+          const float gc = __fmul_rn(window_count(r, guard, R),
+                                     window_count(d, guard, D));
+          noise = __fdiv_rn(__fsub_rn(__fmul_rn(noise, t2),
+                                      __fmul_rn(__fdiv_rn(gs[j], gc), g2)),
+                            __fsub_rn(t2, g2));
         }
-        const float gc = __fmul_rn(window_count(r, guard, R),
-                                   window_count(d, guard, D));
-        noise = __fdiv_rn(__fsub_rn(__fmul_rn(noise, t2),
-                                    __fmul_rn(__fdiv_rn(gs, gc), g2)),
-                          __fsub_rn(t2, g2));
+        thresh = fmaxf(__fadd_rn(db10(fmaxf(noise, 1e-12f)), offset_db),
+                       threshold_db);
       }
-      thresh = fmaxf(__fadd_rn(db10(fmaxf(noise, 1e-12f)), offset_db),
-                     threshold_db);
+      vs[j] = v;
+      hs[j] = v > thresh;
     }
-    pdb[e] = v;
-    mask[e] = (v > thresh) ? 1 : 0;
+    if (vec4) {
+      *reinterpret_cast<float4*>(pdb + il * D + d0) =
+          make_float4(vs[0], vs[1], vs[2], vs[3]);
+      *reinterpret_cast<uchar4*>(hit + il * D + d0) =
+          make_uchar4(hs[0], hs[1], hs[2], hs[3]);
+    } else {
+      for (int j = 0; j < CFAR_RB && d0 + j < D; ++j) {
+        pdb[il * D + d0 + j] = vs[j];
+        hit[il * D + d0 + j] = hs[j];
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < (own + 2 * nh) * pd; e += CFAR_THREADS) {
+    const int i = halo - nh + e / pd, c = e % pd, d = c - nh;
+    const int r = r0 - halo + i;
+    const bool in_map = r >= 0 && r < R && d >= 0 && d < D;
+    if (in_map && i >= halo && i < halo + own) continue;   // own: above
+    float* cell = p + i * pd + c;
+    *cell = in_map ? db10(__fadd_rn(*cell, 1e-12f)) : -INFINITY;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    buf[e] = db10(__fadd_rn(p[e], 1e-12f));
-  __syncthreads();
-  // Local max with -inf outside the map: a cell is a peak when no
-  // in-bounds neighbour exceeds it.  Each thread revisits its own cells.
-  const int h = neighborhood / 2;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int r = e / D, d = e % D;
-    const float v = buf[e];
-    bool peak = true;
-    for (int dr = -h; dr <= h; ++dr) {
-      for (int dd = -h; dd <= h; ++dd) {
-        const int rr = r + dr, c = d + dd;
-        if (rr >= 0 && rr < R && c >= 0 && c < D)
-          peak = peak && !(buf[rr * D + c] > v);
+
+  // 4. Local max: a cell is a peak when no neighbour exceeds it (-inf
+  // outside the map never does); CFAR_RB Doppler bins of one row a thread,
+  // each neighbour row's values rolling through registers.
+  for (int e = threadIdx.x; e < own * ncb; e += CFAR_THREADS) {
+    const int il = e / ncb, d0 = (e - il * ncb) * CFAR_RB;
+    const float* c = p + (halo + il) * pd + nh + d0;
+    float v[CFAR_RB];
+    bool peak[CFAR_RB];
+#pragma unroll
+    for (int j = 0; j < CFAR_RB; ++j) {
+      v[j] = c[j];
+      peak[j] = true;
+    }
+    for (int dr = -nh; dr <= nh; ++dr) {
+      const float* x = c + dr * pd;
+      float w[CFAR_RB];
+#pragma unroll
+      for (int j = 0; j < CFAR_RB; ++j) w[j] = x[j - nh];
+      for (int dd = -nh; dd <= nh; ++dd) {
+#pragma unroll
+        for (int j = 0; j < CFAR_RB; ++j) peak[j] = peak[j] && !(w[j] > v[j]);
+#pragma unroll
+        for (int j = 0; j < CFAR_RB - 1; ++j) w[j] = w[j + 1];
+        w[CFAR_RB - 1] = x[CFAR_RB + dd];
       }
     }
-    mask[e] = (mask[e] && peak) ? 1 : 0;
+    uint8_t m[CFAR_RB];
+#pragma unroll
+    for (int j = 0; j < CFAR_RB; ++j)
+      m[j] = (d0 + j < D && hit[il * D + d0 + j] && peak[j]) ? 1 : 0;
+    if (vec4)
+      *reinterpret_cast<uchar4*>(mask + il * D + d0) =
+          make_uchar4(m[0], m[1], m[2], m[3]);
+    else
+      for (int j = 0; j < CFAR_RB && d0 + j < D; ++j)
+        mask[il * D + d0 + j] = m[j];
   }
 }
 
 }  // namespace
 
+// The on-chip kernel's arguments for cubes x [F, A, C, S]: tw / pos / nst /
+// radix are the range DFT's table, input positions and radices
+// (ops/range_dft.py), wdopt W_dop^T [C, C].
+static OcArgs cube_args(const void* x, const void* mix, const void* tw,
+                        const void* pos, int nst, const int* radix,
+                        const void* wdopt, int A, int C, int S,
+                        int dc_removal) {
+  OcArgs a{};
+  a.cube = static_cast<const float2*>(x);
+  a.mix = static_cast<const float2*>(mix);
+  a.tw = static_cast<const float2*>(tw);
+  a.pos = static_cast<const int*>(pos);
+  a.plan.nst = nst;
+  for (int t = 0; t < nst; ++t) a.plan.radix[t] = radix[t];
+  a.wdt = static_cast<const float2*>(wdopt);
+  a.A = A;
+  a.C = C;
+  a.S = S;
+  a.dc_removal = dc_removal;
+  return a;
+}
+
 // K7: power map p [F, S, C] of cubes x [F, A, C, S], the rows kept on chip
 // (cube_onchip.cuh); pa holds the per-antenna power planes [F, A, S, C].
-// tw / pos / nst / radix: the range DFT's table, input positions and
-// radices (ops/range_dft.py).
 extern "C" int cube_rds_power(const void* x, const void* mix, const void* tw,
                               const void* pos, int nst, const int* radix,
                               const void* wdopt, void* pa, void* p, int F,
@@ -368,49 +406,31 @@ extern "C" int cube_rds_power(const void* x, const void* mix, const void* tw,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  OcArgs a{};
-  a.cube = static_cast<const float2*>(x);
-  a.mix = static_cast<const float2*>(mix);
-  a.tw = static_cast<const float2*>(tw);
-  a.pos = static_cast<const int*>(pos);
-  a.plan.nst = nst;
-  for (int t = 0; t < nst; ++t) a.plan.radix[t] = radix[t];
-  a.wdt = static_cast<const float2*>(wdopt);
+  OcArgs a = cube_args(x, mix, tw, pos, nst, radix, wdopt, A, C, S,
+                       dc_removal);
   a.pa = static_cast<float*>(pa);
-  a.A = A;
-  a.C = C;
-  a.S = S;
-  a.dc_removal = dc_removal;
   return (int)launch_cube_onchip<SRC_CUBE, OUT_PSC>(
       a, nullptr, static_cast<float*>(p), F, IMPL_FAST, inv_a,
       static_cast<cudaStream_t>(stream));
 }
 
-// K8: RDS [F, A, S, C] of cubes x [F, A*C, S] against the dense range
-// constant wrng [S, S] (Z scratch zbuf [F, A*C, S]).
-extern "C" int cube_rds(const void* x, const void* wrng, const void* wdopt,
-                        void* zbuf, void* out, int F, int A, int C, int S,
-                        int device, void* stream) {
-  if (F <= 0 || F > 65535 || A <= 0 || C <= 0 || S <= 0)
+// K8: RDS out [F, A, S, C] of cubes x [F, A, C, S], one launch of the
+// on-chip kernel with the complex-RDS consumer.
+extern "C" int cube_rds(const void* x, const void* mix, const void* tw,
+                        const void* pos, int nst, const int* radix,
+                        const void* wdopt, void* out, int F, int A, int C,
+                        int S, int dc_removal, int device, void* stream) {
+  if (F <= 0 || A <= 0 || C <= 0 || S <= 0 || nst < 0 ||
+      nst > FFT_MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = A * C;
-  dim3 g1((S + BN - 1) / BN, (M + BM - 1) / BM, F);
-  range_product_kernel<<<g1, TPB, 0, st>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(wrng),
-      static_cast<float2*>(zbuf), M, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (2 * (size_t)M * PS + 2 * C * (C + 1));
-  err = cudaFuncSetAttribute(doppler_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  doppler_kernel<<<dim3((S + PS - 1) / PS, F), TPB, smem, st>>>(
-      static_cast<const float2*>(zbuf), static_cast<const float2*>(wdopt),
-      static_cast<float2*>(out), A, C, S);
-  return (int)cudaGetLastError();
+  OcArgs a = cube_args(x, mix, tw, pos, nst, radix, wdopt, A, C, S,
+                       dc_removal);
+  a.rds = static_cast<float2*>(out);
+  return (int)launch_cube_onchip<SRC_CUBE, OUT_RDS>(
+      a, nullptr, nullptr, F, IMPL_FAST, 1.0f,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K9: y = x * mix (- row mean) over rows [rows, S].
@@ -429,25 +449,34 @@ extern "C" int cube_dechirp(const void* x, const void* mix, void* y,
   return (int)cudaGetLastError();
 }
 
-// K10: power_db [F, R, D] and mask [F, R, D] (uint8) of RDS [F, A, R, D].
+// K10: power_db [F, R, D] and mask [F, R, D] (uint8) of RDS [F, A, R, D],
+// in tiles of T range rows with `halo` rows each side and `smem` bytes of
+// shared memory a block (ops/cfar.py:cfar_tile_plan).
 extern "C" int cube_cfar(const void* rds, void* pdb, void* mask, int F,
-                         int A, int R, int D, float inv_a,
-                         float threshold_db, int neighborhood, int train,
-                         int guard, float offset_db, float t2, float g2,
-                         int device, void* stream) {
-  if (F <= 0 || A <= 0 || R <= 0 || D <= 0 ||
-      neighborhood < 1 || train < 0 || guard < 0)
+                         int A, int R, int D, int T, int halo, int smem,
+                         float inv_a, float threshold_db, int neighborhood,
+                         int train, int guard, float offset_db, float t2,
+                         float g2, int device, void* stream) {
+  if (F <= 0 || A <= 0 || R <= 0 || D <= 0 || T <= 0 || T % CFAR_RB ||
+      neighborhood < 1 || train < 0 || guard < 0 ||
+      halo < neighborhood / 2 || (train > 0 && halo < train + guard))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (R + T - 1) / T;
+  if (smem <= 0 || smem > 232448 || (long long)F * tiles > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * 2 * (size_t)R * D;
-  err = cudaFuncSetAttribute(cfar_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cfar_kernel<<<F, CFAR_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const bool vec = D % 2 == 0 && reinterpret_cast<uintptr_t>(rds) % 16 == 0;
+  auto kern = vec ? cfar_kernel<true> : cfar_kernel<false>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<(unsigned)((long long)F * tiles), CFAR_THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(rds), static_cast<float*>(pdb),
-      static_cast<uint8_t*>(mask), A, R, D, inv_a, threshold_db,
-      neighborhood, train, guard, offset_db, t2, g2);
+      static_cast<uint8_t*>(mask), A, R, D, T, halo, tiles, inv_a,
+      threshold_db, neighborhood, train, guard, offset_db, t2, g2);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // The synthesis factors, and the front end that keeps one antenna's ADC
 // cube rows on chip from the first stage to the last: shared by frontend.cu
 // (K1' and K3 with noise_domain="time"), synthpower.cu (K4, K5) and cube.cu
-// (K7).
+// (K7, K8).
 //
 // One block per (antenna a, frame f, chirp block h) holds 32 cube rows
 // X[c, s], c in [32 h, 32 h + 32), all S samples, in shared memory:
@@ -13,16 +13,20 @@
 //        frame beforehand by compose_efast_kernel, e_at formed in place
 //        from the dopp rows and this antenna's ant column); the epilogue
 //        adds the Philox noise at the element index of ops/noise.py;
-//      load (K7): the cube's rows [F, A, C, S], one contiguous run per
+//      load (K7, K8): the cube's rows [F, A, C, S], one contiguous run per
 //        block, by 8-byte cp.async straight to the FFT's input positions;
 //      either way times the range mix vector, at the FFT's input positions;
 //   2. the range DFT of every row in place (range_fft.cuh), DC bin zeroed;
 //   3. (K1') Z written transposed zr/zi [F, S, A*C];
-//   4. one of two consumers:
+//   4. one of three consumers:
 //      power: the Doppler DFT W_dop^T Z as a second 3xTF32 product and
 //        |.|^2, this block's 32 Doppler bins of the antenna's power plane,
 //        to pa [F, A, C, S] (K1') or [F, A, S, C] (K4, K7); a second launch
 //        (antenna_sum_kernel) sums the A planes in antenna order;
+//      complex RDS (K8): the same product, its complex value staged in the
+//        ring a chunk of range bins at a time and written to rds
+//        [F, A, S, C] as contiguous runs (one run per chunk where C <= 32,
+//        one per range bin in a cluster);
 //      signatures (K5): per detected cell k, sum_c W_dop^T[d_k, c] Z[c, r_k]
 //        into sig [F, K, A]; a second launch (sig_normalize_kernel) scales
 //        each (f, k) to unit power over the antennas.
@@ -97,10 +101,15 @@ constexpr int OC_RING = 2 * OC_STAGE;
 // Producers and consumers (template arguments of cube_onchip_kernel).
 constexpr int SRC_SPLIT = 0;     // synthesis from K1's split tables
 constexpr int SRC_DENSE = 1;     // synthesis from the dense planes
-constexpr int SRC_CUBE = 2;      // the cube's rows, loaded (K7)
+constexpr int SRC_CUBE = 2;      // the cube's rows, loaded (K7, K8)
 constexpr int OUT_Z_PCS = 0;     // Z transposed + planes [F, A, C, S] (K1')
 constexpr int OUT_PSC = 1;       // planes [F, A, S, C] (K4, K7)
 constexpr int OUT_SIG = 2;       // detected cells' signatures (K5)
+constexpr int OUT_RDS = 3;       // the complex RDS [F, A, S, C] (K8)
+// The RDS consumer's staging pitch (float2): twice it is 4 mod 16, so a
+// half-warp's fragment stores (range bins 2t, Doppler rows g) hit 16
+// distinct 8-byte bank pairs.
+constexpr int OC_RDS_LD = 34;
 
 __host__ __device__ __forceinline__ int oc_ldx(int S) {
   return frag_pitch((S + 7) & ~7);
@@ -125,6 +134,7 @@ struct OcArgs {
   float* zr;                    // OUT_Z_PCS: [F, S, A*C]
   float* zi;
   float* pa;                    // OUT_Z_PCS, OUT_PSC: the planes
+  float2* rds;                  // OUT_RDS: [F, A, S, C]
   const int* rbin;              // OUT_SIG: [F, K]
   const int* dbin;
   float2* sig;                  // OUT_SIG: [F, K, A]
@@ -393,31 +403,72 @@ cube_onchip_kernel(const OcArgs p) {
     // Every block's Z rows are in before any block reads another's.
     if (nblk > 1) cg::this_cluster().sync();
 
-    // 4. This antenna's Doppler power |W_dop^T Z|^2 at the block's bins;
-    // Z rows kb.. of block kb / 32 (distributed shared memory beyond the
-    // block's own).
-    const int mtiles = (rows + 15) / 16, ntiles = S8 / 8;
-    for (int ti = warp; ti < mtiles * ntiles; ti += OC_THREADS / 32) {
-      const int m16 = (ti % mtiles) * 16, nb = (ti / mtiles) * 8;
-      float orr[4] = {}, oii[4] = {}, err[4] = {}, eii[4] = {};
+    // 4. This antenna's Doppler DFT W_dop^T Z at the block's bins, one
+    // 16 x 8 tile (Doppler x range) at a time; Z rows kb.. of block kb / 32
+    // (distributed shared memory beyond the block's own).
+    const int mtiles = (rows + 15) / 16;
+    auto doppler_tile = [&](int m16, int nb, float (&o_r)[4],
+                            float (&o_i)[4]) {
+      float err[4] = {}, eii[4] = {};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_r[i] = o_i[i] = 0.f;
       for (int kb = 0; kb < Cp; kb += 8) {
         const int q = kb / OC_ROWS;
         const float2* Xq =
             q == h ? X : cg::this_cluster().map_shared_rank(X, q);
         const FragA wf = load_frag_a(Ws, ldw, 1, m16, kb);
         const FragB zf = load_frag_b(Xq, ldx, kb - q * OC_ROWS, nb);
-        cmma3_split(orr, oii, err, eii, wf, zf);
+        cmma3_split(o_r, o_i, err, eii, wf, zf);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int d = c0 + m16 + g + 8 * (i >> 1);
-        const int k = nb + 2 * t + (i & 1);
-        if (d >= C || k >= S) continue;
-        const float o_r = orr[i] + err[i], o_i = oii[i] + eii[i];
-        const float pw = __fadd_rn(__fmul_rn(o_r, o_r), __fmul_rn(o_i, o_i));
-        const size_t plane = (size_t)f * A + a;
-        p.pa[OUT == OUT_PSC ? (plane * S + k) * C + d
-                            : (plane * C + d) * S + k] = pw;
+        o_r[i] += err[i];
+        o_i[i] += eii[i];
+      }
+    };
+    const size_t plane = (size_t)f * A + a;
+    if constexpr (OUT == OUT_RDS) {
+      // A chunk of nbc range bins at a time: the tiles into the staging
+      // buffer [nbc][OC_RDS_LD] (the ring past W_dop^T's rows), then the
+      // chunk's range bins [k0, k0 + kn) x Doppler bins [c0, c0 + rows)
+      // out, consecutive threads on consecutive addresses.
+      float2* stg = Ws + OC_ROWS * ldw;
+      const int nbc = ((OC_RING - OC_ROWS * ldw) / OC_RDS_LD) & ~7;
+      for (int k0 = 0; k0 < S; k0 += nbc) {
+        const int nt = min(nbc, S8 - k0) / 8;
+        for (int ti = warp; ti < mtiles * nt; ti += OC_THREADS / 32) {
+          const int m16 = (ti % mtiles) * 16, nl = (ti / mtiles) * 8;
+          float o_r[4], o_i[4];
+          doppler_tile(m16, k0 + nl, o_r, o_i);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            stg[(nl + 2 * t + (i & 1)) * OC_RDS_LD + m16 + g + 8 * (i >> 1)] =
+                make_float2(o_r[i], o_i[i]);
+        }
+        __syncthreads();
+        const int kn = min(nbc, S - k0);
+        float2* dst = p.rds + (plane * S + k0) * C + c0;
+        for (int e = threadIdx.x; e < kn * rows; e += OC_THREADS) {
+          const int kl = e / rows, dl = e - kl * rows;
+          dst[(size_t)kl * C + dl] = stg[kl * OC_RDS_LD + dl];
+        }
+        __syncthreads();
+      }
+    } else {
+      for (int ti = warp; ti < mtiles * (S8 / 8); ti += OC_THREADS / 32) {
+        const int m16 = (ti % mtiles) * 16, nb = (ti / mtiles) * 8;
+        float o_r[4], o_i[4];
+        doppler_tile(m16, nb, o_r, o_i);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = c0 + m16 + g + 8 * (i >> 1);
+          const int k = nb + 2 * t + (i & 1);
+          if (d >= C || k >= S) continue;
+          const float pw = __fadd_rn(__fmul_rn(o_r[i], o_r[i]),
+                                     __fmul_rn(o_i[i], o_i[i]));
+          p.pa[OUT == OUT_PSC ? (plane * S + k) * C + d
+                              : (plane * C + d) * S + k] = pw;
+        }
       }
     }
     // No block leaves while another reads its rows.
@@ -509,8 +560,9 @@ cudaError_t launch_oc_kernel(const OcArgs& p, int F, size_t smem,
 
 // Launch the on-chip cube kernel and its second launch: the antenna sum
 // p [F, C, S] (OUT_Z_PCS) or [F, S, C] (OUT_PSC) of the planes p.pa, or the
-// normalization of p.sig (OUT_SIG).  SRC_SPLIT: e_fast is first composed
-// into efast [F, Sc, S].  SRC_CUBE draws no noise (impl unused).
+// normalization of p.sig (OUT_SIG); OUT_RDS has none (out unused).
+// SRC_SPLIT: e_fast is first composed into efast [F, Sc, S].  SRC_CUBE
+// draws no noise (impl unused).
 template <int SRC, int OUT>
 cudaError_t launch_cube_onchip(OcArgs p, float2* efast, float* out, int F,
                                int impl, float inv_a, cudaStream_t st) {
@@ -538,7 +590,7 @@ cudaError_t launch_cube_onchip(OcArgs p, float2* efast, float* out, int F,
   if constexpr (OUT == OUT_SIG) {
     const int n = F * p.K;
     sig_normalize_kernel<<<(n + 255) / 256, 256, 0, st>>>(p.sig, n, p.A);
-  } else {
+  } else if constexpr (OUT != OUT_RDS) {
     const int n = p.C * p.S;
     antenna_sum_kernel<<<dim3((n + 255) / 256, F), 256, 0, st>>>(
         p.pa, out, p.A, n, inv_a);

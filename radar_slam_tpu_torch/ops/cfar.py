@@ -20,21 +20,34 @@ plain version reproduces; the reference's jnp oracle
 10^(power_db / 10) instead and agrees with the kernel on > 99.9 % of cells.
 
 - :func:`cfar_mask` -- the kernel wrapper: a CUDA tensor launches
-  ``cube_cfar`` of ``csrc/cube.cu`` or raises; a CPU tensor runs
+  ``cube_cfar`` of ``csrc/cube.cu`` (one block per tile of range rows and
+  frame, each with a halo of rows) or raises; a CPU tensor runs
   :func:`cfar_mask_reference`.  ``cfar_mask.launches`` counts the CUDA
   launches.
+- :func:`cfar_tile_plan` -- the kernel's tile of range rows, halo and
+  shared memory for a map shape, or the reason it cannot take it.
 - :func:`cfar_mask_reference` -- the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from radar_slam_tpu_torch.ops import _build
 
 _MAX_SMEM = 232448    # shared memory one block may use on Hopper (bytes)
+# Shared memory of a block when two share an SM (228 KB an SM, 1 KB of it
+# reserved per block).
+_TWO_PER_SM = 233472 // 2 - 1024
+_RB = 4               # csrc/cube.cu: CFAR_RB, cells a thread's sums take
+# Candidate tiles (multiples of _RB), largest first.  No more than 32: at
+# the bench map (R = 400, D = 32, a halo of 10) T = 32 ran faster than 64,
+# more blocks outweighing the halo read again (scripts/torch_cfar_tiles.py,
+# PERF.md).
+_TILE_ROWS = (32, 16, 8, 4)
 _LOG10_E = 0.4342944819032518      # 1 / ln(10), as jnp.log10 multiplies
 
 
@@ -122,6 +135,80 @@ def _check(rds: torch.Tensor, neighborhood: int, train: int,
         raise ValueError("train and guard must be >= 0")
 
 
+def _smem_bytes(T: int, D: int, halo: int, train: int, guard: int,
+                neighborhood: int) -> int:
+    """Shared memory (bytes) of ``csrc/cube.cu:cfar_kernel`` with tiles of
+    T rows, in the order the kernel lays it out: the power / dB rows of the
+    tile and its halo with nh = neighborhood // 2 border columns, then
+    (where the CFAR runs, train > 0) the range-axis training sums of the
+    own rows with train + guard border columns, then (and guard > 0) the
+    guard sums with guard border columns, each buffer followed by _RB
+    floats of slack, then a byte per own cell for the CFAR test.  Each
+    row's pitch is odd (``cfar_pitch``)."""
+    th, nh = train + guard, neighborhood // 2
+    fl = (T + 2 * halo) * ((D + 2 * nh) | 1) + _RB
+    if train > 0:
+        fl += T * ((D + 2 * th) | 1) + _RB
+        if guard > 0:
+            fl += T * ((D + 2 * guard) | 1) + _RB
+    return 4 * fl + T * D
+
+
+@functools.lru_cache(maxsize=None)
+def cfar_tile_plan(R: int, D: int, train: int, guard: int,
+                   neighborhood: int):
+    """(T, halo, shared-memory bytes) of ``csrc/cube.cu:cube_cfar`` for a
+    map [R, D]: each block owns T range rows and holds the power of its
+    rows plus ``halo`` = max(train + guard, neighborhood // 2) rows each
+    side (train + guard only where the CFAR runs, train > 0), with the
+    sums and tests of its own rows (``_smem_bytes``).  T is the largest of
+    32, 16, 8, 4 with which two blocks share an SM, else the largest that
+    fits one block (no more than R rounded up to 4).  A thread's range
+    sums take four rows, so the smallest tile is four rows; raises where
+    even that does not fit."""
+    halo = max(train + guard if train > 0 else 0, neighborhood // 2)
+
+    def smem(T):
+        return _smem_bytes(T, D, halo, train, guard, neighborhood)
+
+    cap = -(-R // _RB) * _RB
+    for limit in (_TWO_PER_SM, _MAX_SMEM):
+        for T in _TILE_ROWS:
+            if smem(T) <= limit:
+                return min(T, cap), halo, smem(min(T, cap))
+    raise ValueError(
+        f"D={D} Doppler bins with a halo of {halo} rows (train + guard = "
+        f"{train + guard}, neighborhood {neighborhood}): a tile of "
+        f"{_RB} range rows needs {smem(_RB)} bytes of shared memory (the "
+        f"power of {_RB + 2 * halo} rows, the sums and the tests); a block "
+        f"has {_MAX_SMEM}")
+
+
+def _launch(rds: torch.Tensor, pdb: torch.Tensor, mask: torch.Tensor,
+            T: int, halo: int, smem: int, threshold_db: float,
+            neighborhood: int, train: int, guard: int,
+            offset_db: float) -> None:
+    """Launch ``cube_cfar`` on an RDS [..., A, R, D] on the card into
+    ``pdb`` and ``mask`` [..., R, D], in tiles of T rows with ``halo`` rows
+    each side and ``smem`` bytes of shared memory a block."""
+    *batch, A, R, D = rds.shape
+    F = 1
+    for b in batch:
+        F *= b
+    dev = rds.device
+    th = train + guard
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.bind("cube", "cube_cfar",
+                     (vp,) * 3 + (ci,) * 7 + (cf, cf) + (ci,) * 3
+                     + (cf,) * 3 + (ci, vp))
+    _build.launch(fn, rds.data_ptr(), pdb.data_ptr(), mask.data_ptr(),
+                  F, A, R, D, T, halo, smem, float(1.0 / A),
+                  float(threshold_db), neighborhood, train, guard,
+                  float(offset_db), float((2 * th + 1) ** 2),
+                  float((2 * guard + 1) ** 2), dev.index,
+                  torch.cuda.current_stream(dev).cuda_stream)
+
+
 def cfar_mask(rds: torch.Tensor, threshold_db: float = -25.0,
               neighborhood: int = 3, train: int = 0, guard: int = 0,
               offset_db: float = 12.0):
@@ -131,28 +218,14 @@ def cfar_mask(rds: torch.Tensor, threshold_db: float = -25.0,
     _check(rds, neighborhood, train, guard)
     if rds.device.type == "cuda":
         *batch, A, R, D = rds.shape
-        F = 1
-        for b in batch:
-            F *= b
-        smem = 4 * 2 * R * D
-        if smem > _MAX_SMEM:
-            raise ValueError(f"R={R}, D={D} needs {smem} bytes of shared "
-                             f"memory per block; the kernel has {_MAX_SMEM}")
+        T, halo, smem = cfar_tile_plan(R, D, train, guard, neighborhood)
         dev = rds.device
         pdb = torch.empty((*batch, R, D), dtype=torch.float32, device=dev)
         mask = torch.empty((*batch, R, D), dtype=torch.bool, device=dev)
-        if F == 0:
+        if pdb.numel() == 0:
             return pdb, mask
-        th = train + guard
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = _build.bind("cube", "cube_cfar",
-                         (vp, vp, vp, ci, ci, ci, ci, cf, cf, ci, ci, ci,
-                          cf, cf, cf, ci, vp))
-        _build.launch(fn, rds.data_ptr(), pdb.data_ptr(), mask.data_ptr(),
-                      F, A, R, D, float(1.0 / A), float(threshold_db),
-                      neighborhood, train, guard, float(offset_db),
-                      float((2 * th + 1) ** 2), float((2 * guard + 1) ** 2),
-                      dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        _launch(rds, pdb, mask, T, halo, smem, threshold_db, neighborhood,
+                train, guard, offset_db)
         cfar_mask.launches += 1
         return pdb, mask
     if rds.device.type == "cpu":

@@ -17,6 +17,8 @@ detection layout [..., R, D] (range unshifted, Doppler fftshifted).
   float32, then the antenna mean.
 - :func:`rds_power_factored_reference` -- the kernel's own order in plain
   PyTorch: the factored range DFT, the Doppler constant, the mean.
+- :func:`cube_launch_route`, :func:`cube_onchip_launch` -- the shape
+  limits and the launch that K7 and K8 (``ops/rds.py``) share.
 
 The TPU kernel's range product defaults to one bf16 pass; the port runs
 it in float32 (ROADMAP, Port conventions).
@@ -34,9 +36,6 @@ from radar_slam_tpu_torch.ops.frontend import (count_onchip,
                                                cube_onchip_limits,
                                                doppler_constant,
                                                range_fft_args)
-
-_MAX_SMEM = 232448    # shared memory one block may use on Hopper (bytes)
-_PS = 32              # csrc/cube.cu: range bins per Doppler block (K8)
 
 
 def rds_power_reference(signals: torch.Tensor, mix: torch.Tensor,
@@ -80,33 +79,40 @@ def check_cube(signals: torch.Tensor, mix: torch.Tensor):
     return tuple(batch), F, A, C, S
 
 
-def range_product_launch(symbol: str, signals: torch.Tensor,
-                         mix: torch.Tensor, dc_removal: bool,
-                         doppler_window: Optional[str], out: torch.Tensor,
-                         *extra):
-    """Launch ``cube_rds`` (K8) of ``csrc/cube.cu`` into ``out``: the
-    range product on the reference's dense constant into a Z scratch
-    [F, A*C, S], then the Doppler stage."""
-    from radar_slam_tpu_torch.signal.rds import range_dft_matrix
-    _, F, A, C, S = check_cube(signals, mix)
+def cube_launch_route(F: int, A: int, C: int, S: int) -> str:
+    """Raise, with the reason, where the on-chip cube kernel fed by loads
+    (K7, K8) cannot take F frames of cubes [A, C, S]; else return its
+    route ("one_block" or "cluster_rows", ``cube_onchip_limits``).  The
+    antenna count sets only the grid: one block (or cluster) per antenna."""
     if not 0 < F <= 65535:
         raise ValueError(f"F={F} frames: the kernel takes 1..65535")
-    smem = 4 * (2 * A * C * _PS + 2 * C * (C + 1))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"A={A}, C={C} needs {smem} bytes of shared memory "
-                         f"per block; the kernel has {_MAX_SMEM}")
+    if A <= 0:
+        raise ValueError(f"A={A} antennas: need at least one")
+    return cube_onchip_limits(C, S)
+
+
+def cube_onchip_launch(wrapper, symbol: str, signals: torch.Tensor,
+                       mix: torch.Tensor, dc_removal: bool,
+                       doppler_window: Optional[str], outs, *extra) -> None:
+    """Launch ``symbol`` of ``csrc/cube.cu`` -- the on-chip cube kernel
+    fed by loads (K7: ``cube_rds_power``, K8: ``cube_rds``) -- on cubes
+    [..., A, C, S] into the tensors ``outs``, with the float arguments
+    ``extra``, and count it on ``wrapper``."""
+    _, F, A, C, S = check_cube(signals, mix)
+    route = cube_launch_route(F, A, C, S)
     dev = signals.device
-    w_rng = range_dft_matrix(S, mix, dc_removal).contiguous()
     w_dop_t = doppler_constant(C, doppler_window, dev)
-    z = torch.empty((F, A * C, S), dtype=torch.complex64, device=dev)
+    tw, pos, nst, radix = range_fft_args(S, dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    extra_types = tuple(cf for _ in extra)
     fn = _build.bind("cube", symbol,
-                     (vp,) * 5 + (ci,) * 4 + extra_types + (ci, vp))
-    _build.launch(fn, signals.data_ptr(), w_rng.data_ptr(),
-                  w_dop_t.data_ptr(), z.data_ptr(), out.data_ptr(), F, A, C,
-                  S, *extra, dev.index,
+                     (vp,) * 4 + (ci,) + (vp,) * (2 + len(outs))
+                     + (ci,) * 4 + (cf,) * len(extra) + (ci, ci, vp))
+    _build.launch(fn, signals.data_ptr(), mix.data_ptr(), tw.data_ptr(),
+                  pos.data_ptr(), nst, radix, w_dop_t.data_ptr(),
+                  *(o.data_ptr() for o in outs), F, A, C, S, *extra,
+                  int(dc_removal), dev.index,
                   torch.cuda.current_stream(dev).cuda_stream)
+    count_onchip(wrapper, S, route)
 
 
 def rds_power_fused(signals: torch.Tensor, mix: torch.Tensor,
@@ -118,25 +124,13 @@ def rds_power_fused(signals: torch.Tensor, mix: torch.Tensor,
     kernel or raises; a CPU tensor runs the plain version."""
     if signals.device.type == "cuda":
         batch, F, A, C, S = check_cube(signals, mix)
-        if not 0 < F <= 65535:
-            raise ValueError(f"F={F} frames: the kernel takes 1..65535")
-        route = cube_onchip_limits(C, S)
         dev = signals.device
-        w_dop_t = doppler_constant(C, doppler_window, dev)
-        tw, pos, nst, radix = range_fft_args(S, dev)
         # Per-antenna power planes [F, A, S, C], summed in antenna order.
         pa = torch.empty((F, A, S, C), dtype=torch.float32, device=dev)
         out = torch.empty((*batch, S, C), dtype=torch.float32, device=dev)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = _build.bind("cube", "cube_rds_power",
-                         (vp,) * 4 + (ci,) + (vp,) * 4 + (ci,) * 4
-                         + (cf, ci, ci, vp))
-        _build.launch(fn, signals.data_ptr(), mix.data_ptr(), tw.data_ptr(),
-                      pos.data_ptr(), nst, radix, w_dop_t.data_ptr(),
-                      pa.data_ptr(), out.data_ptr(), F, A, C, S,
-                      float(1.0 / A), int(dc_removal), dev.index,
-                      torch.cuda.current_stream(dev).cuda_stream)
-        count_onchip(rds_power_fused, S, route)
+        cube_onchip_launch(rds_power_fused, "cube_rds_power", signals, mix,
+                           dc_removal, doppler_window, (pa, out),
+                           float(1.0 / A))
         return out
     if signals.device.type == "cpu":
         check_cube(signals, mix)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K4, K5 and K7 in one source tree, so that two
-commits can be compared on one card in turns.
+"""Time the port's K1, K4, K5, K7, K8 and K10 in one source tree, so that
+two commits can be compared on one card in turns.
 
     python3 scripts/torch_kernel_turns.py <tree>
 
@@ -9,7 +9,8 @@ unpacked with ``git archive <commit> | tar -x -C <dir>`` into a
 git-ignored directory.  Its ``radar_slam_tpu_torch`` kernels are built (in
 its own ``_build/``) and each wrapper is timed per 64-frame call on the
 bench cell (A=8, C=32, S=400, Sc=128, K=64): CUDA events, best of 3 x 20
-calls.  The inputs are made by this checkout's ``chip_smoke.py`` helpers
+calls, and each kernel's device time by name from a profile of 10 calls
+(the wrapper's host cost left out).  The inputs are made by this checkout's ``chip_smoke.py`` helpers
 through the tree's package.  Prints one JSON line.  Run the two trees in
 turns in one call on one card (parent, change, change, parent) and compare
 within that call.  Needs a CUDA device.
@@ -28,8 +29,9 @@ def main():
     import torch
 
     from radar_slam_tpu_torch.core import config as cfg_mod
-    from radar_slam_tpu_torch.ops import _build, power
+    from radar_slam_tpu_torch.ops import _build, cfar, power
     from radar_slam_tpu_torch.ops import frontend as fe
+    from radar_slam_tpu_torch.ops import rds as rds_op
     from radar_slam_tpu_torch.ops import synthpower as sp
     from radar_slam_tpu_torch.signal.detect import detect_peaks_from_power
     # The helpers only; every radar_slam_tpu_torch module they import
@@ -56,6 +58,11 @@ def main():
                            doppler_window=dw, noise_impl=impl),
         cfg.radar, cfg.detection)
     sig, _ = cs.cube_signals(64, cfg, dev, 0)
+    rds = rds_op.rds_fused_reference(sig, mix, True, dw)
+    d = cfg.detection
+    kw = dict(threshold_db=d.threshold_db, neighborhood=d.neighborhood,
+              train=d.cfar_train_cells, guard=d.guard_cells,
+              offset_db=d.cfar_offset_db)
     args, prm = cs.kernel_inputs(b64, cfg, seeds)
     fns = {
         "K1": lambda: fe.frontend_kernel_split(*args, prm),
@@ -65,13 +72,18 @@ def main():
             e_ac, e_fast, seeds, det.range_bin, det.doppler_bin, mix, C,
             sigma, doppler_window=dw, noise_impl=impl),
         "K7": lambda: power.rds_power_fused(sig, mix, True, dw),
+        "K8": lambda: rds_op.rds_fused(sig, mix, True, dw),
+        "K10": lambda: cfar.cfar_mask(rds, **kw),
     }
-    out = {}
+    out, dev_ms = {}, {}
     for name, fn in fns.items():
         fn()
         torch.cuda.synchronize()
         out[name] = min(cs.cuda_time_ms(torch, fn, 20) for _ in range(3))
+        per = cs.kernel_profile(torch, lambda: [fn() for _ in range(10)])
+        dev_ms[name] = {k: v / 10 for k, v in per.items()}
     print(json.dumps({"tree": sys.argv[1], "ms_per_64f": out,
+                      "device_ms_per_64f": dev_ms,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": cs.nvidia_smi_line()}), flush=True)
     return 0

@@ -15,7 +15,8 @@ the reference's own tests run them.  Tolerances, with their reasons:
   own matmul form differs by 1.1e-5 (float32 DFT constants with range
   phases to ~2.5e3 rad).
 - K9 rtol = atol = 1e-5 and K10 power_db 1e-4 dB, masks > 99.9 % equal,
-  planted peaks found: the reference's tests (test_ops_pallas.py).
+  planted peaks found: the reference's tests (test_ops_pallas.py); K10
+  also at D = 128.
 - detections: identical valid sets and bins, ``range_m`` to 1e-5 (the
   reference's test_fused_power.py), valid signatures to 2e-4.
 """
@@ -275,6 +276,30 @@ def test_plain_cfar_matches_interpret_kernel(train, guard):
     np.testing.assert_allclose(pdb[0], want_pdb, rtol=1e-4, atol=1e-4)
     assert np.mean(mask[0] == want_mask) > 0.999
     for r, d, _ in PEAKS:
+        assert mask[0, r, d] and want_mask[r, d]
+
+
+PEAKS_128 = [(50, 10, 30.0), (200, 96, 100.0), (333, 127, 60.0)]
+
+
+@pytest.mark.parametrize("train,guard", [(0, 0), (8, 2)])
+def test_plain_cfar_matches_interpret_kernel_d128(train, guard):
+    """A map with 128 Doppler bins (a 128-chirp configuration), which one
+    block per frame could not hold on the card."""
+    rds = 0.01 * rand_complex(np.random.default_rng(9), (4, 400, 128))
+    for r, d, a in PEAKS_128:
+        rds[:, r, d] += a
+        rds[:, r + 1, d] += 0.4 * a
+    kw = dict(threshold_db=-25.0, neighborhood=3, train=train, guard=guard,
+              offset_db=12.0)
+    with pltpu.force_tpu_interpret_mode():
+        want_pdb, want_mask = map(np.asarray, cfar_pallas.cfar_mask(
+            jnp.asarray(rds), **kw))
+    pdb, mask = map(to_np, cfar.cfar_mask(torch.tensor(rds)[None], **kw))
+    assert pdb.shape == mask.shape == (1, 400, 128)
+    np.testing.assert_allclose(pdb[0], want_pdb, rtol=1e-4, atol=1e-4)
+    assert np.mean(mask[0] == want_mask) > 0.999
+    for r, d, _ in PEAKS_128:
         assert mask[0, r, d] and want_mask[r, d]
 
 

@@ -22,6 +22,15 @@ in the kernels' own order, against the JAX reference on the CPU.
   sits ~3e-5 of the maximum from the exact DFT on random cubes (measured
   2.6e-5) and ~2e-6 on the bench scene; against the float64 DFT within
   2e-6.
+- K8's kernel order (``rds_fused_factored_reference``: the factored range
+  FFT rows, then K7's Doppler constant, complex) against the reference's
+  ``rds_fused`` in interpret mode at C = 32 and 64 within 2e-4 of max |rds|
+  (the reference's float32 range constant: ~7e-5 of the maximum from the
+  exact DFT on random cubes, as Z in tests/test_torch_range_dft.py), and
+  against the float64 DFT within 1e-5; its antenna-mean power is K7's.
+- Limits of K7 / K8 (``cube_launch_route``: any antenna count, C <= 256)
+  and K10's range tiles (``cfar_tile_plan``: every D <= 256 at S = 400
+  fits, a tile too large for a block raises with its reason).
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -34,10 +43,13 @@ from _torch_parity import bench_config, scene_fields, to_np
 from jax.experimental.pallas import tpu as pltpu
 
 from radar_slam_tpu.ops import power_pallas as jpower
+from radar_slam_tpu.ops import rds_pallas as jrds
 from radar_slam_tpu.ops import synthpower_pallas as jsp
 from radar_slam_tpu_torch.core.types import scatterer_batch_from_numpy
+from radar_slam_tpu_torch.ops import cfar
 from radar_slam_tpu_torch.ops import frontend as fe
 from radar_slam_tpu_torch.ops import power, range_dft
+from radar_slam_tpu_torch.ops import rds as trds_op
 from radar_slam_tpu_torch.ops import synthpower as sp
 from radar_slam_tpu_torch.ops.windows import get_window
 from radar_slam_tpu_torch.signal.rds import (doppler_columns,
@@ -120,8 +132,51 @@ def test_routes_are_counted_as_branches():
         "tiled_rows",)
     assert fe._branches(prm, None, 400, "one_block") == ("time",)
     for w in (sp.scatterer_power, sp.scatterer_signatures,
-              power.rds_power_fused):
+              power.rds_power_fused, trds_op.rds_fused):
         assert set(w.branch_launches) == {"dense_range", "cluster_rows"}
+
+
+@pytest.mark.parametrize("A_,C,route", [(8, 32, "one_block"),
+                                        (16, 64, "cluster_rows"),
+                                        (32, 64, "cluster_rows"),
+                                        (8, 256, "cluster_rows")])
+def test_cube_kernels_take_any_antenna_count(A_, C, route):
+    """K7 and K8 hold one antenna's rows per block or cluster, so A sets
+    only the grid (K8 refused A = 16, C = 64 for its shared memory)."""
+    assert power.cube_launch_route(64, A_, C, 400) == route
+
+
+@pytest.mark.parametrize("F_,A_,C,what", [(64, 16, 257, "on-chip kernel"),
+                                          (0, 8, 32, "frames"),
+                                          (65536, 8, 32, "frames"),
+                                          (64, 0, 32, "antennas")])
+def test_cube_kernels_raise_with_the_reason(F_, A_, C, what):
+    with pytest.raises(ValueError, match=what):
+        power.cube_launch_route(F_, A_, C, 400)
+
+
+@pytest.mark.parametrize("train,guard,nb", [(8, 2, 3), (0, 0, 3),
+                                            (8, 0, 5)])
+def test_cfar_tiles_fit_every_doppler_width_to_256(train, guard, nb):
+    """K10 refused D > 72 at S = 400 (one block held the frame's map)."""
+    halo = max(train + guard if train else 0, nb // 2)
+    for D in range(1, 257):
+        T, h, smem = cfar.cfar_tile_plan(400, D, train, guard, nb)
+        assert h == halo and T % 4 == 0 and 4 <= T <= 32, D
+        assert smem <= 232448, D
+        if D <= 128:     # two blocks an SM
+            assert smem <= 233472 // 2 - 1024, D
+
+
+def test_cfar_tile_plan_sizes_and_limits():
+    # The bench map: 32 rows, a halo of 10, 13 tiles of 400 rows.
+    assert cfar.cfar_tile_plan(400, 32, 8, 2, 3)[:2] == (32, 10)
+    assert cfar.cfar_tile_plan(400, 256, 8, 2, 3)[0] == 16
+    assert cfar.cfar_tile_plan(5, 32, 8, 2, 3)[0] == 8   # R rounded up to 4
+    with pytest.raises(ValueError, match="tile of 4 range rows"):
+        cfar.cfar_tile_plan(400, 8000, 8, 2, 3)
+    with pytest.raises(ValueError, match="halo of 200"):
+        cfar.cfar_tile_plan(400, 256, 190, 10, 3)
 
 
 # ---- K5 in the kernel's order -----------------------------------------------
@@ -227,3 +282,55 @@ def test_cpu_k7_keeps_its_plain_version(bench_cube):
     assert power.rds_power_fused.launches == before
     assert torch.equal(got, power.rds_power_reference(sig, mix, True,
                                                       "hann"))
+
+
+# ---- K8 in the kernel's order -----------------------------------------------
+
+def _exact_rds(sig, mix, C):
+    """RDS [..., A, S, C] of cubes [..., A, C, S] in float64 on the exact
+    DFT, with K7's Doppler constant."""
+    S_ = sig.shape[-1]
+    s = np.arange(S_)
+    w = np.exp(2j * np.pi * np.outer(s, s) / S_) * mix.astype(
+        np.complex128)[:, None]
+    w[:, 0] = 0
+    wd = to_np(fe.doppler_constant(C, "hann", "cpu")).astype(np.complex128)
+    return np.swapaxes(wd @ (sig.astype(np.complex128) @ w), -1, -2)
+
+
+@pytest.mark.parametrize("C", [32, 64])
+def test_k8_kernel_order_matches_reference_interpret(C):
+    rng = np.random.default_rng(70 + C)
+    sig = rand_complex(rng, (2, 2, C, 128))
+    mix = rand_complex(rng, (128,))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jrds.rds_fused(jnp.asarray(sig), jnp.asarray(mix),
+                                         True, "hann"))
+    got = to_np(trds_op.rds_fused_factored_reference(
+        torch.from_numpy(sig), torch.from_numpy(mix), True, "hann"))
+    assert got.shape == want.shape == (2, 2, 128, C)
+    assert got.dtype == np.complex64
+    assert rel(got, want) < 2e-4
+    assert rel(got, _exact_rds(sig, mix, C)) < 1e-5
+    assert (got[..., 0, :] == 0).all()         # the DC range bin
+
+
+@pytest.mark.parametrize("cube", ["bench", "random"])
+def test_k8_kernel_order_matches_exact_dft(bench_cube, cube):
+    """The bench cubes [2, 8, 32, 400] (and noise of that shape) against
+    the float64 DFT; the CPU wrapper keeps the reference's constant."""
+    sig, mix = bench_cube
+    if cube == "random":
+        sig = rand_complex(np.random.default_rng(6), sig.shape)
+    x, m = torch.from_numpy(sig), torch.from_numpy(mix)
+    got = to_np(trds_op.rds_fused_factored_reference(x, m, True, "hann"))
+    assert rel(got, _exact_rds(sig, mix, 32)) < 1e-5
+    assert rel(got, to_np(trds_op.rds_fused(x, m, True, "hann"))) < 2e-4
+
+
+def test_k8_kernel_order_power_is_k7s(bench_cube):
+    sig, mix = (torch.from_numpy(x) for x in bench_cube)
+    rds = trds_op.rds_fused_factored_reference(sig, mix, True, "hann")
+    p = torch.mean(rds.real * rds.real + rds.imag * rds.imag, dim=-3)
+    want = power.rds_power_factored_reference(sig, mix, True, "hann")
+    assert rel(to_np(p), to_np(want)) < 1e-6
