@@ -11,11 +11,14 @@ the 96-point constant-motion bench scene at the bench operating point
 K1; K3 with ``frontend_factors="dense"``) and its three-dispatch route
 (kernels K4 and K5; OS-CFAR, or ``frontend_one_pass=False``), the ADC-cube
 driver ``pipeline.frame.process_signal_sequence_batched`` (kernels
-K7-K10), and the sequential drivers ``process_sequence`` (K1 with the
+K7-K10), the sequential drivers ``process_sequence`` (K1 with the
 clutter map as its clutter input), ``process_signal_sequence`` (K7) and
-``process_sequence_chunked``.  K6 draws the noise K4 and K5 draw and is
-their validation surface; the prefix-sum CFAR of K1' is a kernel argument;
-no driver launches either.  One JSON line per phase:
+``process_sequence_chunked``, the MUSIC and ESPRIT estimators, the
+adversarial scene, and the mounted-rig drivers
+``pipeline.rig.process_sequence_rig_batched`` (K1 over the flattened
+frame x sensor axis) and ``process_sequence_rig`` (K1 once a step).  K6
+draws the noise K4 and K5 draw and is their validation surface; the
+prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSON line per phase:
 
 1. env              torch / CUDA versions, the card, kernel build times;
 2. kernel_vs_plain  K1 against its plain PyTorch version evaluated in
@@ -35,6 +38,23 @@ no driver launches either.  One JSON line per phase:
 3. pipeline         64 frames through K1: solve success > 0.9 over frames
                     1..63, final pose error <= 0.35 m, position RMSE
                     <= 0.16 m (bench.py's gates), K1 launch count > 0;
+3b. music_pipeline  the same 64 frames with aoa.method "music" (position
+                    RMSE <= 0.15 m, bench.py:417-429; solve success > 0.9)
+                    and "esprit" (RMSE <= 1.5x the pipeline phase's, the
+                    reference's bound, tests/test_aoa_methods_e2e.py:173);
+                    MUSIC's frames/s from the (2048, 8192) pair;
+3c. adversarial     bench.py's mismatch scene (12 frames, four oncoming
+                    movers, ten clutter returns a frame; bench.py:299-315)
+                    through the batched driver: RMSE <= 0.777 m;
+3d. rig_pipeline    bench.py's 32-frame scene of four mounted sensors
+                    (bench.py:257-296) through the batched rig: RMSE <=
+                    0.10 m, K1 launched once over the 128 (frame, sensor)
+                    frames; the sequential rig (K1 once a step) within
+                    1e-4 m / 1e-3 m/s of the batched rig at
+                    temporal_weight 0, track_capacity 256, with equal
+                    success and counts (tests/test_rig.py:180-208); rig
+                    frames/s from the (64, 512) and (512, 2048) pairs.
+                    All of 3-3d at generator seed PIPELINE_SEED;
 4. cube_kernels_vs_plain  K7 (power map), K8 (RDS), K9 (dechirp) and K10
                     (CFAR mask) against their plain versions on 8 frames of
                     bench-scene cubes synthesized on the card at the
@@ -147,12 +167,22 @@ no driver launches either.  One JSON line per phase:
                     profiles of one chunk and one step (not gated);
 16. seed_spread     bench.py's gates over generator seeds 0-15 for
                     process_sequence with the clutter map and
-                    process_signal_sequence (printed, not gated);
+                    process_signal_sequence, and the position RMSE of the
+                    MUSIC, rig and adversarial runs of phases 3b-3d
+                    (printed, not gated);
 17. profile         one traced 2048-frame call of each batched driver
                     (torch.profiler; the scatterer driver on its one-pass
-                    and its OS three-dispatch route) and of the OS-CFAR
-                    order-statistic stage alone: device busy time, idle
-                    share, launches, the costliest kernels;
+                    route with beamforming and with MUSIC and on its OS
+                    three-dispatch route), of the OS-CFAR order-statistic
+                    stage alone, and one 512-frame call of the batched
+                    rig (2048 frame x sensor frames): device busy time,
+                    idle share, launches, the costliest kernels; then
+                    trace_retries: every trace of the script (the
+                    profiles above and each phase's kernel_profile) sits
+                    between host sleeps and two spin kernels, and is taken
+                    again with a longer sleep until both spin kernels are
+                    in it, later traces starting at the sleep that worked
+                    (device_trace); the retries it needed;
 18. kernels         the per-kernel summary line: launches on the main
                     paths, error against the plain version, kernel and
                     plain times, the shape routes' times and bounds, the
@@ -161,6 +191,8 @@ no driver launches either.  One JSON line per phase:
                     the bytes' time, each DFT stage counted as an FFT where
                     that is less work; bound_pipe names it, bound_fp32_ms
                     is the FP32-only count), sub-kernel times, K1 at F = 1,
+                    K1's launches per batched rig call (over F * B frames)
+                    and per sequential rig step (rig_launches),
                     and the one-call PyTorch time (none of these kernels
                     has one: null).
 
@@ -218,6 +250,9 @@ OS_SEED = 15
 SEQ_SEED = 2
 CLUTTER_ALPHA = 0.05
 SPREAD_SEEDS = range(16)
+# bench.py's four-sensor rig (bench.py:265-266): (x, y, yaw) mounts.
+RIG4 = ((3.6, 0.8, 0.55), (3.6, -0.8, -0.55),
+        (2.4, 0.9, 1.48), (2.4, -0.9, -1.48))
 # K1' branches of the one-pass kernel: the knobs that select each, on top
 # of the production knobs (the clutter branch also takes a clutter map).
 K1P_BRANCHES = {
@@ -588,7 +623,191 @@ def phase_pipeline(torch, fe, cfg_mod, device):
     check(success > 0.9, f"solve success {success}")
     check(pose_err <= 0.35, f"final pose error {pose_err} m")
     check(rmse <= 0.16, f"position RMSE {rmse} m")
-    return launches, pose
+    return launches, pose, rmse
+
+
+def with_method(cfg, method):
+    return dataclasses.replace(cfg, aoa=dataclasses.replace(cfg.aoa,
+                                                           method=method))
+
+
+def phase_music_pipeline(torch, fe, cfg_mod, device, bf_rmse):
+    """The 64-frame scene through the batched driver with MUSIC and with
+    ESPRIT (PIPELINE_SEED), bench.py's music gate and the reference's
+    ESPRIT bound; MUSIC's frames/s from the (2048, 8192) pair (its traced
+    2048-frame call is in the profile phase)."""
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    cfg = bench_config(cfg_mod)
+    batch, gt = scene(64, cfg, device)
+    runs = {}
+    for method in ("music", "esprit"):
+        fe.frontend_kernel_split.launches = 0
+        out = process_sequence_batched(
+            batch, torch.Generator().manual_seed(PIPELINE_SEED),
+            with_method(cfg, method))
+        torch.cuda.synchronize()
+        success, pose_err, rmse, pose = pipeline_errors(out, gt, 64, method)
+        runs[method] = dict(success=success, final_pose_err_m=pose_err,
+                            pos_rmse_m=rmse, final_pose=pose[-1].tolist(),
+                            K1_launches=fe.frontend_kernel_split.launches)
+    del batch
+    music = with_method(cfg, "music")
+    batches = {}
+
+    def run_for(n):
+        if n not in batches:
+            batches[n] = scene(n, cfg, device)[0]
+        b = batches[n]
+        return lambda: process_sequence_batched(
+            b, torch.Generator().manual_seed(0), music)
+
+    torch.cuda.reset_peak_memory_stats()
+    fps, t2048, t8192 = frames_per_s(torch, run_for, (2048, 8192), trials=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    batches.clear()
+    emit("music_pipeline", frames=64, generator_seed=PIPELINE_SEED,
+         music=runs["music"], esprit=runs["esprit"],
+         beamforming_pos_rmse_m=bf_rmse,
+         frames_per_s_2048_8192=fps, t2048_ms=t2048, t8192_ms=t8192,
+         peak_mem_gb=peak,
+         gates={"music pos_rmse_m": "<= 0.15", "music success": "> 0.9",
+                "esprit pos_rmse_m": "<= 1.5 x beamforming",
+                "K1_launches": "> 0"})
+    m, e = runs["music"], runs["esprit"]
+    check(m["K1_launches"] > 0 and e["K1_launches"] > 0,
+          "music / esprit: no front-end kernel launched")
+    check(m["success"] > 0.9, f"music: solve success {m['success']}")
+    check(m["pos_rmse_m"] <= 0.15, f"music: position RMSE {m['pos_rmse_m']}")
+    check(e["pos_rmse_m"] <= 1.5 * bf_rmse,
+          f"esprit: position RMSE {e['pos_rmse_m']} > 1.5 x {bf_rmse}")
+
+
+def adversarial_scene(cfg, device):
+    """bench.py's adversarial scene (bench.py:299-315): 12 frames, four
+    oncoming movers of three points, ten clutter returns a frame."""
+    from radar_slam_tpu_torch.io.synthetic import (MismatchConfig,
+                                                   SceneConfig,
+                                                   mismatch_scene)
+    mm = MismatchConfig(num_movers=4, mover_points=3, mover_oncoming=True,
+                        clutter_per_frame=10)
+    return mismatch_scene(
+        3, 12, cfg.frame_dt, (8.0, 0.5), 0.1,
+        SceneConfig(num_points=48, max_scatterers=cfg.max_scatterers), mm,
+        device=device)
+
+
+def phase_adversarial(torch, fe, cfg_mod, device):
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    cfg = bench_config(cfg_mod)
+    batch, gt = adversarial_scene(cfg, device)
+    fe.frontend_kernel_split.launches = 0
+    out = process_sequence_batched(
+        batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg)
+    torch.cuda.synchronize()
+    launches = fe.frontend_kernel_split.launches
+    success, pose_err, rmse, pose = pipeline_errors(out, gt, 12,
+                                                    "adversarial")
+    emit("adversarial", frames=12, generator_seed=PIPELINE_SEED,
+         success=success, final_pose_err_m=pose_err, pos_rmse_m=rmse,
+         mover_fraction=gt["mover_fraction"], final_pose=pose[-1].tolist(),
+         gt_final=gt["poses"][-1].tolist(), K1_launches=launches,
+         gates={"pos_rmse_m": "<= 0.777", "K1_launches": "> 0"})
+    check(launches > 0, "adversarial: no front-end kernel launched")
+    check(rmse <= 0.777, f"adversarial: position RMSE {rmse} m")
+
+
+def rig_scene(n_frames, cfg, device):
+    """bench.py's rig scene (bench.py:265-276): four mounted sensors, 96
+    points each, seed 7."""
+    from radar_slam_tpu_torch.io.synthetic import (SceneConfig,
+                                                   constant_motion_scene_rig)
+    return constant_motion_scene_rig(
+        7, num_frames=n_frames, dt=cfg.frame_dt, v_body=(8.0, 0.5),
+        yaw_rate=0.05, rig=RIG4,
+        scene=SceneConfig(num_points=96, max_scatterers=cfg.max_scatterers),
+        device=device)
+
+
+def phase_rig_pipeline(torch, fe, cfg_mod, device):
+    """The 32-frame 4-sensor scene through the batched rig (bench.py's rig
+    gate, K1 once over the F * B frames) and the sequential rig (K1 once a
+    step); the two drivers against each other at temporal_weight 0 and
+    track_capacity 256 (tests/test_rig.py:180-208's tolerances); rig
+    frames/s from the (64, 512) and (512, 2048) pairs (its traced
+    512-frame call is in the profile phase)."""
+    from radar_slam_tpu_torch.pipeline.rig import (
+        process_sequence_rig, process_sequence_rig_batched)
+    cfg = bench_config(cfg_mod)
+    F, B = 32, len(RIG4)
+    batch, gt = rig_scene(F, cfg, device)
+    fe.frontend_kernel_split.launches = 0
+    out = process_sequence_rig_batched(
+        batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg, RIG4)
+    torch.cuda.synchronize()
+    batched_launches = fe.frontend_kernel_split.launches
+    success, pose_err, rmse, pose = pipeline_errors(out, gt, F, "rig")
+
+    eq_cfg = dataclasses.replace(
+        cfg, velocity=dataclasses.replace(cfg.velocity, temporal_weight=0.0),
+        aoa=dataclasses.replace(cfg.aoa, track_capacity=256))
+    b = process_sequence_rig_batched(
+        batch, torch.Generator().manual_seed(PIPELINE_SEED), eq_cfg, RIG4)
+    fe.frontend_kernel_split.launches = 0
+    a = process_sequence_rig(
+        batch, torch.Generator().manual_seed(PIPELINE_SEED), eq_cfg, RIG4)
+    torch.cuda.synchronize()
+    step_launches = fe.frontend_kernel_split.launches
+    d_pose = float((b.pose - a.pose).abs().max().item())
+    d_vel = float((b.motion.velocity - a.motion.velocity).abs().max().item())
+    same = {name: bool(torch.equal(x, y)) for name, x, y in (
+        ("success", b.motion.success, a.motion.success),
+        ("num_reliable", b.num_reliable, a.num_reliable),
+        ("num_detections", b.num_detections, a.num_detections))}
+    pose_ok = bool(torch.allclose(b.pose, a.pose, rtol=1e-4, atol=1e-4))
+    vel_ok = bool(torch.allclose(b.motion.velocity, a.motion.velocity,
+                                 rtol=1e-3, atol=1e-3))
+    del batch
+
+    scenes = {}
+
+    def run_for(n):
+        if n not in scenes:
+            scenes[n] = rig_scene(n, cfg, device)[0]
+        sc = scenes[n]
+        return lambda: process_sequence_rig_batched(
+            sc, torch.Generator().manual_seed(0), cfg, RIG4)
+
+    fps_lo, t64, t512 = frames_per_s(torch, run_for, (64, 512))
+    scenes.pop(64)
+    fps_hi, _, t2048 = frames_per_s(torch, run_for, (512, 2048), trials=3)
+    scenes.clear()
+    emit("rig_pipeline", frames=F, sensors=B, rig=RIG4,
+         generator_seed=PIPELINE_SEED, success=success,
+         final_pose_err_m=pose_err, pos_rmse_m=rmse,
+         final_pose=pose[-1].tolist(), gt_final=gt["poses"][-1].tolist(),
+         K1_launches_batched_call=batched_launches,
+         K1_frames_per_batched_call=F * B,
+         K1_launches_sequential=step_launches,
+         sequential_vs_batched=dict(max_pose_diff_m=d_pose,
+                                    max_velocity_diff_mps=d_vel, **same),
+         frames_per_s_64_512=fps_lo, t64_ms=t64, t512_ms=t512,
+         frames_per_s_512_2048=fps_hi, t2048_ms=t2048,
+         gates={"pos_rmse_m": "<= 0.10",
+                "K1_launches_batched_call": "== 1 (F * B frames)",
+                "K1_launches_sequential": f"== {F} (one a step)",
+                "sequential_vs_batched": "pose 1e-4, velocity 1e-3, "
+                "success / num_reliable / num_detections equal"})
+    check(batched_launches == 1,
+          f"rig: K1 launched {batched_launches} times in a batched call")
+    check(step_launches == F,
+          f"rig: K1 launched {step_launches} times in {F} sequential steps")
+    check(rmse <= 0.10, f"rig: position RMSE {rmse} m")
+    check(pose_ok and vel_ok and all(same.values()),
+          f"rig: sequential vs batched pose {d_pose} m, velocity {d_vel}, "
+          f"{same}")
+    return {"batched_call": batched_launches,
+            "frames_per_batched_call": F * B,
+            "sequential_step": step_launches / F}
 
 
 def cuda_time_ms(torch, fn, reps):
@@ -618,22 +837,69 @@ def frames_per_s(torch, run_for, sizes, trials=4):
     return (f_hi - f_lo) / max((t_hi - t_lo) / 1e3, 1e-9), t_lo, t_hi
 
 
+TRACE_PADS_S = (0.02, 0.5, 2.0, 5.0, 10.0)
+TRACE_PAD = [0]
+TRACE_RETRIES = []
+
+
+def device_trace(torch, fn, activities):
+    """The device kernels of one traced call of ``fn`` and its host wall
+    time (s, ``fn`` to the card's synchronization).
+
+    A trace can come back without the first of its kernels: on runs of
+    this script on an H100, K5's two launches were missing from a short
+    trace, and a traced driver call of CPU and CUDA activity lost its
+    first 5-13 kernels unless the trace had run for ~2 s before the call
+    (PERF.md, Findings, PR 8).  So the call sits between two spin kernels
+    and host sleeps of a pad from ``TRACE_PADS_S``, and the trace is taken
+    again with the next pad until both spin kernels are in it; later
+    traces start at the pad that worked (``TRACE_PAD``).  It raises if the
+    last pad still loses one.  Each retry, with the spin kernel it lost,
+    is appended to ``TRACE_RETRIES``."""
+    from torch.profiler import profile
+    while TRACE_PAD[0] < len(TRACE_PADS_S):
+        pad = TRACE_PADS_S[TRACE_PAD[0]]
+        with profile(activities=activities) as prof:
+            time.sleep(pad)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = [ev for ev in prof.events()
+                  if str(ev.device_type).endswith("CUDA")]
+        spins = [ev.time_range.start for ev in events
+                 if "spin_kernel" in ev.name]
+        body = [ev for ev in events if "spin_kernel" not in ev.name]
+        if len(spins) == 2:
+            return body, wall
+        first = min((ev.time_range.start for ev in body), default=0)
+        TRACE_RETRIES.append(dict(
+            pad_s=pad, kernels=len(body),
+            lead_spin=any(t <= first for t in spins),
+            trail_spin=any(t > first for t in spins)))
+        TRACE_PAD[0] += 1
+    raise RuntimeError("chip_smoke check failed: the profiler lost a "
+                       f"bracketing kernel at every pad {TRACE_PADS_S}")
+
+
 def kernel_profile(torch, fn, launches=None):
     """Device time (ms) by kernel name of one traced call; with a dict
     ``launches``, the number of device launches by name into it."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    events, _ = device_trace(torch, fn, [ProfilerActivity.CUDA])
     per = {}
-    for ev in prof.events():
-        if str(ev.device_type).endswith("CUDA"):
-            name = kernel_name(ev.name)
-            per[name] = per.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
-            if launches is not None:
-                launches[name] = launches.get(name, 0) + 1
+    for ev in events:
+        name = kernel_name(ev.name)
+        per[name] = per.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        if launches is not None:
+            launches[name] = launches.get(name, 0) + 1
     return per
 
 
@@ -1694,20 +1960,15 @@ def phase_three_dispatch_throughput(torch, sp, fe, cfg_mod, device):
 def phase_profile(torch, label, run, n_frames, top=8):
     """One traced call of a driver: device busy time, idle share of the
     host wall, kernel launches, and the kernels that take the most time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    events, wall = device_trace(
+        torch, run, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     per_kernel = {}
-    for ev in prof.events():
-        if str(ev.device_type).endswith("CUDA"):
-            n, us = per_kernel.get(ev.name, (0, 0.0))
-            per_kernel[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    for ev in events:
+        n, us = per_kernel.get(ev.name, (0, 0.0))
+        per_kernel[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
     busy_ms = sum(us for _, us in per_kernel.values()) / 1e3
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     emit("profile", driver=label, frames=n_frames,
@@ -2315,6 +2576,36 @@ def phase_seed_spread(torch, cfg_mod, device):
                     seeds=rs) for d, rs in rows.items()})
 
 
+def phase_seed_spread_gates(torch, cfg_mod, device):
+    """The new gates' position RMSE over SPREAD_SEEDS (printed, not gated):
+    MUSIC on the 64-frame scene, the 32-frame rig scene through the batched
+    rig, the adversarial scene through the batched driver."""
+    from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    from radar_slam_tpu_torch.pipeline.rig import process_sequence_rig_batched
+    cfg = bench_config(cfg_mod)
+    music = with_method(cfg, "music")
+    b64, g64 = scene(64, cfg, device)
+    brig, grig = rig_scene(32, cfg, device)
+    badv, gadv = adversarial_scene(cfg, device)
+    runs = {"music": (lambda g: process_sequence_batched(b64, g, music),
+                      g64, 0.15),
+            "rig": (lambda g: process_sequence_rig_batched(brig, g, cfg,
+                                                          RIG4), grig, 0.10),
+            "adversarial": (lambda g: process_sequence_batched(badv, g, cfg),
+                            gadv, 0.777)}
+    rows = {}
+    for name, (run, gt, limit) in runs.items():
+        rmse = [float(planar_pose_errors(
+            run(torch.Generator().manual_seed(seed)).pose.cpu().numpy(),
+            gt["poses"])["position_rmse"]) for seed in SPREAD_SEEDS]
+        rows[name] = dict(pos_rmse_m=rmse, limit_m=limit,
+                          passing_seeds=[s for s, r in zip(SPREAD_SEEDS, rmse)
+                                         if r <= limit],
+                          median_m=float(np.median(rmse)))
+    emit("seed_spread_gates", seeds=list(SPREAD_SEEDS), **rows)
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -2373,6 +2664,7 @@ def main():
     from radar_slam_tpu_torch.ops import synthpower as sp
     from radar_slam_tpu_torch.pipeline.frame import (
         process_sequence_batched, process_signal_sequence_batched)
+    from radar_slam_tpu_torch.pipeline.rig import process_sequence_rig_batched
 
     device = torch.device("cuda", 0)
     fe.use_f32_matmuls()
@@ -2386,7 +2678,11 @@ def main():
     k = (power, rds_op, dechirp, cfar)
 
     max_err = phase_kernel_vs_plain(torch, fe, cfg_mod, device)
-    launches, split_pose = phase_pipeline(torch, fe, cfg_mod, device)
+    launches, split_pose, bf_rmse = phase_pipeline(torch, fe, cfg_mod,
+                                                   device)
+    phase_music_pipeline(torch, fe, cfg_mod, device, bf_rmse)
+    phase_adversarial(torch, fe, cfg_mod, device)
+    rig_launches = phase_rig_pipeline(torch, fe, cfg_mod, device)
     cube_err = phase_cube_kernels_vs_plain(torch, k, cfg_mod, device)
     cube_launches, cube_pose = phase_cube_pipeline(torch, k, cfg_mod, device)
     synth_err = phase_synth_kernels_vs_plain(torch, sp, fe, power, cfg_mod,
@@ -2411,6 +2707,7 @@ def main():
     phase_frontend_breakdown(torch, fe, cfg_mod, device)
     phase_sequential_latency(torch, fe, cfg_mod, device)
     phase_seed_spread(torch, cfg_mod, device)
+    phase_seed_spread_gates(torch, cfg_mod, device)
 
     cfg = bench_config(cfg_mod)
     batch, _ = scene(2048, cfg, device)
@@ -2423,11 +2720,23 @@ def main():
                   lambda: process_sequence_batched(
                       batch, torch.Generator().manual_seed(0), os_cfg), 2048)
     os_cfar_stage(torch, sp, os_cfg, batch)
+    phase_profile(torch, "process_sequence_batched (MUSIC)",
+                  lambda: process_sequence_batched(
+                      batch, torch.Generator().manual_seed(0),
+                      with_method(cfg, "music")), 2048)
     del batch
+    rig_batch, _ = rig_scene(512, cfg, device)
+    phase_profile(torch, "process_sequence_rig_batched (4 sensors)",
+                  lambda: process_sequence_rig_batched(
+                      rig_batch, torch.Generator().manual_seed(0), cfg,
+                      RIG4), 512)
+    del rig_batch
     sig, _ = cube_signals(2048, cfg, device, 0)
     phase_profile(torch, "process_signal_sequence_batched",
                   lambda: process_signal_sequence_batched(sig, cfg), 2048)
     del sig
+    emit("trace_retries", pads_s=list(TRACE_PADS_S),
+         final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 
     # Bounds at the timed shapes: 64 frames of the bench cell.
     A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
@@ -2451,6 +2760,7 @@ def main():
     kernels = [entry("K1", "frontend_split", KERNEL_SOURCE, KERNEL_REPLACES,
                      launches, max_err, (ms, plain_ms, k1_sub))]
     kernels[0]["ms_f1"] = k1_f1
+    kernels[0]["rig_launches"] = rig_launches
     for name, wrapper in (("K3", "frontend_dense"),
                           ("K4", "scatterer_power"),
                           ("K5", "scatterer_signatures"),

@@ -1,13 +1,25 @@
-"""Batched beamforming angle-of-arrival estimation.
+"""Batched angle-of-arrival estimation on a ULA: beamforming, MUSIC,
+ESPRIT.
 
-Counterpart of ``radar_slam_tpu/aoa/estimators.py`` for the production
-method (beamforming over a ULA): the spectrum of every detection is one
-complex matmul |S A^H|^2 against the grid steering matrix, refined by a
-parabola through the peak and its neighbours.  Leading axes (frames,
-detections) broadcast.  MUSIC, ESPRIT and URA arrays are not ported yet.
+Counterpart of ``radar_slam_tpu/aoa/estimators.py``.  Leading axes
+(frames, detections) broadcast.
+
+- beamforming: the spectrum of every detection is one complex matmul
+  |S A^H|^2 against the grid steering matrix, refined by a parabola
+  through the peak and its neighbours;
+- MUSIC: the null spectrum a^H P_n a from the closed-form rank-<=2 signal
+  subspace of the single-snapshot covariance (forward-backward averaged
+  with ``music_fb``), as the residual norm ||a - sum (e_j^H a) e_j||^2,
+  refined on the negated null spectrum;
+- ESPRIT: the phase slope between shifted subarrays, lag 1 or the
+  |r_m|-weighted fit over every lag (``esprit_weighted``).
+
+URA arrays (joint azimuth-elevation search) are not ported yet.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -87,16 +99,206 @@ def rank1_eigenvalues(signatures: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ---- subspace methods -------------------------------------------------------
+
+def signature_covariances(signatures: torch.Tensor,
+                          forward_backward: bool = False,
+                          diagonal_load: float = 0.0) -> torch.Tensor:
+    """Single-snapshot covariances [..., A, A] = s s^H, averaged with
+    J conj(R) J (``forward_backward``) and loaded with eps I
+    (``diagonal_load``)."""
+    R = signatures[..., :, None] * signatures[..., None, :].conj()
+    if forward_backward:
+        # J X J with the exchange matrix J reverses both axes of X.
+        R = 0.5 * (R + torch.flip(R.conj(), (-2, -1)))
+    if diagonal_load:
+        R = R + diagonal_load * torch.eye(R.shape[-1], dtype=R.dtype,
+                                          device=R.device)
+    return R
+
+
+def eigendecompose(R: torch.Tensor):
+    """Batched Hermitian eigendecomposition with DESCENDING eigenvalues:
+    (eigenvalues [..., A] real, eigenvectors [..., A, A], column i the
+    i-th).  ``torch.linalg.eigh`` returns them ascending."""
+    vals, vecs = torch.linalg.eigh(R)
+    return torch.flip(vals, (-1,)), torch.flip(vecs, (-1,))
+
+
+def _rank2_signal_eigvecs(signatures: torch.Tensor, forward_backward: bool):
+    """Closed-form top-2 eigenvectors of the single-snapshot covariance.
+
+    Without forward-backward averaging the covariance is the rank-1 s s^H
+    (top eigenvector s/|s|); with it, (s s^H + t t^H)/2 with t = J conj(s),
+    whose nonzero eigenvectors lie in span{s, t} and come from a 2x2
+    Hermitian eigenproblem.  Returns (E [..., 2, A] orthonormal,
+    descending; rank [...] int32 in {0, 1, 2}); where the pair is colinear
+    or s = 0 the second row is zero and the rank says so."""
+    eps = 1e-20
+    ns = torch.sqrt(torch.sum(signatures.abs() ** 2, dim=-1,
+                              keepdim=True))                     # [..., 1]
+    u1 = signatures / torch.clamp(ns, min=eps)
+    if not forward_backward:
+        E = torch.stack([u1, torch.zeros_like(u1)], dim=-2)
+        return E, (ns[..., 0] > 0).to(torch.int32)
+    t = torch.flip(signatures.conj(), (-1,))                     # J conj(s)
+    c = torch.sum(u1.conj() * t, dim=-1, keepdim=True)           # u1^H t
+    w = t - c * u1
+    nw = torch.sqrt(torch.sum(w.abs() ** 2, dim=-1, keepdim=True))
+    rank2 = nw[..., 0] > 1e-6 * torch.clamp(ns[..., 0], min=eps)
+    u2 = torch.where(rank2[..., None], w / torch.clamp(nw, min=eps), 0.0)
+    # R_fb in the {u1, u2} basis: 0.5 ([[|s|^2, 0], [0, 0]] + tau tau^H),
+    # tau = (c, |w|).
+    a11 = 0.5 * (ns[..., 0] ** 2 + c[..., 0].abs() ** 2)
+    a12 = 0.5 * (c[..., 0] * nw[..., 0])                         # complex
+    a22 = 0.5 * nw[..., 0] ** 2
+    mean = 0.5 * (a11 + a22)
+    disc = torch.sqrt(torch.clamp((0.5 * (a11 - a22)) ** 2 + a12.abs() ** 2,
+                                  min=0.0))
+    lam1 = mean + disc
+    # The lam1 eigenvector of [[a11, a12], [conj(a12), a22]]: the
+    # (a12, lam1 - a11) form, or (lam1 - a22, conj(a12)) where that pair
+    # degenerates (a12 ~ 0 and lam1 ~ a11: e1 = u1).
+    v1a = torch.stack([a12, (lam1 - a11).to(a12.dtype)], dim=-1)
+    v1b = torch.stack([(lam1 - a22).to(a12.dtype), a12.conj()], dim=-1)
+    use_b = (v1b[..., 0].abs() + v1b[..., 1].abs()
+             > v1a[..., 0].abs() + v1a[..., 1].abs())
+    v1 = torch.where(use_b[..., None], v1b, v1a)
+    n1 = torch.sqrt(torch.sum(v1.abs() ** 2, dim=-1, keepdim=True))
+    e0 = torch.tensor([1.0, 0.0], dtype=v1.dtype, device=v1.device)
+    v1 = torch.where(n1 > eps, v1 / torch.clamp(n1, min=eps), e0)
+    # The in-span orthogonal complement is the lam2 eigenvector.
+    v2 = torch.stack([-v1[..., 1].conj(), v1[..., 0].conj()], dim=-1)
+    e1 = v1[..., :1] * u1 + v1[..., 1:] * u2
+    e2 = v2[..., :1] * u1 + v2[..., 1:] * u2
+    e1 = torch.where(rank2[..., None], e1, u1)
+    e2 = torch.where(rank2[..., None], e2, 0.0)
+    rank = (ns[..., 0] > 0).to(torch.int32) + rank2.to(torch.int32)
+    return torch.stack([e1, e2], dim=-2), rank
+
+
+# Signatures per chunk of the MUSIC residual: its [n, G, A] complex
+# intermediates stay near 0.2 GB each at the bench's G = 91, A = 8.
+_MUSIC_CHUNK = 1 << 15
+
+
+def music_denominator(signatures: torch.Tensor, steering: torch.Tensor,
+                      num_sources=1,
+                      forward_backward: bool = False) -> torch.Tensor:
+    """MUSIC null spectra [..., K, G]: d(theta) = a^H P_n a with
+    P_n = I - sum_{j < min(m, rank)} e_j e_j^H (the closed-form signal
+    eigenvectors of :func:`_rank2_signal_eigvecs`).
+
+    Evaluated as the RESIDUAL NORM ||a - sum_j (e_j^H a) e_j||^2, never as
+    |a|^2 - sum_j |e_j^H a|^2: near the null both terms of the difference
+    are ~A, so it loses ~1e-7 A absolutely -- all of the value at the bins
+    the sub-grid refinement fits.  The residual is evaluated over chunks
+    of signatures to bound its [n, G, A] intermediates."""
+    lead = signatures.shape[:-1]
+    A = signatures.shape[-1]
+    m = torch.broadcast_to(torch.as_tensor(num_sources, dtype=torch.int32,
+                                           device=signatures.device), lead)
+    E, rank = _rank2_signal_eigvecs(signatures.reshape(-1, A),
+                                    forward_backward)            # [n, 2, A]
+    m = torch.minimum(m.reshape(-1), rank)
+    sig_mask = torch.arange(2, device=m.device)[None, :] < m[:, None]
+    out = []
+    for i in range(0, E.shape[0], _MUSIC_CHUNK):
+        e = E[i:i + _MUSIC_CHUNK]
+        # proj[n, j, g] = e_j^H a_g  (one [n*2, A] x [A, G] product).
+        proj = e.conj() @ steering.transpose(0, 1)
+        proj = torch.where(sig_mask[i:i + _MUSIC_CHUNK, :, None], proj, 0.0)
+        resid = steering[None] - proj.transpose(1, 2) @ e        # [n, G, A]
+        out.append(torch.sum(resid.real ** 2 + resid.imag ** 2, dim=-1))
+    return torch.cat(out).reshape(*lead, steering.shape[0])
+
+
+def _pseudo_spectrum(denom: torch.Tensor) -> torch.Tensor:
+    return torch.where(denom > 1e-12, 1.0 / torch.clamp(denom, min=1e-12),
+                       0.0)
+
+
+def music_spectrum(signatures: torch.Tensor, steering: torch.Tensor,
+                   num_sources=1,
+                   forward_backward: bool = False) -> torch.Tensor:
+    """MUSIC pseudo-spectra [..., K, G] = 1 / (a^H P_n a), 0 where the
+    null spectrum is at most 1e-12."""
+    return _pseudo_spectrum(music_denominator(signatures, steering,
+                                              num_sources, forward_backward))
+
+
+def estimate_music(signatures: torch.Tensor, cfg: RadarConfig,
+                   aoa: AoAConfig, num_sources=1, refine: bool = True,
+                   forward_backward: bool = False):
+    """Batched MUSIC AoA: (angles_deg [..., K], pseudo-spectra [..., K, G]).
+
+    The sub-grid parabola is fitted to the NEGATED null spectrum, which is
+    locally quadratic at the source, not to the pseudo-spectrum, a
+    near-pole there; the unrefined path takes the argmax of the (clamped)
+    pseudo-spectrum."""
+    grid = azimuth_grid_deg(aoa, signatures.device)
+    denom = music_denominator(
+        signatures, grid_steering_matrix(cfg, aoa, signatures.device),
+        num_sources, forward_backward)
+    spec = _pseudo_spectrum(denom)
+    if refine:
+        return _refine_peak(-denom, grid), spec
+    return grid[torch.argmax(spec, dim=-1)], spec
+
+
+def _multilag_slope(signatures: torch.Tensor, max_lag: int,
+                    sum_axes=(-1,)) -> torch.Tensor:
+    """Phase slope of a single spatial tone from every lag m = 1..M:
+    r_m = sum_i conj(s_i) s_{i+m} (products shift along the last axis,
+    summed over ``sum_axes``), each lag's angle unwrapped onto the lag-1
+    line (the nearest 2 pi branch of m phi_1, ties to even), then the
+    |r_m|-weighted least-squares slope through the origin."""
+    rs = [torch.sum(signatures[..., :-m].conj() * signatures[..., m:],
+                    dim=sum_axes) for m in range(1, max_lag + 1)]
+    phi1 = torch.angle(rs[0])
+    num = torch.zeros_like(phi1)
+    den = torch.zeros_like(phi1)
+    two_pi = 2.0 * math.pi
+    for m, r in enumerate(rs, start=1):
+        phi = torch.angle(r)
+        phi = phi + two_pi * torch.round((float(m) * phi1 - phi) / two_pi)
+        w = r.abs()
+        num = num + w * float(m) * phi
+        den = den + w * float(m * m)
+    return num / torch.clamp(den, min=1e-30)
+
+
+def estimate_esprit(signatures: torch.Tensor, cfg: RadarConfig,
+                    weighted: bool = True) -> torch.Tensor:
+    """Batched ESPRIT azimuths [..., K] in degrees: the phase between the
+    shifted subarrays, angle(s[:-1]^H s[1:]), or with ``weighted`` the
+    multi-lag slope (:func:`_multilag_slope`), then
+    az = arcsin(phi lambda / (2 pi d))."""
+    if weighted:
+        A = signatures.shape[-1]
+        phi = _multilag_slope(signatures, max_lag=max(A - 1, 1))
+    else:
+        phi = torch.angle(torch.sum(signatures[..., :-1].conj()
+                                    * signatures[..., 1:], dim=-1))
+    arg = phi * cfg.lambda_c / (2.0 * math.pi * cfg.spacing)
+    return torch.rad2deg(torch.asin(torch.clamp(arg, -1.0, 1.0)))
+
+
 def estimate_angles(signatures: torch.Tensor, cfg: RadarConfig,
                     aoa: AoAConfig, method: str = "beamforming",
                     num_sources=1):
-    """Dispatch over estimation methods: (angles_deg, spectra)."""
+    """Dispatch over estimation methods: (angles_deg, spectra); ESPRIT
+    has no spectra (None).  MUSIC reads ``aoa.music_fb``, ESPRIT
+    ``aoa.esprit_weighted``."""
+    _require_ula(cfg)
     if method == "beamforming":
         return estimate_beamforming(signatures, cfg, aoa)
-    if method in ("music", "esprit"):
-        raise NotImplementedError(
-            f"AoA method {method!r} is not ported yet (ROADMAP: modules to "
-            "port, MUSIC / ESPRIT)")
+    if method == "music":
+        return estimate_music(signatures, cfg, aoa, num_sources,
+                              forward_backward=aoa.music_fb)
+    if method == "esprit":
+        return estimate_esprit(signatures, cfg,
+                               weighted=aoa.esprit_weighted), None
     raise ValueError(f"Unknown method: {method}")
 
 

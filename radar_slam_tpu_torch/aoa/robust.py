@@ -2,8 +2,9 @@
 
 Counterpart of ``radar_slam_tpu/aoa/robust.py``: power filter and
 ``max_targets`` truncation as masks, MDL model order from the rank-1
-spectrum, beamforming angles, confidence, temporal smoothing through the
-slot table (``smoothing.update``), and the reliability gate.  Detections
+spectrum, angles (beamforming, MUSIC or ESPRIT), confidence, temporal
+smoothing through the slot table (``smoothing.update``), and the
+reliability gate.  Detections
 carry the leading frame axis [F, K]; with smoothing the frames go through
 the slot table one after another, in order.
 """

@@ -1,11 +1,14 @@
-"""Synthetic known-truth scenes (the bench scene) for the port.
+"""Synthetic known-truth scenes for the port.
 
 Counterpart of ``radar_slam_tpu/io/synthetic.py``: a static world point
-cloud observed by an ego vehicle under a known constant twist.  The numpy
-core is the reference's, unchanged, so the same seed gives bit-identical
-scatterer columns; only the last step differs -- the columns become
-tensors on a caller-chosen device instead of JAX arrays.  Seeds are plain
-integers (the port has no JAX keys).
+cloud observed by an ego vehicle under a known constant twist (the bench
+scene, :func:`constant_motion_scene`), the same world seen by each sensor
+of a mounted rig (:func:`constant_motion_scene_rig`), and the adversarial
+scene with moving actors, transient clutter and other model mismatches
+(:func:`mismatch_scene`).  The numpy core is the reference's, unchanged,
+so the same seed gives bit-identical scatterer columns; only the last step
+differs -- the columns become tensors on a caller-chosen device instead of
+JAX arrays.  Seeds are plain integers (the port has no JAX keys).
 """
 
 from __future__ import annotations
@@ -129,6 +132,305 @@ def constant_motion_scene(seed: int, num_frames: int, dt: float,
                              scene.max_scatterers, max_range=scene.max_range,
                              fov_rad=scene.fov_rad)
               for i in range(num_frames)]
+    gt = {
+        "poses": np.concatenate([path[:num_frames],
+                                 yaws[:num_frames, None]], axis=-1),
+        "velocity_body": np.array([v_body[0], v_body[1], 0.0]),
+        "yaw_rate": w,
+        "timestamps": np.arange(num_frames) * dt,
+    }
+    stack = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    return scatterer_batch_from_numpy(stack, device), gt
+
+
+@dataclasses.dataclass(frozen=True)
+class MismatchConfig:
+    """Adversarial / model-mismatch options of :func:`mismatch_scene`; each
+    makes the world disagree with an assumption of the solver's model, and
+    all default to off (the clean constant-twist corridor world)."""
+
+    # Moving rigid actors: clusters of points with their own world
+    # velocity.
+    num_movers: int = 0
+    mover_points: int = 3          # scatterers per actor
+    mover_speed_min: float = 3.0   # world speed range [m/s]
+    mover_speed_max: float = 10.0
+    mover_rcs_db: float = 22.0
+    # All actors drive against the ego's initial heading (oncoming lane),
+    # so their biases add up instead of cancelling.
+    mover_oncoming: bool = False
+    # Transient clutter: per-frame spurious returns at random
+    # (range, az, vr), uncorrelated across frames.
+    clutter_per_frame: int = 0
+    clutter_rcs_db: float = 14.0
+    clutter_vr_span: float = 15.0
+    # Extended targets: every world point becomes a Gaussian cluster.
+    extent_points: int = 1
+    extent_size_m: float = 0.8
+    # Frames observed at t_i = i dt + U(-j, j) dt; the solver integrates
+    # with the nominal dt.
+    dt_jitter_frac: float = 0.0
+    # All returns of a frame lost with this probability (never frames
+    # 0-1).
+    drop_frame_prob: float = 0.0
+
+
+def twist_poses(t: np.ndarray, v_body: np.ndarray, yaw_rate: float
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact constant-twist planar poses at times ``t``: (xy [T, 2],
+    yaw [T]), the closed form of x'(t) = R(w t) v_body."""
+    t = np.asarray(t, np.float64)
+    vx, vy = float(v_body[0]), float(v_body[1])
+    w = float(yaw_rate)
+    yaw = w * t
+    if abs(w) < 1e-9:
+        xy = np.stack([vx * t, vy * t], axis=-1)
+    else:
+        sw, cw = np.sin(yaw), np.cos(yaw)
+        xy = np.stack([(vx * sw + vy * (cw - 1.0)) / w,
+                       (vx * (1.0 - cw) + vy * sw) / w], axis=-1)
+    return xy, yaw
+
+
+def _observe_relative(world_xy: np.ndarray, world_vel: np.ndarray,
+                      rcs_db: np.ndarray, ego_xy: np.ndarray, ego_yaw: float,
+                      v_body: np.ndarray, max_range: float, min_range: float,
+                      fov_rad: float) -> Dict[str, np.ndarray]:
+    """Unpadded body-frame observation of (possibly moving) world points;
+    vr is the exact range rate d_b . (R^T u) - d_b . v_body."""
+    world_xy = np.asarray(world_xy, np.float64)
+    c, s = np.cos(ego_yaw), np.sin(ego_yaw)
+    rel = world_xy - np.asarray(ego_xy)[None, :]
+    xb = c * rel[:, 0] + s * rel[:, 1]
+    yb = -s * rel[:, 0] + c * rel[:, 1]
+    rng_m = np.hypot(xb, yb)
+    az = np.arctan2(yb, xb)
+    d = np.stack([xb, yb], axis=-1) / np.maximum(rng_m[:, None], 1e-6)
+    u = np.asarray(world_vel, np.float64)
+    ub = np.stack([c * u[:, 0] + s * u[:, 1],
+                   -s * u[:, 0] + c * u[:, 1]], axis=-1)
+    vr = (d[:, 0] * (ub[:, 0] - v_body[0])
+          + d[:, 1] * (ub[:, 1] - v_body[1]))
+    observable = ((rng_m <= max_range) & (rng_m >= min_range)
+                  & (np.abs(az) <= fov_rad / 2))
+    return {"range_m": rng_m.astype(np.float32),
+            "azimuth_rad": az.astype(np.float32),
+            "rcs_db": np.asarray(rcs_db, np.float32),
+            "vr": vr.astype(np.float32),
+            "valid": observable}
+
+
+def mismatch_scene(seed: int, num_frames: int, dt: float,
+                   v_body: Tuple[float, float], yaw_rate: float,
+                   scene: SceneConfig = SceneConfig(),
+                   mm: MismatchConfig = MismatchConfig(), device=DEFAULT):
+    """Adversarial scene: a constant-twist ego through a static corridor
+    world plus the :class:`MismatchConfig` perturbations.
+
+    Returns (ScattererBatch [F, S] on ``device`` -- the card unless the
+    caller names another --, gt dict as :func:`constant_motion_scene`'s
+    with the actual timestamps, ``mover_fraction`` -- the mean share of
+    observable returns that belong to moving actors -- and ``dropped``
+    [F])."""
+    device = resolve(device)
+    rng = _rng(seed)
+    vb = np.array([v_body[0], v_body[1]], np.float64)
+    w = float(yaw_rate)
+
+    t_nom = np.arange(num_frames) * dt
+    jitter = rng.uniform(-1.0, 1.0, num_frames) * mm.dt_jitter_frac * dt
+    jitter[0] = 0.0
+    t_act = t_nom + jitter
+    path, yaws = twist_poses(t_act, vb, w)
+
+    # Static world along the nominal path.
+    path_dense, _ = twist_poses(np.linspace(0.0, num_frames * dt, 64), vb, w)
+    world, rcs = corridor_points(seed, scene, path_dense)
+    if mm.extent_points > 1:
+        reps = int(mm.extent_points)
+        offs = rng.normal(0.0, mm.extent_size_m, (len(world) * reps, 2))
+        world = np.repeat(world, reps, axis=0) + offs
+        rcs = np.repeat(rcs, reps) - 10.0 * np.log10(reps)
+    static_vel = np.zeros_like(world)
+
+    # Moving actors: spawned ahead of the ego, each a small rigid cluster
+    # with a constant world velocity.
+    mover_xy = np.zeros((0, 2))
+    mover_vel = np.zeros((0, 2))
+    mover_rcs = np.zeros(0)
+    if mm.num_movers > 0:
+        idx = rng.integers(0, len(path), mm.num_movers)
+        head = yaws[idx] + rng.uniform(-0.5, 0.5, mm.num_movers)
+        dist = rng.uniform(scene.min_range + 5.0, scene.max_range * 0.7,
+                           mm.num_movers)
+        centers = path[idx] + np.stack([np.cos(head) * dist,
+                                        np.sin(head) * dist], axis=-1)
+        speed = rng.uniform(mm.mover_speed_min, mm.mover_speed_max,
+                            mm.num_movers)
+        if mm.mover_oncoming:
+            heading0 = float(np.arctan2(vb[1], vb[0]))
+            vdir = np.full(mm.num_movers, heading0 + np.pi) \
+                + rng.uniform(-0.15, 0.15, mm.num_movers)
+        else:
+            vdir = rng.uniform(-np.pi, np.pi, mm.num_movers)
+        vel = np.stack([np.cos(vdir), np.sin(vdir)], axis=-1) * speed[:, None]
+        body = rng.normal(0.0, 1.2, (mm.num_movers, mm.mover_points, 2))
+        mover_xy = (centers[:, None, :] + body).reshape(-1, 2)
+        mover_vel = np.repeat(vel, mm.mover_points, axis=0)
+        mover_rcs = np.full(len(mover_xy), mm.mover_rcs_db) \
+            + rng.uniform(-3.0, 3.0, len(mover_xy))
+
+    dropped = rng.uniform(0.0, 1.0, num_frames) < mm.drop_frame_prob
+    dropped[:2] = False
+
+    frames = []
+    mover_frac = []
+    for i in range(num_frames):
+        parts = [_observe_relative(world, static_vel, rcs, path[i], yaws[i],
+                                   vb, scene.max_range, 1.5, scene.fov_rad)]
+        if len(mover_xy):
+            mxy = mover_xy + mover_vel * t_act[i]
+            parts.append(_observe_relative(
+                mxy, mover_vel, mover_rcs, path[i], yaws[i], vb,
+                scene.max_range, 1.5, scene.fov_rad))
+        if mm.clutter_per_frame > 0:
+            n = mm.clutter_per_frame
+            parts.append({
+                "range_m": rng.uniform(2.0, scene.max_range, n
+                                       ).astype(np.float32),
+                "azimuth_rad": rng.uniform(-scene.fov_rad / 2,
+                                           scene.fov_rad / 2, n
+                                           ).astype(np.float32),
+                "rcs_db": (mm.clutter_rcs_db
+                           + rng.uniform(-4.0, 4.0, n)).astype(np.float32),
+                "vr": rng.uniform(-mm.clutter_vr_span, mm.clutter_vr_span, n
+                                  ).astype(np.float32),
+                "valid": np.ones(n, bool),
+            })
+        cat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        if dropped[i]:
+            cat["valid"] = np.zeros_like(cat["valid"])
+        n_total = len(cat["range_m"])
+        if n_total > scene.max_scatterers:
+            raise ValueError(f"{n_total} scatterers exceed capacity "
+                             f"{scene.max_scatterers}")
+        pad = scene.max_scatterers - n_total
+        n_static = len(world)
+        vis = cat["valid"]
+        n_mover_vis = int(vis[n_static:n_static + len(mover_xy)].sum())
+        mover_frac.append(n_mover_vis / max(int(vis.sum()), 1))
+        frames.append({k: np.pad(v, (0, pad)) for k, v in cat.items()})
+
+    gt = {
+        "poses": np.concatenate([path, yaws[:, None]], axis=-1),
+        "velocity_body": np.array([v_body[0], v_body[1], 0.0]),
+        "yaw_rate": w,
+        "timestamps": t_act,
+        "mover_fraction": float(np.mean(mover_frac)),
+        "dropped": dropped,
+    }
+    stack = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    return scatterer_batch_from_numpy(stack, device), gt
+
+
+def observe_points_from_sensor(world_xy: np.ndarray, rcs_db: np.ndarray,
+                               ego_xy: np.ndarray, ego_yaw: float,
+                               v_body: np.ndarray, yaw_rate: float,
+                               mount: Tuple[float, float, float],
+                               max_scatterers: int,
+                               max_range: float = 1e9,
+                               min_range: float = 1.5,
+                               fov_rad: float = 2.4) -> Dict[str, np.ndarray]:
+    """Static world points seen by ONE sensor mounted at ``mount`` =
+    (x, y, yaw) in the vehicle frame: sensor-frame polar columns padded to
+    ``max_scatterers``, and the exact range rate vr = -d . (v + w x p)
+    (d the sensor-to-target line of sight, p the target position, both in
+    the vehicle frame), whose lever-arm term makes yaw rate observable
+    from Doppler with two or more sensors."""
+    world_xy = np.asarray(world_xy, np.float64)
+    mx, my, myaw = float(mount[0]), float(mount[1]), float(mount[2])
+    c, s = np.cos(ego_yaw), np.sin(ego_yaw)
+    rel = world_xy - np.asarray(ego_xy)[None, :]
+    # Target position p in the vehicle (body) frame.
+    px = c * rel[:, 0] + s * rel[:, 1]
+    py = -s * rel[:, 0] + c * rel[:, 1]
+    # Sensor->target vector in the vehicle frame.
+    ex, ey = px - mx, py - my
+    rng_m = np.hypot(ex, ey)
+    dx, dy = ex / np.maximum(rng_m, 1e-6), ey / np.maximum(rng_m, 1e-6)
+    # Azimuth in the SENSOR frame (boresight rotated by the mount yaw).
+    az = np.arctan2(ey, ex) - myaw
+    az = np.arctan2(np.sin(az), np.cos(az))
+    w = float(yaw_rate)
+    # v + w x p (planar): (vx - w py, vy + w px).
+    vr = -(dx * (v_body[0] - w * py) + dy * (v_body[1] + w * px))
+
+    n = len(world_xy)
+    if max_scatterers < n:
+        raise ValueError("max_scatterers smaller than point count")
+    pad = max_scatterers - n
+
+    def z(x):
+        return np.pad(np.asarray(x, np.float32), (0, pad))
+
+    observable = ((rng_m <= max_range) & (rng_m >= min_range)
+                  & (np.abs(az) <= fov_rad / 2))
+    return {
+        "range_m": z(rng_m), "azimuth_rad": z(az), "rcs_db": z(rcs_db),
+        "vr": z(vr),
+        "valid": np.pad(observable, (0, pad)),
+    }
+
+
+def constant_motion_scene_rig(seed: int, num_frames: int, dt: float,
+                              v_body: Tuple[float, float],
+                              yaw_rate: float,
+                              rig: Tuple[Tuple[float, float, float], ...],
+                              scene: SceneConfig = SceneConfig(),
+                              device=DEFAULT):
+    """The constant-twist scene seen by each sensor of ``rig`` ((x, y, yaw)
+    mounts in the vehicle frame) in its own frame; points are placed along
+    each sensor's boresight around the path so every sensor keeps returns
+    in view.
+
+    Returns (ScattererBatch [F, B, S] on ``device`` -- the card unless the
+    caller names another --, gt dict as :func:`constant_motion_scene`'s)."""
+    device = resolve(device)
+    vb = np.array([v_body[0], v_body[1]], np.float64)
+    w = float(yaw_rate)
+
+    yaws = w * dt * np.arange(num_frames + 1)
+    c, s = np.cos(yaws[:-1]), np.sin(yaws[:-1])
+    steps = np.stack([c * vb[0] - s * vb[1], s * vb[0] + c * vb[1]],
+                     axis=-1) * dt
+    path = np.concatenate([np.zeros((1, 2)), np.cumsum(steps, axis=0)])
+
+    rng = _rng(seed)
+    worlds = []
+    for mount in rig:
+        n = scene.num_points
+        idx = rng.integers(0, len(path), n)
+        base = path[idx]
+        head = yaws[idx] + mount[2]
+        along = rng.uniform(scene.min_range, scene.max_range * 0.8, n)
+        across = rng.uniform(-0.4, 0.4, n) * scene.max_range
+        pts = base + np.stack([
+            np.cos(head) * along - np.sin(head) * across,
+            np.sin(head) * along + np.cos(head) * across], axis=-1)
+        rcs = rng.uniform(scene.rcs_min_db, scene.rcs_max_db, n)
+        worlds.append((pts, rcs))
+
+    frames = []
+    for i in range(num_frames):
+        per_sensor = [
+            observe_points_from_sensor(
+                worlds[b][0], worlds[b][1], path[i], yaws[i], vb, w, mount,
+                scene.max_scatterers, max_range=scene.max_range,
+                fov_rad=scene.fov_rad)
+            for b, mount in enumerate(rig)]
+        frames.append({k: np.stack([ps[k] for ps in per_sensor])
+                       for k in per_sensor[0]})
+
     gt = {
         "poses": np.concatenate([path[:num_frames],
                                  yaws[:num_frames, None]], axis=-1),

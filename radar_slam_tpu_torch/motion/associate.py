@@ -1,15 +1,19 @@
 """Cross-frame target association (mutual nearest neighbours), batched.
 
 Counterpart of ``radar_slam_tpu/motion/associate.py:associate_targets``
-with ``association_method="mutual"`` and the cartesian metric, over a
-leading frame axis: current target i and previous target j match iff
-each is the other's nearest (reliable, gated) neighbour.  Also computes
-what the velocity solver needs per match: the temporal phase difference
-on reference antenna 0, the apparent velocity and the match weight.
-The reference's sequential "greedy" method is not ported yet.
+with ``association_method="mutual"``, over a leading frame axis: current
+target i and previous target j match iff each is the other's nearest
+(reliable, gated, same-group) neighbour under the cartesian or the polar
+metric.  Also computes what the velocity solver needs per match: the
+temporal phase difference on reference antenna 0, the apparent velocity,
+the match weight and the line of sight (from the vehicle origin, or from
+each target's own sensor on a mounted rig).  The reference's sequential
+"greedy" method is not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,8 +23,18 @@ from radar_slam_tpu_torch.core.types import Associations, Targets
 
 
 def associate_targets(current: Targets, previous: Targets, dt: float,
-                      cfg: VelocityConfig) -> Associations:
-    """Mutual-NN gated association between two target sets [F, K]."""
+                      cfg: VelocityConfig, metric: str = "cartesian",
+                      sensor_pos: Optional[torch.Tensor] = None,
+                      group: Optional[torch.Tensor] = None) -> Associations:
+    """Mutual-NN gated association between two target sets [F, K].
+
+    ``metric``: "cartesian", the distance between (x, y) positions, or
+    "polar", sqrt(d_range^2 + d_azimuth^2) in metres and radians.
+    ``sensor_pos`` [K, 3]: the vehicle-frame origin of the sensor that
+    observed each current target; the line of sight is then
+    (position - sensor_pos) normalized, as a mounted radar needs.
+    ``group`` [K] int32: a block id shared by both frames' layouts;
+    matches stay within equal ids (one physical sensor)."""
     if cfg.association_method == "greedy":
         raise NotImplementedError(
             "association_method='greedy' is not ported yet (ROADMAP: "
@@ -35,9 +49,18 @@ def associate_targets(current: Targets, previous: Targets, dt: float,
     prev_ok = previous.valid & previous.is_reliable
     cur_pos = current.position
     prev_pos = previous.position
-    diff = cur_pos[:, :, None, :2] - prev_pos[:, None, :, :2]
-    dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)   # [F, K, K]
+    if metric == "cartesian":
+        diff = cur_pos[:, :, None, :2] - prev_pos[:, None, :, :2]
+        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)  # [F, K, K]
+    elif metric == "polar":
+        dr = current.range_m[:, :, None] - previous.range_m[:, None, :]
+        da = current.azimuth_rad[:, :, None] - previous.azimuth_rad[:, None, :]
+        dist = torch.sqrt(dr * dr + da * da)
+    else:
+        raise ValueError(f"Unknown association metric: {metric}")
     ok = cur_ok[:, :, None] & prev_ok[:, None, :]
+    if group is not None:
+        ok = ok & (group[:, None] == group[None, :])
     dist = torch.where(ok, dist, 1e9)
 
     j_of_i = torch.argmin(dist, dim=2)                           # [F, K]
@@ -58,9 +81,14 @@ def associate_targets(current: Targets, previous: Targets, dt: float,
     dt = max(float(dt), 1e-6)
     apparent_v = (cur_pos - p_prev) / dt
 
-    el = (current.elevation_rad if current.elevation_rad is not None
-          else torch.zeros_like(current.azimuth_rad))
-    direction = direction_vector(current.azimuth_rad, el)
+    if sensor_pos is None:
+        el = (current.elevation_rad if current.elevation_rad is not None
+              else torch.zeros_like(current.azimuth_rad))
+        direction = direction_vector(current.azimuth_rad, el)
+    else:
+        rel = cur_pos - sensor_pos
+        direction = rel / torch.clamp(
+            torch.linalg.vector_norm(rel, dim=-1, keepdim=True), min=1e-6)
     return Associations(
         prev_index=j_of_i.to(torch.int32),
         distance=torch.where(hit, best_dist, 0.0),

@@ -84,7 +84,7 @@ def _check_common(cfg: PipelineConfig) -> None:
     if cfg.radar.num_antennas_el != 1:
         raise NotImplementedError(
             "num_antennas_el > 1 (a 2-D array) is not ported (ROADMAP: "
-            "MUSIC / ESPRIT and URA arrays)")
+            "URA arrays and elevation)")
 
 
 def _no_clutter_map(cfg: PipelineConfig, driver: str) -> None:
@@ -296,14 +296,20 @@ def _aoa_features(det: Detections, sigs: torch.Tensor, cfg: PipelineConfig):
     return det, sigs, keep, num_sources, is_multi, angles_deg, el_deg, conf
 
 
-def _batched_assoc_solve(targets: Targets, cfg: PipelineConfig
+def _batched_assoc_solve(targets: Targets, cfg: PipelineConfig,
+                         sensor_pos: Optional[torch.Tensor] = None,
+                         group: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, MotionEstimate]:
     """Association with the previous frame (a shift, not a scan) and the
-    velocity solve, batched over frames; no temporal prior."""
+    velocity solve, batched over frames; no temporal prior.
+    ``sensor_pos`` [K, 3] and ``group`` [K] are the mounted rig's
+    per-target sensor origins and sensor-block ids
+    (``pipeline/rig.py``)."""
     F = targets.range_m.shape[0]
     prev = Targets(*[None if x is None else torch.cat([x[:1], x[:-1]])
                      for x in targets])
-    assoc = associate_targets(targets, prev, cfg.frame_dt, cfg.velocity)
+    assoc = associate_targets(targets, prev, cfg.frame_dt, cfg.velocity,
+                              sensor_pos=sensor_pos, group=group)
     has_prev = torch.arange(F, device=targets.range_m.device) > 0
     assoc = assoc._replace(valid=assoc.valid & has_prev[:, None])
     motion = solve_velocity(
@@ -330,19 +336,14 @@ def _pose_prefix(motion: MotionEstimate, cfg: PipelineConfig,
     return torch.cat([xy_after, yaw_after[:, None]], dim=-1)
 
 
-def _sequence_from_features(features, cfg: PipelineConfig,
-                            rotate_pose: bool) -> FrameOutput:
-    """Phase B: windowed temporal smoothing, shift-association, batched
-    solves, prefix-sum pose."""
-    (det, sigs, keep, num_sources, is_multi, angles_deg, el_deg,
-     conf) = features
-    D = cfg.radar.num_chirps
-    det_keys = det.range_bin * D + det.doppler_bin                # [F, K]
-    angles_s, conf_s = smoothing.smooth_windowed(
-        det_keys, angles_deg, conf, keep, cfg.aoa)
-
+def _smoothed_targets(features, angles_s: torch.Tensor,
+                      conf_s: torch.Tensor, cfg: PipelineConfig) -> Targets:
+    """The targets of the AoA features after temporal smoothing (smoothed
+    angles ``angles_s`` [deg] and confidences ``conf_s``), reliable where
+    kept, confident and single-source."""
+    (det, sigs, keep, num_sources, is_multi, _, el_deg, _) = features
     reliable = keep & (conf_s >= cfg.aoa.confidence_threshold) & ~is_multi
-    targets = Targets(
+    return Targets(
         range_bin=det.range_bin, doppler_bin=det.doppler_bin,
         range_m=det.range_m, doppler_hz=det.doppler_hz,
         vr_mps=det.vr_mps, power_db=det.power_db,
@@ -351,12 +352,25 @@ def _sequence_from_features(features, cfg: PipelineConfig,
         is_reliable=reliable, spatial_signature=sigs, valid=keep,
         elevation_rad=torch.deg2rad(el_deg))
 
+
+def _sequence_from_features(features, cfg: PipelineConfig,
+                            rotate_pose: bool) -> FrameOutput:
+    """Phase B: windowed temporal smoothing, shift-association, batched
+    solves, prefix-sum pose."""
+    det, _, keep, _, _, angles_deg, _, conf = features
+    D = cfg.radar.num_chirps
+    det_keys = det.range_bin * D + det.doppler_bin                # [F, K]
+    angles_s, conf_s = smoothing.smooth_windowed(
+        det_keys, angles_deg, conf, keep, cfg.aoa)
+
+    targets = _smoothed_targets(features, angles_s, conf_s, cfg)
     n_assoc, motion = _batched_assoc_solve(targets, cfg)
     pose = _pose_prefix(motion, cfg, rotate_pose)
     return FrameOutput(
         motion=motion, pose=pose,
         num_detections=torch.sum(det.valid, dim=-1).to(torch.int32),
-        num_reliable=torch.sum(reliable, dim=-1).to(torch.int32),
+        num_reliable=torch.sum(targets.is_reliable,
+                               dim=-1).to(torch.int32),
         num_associations=n_assoc.to(torch.int32),
         target_xy=targets.position[..., :2],
         target_valid=targets.valid & targets.is_reliable)
@@ -619,12 +633,18 @@ def _cat_outputs(outs: List[FrameOutput]) -> FrameOutput:
            for name in FrameOutput._fields if name != "motion"})
 
 
+def _map(fn, tree):
+    """``fn`` over the tensors of a (nested) tuple or NamedTuple, None
+    kept."""
+    items = [None if x is None else _map(fn, x) if isinstance(x, tuple)
+             else fn(x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
 def _frame(batch, i: int, j: int):
     """Frames i..j-1 of a NamedTuple of [F, ...] tensors, nested
     NamedTuples included (None kept)."""
-    return type(batch)(*[None if x is None
-                         else _frame(x, i, j) if isinstance(x, tuple)
-                         else x[i:j] for x in batch])
+    return _map(lambda x: x[i:j], batch)
 
 
 def process_sequence(scatterers: ScattererBatch, generator: torch.Generator,
@@ -718,25 +738,15 @@ def process_sequence_chunked(scatterers: ScattererBatch,
         _, det_b, sigs_b = _scatterer_front_end(
             _frame(scatterers, c * W, (c + 1) * W), seeds[c * W:(c + 1) * W],
             cfg)
-        (det, sigs, keep, num_sources, is_multi, angles_deg, el_deg,
-         conf) = _aoa_features(det_b, sigs_b, cfg)
+        features = _aoa_features(det_b, sigs_b, cfg)
+        det, _, keep, _, _, angles_deg, _, conf = features
 
         det_keys = det.range_bin * D + det.doppler_bin           # [W, K]
         hk, ha, hc, hv = hist
         sm_ang, sm_conf = smoothing.smooth_windowed(
             torch.cat([hk, det_keys]), torch.cat([ha, angles_deg]),
             torch.cat([hc, conf]), torch.cat([hv, keep]), cfg.aoa)
-        sm_ang, sm_conf = sm_ang[H:], sm_conf[H:]
-        reliable = (keep & (sm_conf >= cfg.aoa.confidence_threshold)
-                    & ~is_multi)
-        targets = Targets(
-            range_bin=det.range_bin, doppler_bin=det.doppler_bin,
-            range_m=det.range_m, doppler_hz=det.doppler_hz,
-            vr_mps=det.vr_mps, power_db=det.power_db,
-            azimuth_rad=torch.deg2rad(sm_ang), confidence=sm_conf,
-            num_sources=num_sources, is_multipath=is_multi,
-            is_reliable=reliable, spatial_signature=sigs, valid=keep,
-            elevation_rad=torch.deg2rad(el_deg))
+        targets = _smoothed_targets(features, sm_ang[H:], sm_conf[H:], cfg)
 
         prev_b = Targets(*[None if p is None else torch.cat([p, x[:-1]])
                            for p, x in zip(prev_t, targets)])
@@ -766,7 +776,8 @@ def process_sequence_chunked(scatterers: ScattererBatch,
         outs.append(FrameOutput(
             motion=motion_b, pose=pose_b,
             num_detections=torch.sum(det.valid, dim=1).to(torch.int32),
-            num_reliable=torch.sum(reliable, dim=1).to(torch.int32),
+            num_reliable=torch.sum(targets.is_reliable,
+                                   dim=1).to(torch.int32),
             num_associations=torch.sum(assoc_b.valid,
                                        dim=1).to(torch.int32),
             target_xy=targets.position[..., :2],

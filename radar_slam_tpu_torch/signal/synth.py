@@ -196,15 +196,25 @@ def synthesize_frames_batch(scatterers: ScattererBatch, cfg: RadarConfig,
                             fidelity: str = "tpu") -> torch.Tensor:
     """:func:`synthesize_frame` over a frame batch [F, Sc] -> [F, A, C, S],
     the per-frame seeds drawn from ``generator`` (as the pipeline's
-    ``frame_seeds``).  Frames are synthesized ``_CHUNK`` at a time: the
-    Philox draw holds several int64 tensors of _CHUNK * A * C * S elements
-    (~0.2 GB each at the bench shapes)."""
+    ``frame_seeds``); see :func:`synthesize_frames_seeded`."""
+    seeds = frame_seeds(generator, scatterers.range_m.shape[0],
+                        scatterers.range_m.device)
+    return synthesize_frames_seeded(scatterers, cfg, seeds, output,
+                                    add_noise, fidelity)
+
+
+def synthesize_frames_seeded(scatterers: ScattererBatch, cfg: RadarConfig,
+                             seeds: torch.Tensor, output: str = "baseband",
+                             add_noise: bool = True,
+                             fidelity: str = "tpu") -> torch.Tensor:
+    """:func:`synthesize_frame` over a frame batch [F, Sc] and its seeds
+    [F] -> [F, A, C, S], ``_CHUNK`` frames at a time: the Philox draw holds
+    several int64 tensors of _CHUNK * A * C * S elements (~0.2 GB each at
+    the bench shapes)."""
     F = scatterers.range_m.shape[0]
-    dev = scatterers.range_m.device
-    seeds = frame_seeds(generator, F, dev)
     out = torch.empty((F, cfg.num_antennas, cfg.num_chirps,
                        cfg.samples_per_chirp), dtype=torch.complex64,
-                      device=dev)
+                      device=scatterers.range_m.device)
     for i in range(0, F, _CHUNK):
         part = ScattererBatch(*[None if x is None else x[i:i + _CHUNK]
                                 for x in scatterers])

@@ -6,6 +6,7 @@ handed to both packages: the JAX reference as jnp arrays, the port through
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -43,3 +44,45 @@ def to_np(x):
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def patch_eager_synthesis(monkeypatch, *modules):
+    """Replace ``synthesize_frame`` in each of the reference's ``modules``
+    by its eager evaluation off the trace: a host callback into the port's
+    synthesis, which equals the reference's eager form.  Jitted, the
+    reference rounds its float32 synthesis phases otherwise than eagerly.
+    For configurations with noise_power 0 (the noise key is unused)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from radar_slam_tpu_torch.core import config as tcfg
+    from radar_slam_tpu_torch.core.types import scatterer_batch_from_numpy
+    from radar_slam_tpu_torch.signal.synth import synthesize_frame
+
+    def host(radar, fidelity, *cols):
+        names = ("range_m", "azimuth_rad", "rcs_db", "vr", "valid",
+                 "elevation_rad")
+        batch = scatterer_batch_from_numpy(
+            {n: np.asarray(c)[None] for n, c in zip(names, cols)}, "cpu")
+        return to_np(synthesize_frame(batch, radar,
+                                      torch.zeros(1, dtype=torch.int32),
+                                      add_noise=False,
+                                      fidelity=fidelity))[0]
+
+    def synth(scatterers, cfg, key, output="baseband", add_noise=True,
+              fidelity="tpu"):
+        assert cfg.noise_power == 0.0 and output == "baseband"
+        radar = tcfg.RadarConfig(**dataclasses.asdict(cfg))
+        cols = [scatterers.range_m, scatterers.azimuth_rad,
+                scatterers.rcs_db, scatterers.vr, scatterers.valid]
+        if scatterers.elevation_rad is not None:
+            cols.append(scatterers.elevation_rad)
+        shape = jax.ShapeDtypeStruct(
+            (cfg.num_antennas, cfg.num_chirps, cfg.samples_per_chirp),
+            jnp.complex64)
+        return jax.pure_callback(functools.partial(host, radar, fidelity),
+                                 shape, *cols, vmap_method="sequential")
+
+    for module in modules:
+        monkeypatch.setattr(module, "synthesize_frame", synth)

@@ -126,7 +126,9 @@ def test_scatterer_driver_materialized_branch():
 
 @pytest.mark.parametrize("driver,knob,exc", [
     ("cube", dict(aoa=dataclasses.replace(bench_config().aoa,
-                                          method="music")),
+                                          method="music"),
+                  radar=dataclasses.replace(bench_config().radar,
+                                            num_antennas_el=2)),
      NotImplementedError),
     ("cube", dict(chirp_subset=(0, 16)), NotImplementedError),
     ("cube", dict(radar=dataclasses.replace(bench_config().radar,

@@ -3,10 +3,12 @@
 - Against the reference: the composition a TPU runs
   (``frame._onepass_frontend`` -> vmapped ``_aoa_features`` ->
   ``_sequence_from_features``) with the Pallas kernel in interpret mode, at
-  sigma = 0 (interpret mode's PRNG is degenerate).  The reference's CPU
-  pipeline takes another, materialized path and is not the oracle.
+  sigma = 0 (interpret mode's PRNG is degenerate), with each AoA method
+  (beamforming, MUSIC, ESPRIT).  The reference's CPU pipeline takes
+  another, materialized path and is not the oracle.
 - Alone, with noise: the 64-frame bench scene meets bench.py's accuracy
-  gates (bench.py:413-414) on the CPU.
+  gates (bench.py:413-414) on the CPU, and its MUSIC gate
+  (bench.py:417-429).
 - Without JAX: every module of the port imports, and the pipelines run, in
   a process where neither ``jax`` nor the JAX package ``radar_slam_tpu``
   can be imported.
@@ -38,25 +40,40 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATE_SEED = 1
 
 
-def test_slice_matches_reference_onepass_composition():
-    """6 frames at sigma = 0: identical detection / reliability /
-    association counts, solve outcomes and reliable-target positions (to
-    1 mm).  The velocity solve's last stage is Gauss-Newton on WRAPPED
-    phase residuals, several of which sit near +-pi even noiselessly (the
-    residual statistics reach ~2.9 rad): inputs that agree to ~1e-4 rad
-    can settle a frame in a neighbouring basin of the phase lattice,
-    lambda / (2 dt) = 1.95 cm/s apart.  So half the frames must agree to
-    1e-3 m/s and every frame to 0.05 m/s (2.5 lattice steps); the pose,
-    the prefix sum of those steps, to 1 cm."""
+@pytest.fixture(scope="module")
+def onepass_reference_frontend():
+    """The reference's one-pass front end on 6 frames of the bench scene at
+    sigma = 0, the kernel in interpret mode (waited on), and the scene's
+    numpy columns."""
     F = 6
     cfg = bench_config(noise_power=0.0)
     jbatch, fields, _ = scene_fields(F)
     with pltpu.force_tpu_interpret_mode():
         _, det, sigs = jframe._onepass_frontend(
             jbatch, jnp.arange(F, dtype=jnp.int32), cfg)
-        feats = jax.vmap(lambda d, s: jframe._aoa_features(d, s, cfg))(
-            det, sigs)
-        ref = jframe._sequence_from_features(feats, cfg, True)
+        jax.block_until_ready(sigs)
+    return det, sigs, fields
+
+
+@pytest.mark.parametrize("method", ["beamforming", "music", "esprit"])
+def test_slice_matches_reference_onepass_composition(
+        method, onepass_reference_frontend):
+    """6 frames at sigma = 0, each AoA method: identical detection /
+    reliability / association counts, solve outcomes and reliable-target
+    positions (to 1 mm).  The velocity solve's last stage is Gauss-Newton
+    on WRAPPED phase residuals, several of which sit near +-pi even
+    noiselessly (the residual statistics reach ~2.9 rad): inputs that
+    agree to ~1e-4 rad can settle a frame in a neighbouring basin of the
+    phase lattice, lambda / (2 dt) = 1.95 cm/s apart.  So half the frames
+    must agree to 1e-3 m/s and every frame to 0.05 m/s (2.5 lattice
+    steps); the pose, the prefix sum of those steps, to 1 cm."""
+    det, sigs, fields = onepass_reference_frontend
+    F = fields["range_m"].shape[0]
+    cfg = bench_config(noise_power=0.0)
+    cfg = dataclasses.replace(cfg, aoa=dataclasses.replace(cfg.aoa,
+                                                           method=method))
+    feats = jax.vmap(lambda d, s: jframe._aoa_features(d, s, cfg))(det, sigs)
+    ref = jframe._sequence_from_features(feats, cfg, True)
     got = tframe.process_sequence_batched(
         scatterer_batch_from_numpy(fields, "cpu"),
         torch.Generator().manual_seed(0), cfg)
@@ -93,12 +110,39 @@ def test_bench_scene_meets_accuracy_gates_on_cpu():
     assert planar_pose_errors(pose, gt["poses"])["position_rmse"] <= 0.16
 
 
+@pytest.mark.parametrize("method", ["music", "esprit"])
+def test_subspace_methods_meet_bench_gates_on_cpu(method):
+    """The 64-frame bench scene with noise at generator seed 1 through the
+    batched driver (plain front end): MUSIC meets bench.py's music gate
+    (position RMSE <= 0.15 m, bench.py:417-429) and solve success > 0.9;
+    ESPRIT stays within 1.5x the beamforming RMSE of the same realization
+    (tests/test_aoa_methods_e2e.py:173)."""
+    _, fields, gt = scene_fields(64)
+    batch = scatterer_batch_from_numpy(fields, "cpu")
+
+    def rmse(m):
+        cfg = bench_config()
+        cfg = dataclasses.replace(cfg, aoa=dataclasses.replace(cfg.aoa,
+                                                               method=m))
+        out = tframe.process_sequence_batched(
+            batch, torch.Generator().manual_seed(GATE_SEED), cfg)
+        assert to_np(out.motion.success)[1:].mean() > 0.9
+        return planar_pose_errors(to_np(out.pose),
+                                  gt["poses"])["position_rmse"]
+
+    if method == "music":
+        assert rmse("music") <= 0.15
+    else:
+        assert rmse("esprit") <= 1.5 * rmse("beamforming")
+
+
 def test_port_imports_and_runs_without_jax():
     """A process where ``jax`` and the JAX package ``radar_slam_tpu`` cannot
     be imported imports every module of the port and runs 2-frame pipelines
-    from scatterers (the one-pass route and the OS-CFAR three-dispatch
-    route; the sequential driver with the clutter map; the chunked driver)
-    and one from ADC cubes."""
+    from scatterers (the one-pass route with beamforming and with MUSIC,
+    and the OS-CFAR three-dispatch route; the sequential driver with the
+    clutter map; the chunked driver; the batched and sequential rig on a
+    two-sensor scene) and one from ADC cubes."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -155,6 +199,27 @@ def test_port_imports_and_runs_without_jax():
                                              window=1)):
             assert out.pose.shape == (2, 3)
             assert bool(torch.isfinite(out.pose).all())
+        music = dataclasses.replace(cfg, aoa=dataclasses.replace(
+            cfg.aoa, method="music"))
+        out = process_sequence_batched(batch, torch.Generator(), music)
+        assert out.pose.shape == (2, 3)
+        assert bool(torch.isfinite(out.pose).all())
+
+        from radar_slam_tpu_torch.io.synthetic import (
+            constant_motion_scene_rig)
+        from radar_slam_tpu_torch.pipeline.rig import (
+            process_sequence_rig, process_sequence_rig_batched)
+        rig = ((1.8, 0.9, 0.4), (1.8, -0.9, -0.4))
+        rig_batch, _ = constant_motion_scene_rig(
+            11, 2, cfg.frame_dt, (8.0, 0.5), 0.05, rig,
+            SceneConfig(num_points=48, max_scatterers=128), device="cpu")
+        for out in (process_sequence_rig_batched(rig_batch,
+                                                 torch.Generator(), cfg,
+                                                 rig),
+                    process_sequence_rig(rig_batch, torch.Generator(), clut,
+                                         rig)):
+            assert out.pose.shape == (2, 3)
+            assert bool(torch.isfinite(out.pose).all())
         assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
         print("MODULES", len(mods))
     """)
@@ -163,14 +228,16 @@ def test_port_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split("MODULES")[-1])
-    assert n >= 33, res.stdout
+    assert n >= 34, res.stdout
 
 
 @pytest.mark.parametrize("knob", [
     dict(frontend_factors="dense", chirp_subset=(0, 16)),
     dict(velocity=dataclasses.replace(bench_config().velocity,
                                       association_method="greedy")),
-    dict(aoa=dataclasses.replace(bench_config().aoa, method="music")),
+    dict(aoa=dataclasses.replace(bench_config().aoa, method="esprit"),
+         radar=dataclasses.replace(bench_config().radar,
+                                   num_antennas_el=2)),
     dict(radar=dataclasses.replace(bench_config().radar,
                                    num_antennas_el=2))])
 def test_unported_pipeline_configs_raise(knob):

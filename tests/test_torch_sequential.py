@@ -26,7 +26,6 @@ states the phase-lattice caveat (ROADMAP, section 3).
 """
 
 import dataclasses
-import functools
 import json
 
 import jax
@@ -34,7 +33,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import bench_config, scene_fields, to_np
+from _torch_parity import (bench_config, patch_eager_synthesis,
+                           scene_fields, to_np)
 from jax.experimental.pallas import tpu as pltpu
 
 from radar_slam_tpu.aoa import robust as jrobust
@@ -55,8 +55,7 @@ from radar_slam_tpu_torch.core.types import (scatterer_batch_from_numpy,
 from radar_slam_tpu_torch.motion.pose import planar_pose_step
 from radar_slam_tpu_torch.pipeline import frame as tframe
 from radar_slam_tpu_torch.signal import detect as tdet
-from radar_slam_tpu_torch.signal.synth import (synthesize_frame,
-                                               synthesize_frames_batch)
+from radar_slam_tpu_torch.signal.synth import synthesize_frames_batch
 
 
 def _port_cfg(ref_cfg):
@@ -115,35 +114,8 @@ def _assert_outputs(got, ref, pose_atol=1e-4, vel_atol=1e-3):
 @pytest.fixture
 def eager_synthesis(monkeypatch):
     """The reference drivers' ``synthesize_frame``, evaluated eagerly off
-    the trace (a host callback into the port's synthesis, which equals the
-    reference's eager form).  The configurations here have noise_power 0,
-    so the noise key is unused."""
-
-    def host(radar, fidelity, *cols):
-        names = ("range_m", "azimuth_rad", "rcs_db", "vr", "valid",
-                 "elevation_rad")
-        batch = scatterer_batch_from_numpy(
-            {n: np.asarray(c)[None] for n, c in zip(names, cols)}, "cpu")
-        return to_np(synthesize_frame(batch, radar,
-                                      torch.zeros(1, dtype=torch.int32),
-                                      add_noise=False,
-                                      fidelity=fidelity))[0]
-
-    def synth(scatterers, cfg, key, output="baseband", add_noise=True,
-              fidelity="tpu"):
-        assert cfg.noise_power == 0.0 and output == "baseband"
-        radar = tcfg.RadarConfig(**dataclasses.asdict(cfg))
-        cols = [scatterers.range_m, scatterers.azimuth_rad,
-                scatterers.rcs_db, scatterers.vr, scatterers.valid]
-        if scatterers.elevation_rad is not None:
-            cols.append(scatterers.elevation_rad)
-        shape = jax.ShapeDtypeStruct(
-            (cfg.num_antennas, cfg.num_chirps, cfg.samples_per_chirp),
-            jnp.complex64)
-        return jax.pure_callback(functools.partial(host, radar, fidelity),
-                                 shape, *cols, vmap_method="sequential")
-
-    monkeypatch.setattr(jframe, "synthesize_frame", synth)
+    the trace (``_torch_parity.patch_eager_synthesis``)."""
+    patch_eager_synthesis(monkeypatch, jframe)
 
 
 # ---- configuration ---------------------------------------------------------
