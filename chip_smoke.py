@@ -16,7 +16,12 @@ clutter map as its clutter input), ``process_signal_sequence`` (K7) and
 ``process_sequence_chunked``, the MUSIC and ESPRIT estimators, the
 adversarial scene, and the mounted-rig drivers
 ``pipeline.rig.process_sequence_rig_batched`` (K1 over the flattened
-frame x sensor axis) and ``process_sequence_rig`` (K1 once a step).  K6
+frame x sensor axis) and ``process_sequence_rig`` (K1 once a step); then
+the entry points users start the system through: the CLI
+(``pipeline/cli.py``), the streaming analyzer with checkpoint resume and
+the real-time runtime (``pipeline/streaming.py``), and the RadarScenes
+loader with the double-buffered prefetch drivers (``io/radarscenes.py``,
+``io/prefetch.py``).  K6
 draws the noise K4 and K5 draw and is their validation surface; the
 prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSON line per phase:
 
@@ -176,8 +181,44 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     three-dispatch route), of the OS-CFAR order-statistic
                     stage alone, and one 512-frame call of the batched
                     rig (2048 frame x sensor frames): device busy time,
-                    idle share, launches, the costliest kernels; then
-                    trace_retries: every trace of the script (the
+                    idle share, launches, the costliest kernels;
+17b. the entry points, at the CLI's configuration
+                    (complete_analysis_config(), max_scatterers 512), each
+                    run's kernel launches counted from 0:
+                    cli: cli.main in process: quick-compare --frames 10
+                    (PARITY: PASS, K1 20 launches), quick-compare
+                    --adversarial (six scenarios pass; K1 50 launches: the
+                    reference_fidelity scenario keeps fft_mode "fft" and
+                    launches no hand kernel), analyze --max-frames 10
+                    (frames_processed 10, K1 10) and analyze --rig (frames
+                    10, K1 once);
+                    streaming: StreamingAnalyzer over 256 frames of the
+                    bench scene: host-clock p50 / p99 a frame, frames/s,
+                    launches a step; its trajectory equal bit for bit to
+                    the loop of process_scatterers with its seeds;
+                    streaming_resume: a child process checkpoints every 10
+                    frames and os._exit(0)s after frame 37; restored at
+                    frame 30 and finished, bit for bit the uninterrupted
+                    64-frame run;
+                    realtime: RealTimeVelocityEstimator fed 128 frames at
+                    20 Hz, then 64 at once (queue 8): processed + dropped
+                    = in, a latest estimate, p50 / p99; a worker exception
+                    injected on purpose raised again by stop_estimation;
+                    ingest: RadarScenes-layout recordings built in memory
+                    (the card's machine has no h5py), the loader from
+                    extract_radar_frames on: the moving-ego fixture of
+                    tests/test_cli_dataset.py through analyze --dataset
+                    (the rig; RMSE < 0.6 m, |mean yaw rate| < 0.15); 2048
+                    rig frames x 4 sensors (~60 returns each) through the
+                    rig prefetch driver (chunk 32) and the one-shot batched
+                    rig: the loader's host seconds, rig frames/s (CUDA
+                    events), device idle share, peak memory, equal success
+                    and num_reliable and poses within 1e-5 m (compared at
+                    half the frames if the one-shot peak, scaled from 256
+                    rig frames, would pass 60 GB); 64 host cubes through
+                    the cube prefetch driver, bit for bit
+                    process_signal_sequence, K7 64 launches;
+                    then trace_retries: every trace of the script (the
                     profiles above and each phase's kernel_profile) sits
                     between host sleeps and two spin kernels, and is taken
                     again with a longer sleep until both spin kernels are
@@ -192,9 +233,10 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     that is less work; bound_pipe names it, bound_fp32_ms
                     is the FP32-only count), sub-kernel times, K1 at F = 1,
                     K1's launches per batched rig call (over F * B frames)
-                    and per sequential rig step (rig_launches),
-                    and the one-call PyTorch time (none of these kernels
-                    has one: null).
+                    and per sequential rig step (rig_launches), the
+                    launches in each entry-point run of 17b
+                    (entry_point_launches), and the one-call PyTorch time
+                    (none of these kernels has one: null).
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
@@ -2606,6 +2648,535 @@ def phase_seed_spread_gates(torch, cfg_mod, device):
     emit("seed_spread_gates", seeds=list(SPREAD_SEEDS), **rows)
 
 
+# ---- the entry points: CLI, streaming analyzer, real-time runtime, ingest --
+
+STREAM_FRAMES = 256
+STREAM_WARMUP = 8
+RESUME_FRAMES = 64
+RESUME_EVERY = 10
+RESUME_LAST_FRAME = 37
+RT_PACED, RT_BURST, RT_QUEUE, RT_HZ = 128, 64, 8, 20.0
+INGEST_RIG_FRAMES = 2048
+INGEST_CHUNK = 32
+INGEST_PEAK_LIMIT = 60e9
+INGEST_CUBE_FRAMES = 64
+# tests/test_cli_dataset.py:60-61: two far-range front radars and two
+# near-range corner radars.
+RS_MOUNTS = ((3.6, 0.8, 0.44), (3.6, -0.8, -0.44),
+             (3.3, 0.9, 1.48), (3.3, -0.9, -1.48))
+RS_RADAR_DTYPE = [("timestamp", "i8"), ("sensor_id", "u1"),
+                  ("range_sc", "f4"), ("azimuth_sc", "f4"), ("rcs", "f4"),
+                  ("vr", "f4"), ("x_cc", "f4"), ("y_cc", "f4")]
+RS_ODO_DTYPE = [("timestamp", "i8"), ("x_seq", "f8"), ("y_seq", "f8"),
+                ("yaw_seq", "f8"), ("vx", "f8"), ("yaw_rate", "f8")]
+
+
+def kernel_counters(fe, sp, power, rds_op, dechirp, cfar):
+    """Every kernel wrapper's launch counter, by kernel."""
+    return {"K1": fe.frontend_kernel_split, "K3": fe.frontend_kernel_dense,
+            "K4": sp.scatterer_power, "K5": sp.scatterer_signatures,
+            "K6": sp.noise_cube, "K7": power.rds_power_fused,
+            "K8": rds_op.rds_fused, "K9": dechirp.dechirp_window_dc,
+            "K10": cfar.cfar_mask}
+
+
+def counted(torch, counters, fn):
+    """``fn()`` with every launch count set to 0 just before it; returns
+    its result and the counts read just after (kernels launched only)."""
+    for w in counters.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: w.launches for n, w in counters.items() if w.launches}
+
+
+def run_cli(argv, device):
+    """``cli.main(argv + ["--device", ...])`` in this process: (exit code,
+    stdout, the JSON object it printed)."""
+    import contextlib
+    import io
+    from radar_slam_tpu_torch.pipeline import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--device", device.type])
+    out = buf.getvalue()
+    return rc, out, json.loads(out[out.index("{"):out.rindex("}") + 1])
+
+
+def phase_cli(torch, counters, device):
+    """The CLI's entry points on the card, in process: quick-compare
+    (10 frames: PARITY: PASS), quick-compare --adversarial (all six
+    scenarios), analyze (10 frames, the streaming analyzer) and analyze
+    --rig (the synthetic two-sensor rig)."""
+    rows = {}
+    (rc, out, r), n = counted(torch, counters, lambda: run_cli(
+        ["quick-compare", "--frames", "10"], device))
+    rows["quick_compare"] = dict(rc=rc, result=r, launches=n)
+    check(rc == 0 and out.strip().endswith("PARITY: PASS"),
+          f"cli: quick-compare exit {rc}: {r}")
+    check(r["position_rmse_m"] <= 0.777 and r["yaw_rmse_rad"] <= 0.466,
+          f"cli: quick-compare {r}")
+    check(n.get("K1", 0) == 20, f"cli: quick-compare launches {n}")
+    (rc, out, r), n = counted(torch, counters, lambda: run_cli(
+        ["quick-compare", "--adversarial"], device))
+    # reference_fidelity_config() keeps fft_mode "fft" (as the
+    # reference's does), so its scenario takes the materialized route: the
+    # cube synthesized, a torch RDS, no hand kernel; the other five run K1.
+    rows["adversarial"] = dict(rc=rc, scenarios=r, launches=n)
+    check(rc == 0 and out.strip().endswith("ADVERSARIAL PARITY: PASS")
+          and len(r) == 6 and all(v["pass"] for v in r.values()),
+          f"cli: adversarial exit {rc}: {r}")
+    check(n.get("K1", 0) == 50, f"cli: adversarial launches {n}")
+    (rc, _, r), n = counted(torch, counters, lambda: run_cli(
+        ["analyze", "--max-frames", "10"], device))
+    rows["analyze"] = dict(rc=rc, result=r, launches=n)
+    check(rc == 0 and r["frames_processed"] == 10
+          and r["position_rmse"] <= 0.777, f"cli: analyze {r}")
+    check(n.get("K1", 0) == 10, f"cli: analyze launches {n}")
+    (rc, _, r), n = counted(torch, counters, lambda: run_cli(
+        ["analyze", "--rig", "--max-frames", "10"], device))
+    rows["analyze_rig"] = dict(rc=rc, result=r, launches=n)
+    check(rc == 0 and r["frames"] == 10 and r["position_rmse"] <= 0.777,
+          f"cli: analyze --rig {r}")
+    check(n.get("K1", 0) == 1, f"cli: analyze --rig launches {n}")
+    emit("cli", **rows)
+    return {k: v["launches"] for k, v in rows.items()}
+
+
+def step_loop_poses(torch, cfg, batch, device):
+    """The analyzer's steps written out: process_scatterers frame after
+    frame with frame_seed(i)."""
+    from radar_slam_tpu_torch.pipeline import frame as fr
+    from radar_slam_tpu_torch.pipeline.streaming import frame_seed
+    state = fr.init_state(cfg, device=device)
+    poses = []
+    for i in range(batch.range_m.shape[0]):
+        state, out = fr.process_scatterers(state, fr._frame(batch, i, i + 1),
+                                           frame_seed(i, device), cfg)
+        poses.append(out.pose)
+    return torch.cat(poses).cpu().numpy()
+
+
+def phase_streaming(torch, counters, cfg_mod, device):
+    """StreamingAnalyzer at the CLI's configuration over 256 frames of the
+    bench scene: host-clock latency per frame, frames/s, launches per
+    step; its trajectory equal bit for bit to the loop of steps."""
+    from radar_slam_tpu_torch.pipeline import frame as fr
+    from radar_slam_tpu_torch.pipeline.streaming import StreamingAnalyzer
+    cfg = cfg_mod.complete_analysis_config()   # the CLI's (S_max 512)
+    F = STREAM_FRAMES
+    batch, gt = scene(F, cfg, device)
+    warm = StreamingAnalyzer(cfg, device=device)
+    for i in range(STREAM_WARMUP):
+        warm.process_frame(fr._frame(batch, i, i + 1))
+    an = StreamingAnalyzer(cfg, device=device)
+    t0 = time.perf_counter()
+    metrics, n = counted(torch, counters, lambda: an.analyze_sequence(
+        batch, gt_poses=gt["poses"]))
+    wall = time.perf_counter() - t0
+    ms = np.asarray(an.results["processing_times"]) * 1e3
+    est = np.asarray(an.results["estimated_trajectory"])
+    loop = step_loop_poses(torch, cfg, batch, device)
+    same = bool(np.array_equal(est, loop))
+    emit("streaming", frames=F, max_scatterers=cfg.max_scatterers,
+         warmup_frames=STREAM_WARMUP, host_ms_p50=float(np.percentile(ms, 50)),
+         host_ms_p99=float(np.percentile(ms, 99)), host_ms_max=float(ms.max()),
+         frames_per_s=F / wall, launches=n,
+         launches_per_step={k: v / F for k, v in n.items()},
+         position_rmse_m=metrics["position_rmse"],
+         successful_estimates=metrics["successful_estimates"],
+         bitwise_equal_to_step_loop=same,
+         max_abs_diff_m=float(np.abs(est - loop).max()))
+    check(same, "streaming: analyzer trajectory differs from the step loop")
+    check(n.get("K1", 0) == F, f"streaming: launches {n}")
+    check(bool(np.isfinite(est).all()), "streaming: pose not finite")
+    return n
+
+
+RESUME_CHILD = """
+import os, sys
+sys.path.insert(0, {repo!r})
+from radar_slam_tpu_torch.core.config import complete_analysis_config
+from radar_slam_tpu_torch.io.synthetic import SceneConfig, constant_motion_scene
+from radar_slam_tpu_torch.pipeline.frame import _frame
+from radar_slam_tpu_torch.pipeline.streaming import StreamingAnalyzer
+cfg = complete_analysis_config()
+batch, gt = constant_motion_scene(
+    7, num_frames={frames}, dt=cfg.frame_dt, v_body=(8.0, 0.5),
+    yaw_rate=0.05,
+    scene=SceneConfig(num_points=96, max_scatterers=cfg.max_scatterers),
+    device={device!r})
+a = StreamingAnalyzer(cfg, checkpoint_dir={ckdir!r},
+                      checkpoint_every={every}, device={device!r})
+for i in range({last} + 1):
+    a.process_frame(_frame(batch, i, i + 1), gt_pose=gt["poses"][i])
+print("CHILD_FRAMES", a.frame_idx, flush=True)
+os._exit(0)
+"""
+
+
+def phase_streaming_resume(torch, cfg_mod, device):
+    """A child process runs the analyzer with checkpoints every 10 frames
+    and exits with os._exit(0) after frame 37 (no cleanup); this process
+    restores (frame 30), finishes the 64 frames, and must equal the
+    uninterrupted run bit for bit."""
+    import tempfile
+    from radar_slam_tpu_torch.pipeline.streaming import StreamingAnalyzer
+    cfg = cfg_mod.complete_analysis_config()   # the CLI's (S_max 512)
+    batch, gt = scene(RESUME_FRAMES, cfg, device)
+    full = StreamingAnalyzer(cfg, device=device)
+    full.analyze_sequence(batch, gt_poses=gt["poses"])
+    want = np.asarray(full.results["estimated_trajectory"])
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", RESUME_CHILD.format(
+                repo=str(REPO), frames=RESUME_FRAMES, ckdir=ckdir,
+                every=RESUME_EVERY, last=RESUME_LAST_FRAME,
+                device=str(device))],
+            capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0
+              and f"CHILD_FRAMES {RESUME_LAST_FRAME + 1}" in child.stdout,
+              f"streaming_resume: child exit {child.returncode}: "
+              f"{child.stderr[-2000:]}")
+        files = sorted(p.name for p in Path(ckdir).iterdir())
+        an = StreamingAnalyzer(cfg, checkpoint_dir=ckdir,
+                               checkpoint_every=RESUME_EVERY, device=device)
+        restored = an.restore_latest()
+        frame_idx = an.frame_idx
+        metrics = an.analyze_sequence(batch, gt_poses=gt["poses"])
+    got = np.asarray(an.results["estimated_trajectory"])
+    same = got.shape == want.shape and bool(np.array_equal(got, want))
+    emit("streaming_resume", frames=RESUME_FRAMES,
+         checkpoint_every=RESUME_EVERY, child_last_frame=RESUME_LAST_FRAME,
+         child_exit=child.returncode, child_s=child_s, checkpoint_files=files,
+         restored_frame_idx=frame_idx,
+         frames_processed=metrics["frames_processed"],
+         bitwise_equal_to_uninterrupted=same)
+    check(restored and frame_idx == (RESUME_LAST_FRAME + 1) // RESUME_EVERY
+          * RESUME_EVERY,
+          f"streaming_resume: restored {restored} at frame {frame_idx}")
+    check(same, "streaming_resume: resumed trajectory differs")
+    check(metrics["frames_processed"] == RESUME_FRAMES,
+          f"streaming_resume: {metrics['frames_processed']} frames")
+
+
+def phase_realtime(torch, cfg_mod, device):
+    """RealTimeVelocityEstimator: 128 frames offered at 20 Hz, then 64 at
+    once into a queue of 8; every frame processed or dropped, a latest
+    estimate, latency percentiles; a worker exception injected on purpose
+    raised again by stop_estimation."""
+    from radar_slam_tpu_torch.pipeline import frame as fr
+    from radar_slam_tpu_torch.pipeline.streaming import (
+        create_real_time_estimator)
+    cfg = cfg_mod.complete_analysis_config()   # the CLI's (S_max 512)
+    n_in = RT_PACED + RT_BURST
+    batch, _ = scene(n_in, cfg, device)
+    frames = [fr._frame(batch, i, i + 1) for i in range(n_in)]
+    est = create_real_time_estimator(cfg, queue_size=RT_QUEUE,
+                                     metrics_window=n_in, device=device)
+    proc = est.processor
+
+    def drained(seconds=120.0):
+        deadline = time.perf_counter() + seconds
+        while time.perf_counter() < deadline and not (
+                proc.queue.empty() and proc.frames_processed
+                + proc.frames_dropped == proc.frames_in):
+            time.sleep(0.01)
+
+    est.start_estimation()
+    try:
+        t_next = time.perf_counter()
+        for f in frames[:RT_PACED]:
+            est.add_frame(f)
+            t_next += 1.0 / RT_HZ
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+        drained()
+        paced = dict(processed=proc.frames_processed,
+                     dropped=proc.frames_dropped)
+        for f in frames[RT_PACED:]:
+            est.add_frame(f)
+        drained()
+    finally:
+        est.stop_estimation()
+    m = est.get_performance_metrics()
+    latest = est.get_latest_velocity_estimate()
+
+    bad = create_real_time_estimator(cfg, device=device)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("injected worker failure")
+
+    bad.processor.analyzer.process_frame = broken
+    bad.start_estimation()
+    bad.add_frame(frames[0])
+    bad.processor._thread.join(timeout=30)
+    try:
+        bad.stop_estimation()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    emit("realtime", queue_size=RT_QUEUE, paced_hz=RT_HZ,
+         paced_frames=RT_PACED, burst_frames=RT_BURST, frames_in=m[
+             "frames_in"], processed=m["frames_processed"],
+         dropped=m["frames_dropped"], paced=paced,
+         p50_ms=m["p50_latency_s"] * 1e3, p99_ms=m["p99_latency_s"] * 1e3,
+         max_ms=m["max_processing_time"] * 1e3,
+         throughput_fps=m["throughput_fps"],
+         status=proc.get_system_status(), injected_error_raised=raised)
+    check(m["frames_in"] == n_in and m["frames_processed"]
+          + m["frames_dropped"] == n_in,
+          f"realtime: in {m['frames_in']}, processed "
+          f"{m['frames_processed']}, dropped {m['frames_dropped']}")
+    check(latest is not None and bool(np.isfinite(latest["pose"]).all()),
+          "realtime: no latest estimate")
+    check(raised == "injected worker failure",
+          f"realtime: the worker's exception was not raised ({raised})")
+
+
+def rs_recording(n_frames, seed=11, v_ego=5.0, dt=0.1):
+    """A RadarScenes-layout recording of tests/test_cli_dataset.py:45-113
+    (four mounted sensors, ~70 returns per sensor and frame, a 5 m/s ego
+    through a static corridor), vectorized (the same draws in the same
+    order) and with the corridor's points at the fixture's density over
+    the whole path.  Returns the dict ``RadarScenesLoader.
+    load_sequence_data`` returns, and ``sensors.json``'s contents."""
+    rng = np.random.default_rng(seed)
+    length = v_ego * n_frames * dt + 110.0
+    n_world = int(round(900 * length / (v_ego * 12 * dt + 110.0)))
+    wx = rng.uniform(-40, v_ego * n_frames * dt + 70, n_world)
+    wy = np.concatenate([rng.uniform(3, 9, n_world // 2),
+                         rng.uniform(-9, -3, n_world - n_world // 2)])
+    rcs = rng.uniform(0, 25, n_world)
+    parts = []
+    for f in range(n_frames):
+        ex = v_ego * f * dt
+        for sid, (mx, my, myaw) in enumerate(RS_MOUNTS, start=1):
+            dx, dy = wx - (ex + mx), wy - my
+            r_v = np.hypot(dx, dy)
+            az_v = np.arctan2(dy, dx)
+            az_s = az_v - myaw
+            az_s = np.arctan2(np.sin(az_s), np.cos(az_s))
+            vr = -np.cos(az_v) * v_ego
+            keep = (np.abs(az_s) < 0.9) & (r_v > 1.5) & (r_v < 60.0)
+            idx = rng.permutation(np.nonzero(keep)[0])[:70]
+            rec = np.empty(len(idx), RS_RADAR_DTYPE)
+            rec["timestamp"] = f * 100_000 + rng.integers(0, 90_000,
+                                                          size=len(idx))
+            rec["sensor_id"] = sid
+            for k, v in (("range_sc", r_v), ("azimuth_sc", az_s),
+                         ("rcs", rcs), ("vr", vr), ("x_cc", wx),
+                         ("y_cc", wy)):
+                rec[k] = v[idx]
+            parts.append(rec)
+    radar = np.concatenate(parts)
+    odo = np.zeros(n_frames + 2, RS_ODO_DTYPE)
+    ts = np.arange(n_frames + 2) * 100_000
+    odo["timestamp"] = ts
+    odo["x_seq"] = v_ego * ts * 1e-6
+    odo["vx"] = v_ego
+    sensors = {"sensors": [{"id": i + 1, "x": m[0], "y": m[1], "yaw": m[2]}
+                           for i, m in enumerate(RS_MOUNTS)]}
+    data = {
+        "sequence_id": f"sequence_{n_frames}",
+        "radar_data": {k: np.ascontiguousarray(radar[k])
+                       for k in radar.dtype.names},
+        "odometry_data": {k: np.ascontiguousarray(odo[k])
+                          for k in odo.dtype.names},
+        "scenes_data": {}, "sensors_info": sensors,
+        "metadata": {"first_timestamp": None, "last_timestamp": None,
+                     "category": "unknown"},
+    }
+    return data, sensors
+
+
+def in_memory_loader(radarscenes, data, sensors):
+    """A RadarScenesLoader whose load_sequence_data returns ``data`` (the
+    card's machine has no h5py); every later stage is the loader's own."""
+    class InMemory(radarscenes.RadarScenesLoader):
+        def __init__(self, dataset_path):
+            self.dataset_path = Path(dataset_path)
+            self.sensors_info = sensors
+            self.sequence_info = {}
+
+        def load_sequence_data(self, sequence_id):
+            return data
+    return InMemory
+
+
+def interval_busy_ms(events):
+    """Device busy time (ms): the union of the events' intervals."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in events)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def traced_idle(torch, run):
+    """One traced call of ``run``: (device busy ms, idle share of its host
+    wall)."""
+    from torch.profiler import ProfilerActivity
+    events, wall = device_trace(torch, run, [ProfilerActivity.CUDA])
+    busy = interval_busy_ms(events)
+    return busy, max(0.0, 1.0 - busy / (wall * 1e3))
+
+
+def timed_driver(torch, counters, run, n_frames):
+    """A driver's warm-up call, then one call timed with CUDA events (its
+    launches counted, its peak memory), then one traced call."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def call():
+        start.record()
+        out = run()
+        stop.record()
+        return out
+
+    out, n = counted(torch, counters, call)
+    ms = start.elapsed_time(stop)
+    peak = torch.cuda.max_memory_allocated()
+    busy, idle = traced_idle(torch, run)
+    return out, dict(ms=ms, rig_frames_per_s=n_frames / (ms / 1e3),
+                     peak_bytes=peak, device_busy_ms=busy,
+                     device_idle_share=idle, launches=n)
+
+
+def phase_ingest(torch, counters, cfg_mod, device):
+    """RadarScenes-layout recordings built in memory, through the loader
+    from extract_radar_frames on: (a) the moving-ego fixture of
+    tests/test_cli_dataset.py through the dataset ``analyze`` (the rig by
+    default); (b) 2048 rig frames x 4 sensors through the rig prefetch
+    driver (chunk 32) and the one-shot batched rig, held to each other as
+    tests/test_prefetch.py:122-127 holds them; (c) 64 host cubes through
+    the cube prefetch driver (K7), bit for bit the one-shot driver's."""
+    from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
+    from radar_slam_tpu_torch.io import prefetch, radarscenes
+    from radar_slam_tpu_torch.pipeline import frame as fr
+    from radar_slam_tpu_torch.pipeline import rig as rigmod
+    from radar_slam_tpu_torch.signal.synth import synthesize_frames_batch
+    from radar_slam_tpu_torch.utils.host import tree_leaves
+    cfg = cfg_mod.complete_analysis_config()   # the CLI's (S_max 512)
+    rows = {}
+
+    data, sensors = rs_recording(12)
+    loader_cls = radarscenes.RadarScenesLoader
+    radarscenes.RadarScenesLoader = in_memory_loader(radarscenes, data,
+                                                     sensors)
+    try:
+        (rc, _, r), n = counted(torch, counters, lambda: run_cli(
+            ["analyze", "--dataset", "in-memory", "--seq", "sequence_77",
+             "--max-frames", "12"], device))
+    finally:
+        radarscenes.RadarScenesLoader = loader_cls
+    rows["moving_ego"] = dict(rc=rc, result=r, launches=n)
+    check(rc == 0 and r["frames"] == 12 and len(r["rig"]) == 4
+          and r["position_rmse"] < 0.6 and abs(r["mean_yaw_rate"]) < 0.15,
+          f"ingest: moving-ego fixture {r}")
+    check(n.get("K1", 0) > 0, f"ingest: moving-ego launches {n}")
+
+    data, sensors = rs_recording(INGEST_RIG_FRAMES)
+    returns = len(data["radar_data"]["timestamp"])
+    t0 = time.perf_counter()
+    loader = in_memory_loader(radarscenes, data, sensors)("in-memory")
+    frames = loader.extract_radar_frames(loader.load_sequence_data("long"),
+                                         cfg.frame_duration_ms)
+    host, rig, gt = loader.frames_as_batches_rig(data, frames,
+                                                 cfg.max_scatterers,
+                                                 host=True)
+    loader_s = time.perf_counter() - t0
+    F = len(frames)
+    check(abs(F - INGEST_RIG_FRAMES) <= 1
+          and host.range_m.shape == (F, 4, cfg.max_scatterers),
+          f"ingest: {F} frames, batch {host.range_m.shape}")
+
+    def prefetched(h=host):
+        return prefetch.process_sequence_rig_batched_prefetch(
+            h, torch.Generator().manual_seed(0), cfg, rig,
+            chunk=INGEST_CHUNK, device=device)
+
+    pre, pre_row = timed_driver(torch, counters, prefetched, F)
+    del pre
+    # The one-shot driver's peak at 256 rig frames, scaled.
+    n_probe = min(256, F)
+    probe = fr._map(lambda x: x[:n_probe], host)
+    dev_probe = fr._map(lambda x: torch.from_numpy(x).to(device), probe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rigmod.process_sequence_rig_batched(
+        dev_probe, torch.Generator().manual_seed(0), cfg, rig)
+    torch.cuda.synchronize()
+    predicted_peak = torch.cuda.max_memory_allocated() * F / n_probe
+    del dev_probe
+    F_cmp = F if predicted_peak <= INGEST_PEAK_LIMIT else F // 2
+    cmp_host = fr._map(lambda x: x[:F_cmp], host)
+    dev = fr._map(lambda x: torch.from_numpy(x).to(device), cmp_host)
+
+    def one_shot():
+        return rigmod.process_sequence_rig_batched(
+            dev, torch.Generator().manual_seed(0), cfg, rig)
+
+    one, one_row = timed_driver(torch, counters, one_shot, F_cmp)
+    if F_cmp != F:
+        pre = prefetched(cmp_host)
+    else:
+        pre = prefetched()
+    d_pose = float((pre.pose - one.pose).abs().max())
+    same_success = bool(torch.equal(pre.motion.success, one.motion.success))
+    same_reliable = bool(torch.equal(pre.num_reliable, one.num_reliable))
+    rmse = planar_pose_errors(pre.pose, gt["poses"][:F_cmp])["position_rmse"]
+    rows["long"] = dict(
+        rig_frames=F, sensors=4, returns=returns,
+        returns_per_sensor_frame=returns / (4 * F),
+        max_scatterers=cfg.max_scatterers, loader_host_s=loader_s,
+        prefetch=dict(chunk=INGEST_CHUNK, **pre_row),
+        one_shot=dict(rig_frames=F_cmp, **one_row),
+        one_shot_peak_predicted_bytes=predicted_peak,
+        compared_rig_frames=F_cmp, max_abs_pose_diff_m=d_pose,
+        equal_success=same_success, equal_num_reliable=same_reliable,
+        position_rmse_m=rmse)
+    if F_cmp != F:
+        rows["long"]["cut"] = (f"one-shot peak predicted "
+                               f"{predicted_peak / 1e9:.1f} GB > 60 GB: "
+                               f"compared at {F_cmp} rig frames")
+    check(same_success and same_reliable and d_pose <= 1e-5,
+          f"ingest: prefetch vs one-shot pose {d_pose} m, success "
+          f"{same_success}, num_reliable {same_reliable}")
+    check(pre_row["launches"].get("K1", 0) == -(-F // INGEST_CHUNK),
+          f"ingest: prefetch launches {pre_row['launches']}")
+    del pre, one, dev
+
+    batch, _ = scene(INGEST_CUBE_FRAMES, cfg, device)
+    sig = synthesize_frames_batch(batch, cfg.radar,
+                                  torch.Generator().manual_seed(CUBE_SEED))
+    host_sig = sig.cpu().numpy()
+    want, n_one = counted(torch, counters, lambda: fr.process_signal_sequence(
+        sig, cfg))
+    got, n_pre = counted(torch, counters,
+                         lambda: prefetch.process_signal_sequence_prefetch(
+                             host_sig, cfg, chunk=16, device=device))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want)))
+    rows["cube"] = dict(frames=INGEST_CUBE_FRAMES, fft_mode=cfg.fft_mode,
+                        launches_prefetch=n_pre, launches_one_shot=n_one,
+                        bitwise_equal=same)
+    check(same, "ingest: cube prefetch differs from process_signal_sequence")
+    check(n_pre.get("K7", 0) == INGEST_CUBE_FRAMES,
+          f"ingest: cube prefetch launches {n_pre}")
+    emit("ingest", **rows)
+    return {"moving_ego": rows["moving_ego"]["launches"],
+            "rig_prefetch": pre_row["launches"],
+            "cube_prefetch": n_pre}
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -2735,6 +3306,15 @@ def main():
     phase_profile(torch, "process_signal_sequence_batched",
                   lambda: process_signal_sequence_batched(sig, cfg), 2048)
     del sig
+    counters = kernel_counters(fe, sp, power, rds_op, dechirp, cfar)
+    entry_runs = {f"cli {k}": v
+                  for k, v in phase_cli(torch, counters, device).items()}
+    entry_runs["streaming"] = phase_streaming(torch, counters, cfg_mod,
+                                              device)
+    phase_streaming_resume(torch, cfg_mod, device)
+    phase_realtime(torch, cfg_mod, device)
+    entry_runs.update({f"ingest {k}": v for k, v in phase_ingest(
+        torch, counters, cfg_mod, device).items()})
     emit("trace_retries", pads_s=list(TRACE_PADS_S),
          final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 
@@ -2814,6 +3394,13 @@ def main():
                 k: route_ms["C64"]["K1' time"][k] for k in (
                     "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
                     "bound_pipe")}}
+    # The entry points' runs (phases cli, streaming, ingest): each kernel's
+    # launches in each, counted from 0.
+    for e in kernels:
+        key = e["name"].split()[0]
+        runs = {p: n[key] for p, n in entry_runs.items() if key in n}
+        if runs:
+            e["entry_point_launches"] = runs
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,11 @@ frozen configuration dataclasses (``core.config``, with
 Ported so far: the batched drivers (scatterers and ADC cubes), the
 sequential drivers (``pipeline.frame.process_sequence``,
 ``process_sequence_chunked``, ``process_signal_sequence`` and their
-one-frame steps) with the clutter map and the slot-table smoother, and
-every front-end kernel, hand-written in CUDA for the H100 (``csrc/``).
+one-frame steps) with the clutter map and the slot-table smoother, the
+rig drivers, every TPU kernel, hand-written in CUDA for the H100
+(``csrc/``), and the entry points: the CLI (``python -m
+radar_slam_tpu_torch``), the streaming analyzer with checkpoint resume, the
+real-time runtime, the RadarScenes loader and the prefetch ingest.
 
 - ``core``      config, static-shape tensor types, geometry
 - ``signal``    synthesis, DFT constants, detection (CFAR, clutter map)
@@ -20,9 +23,11 @@ every front-end kernel, hand-written in CUDA for the H100 (``csrc/``).
 - ``aoa``       beamforming AoA, confidence + MDL, temporal smoothing,
                 the robust per-frame AoA stage
 - ``motion``    mutual-NN association, 6-DoF velocity solve, planar pose
-- ``pipeline``  the batched and sequential drivers
-- ``io``        synthetic known-truth scenes
+- ``pipeline``  the batched, sequential and rig drivers, streaming, CLI
+- ``io``        synthetic known-truth scenes, the RadarScenes loader,
+                double-buffered host ingest
 - ``evaluate``  planar pose errors
+- ``utils``     checkpointing, host transfers of tensor trees, logging
 """
 
 __version__ = "0.1.0"

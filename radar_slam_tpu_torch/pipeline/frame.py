@@ -74,6 +74,7 @@ from radar_slam_tpu_torch.signal.synth import (fast_time_base,
                                                synthesis_factors_split,
                                                synthesize_frame,
                                                synthesize_frames_batch)
+from radar_slam_tpu_torch.utils.host import tree_map as _map
 
 
 def _check_common(cfg: PipelineConfig) -> None:
@@ -631,14 +632,6 @@ def _cat_outputs(outs: List[FrameOutput]) -> FrameOutput:
                                 zip(*[o.motion for o in outs])]),
         **{name: torch.cat([getattr(o, name) for o in outs])
            for name in FrameOutput._fields if name != "motion"})
-
-
-def _map(fn, tree):
-    """``fn`` over the tensors of a (nested) tuple or NamedTuple, None
-    kept."""
-    items = [None if x is None else _map(fn, x) if isinstance(x, tuple)
-             else fn(x) for x in tree]
-    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
 
 
 def _frame(batch, i: int, j: int):

@@ -142,11 +142,13 @@ def test_port_imports_and_runs_without_jax():
     from scatterers (the one-pass route with beamforming and with MUSIC,
     and the OS-CFAR three-dispatch route; the sequential driver with the
     clutter map; the chunked driver; the batched and sequential rig on a
-    two-sensor scene) and one from ADC cubes."""
+    two-sensor scene) and one from ADC cubes; ``h5py`` and ``matplotlib``
+    are blocked too, and ``python -m radar_slam_tpu_torch quick-compare
+    --frames 2 --device cpu`` runs there (the CLI imports neither)."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
-        BLOCKED = ("jax", "jaxlib", "radar_slam_tpu")
+        BLOCKED = ("jax", "jaxlib", "radar_slam_tpu", "h5py", "matplotlib")
 
         class NoJax(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -220,6 +222,9 @@ def test_port_imports_and_runs_without_jax():
                                          rig)):
             assert out.pose.shape == (2, 3)
             assert bool(torch.isfinite(out.pose).all())
+        from radar_slam_tpu_torch.pipeline.cli import main as cli_main
+        assert cli_main(["quick-compare", "--frames", "2",
+                         "--device", "cpu"]) == 0
         assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
         print("MODULES", len(mods))
     """)
@@ -228,7 +233,7 @@ def test_port_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split("MODULES")[-1])
-    assert n >= 34, res.stdout
+    assert n >= 45, res.stdout
 
 
 @pytest.mark.parametrize("knob", [
