@@ -32,14 +32,19 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     bits), with reference-fidelity synthesis, with a
                     scatterer capacity of 100 (no multiple of the tiles),
                     with 64 chirps, with 401 samples (the range DFT's dense
-                    route), and on the 64-frame batch of the pipeline
-                    phase: Z within 2e-6 and the power map within 1e-5 of
-                    their maxima, detection sets equal (or each differing
-                    cell within 1e-3 dB of its threshold or neighbour),
-                    valid-slot signatures within 1e-5, outputs repeating
-                    bit for bit; against the reference's float32 range
-                    constant, the map within 1e-4 and Z within 2e-4; the
-                    branch counters (dense_range on the prime length only);
+                    route), on the 64-frame batch of the pipeline phase,
+                    and at the entry points' 512 scatterers on 1 frame (an
+                    analyzer step) and 128, 512 and 2048 frames (the rig
+                    ingest's chunks x 4 sensors): Z within 2e-6 and the
+                    power map within 1e-5 of their maxima, detection sets
+                    equal (or each differing cell within 1e-3 dB of its
+                    threshold or neighbour), valid-slot signatures within
+                    1e-5 (on the ingest rows, or their error weighted by
+                    the detection's amplitude over the largest within
+                    2e-6), outputs repeating bit for bit; against the
+                    reference's float32 range constant, the map within
+                    1e-4 and Z within 2e-4; the branch counters
+                    (dense_range on the prime length only);
 3. pipeline         64 frames through K1: solve success > 0.9 over frames
                     1..63, final pose error <= 0.35 m, position RMSE
                     <= 0.16 m (bench.py's gates), K1 launch count > 0;
@@ -194,8 +199,10 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     10, K1 once);
                     streaming: StreamingAnalyzer over 256 frames of the
                     bench scene: host-clock p50 / p99 a frame, frames/s,
-                    launches a step; its trajectory equal bit for bit to
-                    the loop of process_scatterers with its seeds;
+                    launches a step; its trajectory, from device tensors
+                    and from host numpy (through the chunk uploader),
+                    equal bit for bit to the loop of process_scatterers
+                    with its seeds;
                     streaming_resume: a child process checkpoints every 10
                     frames and os._exit(0)s after frame 37; restored at
                     frame 30 and finished, bit for bit the uninterrupted
@@ -210,10 +217,12 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     tests/test_cli_dataset.py through analyze --dataset
                     (the rig; RMSE < 0.6 m, |mean yaw rate| < 0.15); 2048
                     rig frames x 4 sensors (~60 returns each) through the
-                    rig prefetch driver (chunk 32) and the one-shot batched
+                    rig prefetch driver (chunks of 32, 128 and 512 rig
+                    frames, 512 its default) and the one-shot batched
                     rig: the loader's host seconds, rig frames/s (CUDA
-                    events), device idle share, peak memory, equal success
-                    and num_reliable and poses within 1e-5 m (compared at
+                    events), device idle share, peak memory, each chunk's
+                    success and num_reliable equal to the one-shot's and
+                    its poses within 1e-5 m (compared at
                     half the frames if the one-shot peak, scaled from 256
                     rig frames, would pass 60 GB); 64 host cubes through
                     the cube prefetch driver, bit for bit
@@ -246,6 +255,7 @@ a kernel does not build or launch, or any check fails.  Imports no JAX.
 import concurrent.futures
 import dataclasses
 import hashlib
+import inspect
 import json
 import math
 import subprocess
@@ -490,8 +500,11 @@ def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
     # scatterer capacity that is no multiple of the kernel's tiles; the
     # 64-chirp frame of default_config (the largest CFAR map in the repo);
     # a prime number of samples (the range DFT's dense route); and the
-    # 64-frame batch the pipeline phase hands the kernel.  Each kernel call
-    # runs twice: its outputs must repeat bit for bit.
+    # 64-frame batch the pipeline phase hands the kernel; and the entry
+    # points' shapes at the CLI's capacity of 512 scatterers: one frame (an
+    # analyzer step) and a rig ingest chunk of each size the ingest phase
+    # runs (chunk rig frames x 4 sensors).  Each kernel call runs twice:
+    # its outputs must repeat bit for bit.
     for label, npow, fid, cap, chirps, samples, frames in (
             ("sigma0", 0.0, "tpu", 128, None, None, 8),
             ("sigma", None, "tpu", 128, None, None, 8),
@@ -499,7 +512,10 @@ def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
             ("ragged_capacity", None, "tpu", 100, None, None, 8),
             ("chirps64", None, "tpu", 128, 64, None, 8),
             ("prime_samples", None, "tpu", 128, None, 401, 8),
-            ("pipeline_batch", None, "tpu", 128, None, None, 64)):
+            ("pipeline_batch", None, "tpu", 128, None, None, 64),
+            ("cli_step", None, "tpu", 512, None, None, 1),
+            *((f"rig_ingest_chunk{c}", None, "tpu", 512, None, None,
+               c * len(RS_MOUNTS)) for c in INGEST_CHUNKS)):
         cfg = bench_config(cfg_mod, npow, cap, chirps, samples)
         batch, _ = scene(frames, cfg, device)
         seeds = (torch.arange(frames, dtype=torch.int32, device=device)
@@ -532,7 +548,8 @@ def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
         out[label]["plain_f32_vs_oracle"] = {
             k: v for k, v in frontend_errors(
                 torch, fe, cfg, f32, plain, label, prm).items()
-            if k in ("p_rel_err", "z_rel_err", "sig_max_err", "set_diff")}
+            if k in ("p_rel_err", "z_rel_err", "sig_max_err",
+                     "sig_weighted_err", "set_diff")}
         out[label]["range_dft"] = range_plan(S)
         out[label]["branch_counts"] = moved
         out[label]["outputs_sha256"] = digest(kern)
@@ -540,7 +557,7 @@ def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
     emit("kernel_vs_plain", tolerance=FRONTEND_TOL,
          reference_constant_tolerance=REFERENCE_CONSTANT_TOL, **out)
     for label, r in out.items():
-        check_frontend(label, r)
+        check_frontend(label, r, weak_cells=label.startswith("rig_ingest"))
         check(r["outputs_sha256"] == r["repeat_sha256"],
               f"{label}: outputs differ between two runs")
     return out["pipeline_batch"]["p_max_abs_err"]
@@ -601,11 +618,21 @@ def frontend_errors(torch, fe, cfg, kern, plain, label, prm):
             & (fin_k[3] > -1e29) & (fin_p[3] > -1e29))
     sig_err = ((fin_k[4] - fin_p[4]).abs()[both].max().item()
                if bool(both.any()) else 0.0)
+    # The same errors, each times its detection's amplitude over the
+    # largest detected amplitude (|signature|^2 = A x the cell's power):
+    # the error of the unnormalized signatures relative to their maximum,
+    # as z_rel_err is Z's.
+    sig_w = 0.0
+    if bool(both.any()):
+        f_i = torch.arange(fin_p[1].shape[0], device=p_p.device)[:, None]
+        amp = fin_p[0][f_i, fin_p[1].long(), fin_p[2].long()].sqrt()
+        err = (fin_k[4] - fin_p[4]).abs().amax(-1)
+        sig_w = ((err * amp)[both].max() / amp[both].max()).item()
     return dict(p_max_abs_err=p_err, p_rel_err=p_rel, z_rel_err=z_rel,
                 detections=len(set_p), set_diff=len(set_k ^ set_p),
                 differing_cells=cell_margins(torch, fe, p_p, prm,
                                              set_k ^ set_p),
-                sig_max_err=sig_err)
+                sig_max_err=sig_err, sig_weighted_err=sig_w)
 
 
 def explained(r, tol_db=1e-3):
@@ -618,13 +645,21 @@ def explained(r, tol_db=1e-3):
                     for c in r["differing_cells"]))
 
 
-def check_frontend(label, r, tol=FRONTEND_TOL):
+def check_frontend(label, r, tol=FRONTEND_TOL, weak_cells=False):
+    """weak_cells (the rows of 128 frames and more at 512 scatterers): a
+    signature error over tol["sig_abs"] passes when the amplitude-weighted
+    error (sig_weighted_err) is within tol["z_rel"], Z's own gate.  Deep
+    batches of the bench scene detect cells far under the strongest, and
+    there Z's float32 rounding is ~1e-5 of a unit signature: the float32
+    plain version itself is 2e-5 off the oracle at 2048 frames."""
     check(r["p_rel_err"] < tol["p_rel"], f"{label}: power map rel err")
     check(r["z_rel_err"] < tol["z_rel"], f"{label}: Z rel err")
     check(r["detections"] > 0, f"{label}: no detections")
     check(r["set_diff"] <= tol["set_diff"] or explained(r),
           f"{label}: detection sets differ {r['differing_cells']}")
-    check(r["sig_max_err"] < tol["sig_abs"], f"{label}: signature error")
+    check(r["sig_max_err"] < tol["sig_abs"]
+          or (weak_cells and r["sig_weighted_err"] < tol["z_rel"]),
+          f"{label}: signature error")
     ref = r.get("vs_reference_constant")
     if ref is not None:
         check(ref["p_rel_err"] < REFERENCE_CONSTANT_TOL["p_rel"]
@@ -927,6 +962,19 @@ def device_trace(torch, fn, activities):
         TRACE_PAD[0] += 1
     raise RuntimeError("chip_smoke check failed: the profiler lost a "
                        f"bracketing kernel at every pad {TRACE_PADS_S}")
+
+
+def interval_busy_ms(events):
+    """Device busy time (ms): the union of the events' intervals (kernels
+    and copies on any stream; on one stream, the sum of their times)."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in events)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
 
 
 def kernel_profile(torch, fn, launches=None):
@@ -2011,7 +2059,7 @@ def phase_profile(torch, label, run, n_frames, top=8):
     for ev in events:
         n, us = per_kernel.get(ev.name, (0, 0.0))
         per_kernel[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
-    busy_ms = sum(us for _, us in per_kernel.values()) / 1e3
+    busy_ms = interval_busy_ms(events)
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     emit("profile", driver=label, frames=n_frames,
          traced_wall_ms=wall * 1e3, device_busy_ms=busy_ms,
@@ -2657,7 +2705,9 @@ RESUME_EVERY = 10
 RESUME_LAST_FRAME = 37
 RT_PACED, RT_BURST, RT_QUEUE, RT_HZ = 128, 64, 8, 20.0
 INGEST_RIG_FRAMES = 2048
-INGEST_CHUNK = 32
+# The rig prefetch driver's chunk sizes (rig frames) timed against each
+# other; 32 is the reference's default.
+INGEST_CHUNKS = (32, 128, 512)
 INGEST_PEAK_LIMIT = 60e9
 INGEST_CUBE_FRAMES = 64
 # tests/test_cli_dataset.py:60-61: two far-range front radars and two
@@ -2683,8 +2733,7 @@ def kernel_counters(fe, sp, power, rds_op, dechirp, cfar):
 def counted(torch, counters, fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts read just after (kernels launched only)."""
-    for w in counters.values():
-        w.launches = 0
+    zero_counts(*counters.values())
     out = fn()
     torch.cuda.synchronize()
     return out, {n: w.launches for n, w in counters.items() if w.launches}
@@ -2760,7 +2809,8 @@ def step_loop_poses(torch, cfg, batch, device):
 def phase_streaming(torch, counters, cfg_mod, device):
     """StreamingAnalyzer at the CLI's configuration over 256 frames of the
     bench scene: host-clock latency per frame, frames/s, launches per
-    step; its trajectory equal bit for bit to the loop of steps."""
+    step; its trajectory, from device tensors and from host numpy (through
+    the chunk uploader), equal bit for bit to the loop of steps."""
     from radar_slam_tpu_torch.pipeline import frame as fr
     from radar_slam_tpu_torch.pipeline.streaming import StreamingAnalyzer
     cfg = cfg_mod.complete_analysis_config()   # the CLI's (S_max 512)
@@ -2778,6 +2828,14 @@ def phase_streaming(torch, counters, cfg_mod, device):
     est = np.asarray(an.results["estimated_trajectory"])
     loop = step_loop_poses(torch, cfg, batch, device)
     same = bool(np.array_equal(est, loop))
+    # The same frames as host numpy: analyze_sequence ingests them through
+    # the double-buffered chunk_uploader (the path of ``analyze --dataset
+    # --merged``).
+    host_an = StreamingAnalyzer(cfg, device=device)
+    _, n_host = counted(torch, counters, lambda: host_an.analyze_sequence(
+        fr._map(lambda x: x.cpu().numpy(), batch), gt_poses=gt["poses"]))
+    host_est = np.asarray(host_an.results["estimated_trajectory"])
+    same_host = bool(np.array_equal(host_est, loop))
     emit("streaming", frames=F, max_scatterers=cfg.max_scatterers,
          warmup_frames=STREAM_WARMUP, host_ms_p50=float(np.percentile(ms, 50)),
          host_ms_p99=float(np.percentile(ms, 99)), host_ms_max=float(ms.max()),
@@ -2786,8 +2844,14 @@ def phase_streaming(torch, counters, cfg_mod, device):
          position_rmse_m=metrics["position_rmse"],
          successful_estimates=metrics["successful_estimates"],
          bitwise_equal_to_step_loop=same,
-         max_abs_diff_m=float(np.abs(est - loop).max()))
+         max_abs_diff_m=float(np.abs(est - loop).max()),
+         host_input=dict(launches=n_host,
+                         bitwise_equal_to_step_loop=same_host,
+                         max_abs_diff_m=float(np.abs(host_est - loop).max())))
     check(same, "streaming: analyzer trajectory differs from the step loop")
+    check(same_host, "streaming: analyzer on host input (chunk_uploader) "
+          "differs from the step loop")
+    check(n_host.get("K1", 0) == F, f"streaming: host-input launches {n_host}")
     check(n.get("K1", 0) == F, f"streaming: launches {n}")
     check(bool(np.isfinite(est).all()), "streaming: pose not finite")
     return n
@@ -3005,18 +3069,6 @@ def in_memory_loader(radarscenes, data, sensors):
     return InMemory
 
 
-def interval_busy_ms(events):
-    """Device busy time (ms): the union of the events' intervals."""
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in events)
-    busy, end = 0.0, -math.inf
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy / 1e3
-
-
 def traced_idle(torch, run):
     """One traced call of ``run``: (device busy ms, idle share of its host
     wall)."""
@@ -3055,7 +3107,8 @@ def phase_ingest(torch, counters, cfg_mod, device):
     from extract_radar_frames on: (a) the moving-ego fixture of
     tests/test_cli_dataset.py through the dataset ``analyze`` (the rig by
     default); (b) 2048 rig frames x 4 sensors through the rig prefetch
-    driver (chunk 32) and the one-shot batched rig, held to each other as
+    driver (at each chunk size of INGEST_CHUNKS, its default among them)
+    and the one-shot batched rig, each held to the one-shot as
     tests/test_prefetch.py:122-127 holds them; (c) 64 host cubes through
     the cube prefetch driver (K7), bit for bit the one-shot driver's."""
     from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
@@ -3098,13 +3151,23 @@ def phase_ingest(torch, counters, cfg_mod, device):
           and host.range_m.shape == (F, 4, cfg.max_scatterers),
           f"ingest: {F} frames, batch {host.range_m.shape}")
 
-    def prefetched(h=host):
-        return prefetch.process_sequence_rig_batched_prefetch(
-            h, torch.Generator().manual_seed(0), cfg, rig,
-            chunk=INGEST_CHUNK, device=device)
+    default_chunk = inspect.signature(
+        prefetch.process_sequence_rig_batched_prefetch).parameters[
+            "chunk"].default
 
-    pre, pre_row = timed_driver(torch, counters, prefetched, F)
-    del pre
+    def prefetched(chunk, h=host):
+        return prefetch.process_sequence_rig_batched_prefetch(
+            h, torch.Generator().manual_seed(0), cfg, rig, chunk=chunk,
+            device=device)
+
+    pre, pre_rows = {}, {}
+    for chunk in INGEST_CHUNKS:
+        pre[chunk], pre_rows[chunk] = timed_driver(
+            torch, counters, lambda c=chunk: prefetched(c), F)
+        check(pre_rows[chunk]["launches"].get("K1", 0)
+              == -(-F // min(chunk, F)),
+              f"ingest: prefetch chunk {chunk} launches "
+              f"{pre_rows[chunk]['launches']}")
     # The one-shot driver's peak at 256 rig frames, scaled.
     n_probe = min(256, F)
     probe = fr._map(lambda x: x[:n_probe], host)
@@ -3126,32 +3189,41 @@ def phase_ingest(torch, counters, cfg_mod, device):
 
     one, one_row = timed_driver(torch, counters, one_shot, F_cmp)
     if F_cmp != F:
-        pre = prefetched(cmp_host)
-    else:
-        pre = prefetched()
-    d_pose = float((pre.pose - one.pose).abs().max())
-    same_success = bool(torch.equal(pre.motion.success, one.motion.success))
-    same_reliable = bool(torch.equal(pre.num_reliable, one.num_reliable))
-    rmse = planar_pose_errors(pre.pose, gt["poses"][:F_cmp])["position_rmse"]
+        pre = {c: prefetched(c, cmp_host) for c in INGEST_CHUNKS}
+    diffs = {}
+    for chunk, out in pre.items():
+        diffs[chunk] = dict(
+            max_abs_pose_diff_m=float((out.pose - one.pose).abs().max()),
+            equal_success=bool(torch.equal(out.motion.success,
+                                           one.motion.success)),
+            equal_num_reliable=bool(torch.equal(out.num_reliable,
+                                                one.num_reliable)))
+    rmse = planar_pose_errors(pre[INGEST_CHUNKS[0]].pose,
+                              gt["poses"][:F_cmp])["position_rmse"]
     rows["long"] = dict(
         rig_frames=F, sensors=4, returns=returns,
         returns_per_sensor_frame=returns / (4 * F),
         max_scatterers=cfg.max_scatterers, loader_host_s=loader_s,
-        prefetch=dict(chunk=INGEST_CHUNK, **pre_row),
+        prefetch=dict(chunk=INGEST_CHUNKS[0],
+                      **pre_rows[INGEST_CHUNKS[0]]),
+        prefetch_by_chunk={c: dict(vs_one_shot=diffs[c], **pre_rows[c])
+                           for c in INGEST_CHUNKS},
+        prefetch_default_chunk=default_chunk,
         one_shot=dict(rig_frames=F_cmp, **one_row),
         one_shot_peak_predicted_bytes=predicted_peak,
-        compared_rig_frames=F_cmp, max_abs_pose_diff_m=d_pose,
-        equal_success=same_success, equal_num_reliable=same_reliable,
-        position_rmse_m=rmse)
+        compared_rig_frames=F_cmp, position_rmse_m=rmse,
+        **diffs[INGEST_CHUNKS[0]])
     if F_cmp != F:
         rows["long"]["cut"] = (f"one-shot peak predicted "
                                f"{predicted_peak / 1e9:.1f} GB > 60 GB: "
                                f"compared at {F_cmp} rig frames")
-    check(same_success and same_reliable and d_pose <= 1e-5,
-          f"ingest: prefetch vs one-shot pose {d_pose} m, success "
-          f"{same_success}, num_reliable {same_reliable}")
-    check(pre_row["launches"].get("K1", 0) == -(-F // INGEST_CHUNK),
-          f"ingest: prefetch launches {pre_row['launches']}")
+    for chunk, d in diffs.items():
+        check(d["equal_success"] and d["equal_num_reliable"]
+              and d["max_abs_pose_diff_m"] <= 1e-5,
+              f"ingest: prefetch chunk {chunk} vs one-shot {d}")
+    check(default_chunk in INGEST_CHUNKS,
+          f"ingest: the driver's default chunk {default_chunk} not timed")
+    pre_row = pre_rows[default_chunk]
     del pre, one, dev
 
     batch, _ = scene(INGEST_CUBE_FRAMES, cfg, device)

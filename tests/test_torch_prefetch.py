@@ -157,6 +157,39 @@ def test_rig_batched_prefetch_matches_one_shot():
                                   to_np(a.num_reliable))
 
 
+def test_rig_batched_prefetch_default_chunk_covers_a_short_sequence(
+        monkeypatch):
+    """The default chunk (longer than these 6 frames) runs phase A once
+    over the 6 frames, not over a chunk padded with repeats, and equals
+    the one-shot driver."""
+    batch, _ = constant_motion_scene_rig(
+        11, num_frames=6, dt=CFG.frame_dt, v_body=(8.0, 0.5),
+        yaw_rate=0.25, rig=RIG,
+        scene=SceneConfig(num_points=48, max_scatterers=CFG.max_scatterers,
+                          fov_rad=1.8), device="cpu")
+    seen = []
+    features = trig._features_from_frame_seeds
+
+    def spy(sc, seeds, cfg):
+        seen.append(tuple(seeds.shape))
+        return features(sc, seeds, cfg)
+
+    monkeypatch.setattr(trig, "_features_from_frame_seeds", spy)
+    a = trig.process_sequence_rig_batched(
+        batch, torch.Generator().manual_seed(0), CFG, RIG)
+    seen.clear()
+    b = prefetch.process_sequence_rig_batched_prefetch(
+        _host(batch), torch.Generator().manual_seed(0), CFG, RIG,
+        device="cpu")
+    assert seen == [(6, len(RIG))]
+    np.testing.assert_allclose(to_np(b.pose), to_np(a.pose), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(to_np(b.motion.success),
+                                  to_np(a.motion.success))
+    np.testing.assert_array_equal(to_np(b.num_reliable),
+                                  to_np(a.num_reliable))
+
+
 def test_prefetch_driver_rejects_a_wrong_rig():
     batch = _scene(4)
     with pytest.raises(ValueError):
