@@ -19,9 +19,11 @@ adversarial scene, and the mounted-rig drivers
 frame x sensor axis) and ``process_sequence_rig`` (K1 once a step); then
 the entry points users start the system through: the CLI
 (``pipeline/cli.py``), the streaming analyzer with checkpoint resume and
-the real-time runtime (``pipeline/streaming.py``), and the RadarScenes
+the real-time runtime (``pipeline/streaming.py``), the RadarScenes
 loader with the double-buffered prefetch drivers (``io/radarscenes.py``,
-``io/prefetch.py``).  K6
+``io/prefetch.py``), and the six-step artifact pipeline
+(``pipeline/pipeline.py``, ``io/artifacts.py``) with its ``simulate``,
+``process`` and ``pipeline`` subcommands.  K6
 draws the noise K4 and K5 draw and is their validation surface; the
 prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSON line per phase:
 
@@ -227,6 +229,24 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     rig frames, would pass 60 GB); 64 host cubes through
                     the cube prefetch driver, bit for bit
                     process_signal_sequence, K7 64 launches;
+                    artifact_pipeline: the six-step artifact pipeline
+                    (pipeline/pipeline.py): (a) ``pipeline --max-frames
+                    256`` through the CLI (MUSIC; no hand kernel: step 2
+                    runs torch's FFT for "fused", as the reference
+                    does), each step's time, bytes per stage, frames/s,
+                    every artifact read back, the successful frames 1..'s
+                    velocities within 0.3 m/s of (8.0, 0.5), success >
+                    0.9; the same pipeline warm without and with
+                    artifacts; (b) fft_mode "pallas" resumed from (a)'s
+                    raw frames: K8 once per step-2 call, its RDS within
+                    1e-5 of max |rds| of (a)'s, detection sets equal but
+                    for cells within 1e-3 dB of a threshold, neighbour or
+                    top-K tie, the final position within 0.05 m; (c)
+                    ``simulate --max-frames 16`` bit for bit across two
+                    runs, ``process`` on its frames bit for bit step 2's
+                    FFT route; (d) integrate_pose at N = 2048 against a
+                    float64 sequential loop: errors, time per call,
+                    device launches per call;
                     then trace_retries: every trace of the script (the
                     profiles above and each phase's kernel_profile) sits
                     between host sleeps and two spin kernels, and is taken
@@ -2741,7 +2761,7 @@ def counted(torch, counters, fn):
 
 def run_cli(argv, device):
     """``cli.main(argv + ["--device", ...])`` in this process: (exit code,
-    stdout, the JSON object it printed)."""
+    stdout, the JSON object it printed, or None where it printed none)."""
     import contextlib
     import io
     from radar_slam_tpu_torch.pipeline import cli
@@ -2749,6 +2769,8 @@ def run_cli(argv, device):
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv + ["--device", device.type])
     out = buf.getvalue()
+    if "{" not in out:
+        return rc, out, None
     return rc, out, json.loads(out[out.index("{"):out.rindex("}") + 1])
 
 
@@ -3249,6 +3271,294 @@ def phase_ingest(torch, counters, cfg_mod, device):
             "cube_prefetch": n_pre}
 
 
+ARTIFACT_FRAMES = 256
+ARTIFACT_SIM_FRAMES = 16
+ARTIFACT_VEL_TOL = 0.3         # m/s per component (tests/test_orchestration.py:61)
+ARTIFACT_POS_TOL = 0.05        # m, final position of the K8 route against FFT
+POSE_FRAMES = 2048
+# The artifact tree of tests/test_orchestration.py:48-68, per frame.
+ARTIFACT_FILES = (("raw_sim", "{}.npy"), ("rds", "{}_rds.npy"),
+                  ("rds", "{}_peaks.npz"), ("angles", "{}_angles.npz"),
+                  ("velocities", "{}_velocity.npz"))
+
+
+def stage_bytes(root):
+    """Bytes written under each stage directory of an artifact run."""
+    return {p.name: sum(f.stat().st_size for f in p.iterdir())
+            for p in sorted(Path(root).iterdir()) if p.is_dir()}
+
+
+def check_artifact_tree(art, root, F, cfg):
+    """Every frame's files, the shapes and dtypes of tests/
+    test_orchestration.py:48-68 read back through the port's loaders; the
+    per-frame velocities [F, 3] and success [F]."""
+    root = Path(root)
+    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
+    S, K = cfg.radar.samples_per_chirp, cfg.detection.max_detections
+    for i in range(F):
+        for stage, pattern in ARTIFACT_FILES:
+            f = root / stage / pattern.format(art.frame_name(i))
+            check(f.exists(), f"artifact_pipeline: missing {f}")
+    for name in ("raw_sim/synthesis_metadata.json", "pipeline_config.json",
+                 "poses/trajectory.npz", "poses/trajectory.txt",
+                 "evaluation/velocity_report.md"):
+        check((root / name).exists(), f"artifact_pipeline: missing {name}")
+    raw = art.load_raw_frame(root / "raw_sim", 3)
+    rds, peaks = art.load_rds_frame(root / "rds", 3)
+    ang = art.load_angles_frame(root / "angles", 3)
+    traj = art.load_trajectory(root / "poses")
+    check(raw.shape == (A, C, S) and raw.dtype == np.complex64,
+          f"artifact_pipeline: raw frame {raw.shape} {raw.dtype}")
+    check(rds.shape == (A, S, C) and rds.dtype == np.complex64,
+          f"artifact_pipeline: rds frame {rds.shape} {rds.dtype}")
+    check(peaks["range_bin"].shape == (K,)
+          and peaks["range_bin"].dtype == np.int32,
+          f"artifact_pipeline: peaks {peaks['range_bin'].shape}")
+    check(ang["spatial_signature"].shape == (K, A),
+          f"artifact_pipeline: angles {ang['spatial_signature'].shape}")
+    check(traj["positions"].shape == (F, 3)
+          and traj["rotations"].shape == (F, 3, 3)
+          and bool(np.isfinite(traj["positions"]).all()),
+          f"artifact_pipeline: trajectory {traj['positions'].shape}")
+    v = [art.load_velocity_frame(root / "velocities", i) for i in range(F)]
+    return (np.stack([x["velocity"] for x in v]),
+            np.array([bool(x["success"]) for x in v]), traj)
+
+
+def rds_cell_margins(torch, det_cfg, rds, cells, k_floor, limit=4):
+    """For detections (frame, range bin, Doppler bin) in one set and not
+    the other: the cell's margin over its CFAR threshold, over its
+    largest neighbour, and over the weakest detection of a full top-K
+    (``k_floor`` [F] dB, None where the frame's set is not full), on the
+    power map of ``rds`` [F, A, R, D] (dB)."""
+    from radar_slam_tpu_torch.signal.detect import threshold_db
+    rows = []
+    for f, r, d in sorted(cells)[:limit]:
+        p = torch.mean(rds[f].abs() ** 2, dim=0)[None] + 1e-12
+        thresh = threshold_db(p, det_cfg)[0]
+        v = p[0, r, d]
+        h = det_cfg.neighborhood // 2
+        nb = p[0, max(r - h, 0):r + h + 1, max(d - h, 0):d + h + 1].flatten()
+        nb = torch.sort(nb, descending=True).values
+        second = nb[1] if nb[0] == v else nb[0]
+        v_db = float(10 * torch.log10(v))
+        rows.append(dict(
+            cell=[f, r, d],
+            margin_to_threshold_db=v_db - float(thresh[r, d]),
+            margin_to_neighbours_db=float(10 * torch.log10(v / second)),
+            margin_to_rank_db=(None if k_floor[f] is None
+                               else v_db - k_floor[f])))
+    return rows
+
+
+def rds_explained(rows, n_diff, tol_db=1e-3):
+    """Every differing detection within tol_db of a threshold, neighbour or
+    rank tie (``explained``'s rule, with the top-K rank)."""
+    return len(rows) == n_diff and all(
+        min(abs(c["margin_to_threshold_db"]),
+            abs(c["margin_to_neighbours_db"]),
+            abs(c["margin_to_rank_db"]) if c["margin_to_rank_db"] is not None
+            else math.inf) < tol_db for c in rows)
+
+
+def pose_float64_loop(v, w, ts):
+    """The sequential composition in float64 numpy: q_i = normalize(q_{i-1}
+    * dq(w_{i-1} dt)), positions by the trapezoid on rotated velocities."""
+    from radar_slam_tpu_torch.evaluate.pose_metrics import (_q_mul, _q_norm,
+                                                            _q_rotate)
+    q = [np.array([1.0, 0.0, 0.0, 0.0])]
+    for i in range(1, len(ts)):
+        r = w[i - 1] * (ts[i] - ts[i - 1])
+        a = np.linalg.norm(r)
+        dq = np.concatenate([[np.cos(a / 2)],
+                             r * (np.sin(a / 2) / a if a > 0 else 0.5)])
+        q.append(_q_norm(_q_mul(q[-1], dq)))
+    q = np.stack(q)
+    vw = _q_rotate(q, v)
+    steps = 0.5 * np.diff(ts)[:, None] * (vw[:-1] + vw[1:])
+    return q, np.concatenate([np.zeros((1, 3)), np.cumsum(steps, axis=0)])
+
+
+def phase_artifact_pipeline(torch, counters, cfg_mod, device):
+    """The six-step artifact pipeline (pipeline/pipeline.py, io/
+    artifacts.py) and its subcommands at the CLI's configuration:
+    (a) ``pipeline --max-frames 256`` through the CLI (MUSIC, the bench
+    scene, S_max 512; no hand kernel: step 2 turns "fused" into torch's
+    FFT, as the reference does), the artifact tree read back, the
+    velocities of the successful frames 1.. within 0.3 m/s of the truth,
+    success > 0.9; the same pipeline warm with and without artifacts;
+    (b) ``fft_mode="pallas"`` resumed from (a)'s raw frames: K8 once per
+    step-2 call, its RDS within 1e-5 of max |rds| of (a)'s, detection sets
+    equal but for ties, final position within 0.05 m; (c) ``simulate`` bit
+    for bit across two runs, ``process`` bit for bit step 2's FFT route;
+    (d) integrate_pose at N = 2048 against a float64 loop."""
+    import os
+    import tempfile
+    from radar_slam_tpu_torch.io import artifacts as art
+    from radar_slam_tpu_torch.motion.pose import integrate_pose
+    from radar_slam_tpu_torch.pipeline.pipeline import EgoMotionPipeline
+    cfg = with_method(cfg_mod.complete_analysis_config(), "music")  # CLI's
+    F = ARTIFACT_FRAMES
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out_a = tmp / "cli"
+        t0 = time.perf_counter()
+        (rc, _, r), n_a = counted(torch, counters, lambda: run_cli(
+            ["pipeline", "--out", str(out_a), "--max-frames", str(F)],
+            device))
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"artifact_pipeline: pipeline exit {rc}")
+        check(not n_a, f"artifact_pipeline: the CLI pipeline launched {n_a}"
+              " (its configuration runs no hand kernel)")
+        st = r["step_times"]
+        vel, success, traj = check_artifact_tree(art, out_a, F, cfg)
+        ok = success[1:]
+        err = np.abs(vel[1:][ok][:, :2] - np.array([8.0, 0.5]))
+        rows["cli"] = dict(
+            frames=F, rc=rc, launches=n_a, step_times_s=st,
+            frames_per_s=F / sum(st.values()), cli_wall_s=wall,
+            bytes_per_stage=stage_bytes(out_a), success=float(ok.mean()),
+            max_abs_err_vx_vy=err.max(axis=0).tolist(),
+            frames_over_tol=int((err > ARTIFACT_VEL_TOL).any(axis=1).sum()),
+            final_position=traj["positions"][-1].tolist())
+        check(float(ok.mean()) > 0.9,
+              f"artifact_pipeline: success {ok.mean()}")
+        check(bool((err <= ARTIFACT_VEL_TOL).all()),
+              f"artifact_pipeline: velocity error {err.max(axis=0)}")
+
+        batch, _ = scene(F, cfg, device)
+        gt_vel = np.zeros((F, 6))           # the CLI's ground truth
+        gt_vel[:, :2] = (8.0, 0.5)
+        gt_vel[:, 5] = 0.05
+        for label, save in (("no_artifacts", False), ("artifacts", True)):
+            pipe = EgoMotionPipeline(cfg, tmp / label, save_artifacts=save,
+                                     device=device)
+            res, n = counted(torch, counters, lambda: (
+                pipe.run_complete_pipeline(batch, gt_velocities=gt_vel)))
+            st = res["step_times"]
+            rows[label] = dict(step_times_s=st, launches=n,
+                               frames_per_s=F / sum(st.values()),
+                               bytes_per_stage=stage_bytes(tmp / label))
+        del pipe, res
+
+        # (b) K8 resumed from (a)'s raw frames.
+        out_b = tmp / "pallas"
+        out_b.mkdir()
+        os.symlink(out_a / "raw_sim", out_b / "raw_sim")
+        pal = EgoMotionPipeline(dataclasses.replace(cfg, fft_mode="pallas"),
+                                out_b, save_artifacts=False, device=device)
+        (rds_b, det_b), n_b = counted(torch, counters,
+                                      pal.step2_process_signals)
+        pal.step3_extract_angles()
+        pal.step4_estimate_velocity()
+        traj_b = pal.step5_integrate_pose()
+        torch.cuda.synchronize()
+        rds_a = torch.from_numpy(np.stack([
+            art.load_rds_frame(out_a / "rds", i)[0] for i in range(F)])
+        ).to(device)
+        _, k8_rel = rel_err(rds_b, rds_a)
+        peaks = [art.load_rds_frame(out_a / "rds", i)[1] for i in range(F)]
+        set_a = {(f, int(rb), int(db)) for f, p in enumerate(peaks)
+                 for rb, db, ok in zip(p["range_bin"], p["doppler_bin"],
+                                       p["valid"]) if ok}
+        set_b = det_set(det_b)
+        K = cfg.detection.max_detections
+        k_floor = [float(p["power_db"][p["valid"]].min())
+                   if p["valid"].sum() == K else None for p in peaks]
+        diff = set_a ^ set_b
+        margins = rds_cell_margins(torch, cfg.detection, rds_a, diff,
+                                   k_floor, limit=len(diff))
+        del rds_a
+        vel_b = pal._motions.velocity.cpu().numpy()
+        pos_b = traj_b.positions.cpu().numpy()
+        rows["pallas"] = dict(
+            launches=n_b, k8_rel_err=k8_rel, detections=len(set_a),
+            set_diff=len(diff), differing_cells=margins[:8],
+            final_position=pos_b[-1].tolist(),
+            final_position_diff_m=float(np.linalg.norm(
+                pos_b[-1] - traj["positions"][-1])),
+            frames_velocity_diff_over_1mm_s=int(
+                (np.abs(vel_b - vel).max(axis=1) > 1e-3).sum()),
+            step_times_s=dict(pal.step_times))
+        check(n_b.get("K8", 0) == 1, f"artifact_pipeline: step 2 launches "
+              f"{n_b} (K8 once per call)")
+        check(k8_rel < K8_TOL, f"artifact_pipeline: K8 RDS {k8_rel}")
+        check(len(diff) == 0 or rds_explained(margins, len(diff)),
+              f"artifact_pipeline: detection sets differ {margins[:8]}")
+        check(rows["pallas"]["final_position_diff_m"] <= ARTIFACT_POS_TOL,
+              f"artifact_pipeline: final position {rows['pallas']}")
+        del pal, rds_b, det_b
+
+        # (c) simulate twice, process, and step 2 on the same raw frames.
+        sims = []
+        for k in range(2):
+            d = tmp / f"sim{k}"
+            (rc, out, _), n = counted(torch, counters, lambda: run_cli(
+                ["simulate", "--out", str(d), "--max-frames",
+                 str(ARTIFACT_SIM_FRAMES)], device))
+            check(rc == 0 and f"wrote {ARTIFACT_SIM_FRAMES} frames" in out,
+                  f"artifact_pipeline: simulate exit {rc}: {out}")
+            sims.append(np.stack([art.load_raw_frame(d, i)
+                                  for i in range(ARTIFACT_SIM_FRAMES)]))
+        (rc, out, _), n_p = counted(torch, counters, lambda: run_cli(
+            ["process", "--raw", str(tmp / "sim0"), "--out",
+             str(tmp / "proc")], device))
+        check(rc == 0, f"artifact_pipeline: process exit {rc}: {out}")
+        step2 = EgoMotionPipeline(cfg, tmp / "step2", save_artifacts=False,
+                                  device=device)
+        rds_c, det_c = step2.step2_process_signals(
+            torch.from_numpy(sims[0]).to(device))
+        rds_c = rds_c.cpu().numpy()
+        rb_c = det_c.range_bin.cpu().numpy()
+        proc = [art.load_rds_frame(tmp / "proc", i)
+                for i in range(ARTIFACT_SIM_FRAMES)]
+        same_rds = all(np.array_equal(p[0], rds_c[i])
+                       for i, p in enumerate(proc))
+        same_det = all(np.array_equal(p[1]["range_bin"], rb_c[i])
+                       for i, p in enumerate(proc))
+        same_sim = bool(np.array_equal(sims[0], sims[1]))
+        rows["simulate_process"] = dict(
+            frames=ARTIFACT_SIM_FRAMES, simulate_bitwise_repeat=same_sim,
+            process_bitwise_step2=same_rds, process_detections_equal=same_det,
+            launches_process=n_p)
+        check(same_sim, "artifact_pipeline: simulate differs across runs")
+        check(same_rds and same_det,
+              "artifact_pipeline: process differs from step 2")
+
+    # (d) integrate_pose at N = 2048 on the card.
+    rng = np.random.default_rng(17)
+    v = rng.normal(0.0, 5.0, (POSE_FRAMES, 3)).astype(np.float32)
+    w = rng.normal(0.0, 0.5, (POSE_FRAMES, 3)).astype(np.float32)
+    ts = np.arange(POSE_FRAMES, dtype=np.float32) * np.float32(0.1)
+    q64, p64 = pose_float64_loop(v.astype(np.float64), w.astype(np.float64),
+                                 ts.astype(np.float64))
+    tv, tw, tts = (torch.from_numpy(x).to(device) for x in (v, w, ts))
+    pose_cfg = cfg_mod.PoseConfig()
+
+    def run():
+        return integrate_pose(tv, tw, tts, pose_cfg)
+
+    traj = run()
+    q_err = float(np.abs(traj.quaternions.cpu().numpy() - q64).max())
+    p_err = float(np.abs(traj.positions.cpu().numpy() - p64).max())
+    ms = min(cuda_time_ms(torch, run, 10) for _ in range(3))
+    launches = {}
+    busy = kernel_profile(torch, run, launches)
+    rows["integrate_pose"] = dict(
+        frames=POSE_FRAMES, quat_max_abs_err=q_err, pos_max_abs_err_m=p_err,
+        pos_max_m=float(np.abs(p64).max()), ms_per_call=ms,
+        device_launches_per_call=sum(launches.values()),
+        device_busy_ms=sum(busy.values()))
+    check(q_err < 1e-5, f"artifact_pipeline: integrate_pose quaternions "
+          f"{q_err}")
+    check(p_err < 4 * POSE_FRAMES * np.finfo(np.float32).eps
+          * float(np.abs(p64).max()),
+          f"artifact_pipeline: integrate_pose positions {p_err}")
+    emit("artifact_pipeline", **rows)
+    return {"cli": n_a, "pallas": n_b}
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -3387,6 +3697,9 @@ def main():
     phase_realtime(torch, cfg_mod, device)
     entry_runs.update({f"ingest {k}": v for k, v in phase_ingest(
         torch, counters, cfg_mod, device).items()})
+    entry_runs.update({f"artifact_pipeline {k}": v for k, v in
+                       phase_artifact_pipeline(torch, counters, cfg_mod,
+                                               device).items()})
     emit("trace_retries", pads_s=list(TRACE_PADS_S),
          final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 

@@ -147,6 +147,32 @@ class MotionEstimate(NamedTuple):
         return torch.cat([self.velocity, self.angular_velocity], dim=-1)
 
 
+class Trajectory(NamedTuple):
+    """Integrated pose trajectory of N frames (the reference's
+    ``Trajectory``; a sequence, so no extra frame axis)."""
+
+    timestamps: torch.Tensor          # [N] float32 seconds
+    positions: torch.Tensor           # [N, 3]
+    orientations: torch.Tensor        # [N, 3] Euler xyz (roll, pitch, yaw)
+    quaternions: torch.Tensor         # [N, 4] (w, x, y, z)
+    velocities: torch.Tensor          # [N, 3]
+    angular_velocities: torch.Tensor  # [N, 3]
+
+    @property
+    def rotations(self) -> torch.Tensor:
+        from radar_slam_tpu_torch.core import geometry
+        return geometry.quat_to_matrix(self.quaternions)
+
+    @property
+    def total_distance(self) -> torch.Tensor:
+        steps = torch.diff(self.positions, dim=0)
+        return torch.sum(torch.linalg.vector_norm(steps, dim=-1))
+
+    @property
+    def duration(self) -> torch.Tensor:
+        return self.timestamps[-1] - self.timestamps[0]
+
+
 class FrameOutput(NamedTuple):
     """Per-frame pipeline outputs (``pipeline/frame.py:FrameOutput`` in the
     reference), leading frame axis [F]."""

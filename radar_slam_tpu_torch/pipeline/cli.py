@@ -3,6 +3,9 @@
 Counterpart of ``radar_slam_tpu/pipeline/cli.py``, with the same
 subcommands, flags, printed keys and exit codes:
 
+    python -m radar_slam_tpu_torch simulate --out ... [--dataset --seq]
+    python -m radar_slam_tpu_torch process  --raw ... --out ...
+    python -m radar_slam_tpu_torch pipeline --out ... [--dataset --seq]
     python -m radar_slam_tpu_torch analyze [--dataset ... --seq ...]
                                            [--rig | --merged] [--max-frames N]
     python -m radar_slam_tpu_torch quick-compare [--frames N] [--adversarial]
@@ -13,14 +16,17 @@ reference's choice of JAX platform.  ``quick-compare`` runs the real
 pipeline on a short synthetic workload and reports its errors against the
 ground truth; ``analyze`` runs the streaming analyzer (synthetic, or a
 RadarScenes recording with ``--dataset``) or, for mounted rigs, the
-batched rig driver through the double-buffered ingest.
+batched rig driver through the double-buffered ingest.  ``simulate``
+writes raw frames, ``process`` their RDS and detections, and ``pipeline``
+runs the six-step artifact pipeline (``pipeline/pipeline.py``; MUSIC
+unless ``--aoa-method`` says otherwise), each in the reference's artifact
+schema (``io/artifacts.py``).
 
-``simulate``, ``process``, ``pipeline``, ``analyze-data``, ``evaluate``,
-``visualize`` and ``bench`` are registered with the reference's flags and
-raise ``NotImplementedError`` naming the ROADMAP item that ports them, as
-does ``analyze --slam``.  As in the reference, ``--fast`` is on whatever is
-passed, so every subcommand runs ``complete_analysis_config()``
-(``max_scatterers=512``).
+``analyze-data``, ``evaluate``, ``visualize`` and ``bench`` are registered
+with the reference's flags and raise ``NotImplementedError`` naming the
+ROADMAP item that ports them, as does ``analyze --slam``.  As in the
+reference, ``--fast`` is on whatever is passed, so every subcommand runs
+``complete_analysis_config()`` (``max_scatterers=512``).
 """
 
 from __future__ import annotations
@@ -28,13 +34,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-ROADMAP_ARTIFACTS = "ROADMAP section 1, 'The six-step artifact pipeline'"
 ROADMAP_VIZ = "ROADMAP section 1, 'Visualization'"
 ROADMAP_SLAM = "ROADMAP section 1, 'Distributed back ends'"
 ROADMAP_BENCH = "ROADMAP section 1, 'The port's benchmark'"
@@ -65,10 +71,108 @@ def _synthetic_scene(cfg, frames: int, device, seed: int = 7):
         device=device)
 
 
+def _load_dataset_frames(args, cfg, device):
+    """A RadarScenes recording's frames as one batch on ``device``, and its
+    ground-truth arrays."""
+    from radar_slam_tpu_torch.io.radarscenes import RadarScenesLoader
+    loader = RadarScenesLoader(args.dataset)
+    data = loader.load_sequence_data(args.seq)
+    frames = loader.extract_radar_frames(data, cfg.frame_duration_ms)
+    if args.max_frames:
+        frames = frames[:args.max_frames]
+    return loader.frames_as_batches(data, frames, cfg.max_scatterers,
+                                    device=device)
+
+
 def _not_ported(what: str, item: str):
     def cmd(args) -> int:
         raise NotImplementedError(f"{what} is not ported yet ({item})")
     return cmd
+
+
+def cmd_simulate(args) -> int:
+    """Synthesize raw frames to ``frame_XXXX.npy`` artifacts (the
+    reference's ``simulate_raw.py``), noise seeds from generator seed 0."""
+    from radar_slam_tpu_torch.io import artifacts
+    from radar_slam_tpu_torch.signal.synth import synthesize_frames_batch
+    from radar_slam_tpu_torch.utils.host import device_get
+
+    device = torch.device(args.device)
+    cfg = _cfg_from_args(args)
+    if args.dataset:
+        batches, _ = _load_dataset_frames(args, cfg, device)
+    else:
+        batches, _ = _synthetic_scene(cfg, args.max_frames or 16, device)
+    signals = device_get(synthesize_frames_batch(
+        batches, cfg.radar, torch.Generator().manual_seed(0)))
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    for i in range(signals.shape[0]):
+        artifacts.save_raw_frame(out, i, signals[i])
+    artifacts.save_synthesis_metadata(
+        out, cfg.radar, {"processed_frames": int(signals.shape[0])})
+    print(f"wrote {signals.shape[0]} frames to {out}")
+    return 0
+
+
+def cmd_process(args) -> int:
+    """RDS + peaks of saved raw frames (the reference's ``dechirp.py``);
+    exit 2 when ``--raw`` holds no frames."""
+    from radar_slam_tpu_torch.core.types import signals_from_numpy
+    from radar_slam_tpu_torch.io import artifacts
+    from radar_slam_tpu_torch.signal.detect import detect_peaks
+    from radar_slam_tpu_torch.signal.rds import range_doppler_spectrum
+    from radar_slam_tpu_torch.utils.host import device_get, tree_map
+
+    device = torch.device(args.device)
+    cfg = _cfg_from_args(args)
+    raw_dir = Path(args.raw)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    files = sorted(raw_dir.glob("frame_*.npy"))
+    if not files:
+        print(f"error: no frame_*.npy under {raw_dir}", file=sys.stderr)
+        return 2
+    subset = (args.chirp_start, args.chirp_end) \
+        if args.chirp_start is not None else None
+    # One batch of all frames: one upload, one RDS call, one read-back.
+    sig = signals_from_numpy(np.stack([np.load(f) for f in files]), device)
+    rds = range_doppler_spectrum(sig, cfg.radar, chirp_subset=subset,
+                                 doppler_window=cfg.doppler_window)
+    rds_h, det_h = device_get((rds, detect_peaks(rds, cfg.radar,
+                                                 cfg.detection)))
+    for i in range(len(files)):
+        artifacts.save_rds_frame(out, i, rds_h[i],
+                                 tree_map(lambda x: x[i], det_h))
+    print(f"processed {len(files)} frames -> {out}")
+    return 0
+
+
+def cmd_pipeline(args) -> int:
+    """The six-step artifact pipeline (the reference's
+    ``run_ego_motion_pipeline.py``)."""
+    from radar_slam_tpu_torch.pipeline.pipeline import EgoMotionPipeline
+
+    device = torch.device(args.device)
+    cfg = _cfg_from_args(args)
+    if not getattr(args, "aoa_method", None):
+        # The reference's batch pipeline runs MUSIC as its step-3
+        # estimator (run_ego_motion_pipeline.py:183).
+        cfg = dataclasses.replace(
+            cfg, aoa=dataclasses.replace(cfg.aoa, method="music"))
+    if args.dataset:
+        batches, _ = _load_dataset_frames(args, cfg, device)
+        gt_vel = None
+    else:
+        batches, gt = _synthetic_scene(cfg, args.max_frames or 16, device)
+        F = batches.range_m.shape[0]
+        gt_vel = np.zeros((F, 6))
+        gt_vel[:, :2] = np.asarray(gt["velocity_body"])[:2]
+        gt_vel[:, 5] = float(gt["yaw_rate"])
+    pipe = EgoMotionPipeline(cfg, args.out, device=device)
+    res = pipe.run_complete_pipeline(batches, gt_velocities=gt_vel)
+    print(json.dumps({"step_times": res["step_times"]}, indent=2))
+    return 0
 
 
 def cmd_analyze(args) -> int:
@@ -302,21 +406,18 @@ def build_parser() -> argparse.ArgumentParser:
                             help="RadarScenes root (synthetic scene if unset)")
             sp.add_argument("--seq", default="sequence_125")
 
-    sp = add("simulate", _not_ported("simulate", ROADMAP_ARTIFACTS),
-             help="synthesize raw FMCW frames")
+    sp = add("simulate", cmd_simulate, help="synthesize raw FMCW frames")
     common(sp)
     sp.add_argument("--out", required=True)
 
-    sp = add("process", _not_ported("process", ROADMAP_ARTIFACTS),
-             help="RDS + peak extraction")
+    sp = add("process", cmd_process, help="RDS + peak extraction")
     sp.add_argument("--raw", required=True)
     sp.add_argument("--out", required=True)
     sp.add_argument("--chirp-start", type=int, default=None)
     sp.add_argument("--chirp-end", type=int, default=None)
     sp.add_argument("--num-chirps", type=int, default=None)
 
-    sp = add("pipeline", _not_ported("pipeline", ROADMAP_ARTIFACTS),
-             help="full six-step pipeline")
+    sp = add("pipeline", cmd_pipeline, help="full six-step pipeline")
     common(sp)
     sp.add_argument("--out", required=True)
 
@@ -372,7 +473,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="aggregate insights report (JSON + markdown)")
     sp.add_argument("--out", default=None)
 
-    sp = add("evaluate", _not_ported("evaluate", ROADMAP_ARTIFACTS),
+    sp = add("evaluate", _not_ported("evaluate", ROADMAP_VIZ),
              help="evaluate saved artifacts vs GT")
     sp.add_argument("--run-dir", required=True)
     sp.add_argument("--gt-velocities", default=None,

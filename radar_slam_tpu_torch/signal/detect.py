@@ -121,6 +121,13 @@ def _threshold_power(p_lin: torch.Tensor, det: DetectionConfig):
     [F, R, D].  Returns (power_db, is_peak_above)."""
     power_db = db10(p_lin)
     is_peak = _maxpool2d_same(power_db, det.neighborhood) == power_db
+    return power_db, is_peak & (power_db > threshold_db(p_lin, det))
+
+
+def threshold_db(p_lin: torch.Tensor, det: DetectionConfig):
+    """The detection threshold (dB) of a linear power map [F, R, D]: the
+    CFAR noise estimate plus its offset, floored at ``threshold_db`` (a
+    map [F, R, D]), or the floor alone without training cells."""
     if det.cfar_train_cells > 0:
         if det.cfar_mode == "os":
             noise = _os_noise(p_lin, det.cfar_train_cells, det.guard_cells,
@@ -137,11 +144,9 @@ def _threshold_power(p_lin: torch.Tensor, det: DetectionConfig):
         else:
             raise ValueError(f"Unknown cfar_mode: {det.cfar_mode}")
         noise_db = db10(torch.clamp(noise, min=1e-12))
-        thresh = torch.clamp(noise_db + det.cfar_offset_db,
-                             min=det.threshold_db)
-    else:
-        thresh = det.threshold_db
-    return power_db, is_peak & (power_db > thresh)
+        return torch.clamp(noise_db + det.cfar_offset_db,
+                           min=det.threshold_db)
+    return det.threshold_db
 
 
 def clutter_map_update(clutter_lin: torch.Tensor, rds: torch.Tensor,

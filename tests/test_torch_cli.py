@@ -312,13 +312,13 @@ def test_cli_slam_raises_before_work(capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("argv", [
-    ["simulate", "--out", "x"], ["process", "--raw", "r", "--out", "x"],
-    ["pipeline", "--out", "x"], ["analyze-data", "--output", "x"],
-    ["evaluate", "--run-dir", "x"], ["visualize", "--run-dir", "x"],
-    ["bench"]])
-def test_cli_unported_subcommands_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("argv,item", [
+    (["analyze-data", "--output", "x"], "Visualization"),
+    (["evaluate", "--run-dir", "x"], "Visualization"),
+    (["visualize", "--run-dir", "x"], "Visualization"),
+    (["bench"], "The port's benchmark")])
+def test_cli_unported_subcommands_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
         cli_main(argv + ["--device", "cpu"])
 
 

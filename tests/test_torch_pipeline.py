@@ -144,7 +144,9 @@ def test_port_imports_and_runs_without_jax():
     clutter map; the chunked driver; the batched and sequential rig on a
     two-sensor scene) and one from ADC cubes; ``h5py`` and ``matplotlib``
     are blocked too, and ``python -m radar_slam_tpu_torch quick-compare
-    --frames 2 --device cpu`` runs there (the CLI imports neither)."""
+    --frames 2 --device cpu`` and ``pipeline --max-frames 2 --device cpu``
+    (the six-step pipeline with its artifacts, metrics and reports) run
+    there (the CLI imports neither)."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -225,6 +227,10 @@ def test_port_imports_and_runs_without_jax():
         from radar_slam_tpu_torch.pipeline.cli import main as cli_main
         assert cli_main(["quick-compare", "--frames", "2",
                          "--device", "cpu"]) == 0
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            assert cli_main(["pipeline", "--out", tmp, "--max-frames", "2",
+                             "--device", "cpu"]) == 0
         assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
         print("MODULES", len(mods))
     """)
