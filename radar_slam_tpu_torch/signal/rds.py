@@ -107,9 +107,11 @@ def _rds_matmul(signals: torch.Tensor, mix: torch.Tensor, dc_removal: bool,
 
 
 def _subset(signals: torch.Tensor, chirp_subset) -> torch.Tensor:
+    """The chirps [lo, hi) of cubes [..., C, S], copied: the kernels'
+    wrappers take contiguous cubes, and the slice is a strided view."""
     if chirp_subset is None:
         return signals
-    return signals[..., chirp_subset[0]:chirp_subset[1], :]
+    return signals[..., chirp_subset[0]:chirp_subset[1], :].contiguous()
 
 
 _PRECISIONS = ("default", "high", "highest")
