@@ -253,6 +253,33 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     again with a longer sleep until both spin kernels are
                     in it, later traces starting at the sleep that worked
                     (device_trace); the retries it needed;
+17c. URA arrays, chirp subsets and greedy association:
+                    ura_kernels_vs_plain: K1 (with and without its clutter
+                    input), K3, K4, K5 and K7 at tests/test_elevation.py's
+                    8 x 4 URA (A = 32, C = 32, S = 400, 512 scatterers), 8
+                    frames of its 3-D scene at the production sigma, at the
+                    gates of phases 2, 4 and 6, K1 and K3 on "tiled_rows";
+                    ura_pipeline: that test's 10-frame scene through
+                    process_sequence and process_sequence_batched on the
+                    one-pass route, URA (|v_x - 8| and |v_z - 1| <= 0.4
+                    m/s over frames 1..9) and ULA (|v_z| < 0.5, |v_x - 8|
+                    <= 0.5), K1 once a step / call, the clutter branch at
+                    A = 32 on a sequential run with the map; its joint
+                    azimuth / elevation recovery at fft_mode "pallas"
+                    (K8 once; 2 and 3 deg); the batched URA driver's
+                    frames/s from the (512, 2048) pair (printed);
+                    chirp_subset: K7-K10 on subsets (0, 16) and (3, 28)
+                    of the 64-frame bench cubes at phase 4's gates; the
+                    cube, batched and sequential drivers at (0, 16) (K7,
+                    no K1; success > 0.9, finite poses); the six-step
+                    pipeline's step 2 at "pallas" on 16 frames (K8 once,
+                    within 1e-5 of max |rds| of the FFT route, sets equal
+                    but ties); greedy: the 64-frame scene at greedy
+                    association beside mutual (success > 0.9; device
+                    launches a call, printed); ura_subset_throughput:
+                    time per 64-frame call of K1, K3, K4, K5, K7 at A = 32
+                    and of K7-K10 at C = 16 and 25, with plain times and
+                    bounds;
 18. kernels         the per-kernel summary line: launches on the main
                     paths, error against the plain version, kernel and
                     plain times, the shape routes' times and bounds, the
@@ -264,8 +291,10 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     K1's launches per batched rig call (over F * B frames)
                     and per sequential rig step (rig_launches), the
                     launches in each entry-point run of 17b
-                    (entry_point_launches), and the one-call PyTorch time
-                    (none of these kernels has one: null).
+                    (entry_point_launches) and in each run of 17c
+                    (estimation_launches), the routes at A = 32 and
+                    C = 16, 25, and the one-call PyTorch time (none of
+                    these kernels has one: null).
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
@@ -628,7 +657,7 @@ def frontend_errors(torch, fe, cfg, kern, plain, label, prm):
     z_scale = torch.maximum(zr_p.abs().max(), zi_p.abs().max()).item()
     z_rel = max((zr_k - zr_p).abs().max().item(),
                 (zi_k - zi_p).abs().max().item()) / z_scale
-    K, A, C = cfg.detection.max_detections, cfg.radar.num_antennas, \
+    K, A, C = cfg.detection.max_detections, cfg.radar.total_antennas, \
         cfg.radar.num_chirps
     fin_k = fe._finalize(zr_k, zi_k, p_k, s_k, K, A, C, cfg.doppler_window)
     fin_p = fe._finalize(zr_p, zi_p, p_p, s_p, K, A, C, cfg.doppler_window)
@@ -1466,7 +1495,7 @@ def synth_kernel_checks(torch, sp, fe, power, cfg, batch, seeds, label):
     from radar_slam_tpu_torch.signal import detect as detect_mod
     from radar_slam_tpu_torch.signal.rds import detection_signatures
     F = seeds.shape[0]
-    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
+    A, C = cfg.radar.total_antennas, cfg.radar.num_chirps
     S = cfg.radar.samples_per_chirp
     sigma = float(cfg.radar.noise_power) ** 0.5
     dw, impl = cfg.doppler_window, cfg.noise_impl
@@ -1729,6 +1758,31 @@ def route_cfg(cfg_mod, antennas, chirps=64):
         base.radar, num_antennas=antennas))
 
 
+def time_pairs(torch, pairs, shape, clock):
+    """For each name -> (kernel call, plain call[, kernel_work knobs]): the
+    time per call (CUDA events, best of 2 x 20 kernel and 2 x 3 plain
+    calls), the bound of kernel_work(name, **shape) and the kernel's
+    sub-kernels from a profile."""
+    times = {}
+    for name, (kern, plain, *work) in pairs.items():
+        kern()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = [cuda_time_ms(torch, plain, 3)]
+        kern_ms = [cuda_time_ms(torch, kern, 20),
+                   cuda_time_ms(torch, kern, 20)]
+        plain_ms.append(cuda_time_ms(torch, plain, 3))
+        b_ms, b_by, pipe, _ = bound(kernel_work(
+            name.split()[0].rstrip("'"), **shape, **(work[0] if work
+                                                     else {})), clock)
+        times[name] = dict(kernel_ms_per_64f=min(kern_ms),
+                           plain_ms_per_64f=min(plain_ms),
+                           kernel_ms_trials=kern_ms, bound_ms=b_ms,
+                           bound_by=b_by, bound_pipe=pipe,
+                           kernel_sub_ms_per_64f=kernel_profile(torch, kern))
+    return times
+
+
 def route_times(torch, sp, fe, power, cfg_mod, device, clock):
     """Time per 64-frame call (CUDA events, best of 2 x 20 kernel and
     2 x 3 plain calls) of each shape route, its plain version's and its
@@ -1813,25 +1867,9 @@ def route_times(torch, sp, fe, power, cfg_mod, device, clock):
             pairs = {"K10": (lambda: cfar.cfar_mask(rds, **kw),
                              lambda: cfar.cfar_mask_reference(rds, **kw),
                              {})}
-        times = {}
-        for name, (kern, plain, work) in pairs.items():
-            kern()
-            plain()
-            torch.cuda.synchronize()
-            plain_ms = [cuda_time_ms(torch, plain, 3)]
-            kern_ms = [cuda_time_ms(torch, kern, 20),
-                       cuda_time_ms(torch, kern, 20)]
-            plain_ms.append(cuda_time_ms(torch, plain, 3))
-            b_ms, b_by, pipe, _ = bound(kernel_work(
-                name.split()[0].rstrip("'"), 64, A, C, S, Sc, K,
-                impl=impl, **work), clock)
-            times[name] = dict(kernel_ms_per_64f=min(kern_ms),
-                               plain_ms_per_64f=min(plain_ms),
-                               kernel_ms_trials=kern_ms, bound_ms=b_ms,
-                               bound_by=b_by, bound_pipe=pipe,
-                               kernel_sub_ms_per_64f=kernel_profile(torch,
-                                                                    kern))
-        out[label] = times
+        out[label] = time_pairs(torch, pairs, dict(F=64, A=A, C=C, S=S,
+                                                   Sc=Sc, K=K, impl=impl),
+                                clock)
         del cube
     emit("route_throughput", frames=64, shapes={"C64": "A=8, C=64, S=400",
                                                 "A16_C64": "A=16, C=64, "
@@ -3559,6 +3597,500 @@ def phase_artifact_pipeline(torch, counters, cfg_mod, device):
     return {"cli": n_a, "pallas": n_b}
 
 
+# ---- URA arrays, chirp subsets and greedy association ----------------------
+
+# tests/test_elevation.py's 3-D scene and generator seed of its drivers here.
+URA_FRAMES = 10
+URA_SEED = 0
+URA_VEL_TOL = {"ura": 0.4, "ula": 0.5}     # tests/test_elevation.py:98-116
+URA_THROUGHPUT = (512, 2048)
+SUBSETS = ((0, 16), (3, 28))
+SUBSET_PIPELINE_FRAMES = 16
+
+
+def ura_config(cfg_mod, antennas_el=4):
+    """tests/test_elevation.py's configuration (its CFG: an 8 x 4 URA,
+    A = 32, at 32 chirps, noise power 1e-6, threshold -10 dB, the AoA grid
+    1.0 deg in azimuth and -45..45 deg at 1.5 deg in elevation,
+    z_velocity_weight 1.0, 512 scatterers) on the one-pass route
+    (fft_mode "fused", synth_in_kernel): K1 at A = 32, C = 32, its
+    "tiled_rows" route.  antennas_el=1: its ULA control."""
+    c = cfg_mod
+    return c.PipelineConfig(
+        radar=c.RadarConfig(num_chirps=32, num_antennas=8,
+                            num_antennas_el=antennas_el, noise_power=1e-6),
+        detection=c.DetectionConfig(threshold_db=-10.0, max_detections=64),
+        aoa=c.AoAConfig(search_resolution_deg=1.0, el_min_deg=-45.0,
+                        el_max_deg=45.0, el_resolution_deg=1.5,
+                        confidence_threshold=0.5, max_targets=50,
+                        track_capacity=64),
+        velocity=c.VelocityConfig(z_velocity_weight=1.0),
+        fft_mode="fused", synth_in_kernel=True)
+
+
+def ura_scene(n_frames, cfg, device):
+    """tests/test_elevation.py's 3-D scene: seed 31, v_body (8.0, 0.5,
+    1.0) m/s, yaw rate 0.05 rad/s, 48 points, z_span 5 m."""
+    from radar_slam_tpu_torch.io.synthetic import (SceneConfig,
+                                                   constant_motion_scene_3d)
+    return constant_motion_scene_3d(
+        31, num_frames=n_frames, dt=cfg.frame_dt, v_body=(8.0, 0.5, 1.0),
+        yaw_rate=0.05,
+        scene=SceneConfig(num_points=48, max_scatterers=cfg.max_scatterers),
+        z_span=5.0, device=device)
+
+
+def phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
+    """K1 (range frequency, with and without its clutter input), K3, K4,
+    K5 and K7 at the URA's A = 32, C = 32, S = 400 and 512 scatterers, 8
+    frames of the 3-D scene at the production sigma, against their float64
+    oracles at the gates of phases kernel_vs_plain and
+    synth_kernels_vs_plain (K7 as in phase cube_kernels_vs_plain); K1 and
+    K3 on their "tiled_rows" route."""
+    cfg = ura_config(cfg_mod)
+    batch, _ = ura_scene(8, cfg, device)
+    seeds = torch.arange(8, dtype=torch.int32, device=device) * 7919 - 3
+    wrappers = {"K1": fe.frontend_kernel_split,
+                "K3": fe.frontend_kernel_dense, "K4": sp.scatterer_power,
+                "K5": sp.scatterer_signatures, "K7": power.rds_power_fused}
+    zero_counts(*wrappers.values())
+    args, prm = kernel_inputs(batch, cfg, seeds)
+    exact = plain_args(args, prm)
+    oracle = as_f32(fe.scatterer_frontend_split_reference(*exact, prm))
+    out = {}
+    for label, cl in (("K1", None),
+                      ("K1_clutter", k1p_clutter(torch, oracle[2], 11))):
+        kern = fe.frontend_kernel_split(*args, prm, cl)
+        again = fe.frontend_kernel_split(*args, prm, cl)
+        plain = (oracle if cl is None else as_f32(
+            fe.scatterer_frontend_split_reference(*exact, prm, cl)))
+        torch.cuda.synchronize()
+        out[label] = frontend_errors(torch, fe, cfg, kern, plain,
+                                     f"A=32 {label}", prm)
+        out[label]["repeats"] = digest(kern) == digest(again)
+    del oracle
+    out["synth"] = synth_kernel_checks(torch, sp, fe, power, cfg, batch,
+                                       seeds, "A=32")
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    A, C = cfg.radar.total_antennas, cfg.radar.num_chirps
+    S = cfg.radar.samples_per_chirp
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
+            + sigma * sp.noise_cube(seeds, A * C, S, cfg.noise_impl)
+            ).reshape(8, A, C, S)
+    p7 = power.rds_power_fused(cube, mix, True, cfg.doppler_window)
+    p7_again = power.rds_power_fused(cube, mix, True, cfg.doppler_window)
+    out["K7_rel"] = rel_err(p7, power.rds_power_reference(
+        cube, mix, True, cfg.doppler_window))[1]
+    out["K7_oracle_rel"] = rel_err(p7, cube_power_oracle(
+        torch, cube, mix, cfg.doppler_window))[1]
+    out["K7_repeats"] = bool(torch.equal(p7, p7_again))
+    torch.cuda.synchronize()
+    out["branch_counts"] = {n: branch_counts(w) for n, w in wrappers.items()}
+    emit("ura_kernels_vs_plain", frames=8, shape="A=32 (8 x 4), C=32, "
+         "S=400, Sc=512",
+         tolerance={"K1, K1_clutter, K3": FRONTEND_TOL, "K4_rel": 1e-5,
+                    "K4_vs_K7_rel": 1e-5, "K5_abs": 2e-4,
+                    "K5_oracle_abs": 1e-5, "K7_rel": 1e-5,
+                    "K7_oracle_rel": 1e-5, "repeats": "bit for bit",
+                    "tiled_rows": "every K1 / K3 launch"}, **out)
+    for label in ("K1", "K1_clutter"):
+        check_frontend(f"A=32 {label}", out[label])
+        check(out[label]["repeats"], f"A=32 {label}: outputs differ "
+              "between two runs")
+    r = out["synth"]
+    check_frontend("A=32 K3", r["K3"])
+    check(r["K4_rel"] < 1e-5 and r["K4_vs_K7_rel"] < 1e-5
+          and r["K4_repeats"], f"A=32: K4 {r['K4_rel']} / "
+          f"{r['K4_vs_K7_rel']} / {r['K4_repeats']}")
+    check(r["K5_abs"] < 2e-4 and r["K5_oracle_abs"] < 1e-5
+          and r["K5_repeats"] and r["K5_zero_slots_stay_zero"],
+          f"A=32: K5 {r['K5_abs']} / {r['K5_oracle_abs']}")
+    check(r["launches"] == {"K3": 1, "K4": 2, "K5": 2, "K6": 3},
+          f"A=32: launch counts {r['launches']}")
+    check(out["K7_rel"] < 1e-5 and out["K7_oracle_rel"] < 1e-5
+          and out["K7_repeats"], f"A=32: K7 {out['K7_rel']} / "
+          f"{out['K7_oracle_rel']}")
+    bc = out["branch_counts"]
+    for n in ("K1", "K3"):
+        check(bc[n]["launches"] > 0
+              and bc[n]["tiled_rows"] == bc[n]["launches"],
+              f"A=32: {n} counts {bc[n]}")
+    check(bc["K1"]["clutter"] == 2, f"A=32: K1 clutter {bc['K1']}")
+    return {"K1": out["K1"]["p_max_abs_err"]}
+
+
+def velocity_errors(out, n_frames, label):
+    """Over frames 1..: the largest |v_x - 8.0|, |v_z - 1.0| and |v_z|,
+    after checking the velocities' shape and finiteness."""
+    v = out.motion.velocity.cpu().numpy()
+    check(v.shape == (n_frames, 3) and bool(np.isfinite(v).all()),
+          f"{label}: velocity not finite / wrong shape")
+    v = v[1:]
+    return dict(max_abs_err_vx=float(np.abs(v[:, 0] - 8.0).max()),
+                max_abs_err_vz=float(np.abs(v[:, 2] - 1.0).max()),
+                max_abs_vz=float(np.abs(v[:, 2]).max()),
+                success=float(out.motion.success[1:].float().mean().item()))
+
+
+def phase_ura_pipeline(torch, fe, rds_op, cfg_mod, device):
+    """tests/test_elevation.py on the card: its 10-frame 3-D scene through
+    process_sequence (K1 once a step) and process_sequence_batched (K1
+    once), URA and ULA; the sequential URA step with the clutter map
+    (K1' clutter at A = 32); the joint recovery of
+    test_joint_az_el_recovery at fft_mode "pallas" (K8 at A = 32); the
+    batched URA driver's frames/s (printed)."""
+    from radar_slam_tpu_torch.aoa.estimators import estimate_angles_2d
+    from radar_slam_tpu_torch.core.types import ScattererBatch
+    from radar_slam_tpu_torch.pipeline.frame import (
+        process_sequence, process_sequence_batched)
+    from radar_slam_tpu_torch.signal.detect import (
+        detect_peaks, extract_spatial_signatures)
+    from radar_slam_tpu_torch.signal.rds import range_doppler_spectrum
+    from radar_slam_tpu_torch.signal.synth import synthesize_frame
+    k1 = fe.frontend_kernel_split
+    runs, launches = {}, {}
+    for array, el in (("ura", 4), ("ula", 1)):
+        cfg = ura_config(cfg_mod, el)
+        batch, _ = ura_scene(URA_FRAMES, cfg, device)
+        for name, driver in (("process_sequence", process_sequence),
+                             ("process_sequence_batched",
+                              process_sequence_batched)):
+            zero_counts(k1)
+            out = driver(batch, torch.Generator().manual_seed(URA_SEED), cfg)
+            torch.cuda.synchronize()
+            r = velocity_errors(out, URA_FRAMES, f"{array} {name}")
+            r["K1"] = branch_counts(k1)
+            runs[f"{array} {name}"] = r
+            if array == "ura":
+                launches[name] = k1.launches
+    cfg = ura_config(cfg_mod)
+    batch, _ = ura_scene(URA_FRAMES, cfg, device)
+    clut = dataclasses.replace(cfg, detection=dataclasses.replace(
+        cfg.detection, clutter_map_alpha=CLUTTER_ALPHA))
+    zero_counts(k1)
+    out = process_sequence(batch, torch.Generator().manual_seed(URA_SEED),
+                           clut)
+    torch.cuda.synchronize()
+    runs["ura process_sequence clutter"] = dict(
+        **velocity_errors(out, URA_FRAMES, "ura clutter"),
+        K1=branch_counts(k1))
+    launches["process_sequence clutter"] = k1.launches
+
+    # test_joint_az_el_recovery (tests/test_elevation.py:48-95).
+    truth = [(20.0, 0.30, 0.15), (35.0, -0.40, -0.20), (48.0, 0.05, 0.08)]
+    n = 16
+    col = lambda v: torch.tensor(np.pad(np.asarray(v, np.float32),  # noqa
+                                        (0, n - 3)), device=device)[None]
+    planted = ScattererBatch(
+        range_m=col([t[0] for t in truth]),
+        azimuth_rad=col([t[1] for t in truth]),
+        rcs_db=col([15.0] * 3), vr=col([0.0] * 3),
+        valid=(torch.arange(n, device=device) < 3)[None],
+        elevation_rad=col([t[2] for t in truth]))
+    sig = synthesize_frame(planted, cfg.radar,
+                           torch.zeros(1, dtype=torch.int32, device=device))
+    zero_counts(rds_op.rds_fused)
+    rds = range_doppler_spectrum(sig, cfg.radar, doppler_window="hann",
+                                 fft_mode="pallas")
+    det = detect_peaks(rds, cfg.radar, cfg.detection)
+    az, el, _ = estimate_angles_2d(extract_spatial_signatures(rds, det),
+                                   cfg.radar, cfg.aoa)
+    torch.cuda.synchronize()
+    k8 = branch_counts(rds_op.rds_fused)
+    ok = det.valid[0].cpu().numpy()
+    got = {}
+    for r, a, e in zip(det.range_m[0].cpu().numpy()[ok],
+                       az[0].cpu().numpy()[ok], el[0].cpu().numpy()[ok]):
+        got.setdefault(min(truth, key=lambda t: abs(t[0] - r)),
+                       (float(a), float(e)))
+    recovery = {f"{t[0]} m": dict(
+        az_err_deg=abs(got[t][0] - math.degrees(t[1])) if t in got
+        else None,
+        el_err_deg=abs(got[t][1] - math.degrees(t[2])) if t in got
+        else None) for t in truth}
+
+    # The batched URA driver's frames/s and K1 launches per call.
+    scenes = {}
+
+    def run_for(n_frames):
+        if n_frames not in scenes:
+            scenes[n_frames] = ura_scene(n_frames, cfg, device)[0]
+        b = scenes[n_frames]
+        return lambda: process_sequence_batched(
+            b, torch.Generator().manual_seed(URA_SEED), cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    fps, t_lo, t_hi = frames_per_s(torch, run_for, URA_THROUGHPUT)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    zero_counts(k1)
+    run_for(URA_THROUGHPUT[1])()
+    torch.cuda.synchronize()
+    per_call = k1.launches
+    scenes.clear()
+    emit("ura_pipeline", frames=URA_FRAMES, generator_seed=URA_SEED,
+         runs=runs, joint_recovery=recovery, K8=k8,
+         frames_per_s=fps, throughput_frames=URA_THROUGHPUT, t_lo_ms=t_lo,
+         t_hi_ms=t_hi, peak_mem_gb=peak, K1_launches_per_call=per_call,
+         gates={"ura": "|vx - 8.0| <= 0.4, |vz - 1.0| <= 0.4 (frames 1..9)",
+                "ula": "|vz| < 0.5, |vx - 8.0| <= 0.5",
+                "K1": "once a step / batched call, every URA launch "
+                      "tiled_rows, the clutter branch a step with the map",
+                "joint_recovery": "az 2 deg, el 3 deg; K8 once"})
+    for name in ("process_sequence", "process_sequence_batched"):
+        r = runs[f"ura {name}"]
+        check(r["max_abs_err_vx"] <= URA_VEL_TOL["ura"]
+              and r["max_abs_err_vz"] <= URA_VEL_TOL["ura"],
+              f"ura {name}: velocity {r}")
+        c = r["K1"]
+        check(c["launches"] == (URA_FRAMES if name == "process_sequence"
+                                else 1) and c["tiled_rows"] == c["launches"],
+              f"ura {name}: K1 {c}")
+        u = runs[f"ula {name}"]
+        check(u["max_abs_vz"] < URA_VEL_TOL["ula"]
+              and u["max_abs_err_vx"] <= URA_VEL_TOL["ula"],
+              f"ula {name}: velocity {u}")
+        check(u["K1"]["launches"] > 0 and u["K1"]["tiled_rows"] == 0,
+              f"ula {name}: K1 {u['K1']}")
+    c = runs["ura process_sequence clutter"]["K1"]
+    check(c["clutter"] == URA_FRAMES and c["tiled_rows"] == URA_FRAMES,
+          f"ura clutter: K1 {c}")
+    for t, r in recovery.items():
+        check(r["az_err_deg"] is not None and r["az_err_deg"] < 2.0
+              and r["el_err_deg"] < 3.0, f"joint recovery {t}: {r}")
+    check(k8["launches"] == 1, f"joint recovery: K8 {k8}")
+    check(fps > 0 and per_call == 1, f"ura throughput: {fps} frames/s, "
+          f"K1 {per_call} a call")
+    return launches
+
+
+def phase_chirp_subset(torch, k, counters, cfg_mod, device):
+    """K7-K10 on chirp subsets (0, 16) and (3, 28) of the 64-frame bench
+    cubes against their plain versions (phase cube_kernels_vs_plain's
+    gates); the 64-frame drivers at (0, 16): success > 0.9, finite poses
+    (no accuracy gate: the reference has none at a subset); the six-step
+    pipeline's step 2 at fft_mode "pallas" and the subset (K8 once, its
+    RDS within 1e-5 of max |rds| of the FFT route)."""
+    from radar_slam_tpu_torch.pipeline.frame import (
+        process_sequence, process_sequence_batched,
+        process_signal_sequence_batched)
+    from radar_slam_tpu_torch.pipeline.pipeline import (
+        EgoMotionPipeline)
+    import tempfile
+    base = bench_config(cfg_mod)
+    sig, gt = cube_signals(64, base, device, CUBE_SEED)
+    out = {}
+    for lo, hi in SUBSETS:
+        label = f"subset_{lo}_{hi}"
+        cfg = dataclasses.replace(base, chirp_subset=(lo, hi))
+        out[label] = cube_kernel_checks(torch, k, cfg,
+                                        sig[:, :, lo:hi].contiguous(), label)
+    cfg = dataclasses.replace(base, chirp_subset=SUBSETS[0])
+    batch, _ = scene(64, base, device)
+    drivers = {}
+    for name, run in (
+            ("process_signal_sequence_batched",
+             lambda: process_signal_sequence_batched(sig, cfg)),
+            ("process_sequence_batched",
+             lambda: process_sequence_batched(
+                 batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg)),
+            ("process_sequence",
+             lambda: process_sequence(
+                 batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg))):
+        res, n = counted(torch, counters, run)
+        success, pose_err, rmse, _ = pipeline_errors(res, gt, 64, name)
+        drivers[name] = dict(success=success, final_pose_err_m=pose_err,
+                             pos_rmse_m=rmse, launches=n)
+    rds, dets, steps = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("fft", "pallas"):
+            pipe = EgoMotionPipeline(
+                dataclasses.replace(cfg, fft_mode=mode), Path(tmp) / mode,
+                save_artifacts=False, device=device)
+            pipe.step1_synthesize(
+                scene(SUBSET_PIPELINE_FRAMES, base, device)[0], seed=0)
+            (rds[mode], dets[mode]), steps[f"pipeline step2 {mode}"] = (
+                counted(torch, counters, pipe.step2_process_signals))
+    k8_rel = rel_err(rds["pallas"], rds["fft"])[1]
+    set_f, set_p = det_set(dets["fft"]), det_set(dets["pallas"])
+    K = cfg.detection.max_detections
+    full = dets["fft"].valid.sum(dim=1) == K
+    pdb = torch.where(dets["fft"].valid, dets["fft"].power_db, math.inf)
+    k_floor = [float(pdb[f].min()) if bool(full[f]) else None
+               for f in range(SUBSET_PIPELINE_FRAMES)]
+    diff = set_f ^ set_p
+    margins = rds_cell_margins(torch, cfg.detection, rds["fft"], diff,
+                               k_floor, limit=len(diff))
+    emit("chirp_subset", frames=64, subsets=[list(s) for s in SUBSETS],
+         generator_seeds={"cubes": CUBE_SEED, "drivers": PIPELINE_SEED},
+         tolerance={"K7_rel": 1e-5, "K7_oracle_rel": 1e-5,
+                    "K8_rel": K8_REFERENCE_CONSTANT_TOL,
+                    "K8_oracle_rel": K8_TOL, "K8_kernel_order_rel": K8_TOL,
+                    "K9_rel": 1e-5, "K10_pdb_abs_db": 1e-4,
+                    "K10_mask_agree": "> 0.999", "set_diff": 1,
+                    "drivers": "success > 0.9, finite poses",
+                    "pipeline K8 vs FFT": K8_TOL},
+         **out, drivers=drivers,
+         pipeline=dict(frames=SUBSET_PIPELINE_FRAMES, k8_rel_err=k8_rel,
+                       detections=len(set_f), set_diff=len(diff),
+                       differing_cells=margins[:8], launches=steps))
+    for label, r in out.items():
+        for name in ("K7_rel", "K7_oracle_rel", "K9_rel"):
+            check(r[name] < 1e-5, f"{label}: {name} {r[name]}")
+        check_k8(label, r)
+        check(r["K10_pdb_abs"] < 1e-4 and r["K10_mask_agree"] > 0.999,
+              f"{label}: K10 {r['K10_pdb_abs']} / {r['K10_mask_agree']}")
+        for path in ("fused", "pallas"):
+            check(r[f"{path}_detections"] > 0
+                  and r[f"{path}_set_diff"] <= 1,
+                  f"{label}: {path} detections {r[f'{path}_detections']} / "
+                  f"{r[f'{path}_set_diff']}")
+        check(r["launches"] == [1, 1, 2, 1], f"{label}: launch counts "
+              f"{r['launches']}")
+    for name in ("process_signal_sequence_batched",
+                 "process_sequence_batched", "process_sequence"):
+        r = drivers[name]
+        check(r["success"] > 0.9, f"{name} at {cfg.chirp_subset}: "
+              f"success {r['success']}")
+        check(r["launches"].get("K7", 0) == (64 if name == "process_sequence"
+                                             else 1)
+              and "K1" not in r["launches"],
+              f"{name} at {cfg.chirp_subset}: launches {r['launches']}")
+    check(steps["pipeline step2 pallas"] == {"K8": 1},
+          f"pipeline at {cfg.chirp_subset}: step 2 launches "
+          f"{steps['pipeline step2 pallas']}")
+    check(k8_rel < K8_TOL, f"pipeline at {cfg.chirp_subset}: K8 RDS "
+          f"{k8_rel}")
+    check(len(diff) == 0 or rds_explained(margins, len(diff)),
+          f"pipeline at {cfg.chirp_subset}: detection sets differ "
+          f"{margins[:8]}")
+    return {**{n: r["launches"] for n, r in drivers.items()}, **steps}
+
+
+def phase_greedy(torch, counters, cfg_mod, device):
+    """The 64-frame bench scene through process_sequence_batched with
+    greedy association beside mutual (solve success > 0.9; pose error and
+    RMSE printed), and the device launches of one call and of one greedy
+    association over [64, 64] targets (printed)."""
+    from radar_slam_tpu_torch.motion.associate import associate_targets
+    from radar_slam_tpu_torch.pipeline import frame as fr
+    base = bench_config(cfg_mod)
+    batch, gt = scene(64, base, device)
+    runs, targets = {}, None
+    for method in ("mutual", "greedy"):
+        cfg = dataclasses.replace(base, velocity=dataclasses.replace(
+            base.velocity, association_method=method))
+        run = lambda: fr.process_sequence_batched(  # noqa: E731
+            batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg)
+        out, n = counted(torch, counters, run)
+        success, pose_err, rmse, _ = pipeline_errors(out, gt, 64, method)
+        dev_launches = {}
+        kernel_profile(torch, run, dev_launches)
+        runs[method] = dict(success=success, final_pose_err_m=pose_err,
+                            pos_rmse_m=rmse, launches=n,
+                            device_launches_per_call=sum(
+                                dev_launches.values()))
+    feats = fr.sequence_features_scatterers_fused(
+        batch, torch.Generator().manual_seed(PIPELINE_SEED), base)
+    det, _, keep, _, _, angles_deg, _, conf = feats
+    targets = fr._smoothed_targets(feats, angles_deg, conf, base)
+    prev = fr._map(lambda x: torch.cat([x[:1], x[:-1]]), targets)
+    greedy = dataclasses.replace(base.velocity, association_method="greedy")
+    assoc_launches = {}
+    kernel_profile(torch, lambda: associate_targets(
+        targets, prev, base.frame_dt, greedy), assoc_launches)
+    emit("greedy", frames=64, generator_seed=PIPELINE_SEED, runs=runs,
+         greedy_association_device_launches=sum(assoc_launches.values()),
+         association_shape=list(targets.range_m.shape),
+         gates={"greedy success": "> 0.9"})
+    check(runs["greedy"]["success"] > 0.9,
+          f"greedy: success {runs['greedy']['success']}")
+    check(runs["greedy"]["launches"] == {"K1": 1},
+          f"greedy: launches {runs['greedy']['launches']}")
+    return runs["greedy"]["launches"]
+
+
+def ura_subset_times(torch, sp, fe, power, k, cfg_mod, device, clock):
+    """Time per 64-frame call (CUDA events, as route_times) of K1, K3, K4,
+    K5 and K7 at the URA's A = 32, C = 32 (512 scatterers; K1 and K3 on
+    "tiled_rows") and of K7, K8, K9 and K10 on the bench cubes' chirp
+    subsets (C = 16 and 25), each beside its plain version and its
+    bound."""
+    from radar_slam_tpu_torch.signal.detect import detect_peaks_from_power
+    from radar_slam_tpu_torch.signal.rds import _mix_vector
+    _, rds_op, dechirp, cfar = k
+    out = {}
+    cfg = ura_config(cfg_mod)
+    A, C = cfg.radar.total_antennas, cfg.radar.num_chirps
+    S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    dw, impl = cfg.doppler_window, cfg.noise_impl
+    batch, _ = ura_scene(64, cfg, device)
+    seeds = torch.arange(64, dtype=torch.int32, device=device)
+    args, prm = kernel_inputs(batch, cfg, seeds)
+    ref = plain_args(args, prm, exact=False)
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
+            + sigma * sp.noise_cube(seeds, A * C, S, impl)).reshape(
+                64, A, C, S)
+    det = detect_peaks_from_power(power.rds_power_fused(cube, mix, True, dw),
+                                  cfg.radar, cfg.detection)
+    rb, db = det.range_bin, det.doppler_bin
+    out["A32_C32"] = time_pairs(torch, {
+        "K1": (lambda: fe.frontend_kernel_split(*args, prm),
+               lambda: fe.scatterer_frontend_split_reference(*ref, prm)),
+        "K3": (lambda: fe.frontend_kernel_dense(e_ac, e_fast, seeds, mix,
+                                                args[8], prm, C),
+               lambda: fe.scatterer_frontend_reference(
+                   e_ac, e_fast, seeds, ref[7], args[8], prm, C)),
+        "K4": (lambda: sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
+                                          doppler_window=dw,
+                                          noise_impl=impl),
+               lambda: sp.scatterer_power_reference(
+                   e_ac, e_fast, seeds, mix, C, sigma, True, dw, impl)),
+        "K5": (lambda: sp.scatterer_signatures(
+                   e_ac, e_fast, seeds, rb, db, mix, C, sigma,
+                   doppler_window=dw, noise_impl=impl),
+               lambda: sp.scatterer_signatures_reference(
+                   e_ac, e_fast, seeds, rb, db, mix, C, sigma, True, dw,
+                   impl)),
+        "K7": (lambda: power.rds_power_fused(cube, mix, True, dw),
+               lambda: power.rds_power_reference(cube, mix, True, dw))},
+        dict(F=64, A=A, C=C, S=S, Sc=Sc, K=cfg.detection.max_detections,
+             impl=impl), clock)
+    del cube, e_ac, e_fast, args, ref
+    base = bench_config(cfg_mod)
+    sig, _ = cube_signals(64, base, device, CUBE_SEED)
+    d = base.detection
+    kw = dict(threshold_db=d.threshold_db, neighborhood=d.neighborhood,
+              train=d.cfar_train_cells, guard=d.guard_cells,
+              offset_db=d.cfar_offset_db)
+    mix = _mix_vector(base.radar, base.window, "baseband", sig.shape[-1],
+                      device=device)
+    dw = base.doppler_window
+    for lo, hi in SUBSETS:
+        sub = sig[:, :, lo:hi].contiguous()
+        rds = rds_op.rds_fused_reference(sub, mix, True, dw)
+        out[f"C{hi - lo}"] = time_pairs(torch, {
+            "K7": (lambda: power.rds_power_fused(sub, mix, True, dw),
+                   lambda: power.rds_power_reference(sub, mix, True, dw)),
+            "K8": (lambda: rds_op.rds_fused(sub, mix, True, dw),
+                   lambda: rds_op.rds_fused_reference(sub, mix, True, dw)),
+            "K9": (lambda: dechirp.dechirp_window_dc(sub, mix, True),
+                   lambda: dechirp.dechirp_window_dc_reference(sub, mix,
+                                                               True)),
+            "K10": (lambda: cfar.cfar_mask(rds, **kw),
+                    lambda: cfar.cfar_mask_reference(rds, **kw))},
+            dict(F=64, A=sub.shape[1], C=hi - lo, S=sub.shape[-1],
+                 Sc=base.max_scatterers, K=d.max_detections), clock)
+        del sub, rds
+    emit("ura_subset_throughput", frames=64,
+         shapes={"A32_C32": "A=32 (8 x 4), C=32, S=400, Sc=512",
+                 "C16": "A=8, C=16 (chirps 0..15), S=400",
+                 "C25": "A=8, C=25 (chirps 3..27), S=400"}, **out)
+    return out
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -3700,6 +4232,17 @@ def main():
     entry_runs.update({f"artifact_pipeline {k}": v for k, v in
                        phase_artifact_pipeline(torch, counters, cfg_mod,
                                                device).items()})
+    ura_err = phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod,
+                                         device)
+    slice_runs = {f"ura_pipeline {n}": {"K1": c} for n, c in
+                  phase_ura_pipeline(torch, fe, rds_op, cfg_mod,
+                                     device).items()}
+    slice_runs.update({f"chirp_subset {n}": c for n, c in phase_chirp_subset(
+        torch, k, counters, cfg_mod, device).items()})
+    slice_runs["greedy process_sequence_batched"] = phase_greedy(
+        torch, counters, cfg_mod, device)
+    slice_ms = ura_subset_times(torch, sp, fe, power, k, cfg_mod, device,
+                                clock)
     emit("trace_retries", pads_s=list(TRACE_PADS_S),
          final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 
@@ -3780,12 +4323,24 @@ def main():
                     "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
                     "bound_pipe")}}
     # The entry points' runs (phases cli, streaming, ingest): each kernel's
-    # launches in each, counted from 0.
+    # launches in each, counted from 0; and so the runs of phases
+    # ura_pipeline, chirp_subset and greedy, with the times of the URA's
+    # A = 32 and the chirp subsets' C = 16 and 25 (ura_subset_throughput).
     for e in kernels:
         key = e["name"].split()[0]
         runs = {p: n[key] for p, n in entry_runs.items() if key in n}
         if runs:
             e["entry_point_launches"] = runs
+        runs = {p: n[key] for p, n in slice_runs.items() if key in n}
+        if runs:
+            e["estimation_launches"] = runs
+        for shape, times in slice_ms.items():
+            if key in times and not e["name"].startswith("K1'"):
+                e.setdefault("routes", {})[f"{shape} {key}"] = {
+                    k: times[key][k] for k in (
+                        "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
+                        "bound_pipe")}
+    kernels[0]["routes"]["A32_C32 K1"]["max_abs_err"] = ura_err["K1"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

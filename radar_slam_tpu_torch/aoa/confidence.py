@@ -10,7 +10,9 @@ import numpy as np
 import torch
 
 from radar_slam_tpu_torch.core.config import RadarConfig
-from radar_slam_tpu_torch.core.geometry import steering_vector, wrap_angle
+from radar_slam_tpu_torch.core.geometry import (steering_vector,
+                                                ura_steering_vector,
+                                                wrap_angle)
 
 
 def _percentile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -30,13 +32,18 @@ def _percentile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
 def angle_confidence(signatures: torch.Tensor, angles_deg: torch.Tensor,
                      cfg: RadarConfig, el_deg=None) -> torch.Tensor:
     """Confidence scores [..., K] in [0, 1]: 0.4 steering correlation +
-    0.3 phase consistency + 0.3 SNR proxy (ULA)."""
+    0.3 phase consistency + 0.3 SNR proxy; on a URA against the steering
+    vector at (azimuth, ``el_deg``), elevation 0 where None."""
+    az_rad = torch.deg2rad(angles_deg)
     if cfg.num_antennas_el > 1:
-        raise NotImplementedError(
-            "URA confidence is not ported yet (ROADMAP: remaining "
-            "estimation)")
-    sv = steering_vector(torch.deg2rad(angles_deg), cfg.num_antennas,
-                         cfg.spacing, cfg.lambda_c)
+        el_rad = (torch.deg2rad(el_deg) if el_deg is not None
+                  else torch.zeros_like(az_rad))
+        sv = ura_steering_vector(az_rad, el_rad, cfg.num_antennas,
+                                 cfg.num_antennas_el, cfg.spacing,
+                                 cfg.spacing_el, cfg.lambda_c)
+    else:
+        sv = steering_vector(az_rad, cfg.num_antennas, cfg.spacing,
+                             cfg.lambda_c)
 
     sig_power = torch.sum(signatures.abs() ** 2, dim=-1)
     corr = torch.sum(sv.conj() * signatures, dim=-1).abs()

@@ -1,5 +1,5 @@
-"""Batched angle-of-arrival estimation on a ULA: beamforming, MUSIC,
-ESPRIT.
+"""Batched angle-of-arrival estimation: beamforming, MUSIC, ESPRIT, on a
+ULA (azimuth) or a URA (joint azimuth and elevation).
 
 Counterpart of ``radar_slam_tpu/aoa/estimators.py``.  Leading axes
 (frames, detections) broadcast.
@@ -12,9 +12,13 @@ Counterpart of ``radar_slam_tpu/aoa/estimators.py``.  Leading axes
   with ``music_fb``), as the residual norm ||a - sum (e_j^H a) e_j||^2,
   refined on the negated null spectrum;
 - ESPRIT: the phase slope between shifted subarrays, lag 1 or the
-  |r_m|-weighted fit over every lag (``esprit_weighted``).
+  |r_m|-weighted fit over every lag (``esprit_weighted``); on a URA along
+  each axis of the array.
 
-URA arrays (joint azimuth-elevation search) are not ported yet.
+On a URA (``num_antennas_el > 1``) the grid is the el-major joint grid
+[G_el * G_az], and the peak is refined along each axis
+(:func:`_refine_peak_2d`).  Its spectra are G_el times a ULA's, so they
+are computed over chunks of signatures.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 
 from radar_slam_tpu_torch.core.config import AoAConfig, RadarConfig
 from radar_slam_tpu_torch.core.device import DEFAULT, resolve
-from radar_slam_tpu_torch.core.geometry import steering_matrix
+from radar_slam_tpu_torch.core.geometry import (steering_matrix,
+                                                ura_steering_vector)
 
 
 def azimuth_grid_deg(aoa: AoAConfig, device=DEFAULT) -> torch.Tensor:
@@ -36,20 +41,37 @@ def azimuth_grid_deg(aoa: AoAConfig, device=DEFAULT) -> torch.Tensor:
                           device=resolve(device)).to(torch.float32)
 
 
-def _require_ula(cfg: RadarConfig):
-    if cfg.num_antennas_el > 1:
-        raise NotImplementedError(
-            "num_antennas_el > 1 (URA, joint az-el search) is not ported "
-            "yet (ROADMAP: remaining estimation)")
+def elevation_grid_deg(aoa: AoAConfig, device=DEFAULT) -> torch.Tensor:
+    """Elevation search grid in degrees [G_el] (URA), as
+    :func:`azimuth_grid_deg`."""
+    return torch.linspace(aoa.el_min_deg, aoa.el_max_deg,
+                          aoa.num_el_grid_points, dtype=torch.float64,
+                          device=resolve(device)).to(torch.float32)
 
 
 def grid_steering_matrix(cfg: RadarConfig, aoa: AoAConfig,
                          device=DEFAULT) -> torch.Tensor:
-    """Steering matrix over the azimuth grid: [G, A] complex64 (ULA)."""
-    _require_ula(cfg)
-    grid_rad = torch.deg2rad(azimuth_grid_deg(aoa, device))
-    return steering_matrix(grid_rad, cfg.num_antennas, cfg.spacing,
-                           cfg.lambda_c)
+    """Steering matrix over the search grid: ULA [G_az, A] over the
+    azimuth grid; URA [G_el * G_az, A] over the el-major joint grid
+    (azimuth fastest).  complex64."""
+    az = torch.deg2rad(azimuth_grid_deg(aoa, device))
+    if cfg.num_antennas_el > 1:
+        el = torch.deg2rad(elevation_grid_deg(aoa, device))
+        return ura_steering_vector(
+            az.repeat(aoa.num_el_grid_points),
+            el.repeat_interleave(aoa.num_grid_points), cfg.num_antennas,
+            cfg.num_antennas_el, cfg.spacing, cfg.spacing_el, cfg.lambda_c)
+    return steering_matrix(az, cfg.num_antennas, cfg.spacing, cfg.lambda_c)
+
+
+def _parabola(ym, y0, yp, interior):
+    """Sub-bin offset of the parabola through three samples, in
+    [-0.5, 0.5]; 0 on a flat triple and where not ``interior``."""
+    denom = ym - 2.0 * y0 + yp
+    big = denom.abs() > 1e-12
+    delta = torch.where(big, 0.5 * (ym - yp)
+                        / torch.where(big, denom, 1.0), 0.0)
+    return torch.where(interior, torch.clamp(delta, -0.5, 0.5), 0.0)
 
 
 def _refine_peak(spectrum: torch.Tensor,
@@ -62,31 +84,86 @@ def _refine_peak(spectrum: torch.Tensor,
     y0 = torch.gather(spectrum, -1, idx)[..., 0]
     yp = torch.gather(spectrum, -1, torch.clamp(idx + 1, 0, g - 1))[..., 0]
     idx = idx[..., 0]
-    denom = ym - 2.0 * y0 + yp
-    big = denom.abs() > 1e-12
-    delta = torch.where(big, 0.5 * (ym - yp)
-                        / torch.where(big, denom, 1.0), 0.0)
-    delta = torch.clamp(delta, -0.5, 0.5)
-    delta = torch.where((idx > 0) & (idx < g - 1), delta, 0.0)
+    delta = _parabola(ym, y0, yp, (idx > 0) & (idx < g - 1))
     step = grid_deg[1] - grid_deg[0]
     return grid_deg[idx] + delta * step
 
 
+def _refine_peak_2d(spec: torch.Tensor, az_grid: torch.Tensor,
+                    el_grid: torch.Tensor):
+    """Joint argmax (first maximum of the flattened grid) of spectra
+    [..., G_el, G_az] and a parabola along each axis through the peak's
+    neighbours on that axis.  Returns (az_deg [...], el_deg [...])."""
+    Gel, Gaz = spec.shape[-2:]
+    flat = spec.reshape(*spec.shape[:-2], Gel * Gaz)
+    idx = torch.argmax(flat, dim=-1, keepdim=True)
+    ie, ia = idx // Gaz, idx % Gaz
+
+    def tap(e, a):
+        return torch.gather(flat, -1, e * Gaz + a)[..., 0]
+
+    y0 = tap(ie, ia)
+    da = _parabola(tap(ie, torch.clamp(ia - 1, 0, Gaz - 1)), y0,
+                   tap(ie, torch.clamp(ia + 1, 0, Gaz - 1)),
+                   (ia[..., 0] > 0) & (ia[..., 0] < Gaz - 1))
+    de = _parabola(tap(torch.clamp(ie - 1, 0, Gel - 1), ia), y0,
+                   tap(torch.clamp(ie + 1, 0, Gel - 1), ia),
+                   (ie[..., 0] > 0) & (ie[..., 0] < Gel - 1))
+    az_step = az_grid[1] - az_grid[0] if Gaz > 1 else 0.0
+    el_step = el_grid[1] - el_grid[0] if Gel > 1 else 0.0
+    return (az_grid[ia[..., 0]] + da * az_step,
+            el_grid[ie[..., 0]] + de * el_step)
+
+
+# Complex elements per chunk of a spectrum's largest intermediate (~0.2 GB
+# of complex64): MUSIC's residual [n, G, A] holds 32k signatures at the
+# ULA bench's G = 91, A = 8; the URA's joint grids are ~100x larger.
+_ELEMS_PER_CHUNK = (8 * 91) << 15
+
+
+def _chunk(steering: torch.Tensor, per_point: int) -> int:
+    """Signatures per chunk for the grid of ``steering`` [G, A] and an
+    intermediate of ``per_point`` elements per signature and grid point."""
+    return max(1, _ELEMS_PER_CHUNK // (steering.shape[0] * per_point))
+
+
 def beamforming_spectrum(signatures: torch.Tensor,
                          steering: torch.Tensor) -> torch.Tensor:
-    """Conventional beamforming power spectra [..., K, G] = |S A^H|^2."""
-    resp = signatures @ steering.conj().transpose(0, 1)
-    return resp.real ** 2 + resp.imag ** 2
+    """Conventional beamforming power spectra [..., K, G] = |S A^H|^2, one
+    complex product per chunk of signatures."""
+    a_h = steering.conj().transpose(0, 1)
+    n = _chunk(steering, 1)
+    s = signatures.reshape(-1, signatures.shape[-1])
+    out = []
+    for i in range(0, max(s.shape[0], 1), n):
+        resp = s[i:i + n] @ a_h
+        out.append(resp.real ** 2 + resp.imag ** 2)
+    spec = out[0] if len(out) == 1 else torch.cat(out)
+    return spec.reshape(*signatures.shape[:-1], steering.shape[0])
+
+
+def _refine_grid(spec: torch.Tensor, cfg: RadarConfig, aoa: AoAConfig):
+    """(az_deg, el_deg) at the peak of spectra [..., G] over the search
+    grid: the ULA's azimuth parabola (el_deg zero), or the URA's joint
+    refinement."""
+    az_grid = azimuth_grid_deg(aoa, spec.device)
+    if cfg.num_antennas_el > 1:
+        return _refine_peak_2d(
+            spec.reshape(*spec.shape[:-1], aoa.num_el_grid_points,
+                         aoa.num_grid_points), az_grid,
+            elevation_grid_deg(aoa, spec.device))
+    az = _refine_peak(spec, az_grid)
+    return az, torch.zeros_like(az)
 
 
 def estimate_beamforming(signatures: torch.Tensor, cfg: RadarConfig,
                          aoa: AoAConfig):
     """Batched beamforming AoA with sub-grid refinement:
-    (angles_deg [..., K], spectra [..., K, G])."""
-    grid = azimuth_grid_deg(aoa, signatures.device)
+    (angles_deg [..., K], spectra [..., K, G]); on a URA the azimuth of
+    the joint search."""
     spec = beamforming_spectrum(
         signatures, grid_steering_matrix(cfg, aoa, signatures.device))
-    return _refine_peak(spec, grid), spec
+    return _refine_grid(spec, cfg, aoa)[0], spec
 
 
 def rank1_eigenvalues(signatures: torch.Tensor) -> torch.Tensor:
@@ -177,11 +254,6 @@ def _rank2_signal_eigvecs(signatures: torch.Tensor, forward_backward: bool):
     return torch.stack([e1, e2], dim=-2), rank
 
 
-# Signatures per chunk of the MUSIC residual: its [n, G, A] complex
-# intermediates stay near 0.2 GB each at the bench's G = 91, A = 8.
-_MUSIC_CHUNK = 1 << 15
-
-
 def music_denominator(signatures: torch.Tensor, steering: torch.Tensor,
                       num_sources=1,
                       forward_backward: bool = False) -> torch.Tensor:
@@ -193,7 +265,7 @@ def music_denominator(signatures: torch.Tensor, steering: torch.Tensor,
     |a|^2 - sum_j |e_j^H a|^2: near the null both terms of the difference
     are ~A, so it loses ~1e-7 A absolutely -- all of the value at the bins
     the sub-grid refinement fits.  The residual is evaluated over chunks
-    of signatures to bound its [n, G, A] intermediates."""
+    of signatures to bound its [n, G, A] intermediates (:func:`_chunk`)."""
     lead = signatures.shape[:-1]
     A = signatures.shape[-1]
     m = torch.broadcast_to(torch.as_tensor(num_sources, dtype=torch.int32,
@@ -202,12 +274,13 @@ def music_denominator(signatures: torch.Tensor, steering: torch.Tensor,
                                     forward_backward)            # [n, 2, A]
     m = torch.minimum(m.reshape(-1), rank)
     sig_mask = torch.arange(2, device=m.device)[None, :] < m[:, None]
+    n = _chunk(steering, A)
     out = []
-    for i in range(0, E.shape[0], _MUSIC_CHUNK):
-        e = E[i:i + _MUSIC_CHUNK]
+    for i in range(0, E.shape[0], n):
+        e = E[i:i + n]
         # proj[n, j, g] = e_j^H a_g  (one [n*2, A] x [A, G] product).
         proj = e.conj() @ steering.transpose(0, 1)
-        proj = torch.where(sig_mask[i:i + _MUSIC_CHUNK, :, None], proj, 0.0)
+        proj = torch.where(sig_mask[i:i + n, :, None], proj, 0.0)
         resid = steering[None] - proj.transpose(1, 2) @ e        # [n, G, A]
         out.append(torch.sum(resid.real ** 2 + resid.imag ** 2, dim=-1))
     return torch.cat(out).reshape(*lead, steering.shape[0])
@@ -235,14 +308,15 @@ def estimate_music(signatures: torch.Tensor, cfg: RadarConfig,
     The sub-grid parabola is fitted to the NEGATED null spectrum, which is
     locally quadratic at the source, not to the pseudo-spectrum, a
     near-pole there; the unrefined path takes the argmax of the (clamped)
-    pseudo-spectrum."""
-    grid = azimuth_grid_deg(aoa, signatures.device)
+    pseudo-spectrum.  On a URA the azimuth of the joint search, always
+    refined, as the reference's."""
     denom = music_denominator(
         signatures, grid_steering_matrix(cfg, aoa, signatures.device),
         num_sources, forward_backward)
     spec = _pseudo_spectrum(denom)
-    if refine:
-        return _refine_peak(-denom, grid), spec
+    if refine or cfg.num_antennas_el > 1:
+        return _refine_grid(-denom, cfg, aoa)[0], spec
+    grid = azimuth_grid_deg(aoa, signatures.device)
     return grid[torch.argmax(spec, dim=-1)], spec
 
 
@@ -284,19 +358,50 @@ def estimate_esprit(signatures: torch.Tensor, cfg: RadarConfig,
     return torch.rad2deg(torch.asin(torch.clamp(arg, -1.0, 1.0)))
 
 
+def estimate_esprit_ura(signatures: torch.Tensor, cfg: RadarConfig,
+                        weighted: bool = True):
+    """Batched URA ESPRIT: (az_deg [...], el_deg [...]) from signatures
+    [..., A_el * A_az] (row-major [el, az]).  The shift invariance along
+    the azimuth columns gives u_y = cos el sin az, along the elevation rows
+    u_z = sin el; ``weighted`` takes the multi-lag slope along each axis
+    (summed over the other), else lag 1."""
+    s = signatures.reshape(*signatures.shape[:-1], cfg.num_antennas_el,
+                           cfg.num_antennas)
+    if weighted:
+        phi_az = _multilag_slope(s, max(cfg.num_antennas - 1, 1),
+                                 sum_axes=(-2, -1))
+        phi_el = _multilag_slope(s.transpose(-1, -2),
+                                 max(cfg.num_antennas_el - 1, 1),
+                                 sum_axes=(-2, -1))
+    else:
+        phi_az = torch.angle(torch.sum(s[..., :-1].conj() * s[..., 1:],
+                                       dim=(-2, -1)))
+        phi_el = torch.angle(torch.sum(s[..., :-1, :].conj()
+                                       * s[..., 1:, :], dim=(-2, -1)))
+    u_y = phi_az * cfg.lambda_c / (2.0 * math.pi * cfg.spacing)
+    u_z = phi_el * cfg.lambda_c / (2.0 * math.pi * cfg.spacing_el)
+    el = torch.asin(torch.clamp(u_z, -1.0, 1.0))
+    cos_el = torch.clamp(torch.cos(el), min=1e-3)
+    az = torch.asin(torch.clamp(u_y / cos_el, -1.0, 1.0))
+    return torch.rad2deg(az), torch.rad2deg(el)
+
+
 def estimate_angles(signatures: torch.Tensor, cfg: RadarConfig,
                     aoa: AoAConfig, method: str = "beamforming",
                     num_sources=1):
     """Dispatch over estimation methods: (angles_deg, spectra); ESPRIT
     has no spectra (None).  MUSIC reads ``aoa.music_fb``, ESPRIT
-    ``aoa.esprit_weighted``."""
-    _require_ula(cfg)
+    ``aoa.esprit_weighted``.  On a URA the azimuth of the joint
+    estimate."""
     if method == "beamforming":
         return estimate_beamforming(signatures, cfg, aoa)
     if method == "music":
         return estimate_music(signatures, cfg, aoa, num_sources,
                               forward_backward=aoa.music_fb)
     if method == "esprit":
+        if cfg.num_antennas_el > 1:
+            return estimate_esprit_ura(signatures, cfg,
+                                       weighted=aoa.esprit_weighted)[0], None
         return estimate_esprit(signatures, cfg,
                                weighted=aoa.esprit_weighted), None
     raise ValueError(f"Unknown method: {method}")
@@ -305,8 +410,27 @@ def estimate_angles(signatures: torch.Tensor, cfg: RadarConfig,
 def estimate_angles_2d(signatures: torch.Tensor, cfg: RadarConfig,
                        aoa: AoAConfig, method: str = "beamforming",
                        num_sources=1):
-    """(az_deg, el_deg, spectra); elevation is identically zero for a
-    ULA."""
-    _require_ula(cfg)
-    az, spec = estimate_angles(signatures, cfg, aoa, method, num_sources)
-    return az, torch.zeros_like(az), spec
+    """Joint azimuth-elevation estimation: (az_deg, el_deg, spectra, None
+    for ESPRIT).  On a ULA elevation is identically zero and the rest is
+    :func:`estimate_angles`; on a URA the joint grid search (beamforming,
+    or MUSIC refined on the negated null spectrum) or URA ESPRIT."""
+    if cfg.num_antennas_el == 1:
+        az, spec = estimate_angles(signatures, cfg, aoa, method, num_sources)
+        return az, torch.zeros_like(az), spec
+    if method == "esprit":
+        az, el = estimate_esprit_ura(signatures, cfg,
+                                     weighted=aoa.esprit_weighted)
+        return az, el, None
+    steering = grid_steering_matrix(cfg, aoa, signatures.device)
+    if method == "beamforming":
+        spec = beamforming_spectrum(signatures, steering)
+        refine_on = spec
+    elif method == "music":
+        denom = music_denominator(signatures, steering, num_sources,
+                                  forward_backward=aoa.music_fb)
+        spec = _pseudo_spectrum(denom)
+        refine_on = -denom
+    else:
+        raise ValueError(f"Unknown method: {method}")
+    az, el = _refine_grid(refine_on, cfg, aoa)
+    return az, el, spec

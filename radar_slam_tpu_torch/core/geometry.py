@@ -1,10 +1,10 @@
-"""Geometry primitives: angle wrapping, ULA steering vectors, line-of-sight
-directions, and the SO(3) helpers (quaternions, rotation matrices, Euler
-angles) of the pose integration.
+"""Geometry primitives: angle wrapping, ULA and URA steering vectors,
+line-of-sight directions, and the SO(3) helpers (quaternions, rotation
+matrices, Euler angles) of the pose integration.
 
 Counterpart of ``radar_slam_tpu/core/geometry.py`` (same conventions: the
 ULA element n sits at n * spacing, steering phase 2 pi n d sin(az) /
-lambda).  Every function is float32 in, float32 / complex64 out, with the
+lambda; the URA is flattened row-major [el, az]).  Every function is float32 in, float32 / complex64 out, with the
 reference's operation order so results agree to float rounding.
 """
 
@@ -42,6 +42,27 @@ def steering_matrix(grid_rad: torch.Tensor, num_antennas: int,
                     spacing: float, lambda_c: float) -> torch.Tensor:
     """Steering matrix over an angle grid: [G, A] complex64."""
     return steering_vector(grid_rad, num_antennas, spacing, lambda_c)
+
+
+def ura_steering_vector(azimuth_rad: torch.Tensor,
+                        elevation_rad: torch.Tensor, num_az: int,
+                        num_el: int, spacing_az: float, spacing_el: float,
+                        lambda_c: float) -> torch.Tensor:
+    """Steering vector(s) of a planar array, flattened row-major [el, az]:
+    element (m, n) sees phase 2 pi (n d_az u_y + m d_el u_z) / lambda with
+    u_y = cos el sin az, u_z = sin el.  complex64 [..., num_el * num_az];
+    for num_el = 1 the ULA's :func:`steering_vector` exactly."""
+    az = torch.as_tensor(azimuth_rad, dtype=torch.float32)
+    el = torch.as_tensor(elevation_rad, dtype=torch.float32)
+    u_y = torch.cos(el) * torch.sin(az)
+    u_z = torch.sin(el)
+    pos_az = antenna_positions(num_az, spacing_az, az.device)        # [Naz]
+    pos_el = antenna_positions(num_el, spacing_el, az.device)        # [Nel]
+    phase = (2.0 * math.pi / lambda_c) * (
+        u_y[..., None, None] * pos_az[None, :]
+        + u_z[..., None, None] * pos_el[:, None])                # [..., Nel, Naz]
+    phase = phase.reshape(*phase.shape[:-2], num_el * num_az)
+    return torch.polar(torch.ones_like(phase), phase)
 
 
 def direction_vector(azimuth_rad: torch.Tensor,

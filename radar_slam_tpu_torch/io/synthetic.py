@@ -2,10 +2,12 @@
 
 Counterpart of ``radar_slam_tpu/io/synthetic.py``: a static world point
 cloud observed by an ego vehicle under a known constant twist (the bench
-scene, :func:`constant_motion_scene`), the same world seen by each sensor
-of a mounted rig (:func:`constant_motion_scene_rig`), and the adversarial
-scene with moving actors, transient clutter and other model mismatches
-(:func:`mismatch_scene`).  The numpy core is the reference's, unchanged,
+scene, :func:`constant_motion_scene`; in 3-D with heights and elevations,
+:func:`constant_motion_scene_3d`), the same world seen by each sensor of a
+mounted rig (:func:`constant_motion_scene_rig`), and the adversarial scene
+with moving actors, transient clutter and other model mismatches
+(:func:`mismatch_scene`); :func:`pipeline_scatterer_pad` fits a batch to a
+pipeline's scatterer capacity.  The numpy core is the reference's, unchanged,
 so the same seed gives bit-identical scatterer columns; only the last step
 differs -- the columns become tensors on a caller-chosen device instead of
 JAX arrays.  Seeds are plain integers (the port has no JAX keys).
@@ -18,8 +20,12 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+import torch
+
+from radar_slam_tpu_torch.core.config import PipelineConfig
 from radar_slam_tpu_torch.core.device import DEFAULT, resolve
-from radar_slam_tpu_torch.core.types import scatterer_batch_from_numpy
+from radar_slam_tpu_torch.core.types import (ScattererBatch,
+                                             scatterer_batch_from_numpy)
 
 
 def _rng(seed: int) -> np.random.Generator:
@@ -141,6 +147,90 @@ def constant_motion_scene(seed: int, num_frames: int, dt: float,
     }
     stack = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
     return scatterer_batch_from_numpy(stack, device), gt
+
+
+def constant_motion_scene_3d(seed: int, num_frames: int, dt: float,
+                             v_body: Tuple[float, float, float],
+                             yaw_rate: float,
+                             scene: SceneConfig = SceneConfig(),
+                             z_span: float = 10.0, device=DEFAULT):
+    """The 3-D constant-twist scene: world points with heights in
+    [-z_span, z_span], observations with elevations, and a 3-D body
+    velocity (v_z climbs or descends) -- what a URA needs to observe v_z.
+
+    Returns (ScattererBatch [F, S] with ``elevation_rad`` on ``device`` --
+    the card unless the caller names another --, gt dict as
+    :func:`constant_motion_scene`'s, ``velocity_body`` the 3-D one)."""
+    device = resolve(device)
+    vb = np.array(v_body, np.float64)
+    w = float(yaw_rate)
+
+    yaws = w * dt * np.arange(num_frames + 1)
+    c, s = np.cos(yaws[:-1]), np.sin(yaws[:-1])
+    steps = np.stack([c * vb[0] - s * vb[1], s * vb[0] + c * vb[1],
+                      np.full(num_frames, vb[2])], axis=-1) * dt
+    path = np.concatenate([np.zeros((1, 3)), np.cumsum(steps, axis=0)])
+
+    world_xy, rcs = corridor_points(seed, scene, path[:, :2])
+    rng = _rng(seed)
+    world_z = rng.uniform(-z_span, z_span, len(world_xy))
+    world = np.concatenate([world_xy, world_z[:, None]], axis=-1)
+
+    n = len(world)
+    pad = scene.max_scatterers - n
+    if pad < 0:
+        raise ValueError("max_scatterers smaller than point count")
+
+    def z_(x):
+        return np.pad(np.asarray(x, np.float32), (0, pad))
+
+    frames = []
+    for i in range(num_frames):
+        cy, sy = np.cos(yaws[i]), np.sin(yaws[i])
+        rel = world - path[i][None, :]
+        xb = cy * rel[:, 0] + sy * rel[:, 1]
+        yb = -sy * rel[:, 0] + cy * rel[:, 1]
+        zb = rel[:, 2]
+        rng_m = np.sqrt(xb * xb + yb * yb + zb * zb)
+        rh = np.hypot(xb, yb)
+        az = np.arctan2(yb, xb)
+        el = np.arctan2(zb, np.maximum(rh, 1e-6))
+        d = np.stack([xb, yb, zb], -1) / np.maximum(rng_m[:, None], 1e-6)
+        # vr = -d . (v + w x p), planar yaw: w x p = (-w yb, w xb, 0).
+        vr = -(d[:, 0] * (vb[0] - w * yb) + d[:, 1] * (vb[1] + w * xb)
+               + d[:, 2] * vb[2])
+        observable = ((rng_m <= scene.max_range) & (rng_m >= 1.5)
+                      & (np.abs(az) <= scene.fov_rad / 2))
+        frames.append({
+            "range_m": z_(rng_m), "azimuth_rad": z_(az), "rcs_db": z_(rcs),
+            "vr": z_(vr), "elevation_rad": z_(el),
+            "valid": np.pad(observable, (0, pad)),
+        })
+
+    gt = {
+        "poses": np.concatenate([path[:num_frames, :2],
+                                 yaws[:num_frames, None]], axis=-1),
+        "velocity_body": vb,
+        "yaw_rate": w,
+        "timestamps": np.arange(num_frames) * dt,
+    }
+    stack = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    return scatterer_batch_from_numpy(stack, device), gt
+
+
+def pipeline_scatterer_pad(batch: ScattererBatch, cfg: PipelineConfig
+                           ) -> ScattererBatch:
+    """``batch`` [..., S] padded (zeros; ``valid`` False) or cut to the
+    pipeline's static scatterer capacity ``cfg.max_scatterers``."""
+    size = cfg.max_scatterers
+
+    def fit(x):
+        n = x.shape[-1]
+        if n >= size:
+            return x[..., :size]
+        return torch.nn.functional.pad(x, (0, size - n))
+
+    return ScattererBatch(*[None if x is None else fit(x) for x in batch])
 
 
 @dataclasses.dataclass(frozen=True)

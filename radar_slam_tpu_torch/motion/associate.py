@@ -1,14 +1,16 @@
-"""Cross-frame target association (mutual nearest neighbours), batched.
+"""Cross-frame target association, batched.
 
 Counterpart of ``radar_slam_tpu/motion/associate.py:associate_targets``
-with ``association_method="mutual"``, over a leading frame axis: current
+over a leading frame axis.  ``association_method="mutual"``: current
 target i and previous target j match iff each is the other's nearest
 (reliable, gated, same-group) neighbour under the cartesian or the polar
-metric.  Also computes what the velocity solver needs per match: the
+metric.  ``"greedy"``: the current targets claim in power order, each the
+nearest previous target no earlier one claimed, inside the gate -- K claim
+steps over the [F, K, K] distances with a used mask, where the reference
+scans.  Also computes what the velocity solver needs per match: the
 temporal phase difference on reference antenna 0, the apparent velocity,
 the match weight and the line of sight (from the vehicle origin, or from
-each target's own sensor on a mounted rig).  The reference's sequential
-"greedy" method is not ported yet.
+each target's own sensor on a mounted rig).
 """
 
 from __future__ import annotations
@@ -22,11 +24,38 @@ from radar_slam_tpu_torch.core.geometry import direction_vector
 from radar_slam_tpu_torch.core.types import Associations, Targets
 
 
+_BIG = 1e9    # the distance of a pair that may not match
+
+
+def _greedy_claims(dist: torch.Tensor, cur_ok: torch.Tensor, gate: float):
+    """The reference's greedy scan over distances [F, K, K] (current x
+    previous, ``_BIG`` where a pair may not match): current target i, in
+    order, takes the nearest previous target no earlier hit claimed
+    (``argmin``'s first minimum), a hit when i is reliable and that
+    distance is inside ``gate``.  Returns (j [F, K], its distance, hit)."""
+    F, K, _ = dist.shape
+    cols = torch.arange(K, device=dist.device)
+    used = torch.zeros((F, K), dtype=torch.bool, device=dist.device)
+    js, bests, hits = [], [], []
+    for i in range(K):
+        d = torch.where(used, _BIG, dist[:, i])
+        j = torch.argmin(d, dim=1)                                 # [F]
+        best = torch.gather(d, 1, j[:, None])[:, 0]
+        hit = cur_ok[:, i] & (best < gate)
+        used = used | ((cols[None, :] == j[:, None]) & hit[:, None])
+        js.append(j)
+        bests.append(best)
+        hits.append(hit)
+    return (torch.stack(js, dim=1), torch.stack(bests, dim=1),
+            torch.stack(hits, dim=1))
+
+
 def associate_targets(current: Targets, previous: Targets, dt: float,
                       cfg: VelocityConfig, metric: str = "cartesian",
                       sensor_pos: Optional[torch.Tensor] = None,
                       group: Optional[torch.Tensor] = None) -> Associations:
-    """Mutual-NN gated association between two target sets [F, K].
+    """Gated association between two target sets [F, K], by
+    ``cfg.association_method`` ("mutual" or "greedy", module docstring).
 
     ``metric``: "cartesian", the distance between (x, y) positions, or
     "polar", sqrt(d_range^2 + d_azimuth^2) in metres and radians.
@@ -35,11 +64,7 @@ def associate_targets(current: Targets, previous: Targets, dt: float,
     (position - sensor_pos) normalized, as a mounted radar needs.
     ``group`` [K] int32: a block id shared by both frames' layouts;
     matches stay within equal ids (one physical sensor)."""
-    if cfg.association_method == "greedy":
-        raise NotImplementedError(
-            "association_method='greedy' is not ported yet (ROADMAP: "
-            "greedy association)")
-    if cfg.association_method != "mutual":
+    if cfg.association_method not in ("mutual", "greedy"):
         raise ValueError(
             f"Unknown association method: {cfg.association_method}")
     F, K = current.range_m.shape
@@ -61,14 +86,18 @@ def associate_targets(current: Targets, previous: Targets, dt: float,
     ok = cur_ok[:, :, None] & prev_ok[:, None, :]
     if group is not None:
         ok = ok & (group[:, None] == group[None, :])
-    dist = torch.where(ok, dist, 1e9)
+    dist = torch.where(ok, dist, _BIG)
 
-    j_of_i = torch.argmin(dist, dim=2)                           # [F, K]
-    i_of_j = torch.argmin(dist, dim=1)                           # [F, K]
-    best_dist = torch.amin(dist, dim=2)
-    mutual = (torch.gather(i_of_j, 1, j_of_i)
-              == torch.arange(K, device=dev)[None, :])
-    hit = cur_ok & mutual & (best_dist < cfg.association_gate)
+    if cfg.association_method == "greedy":
+        j_of_i, best_dist, hit = _greedy_claims(dist, cur_ok,
+                                                cfg.association_gate)
+    else:
+        j_of_i = torch.argmin(dist, dim=2)                       # [F, K]
+        i_of_j = torch.argmin(dist, dim=1)                       # [F, K]
+        best_dist = torch.amin(dist, dim=2)
+        mutual = (torch.gather(i_of_j, 1, j_of_i)
+                  == torch.arange(K, device=dev)[None, :])
+        hit = cur_ok & mutual & (best_dist < cfg.association_gate)
 
     # Previous-frame lookups at prev_idx: signature on antenna 0, position,
     # confidence.

@@ -14,10 +14,11 @@ routes as a TPU routes it (the reference's frame.py:219-221, :653-657 and
   otherwise (OS-CFAR, or ``frontend_one_pass=False``): dense factors ->
   power map from the factors (K4) -> detection -> signatures from the
   factors (K5);
-- **materialized** otherwise: the ADC cubes are synthesized and go through
-  the cube front end (:func:`_cube_front_end`: the fused power map, K7, or
-  the complex RDS of ``"fft"``, ``"matmul"``, ``"pallas"``, with K8 / K9 /
-  K10 as the config selects).
+- **materialized** otherwise, and at any ``chirp_subset``: the ADC cubes
+  are synthesized and go through the cube front end
+  (:func:`_cube_front_end`: the fused power map, K7, or the complex RDS of
+  ``"fft"``, ``"matmul"``, ``"pallas"``, with K8 / K9 / K10 as the config
+  selects).
 
 Every driver draws its per-frame noise seeds with ``frame_seeds(generator,
 F)`` (``ops/noise.py``; element (a*C + c) * S + s of the noise plane), so
@@ -80,12 +81,6 @@ from radar_slam_tpu_torch.utils.host import tree_map as _map
 def _check_common(cfg: PipelineConfig) -> None:
     if cfg.detection.cfar_mode not in ("ca", "os"):
         raise ValueError(f"Unknown cfar_mode: {cfg.detection.cfar_mode}")
-    if cfg.chirp_subset is not None:
-        raise NotImplementedError("chirp_subset is not ported")
-    if cfg.radar.num_antennas_el != 1:
-        raise NotImplementedError(
-            "num_antennas_el > 1 (a 2-D array) is not ported (ROADMAP: "
-            "URA arrays and elevation)")
 
 
 def _no_clutter_map(cfg: PipelineConfig, driver: str) -> None:
@@ -101,8 +96,8 @@ def _no_clutter_map(cfg: PipelineConfig, driver: str) -> None:
 
 def _check_cube_supported(cfg: PipelineConfig) -> None:
     """The cube-input path: every fft_mode ("fused", "fft", "matmul",
-    "pallas") with or without ``use_pallas``, CA- or OS-CFAR, a 1-D
-    array."""
+    "pallas") with or without ``use_pallas``, CA- or OS-CFAR, a ULA or a
+    URA, any chirp subset."""
     _check_common(cfg)
     if cfg.fft_mode not in ("fused", "fft", "matmul", "pallas"):
         raise ValueError(f"Unknown fft_mode: {cfg.fft_mode}")
@@ -111,8 +106,10 @@ def _check_cube_supported(cfg: PipelineConfig) -> None:
 def _phase_a_route(cfg: PipelineConfig) -> str:
     """The scatterer driver's phase A, routed as a TPU routes it with no
     backend test: "one_pass", "three_dispatch" or "materialized" (see the
-    module docstring)."""
-    if cfg.fft_mode == "fused" and cfg.synth_in_kernel:
+    module docstring); a chirp subset materializes, since the kernels
+    synthesize every chirp."""
+    if (cfg.fft_mode == "fused" and cfg.synth_in_kernel
+            and cfg.chirp_subset is None):
         if cfg.frontend_one_pass and cfg.detection.cfar_mode == "ca":
             return "one_pass"
         return "three_dispatch"
@@ -359,7 +356,7 @@ def _sequence_from_features(features, cfg: PipelineConfig,
     """Phase B: windowed temporal smoothing, shift-association, batched
     solves, prefix-sum pose."""
     det, _, keep, _, _, angles_deg, _, conf = features
-    D = cfg.radar.num_chirps
+    D = _clutter_shape(cfg)[1]
     det_keys = det.range_bin * D + det.doppler_bin                # [F, K]
     angles_s, conf_s = smoothing.smooth_windowed(
         det_keys, angles_deg, conf, keep, cfg.aoa)
@@ -427,7 +424,7 @@ def process_signal_sequence_batched(signals: torch.Tensor,
 
 def _check_signals(signals: torch.Tensor, cfg: PipelineConfig) -> None:
     r = cfg.radar
-    want = (r.num_antennas, r.num_chirps, r.samples_per_chirp)
+    want = (r.total_antennas, r.num_chirps, r.samples_per_chirp)
     if signals.dim() != 4 or tuple(signals.shape[1:]) != want:
         raise ValueError(f"signals: need [F, {want[0]}, {want[1]}, "
                          f"{want[2]}], got {tuple(signals.shape)}")
@@ -468,6 +465,8 @@ def _empty_targets(cfg: PipelineConfig, device) -> Targets:
 
 
 def _clutter_shape(cfg: PipelineConfig) -> Tuple[int, int]:
+    """(R, D) of the power map: D the chirp subset's length, if any (the
+    Doppler bins that key the smoother's tracks, range_bin * D + bin)."""
     R = cfg.radar.samples_per_chirp
     D = (cfg.radar.num_chirps if cfg.chirp_subset is None
          else cfg.chirp_subset[1] - cfg.chirp_subset[0])

@@ -67,10 +67,6 @@ def _scatterer_terms(scatterers: ScattererBatch, cfg: RadarConfig,
     [F, Sc] round-trip delay, const_cycles [F, Sc] fast-time phase offset,
     beat [F, Sc] beat rate, e_dopp [F, Sc, C], e_ant [F, Sc, A] with the
     amplitude folded in (0 for an invalid scatterer))."""
-    if cfg.num_antennas_el != 1:
-        raise NotImplementedError(
-            "num_antennas_el > 1 (URA synthesis) is not ported yet "
-            "(ROADMAP: remaining estimation)")
     C = cfg.num_chirps
     lam = cfg.lambda_c
     k_rate = cfg.chirp_rate
@@ -103,11 +99,19 @@ def _scatterer_terms(scatterers: ScattererBatch, cfg: RadarConfig,
         cycles_dopp = (-2.0 / lam) * vr[..., None] * (c_idx * cfg.pri)
     e_dopp = expj_cycles(cycles_dopp)
 
+    # The antenna factor of a URA flattened row-major [el, az]: element
+    # (m, n) sees (n d_az u_y + m d_el u_z) / lambda cycles.  For a ULA
+    # pos_el is [0], and the added term is an exact zero.
     u_y = torch.cos(el) * torch.sin(az)
+    u_z = torch.sin(el)
     pos_az = torch.arange(cfg.num_antennas, dtype=torch.float32,
                           device=dev) * cfg.spacing
-    cycles_ant = (1.0 / lam) * (u_y[..., None] * pos_az)          # [F, Sc, A]
-    e_ant = expj_cycles(cycles_ant) * amp[..., None]
+    pos_el = torch.arange(cfg.num_antennas_el, dtype=torch.float32,
+                          device=dev) * cfg.spacing_el
+    cycles_ant = (1.0 / lam) * (u_y[..., None, None] * pos_az
+                                + u_z[..., None, None] * pos_el[:, None])
+    cycles_ant = cycles_ant.reshape(*u_y.shape, cfg.total_antennas)
+    e_ant = expj_cycles(cycles_ant) * amp[..., None]              # [F, Sc, A]
     return tau, const_cycles, beat, e_dopp, e_ant
 
 
@@ -132,7 +136,7 @@ def synthesis_factors(scatterers: ScattererBatch, cfg: RadarConfig,
 
     Returns (e_ac [F, Sc, A*C], e_fast [F, Sc, S]) complex64, e_fast
     echo-gated ([t_s >= tau], and [t_s - tau <= T] at reference fidelity)."""
-    A, C = cfg.num_antennas, cfg.num_chirps
+    A, C = cfg.total_antennas, cfg.num_chirps
     tau, const_cycles, beat, e_dopp, e_ant = _scatterer_terms(
         scatterers, cfg, fidelity)
     t = fast_time_base(cfg, fidelity, scatterers.range_m.device)  # [S]
@@ -176,7 +180,7 @@ def synthesize_frame(scatterers: ScattererBatch, cfg: RadarConfig,
     bits cannot be replayed here: parity with it is exact at
     ``add_noise=False`` and statistical otherwise.  The same seed gives the
     same noise on the CPU and on the card."""
-    A, C, S = cfg.num_antennas, cfg.num_chirps, cfg.samples_per_chirp
+    A, C, S = cfg.total_antennas, cfg.num_chirps, cfg.samples_per_chirp
     e_ac, e_fast = synthesis_factors(scatterers, cfg, fidelity)
     signals = torch.matmul(e_ac.transpose(-1, -2), e_fast)       # [F, AC, S]
     if output == "raw":
@@ -212,7 +216,7 @@ def synthesize_frames_seeded(scatterers: ScattererBatch, cfg: RadarConfig,
     several int64 tensors of _CHUNK * A * C * S elements (~0.2 GB each at
     the bench shapes)."""
     F = scatterers.range_m.shape[0]
-    out = torch.empty((F, cfg.num_antennas, cfg.num_chirps,
+    out = torch.empty((F, cfg.total_antennas, cfg.num_chirps,
                        cfg.samples_per_chirp), dtype=torch.complex64,
                       device=scatterers.range_m.device)
     for i in range(0, F, _CHUNK):

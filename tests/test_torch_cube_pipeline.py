@@ -125,22 +125,7 @@ def test_scatterer_driver_materialized_branch():
 
 
 @pytest.mark.parametrize("driver,knob,exc", [
-    ("cube", dict(aoa=dataclasses.replace(bench_config().aoa,
-                                          method="music"),
-                  radar=dataclasses.replace(bench_config().radar,
-                                            num_antennas_el=2)),
-     NotImplementedError),
-    ("cube", dict(chirp_subset=(0, 16)), NotImplementedError),
-    ("cube", dict(radar=dataclasses.replace(bench_config().radar,
-                                            num_antennas_el=2)),
-     NotImplementedError),
     ("cube", dict(fft_mode="dft"), ValueError),
-    ("scatterers", dict(frontend_factors="dense",
-                        radar=dataclasses.replace(bench_config().radar,
-                                                  num_antennas_el=2)),
-     NotImplementedError),
-    ("scatterers", dict(synth_in_kernel=False, chirp_subset=(0, 16)),
-     NotImplementedError),
 ])
 def test_unported_cube_configs_raise(driver, knob, exc):
     cfg = dataclasses.replace(bench_config(), **knob)

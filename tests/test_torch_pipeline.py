@@ -240,21 +240,3 @@ def test_port_imports_and_runs_without_jax():
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split("MODULES")[-1])
     assert n >= 45, res.stdout
-
-
-@pytest.mark.parametrize("knob", [
-    dict(frontend_factors="dense", chirp_subset=(0, 16)),
-    dict(velocity=dataclasses.replace(bench_config().velocity,
-                                      association_method="greedy")),
-    dict(aoa=dataclasses.replace(bench_config().aoa, method="esprit"),
-         radar=dataclasses.replace(bench_config().radar,
-                                   num_antennas_el=2)),
-    dict(radar=dataclasses.replace(bench_config().radar,
-                                   num_antennas_el=2))])
-def test_unported_pipeline_configs_raise(knob):
-    cfg = dataclasses.replace(bench_config(), **knob)
-    _, fields, _ = scene_fields(2)
-    with pytest.raises(NotImplementedError):
-        tframe.process_sequence_batched(
-            scatterer_batch_from_numpy(fields, "cpu"), torch.Generator(),
-            cfg)

@@ -265,15 +265,6 @@ def test_estimate_angles_2d_dispatch_matches(method):
         assert (gsp is None) == (wsp is None) == (method == "esprit")
 
 
-def test_subspace_methods_still_raise_on_a_ura():
-    _, cfg = _configs()
-    ura = dataclasses.replace(cfg.radar, num_antennas_el=2)
-    s = torch.tensor(_signatures(8))
-    for method in ("music", "esprit"):
-        with pytest.raises(NotImplementedError):
-            te.estimate_angles_2d(s, ura, cfg.aoa, method)
-
-
 @pytest.mark.parametrize("method", ["music", "esprit", "beamforming"])
 def test_process_targets_matches_reference(method):
     """``aoa/robust.py:process_targets`` (the basic stage, MUSIC by

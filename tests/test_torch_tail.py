@@ -220,23 +220,16 @@ def test_mdl_model_order_matches_on_general_spectra():
 
 
 def test_unported_methods_raise(stages):
-    """MUSIC and ESPRIT run on the ULA (finite angles for every detection)
-    and still raise on a URA; greedy association still raises."""
-    import dataclasses
+    """MUSIC and ESPRIT run on the ULA: finite angles for every detection.
+    (Their URA forms and greedy association are held against the reference
+    in tests/test_torch_ura.py and tests/test_torch_greedy.py.)"""
     from radar_slam_tpu_torch.aoa.estimators import estimate_angles
     cfg = stages["cfg"]
     sigs = torch.tensor(stages["raw"][4])
-    ura = dataclasses.replace(cfg.radar, num_antennas_el=2)
     for method in ("music", "esprit"):
         angles, _ = estimate_angles(sigs, cfg.radar, cfg.aoa, method)
         assert angles.shape == sigs.shape[:-1]
         assert bool(torch.isfinite(angles).all())
-        with pytest.raises(NotImplementedError):
-            estimate_angles(sigs, ura, cfg.aoa, method)
-    greedy = dataclasses.replace(cfg.velocity, association_method="greedy")
-    tgt = _to_torch(ttypes.Targets, stages["targets"])
-    with pytest.raises(NotImplementedError):
-        tassoc(tgt, tgt, cfg.frame_dt, greedy)
 
 
 def test_associate_targets_matches(stages):
