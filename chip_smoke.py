@@ -3874,9 +3874,8 @@ def phase_chirp_subset(torch, k, counters, cfg_mod, device):
     from radar_slam_tpu_torch.pipeline.frame import (
         process_sequence, process_sequence_batched,
         process_signal_sequence_batched)
-    from radar_slam_tpu_torch.pipeline.pipeline import (
-        EgoMotionPipeline)
     import tempfile
+    from radar_slam_tpu_torch.pipeline.pipeline import EgoMotionPipeline
     base = bench_config(cfg_mod)
     sig, gt = cube_signals(64, base, device, CUBE_SEED)
     out = {}
@@ -3976,7 +3975,7 @@ def phase_greedy(torch, counters, cfg_mod, device):
     from radar_slam_tpu_torch.pipeline import frame as fr
     base = bench_config(cfg_mod)
     batch, gt = scene(64, base, device)
-    runs, targets = {}, None
+    runs = {}
     for method in ("mutual", "greedy"):
         cfg = dataclasses.replace(base, velocity=dataclasses.replace(
             base.velocity, association_method=method))
@@ -3992,8 +3991,7 @@ def phase_greedy(torch, counters, cfg_mod, device):
                                 dev_launches.values()))
     feats = fr.sequence_features_scatterers_fused(
         batch, torch.Generator().manual_seed(PIPELINE_SEED), base)
-    det, _, keep, _, _, angles_deg, _, conf = feats
-    targets = fr._smoothed_targets(feats, angles_deg, conf, base)
+    targets = fr._smoothed_targets(feats, feats[5], feats[7], base)
     prev = fr._map(lambda x: torch.cat([x[:1], x[:-1]]), targets)
     greedy = dataclasses.replace(base.velocity, association_method="greedy")
     assoc_launches = {}

@@ -79,7 +79,7 @@ def patch_eager_synthesis(monkeypatch, *modules):
         if scatterers.elevation_rad is not None:
             cols.append(scatterers.elevation_rad)
         shape = jax.ShapeDtypeStruct(
-            (cfg.total_antennas, cfg.num_chirps, cfg.samples_per_chirp),
+            (cfg.num_antennas, cfg.num_chirps, cfg.samples_per_chirp),
             jnp.complex64)
         return jax.pure_callback(functools.partial(host, radar, fidelity),
                                  shape, *cols, vmap_method="sequential")
