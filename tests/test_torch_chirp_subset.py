@@ -8,14 +8,14 @@ JAX reference on the CPU.
   kernels in interpret mode (K7's products at "highest", float32 as the
   port computes): 1e-5 of the maximum, the tolerance
   ``tests/test_torch_cube.py`` holds the same formulations to.
-- The drivers at a subset against the reference's driver at sigma = 0,
-  on a narrow radar (32 chirps, 128 samples, 3 frames; ``DRIVER_CASES``
-  says which driver at which subset), and the other drivers against
-  those at both subsets: the
-  cube drivers on the same cubes, the scatterer drivers on the route a
-  subset takes (the materialized one) with the reference's synthesis
-  evaluated eagerly (``_torch_parity.patch_eager_synthesis``).  Counts
-  and solve outcomes exact, velocities to 1e-3 m/s and poses to 1e-4 m:
+- The drivers at a subset on a narrow radar (32 chirps, 128 samples, 3
+  frames) at sigma = 0: the cube drivers and the rig against the
+  reference's (``DRIVER_CASES``: the cubes the same, the rig's synthesis
+  evaluated eagerly in the reference, ``_torch_parity.
+  patch_eager_synthesis``), and the other drivers (the scatterer drivers
+  on the route a subset takes, the materialized one; the chunked driver;
+  the RDS modes) against those at both subsets.  Counts and solve
+  outcomes exact, velocities to 1e-3 m/s and poses to 1e-4 m:
   ``tests/test_torch_sequential.py``'s tolerances for its materialized
   drivers at sigma = 0.
 - The smoothing keys range_bin * D + doppler_bin take D from the subset
@@ -147,65 +147,58 @@ def _assert_outputs(got, ref):
                                rtol=0, atol=1e-4)
 
 
-# The drivers held to the reference's, each at one subset and the batched
-# cube driver at both: a reference driver's compile costs 4-8 s here, and
-# all drivers at both subsets took ~95 s of this file's 60.  The drivers
-# left out here are held to these at both subsets
-# (test_other_drivers_agree_at_a_chirp_subset).
+# The drivers held to the reference's: the cube drivers (the batched one at
+# both subsets) and the rig, whose mounts no single-sensor driver has.  A
+# reference driver's compile costs 4-8 s here: every driver at both subsets
+# took ~95 s of this file's 60.  The other drivers are held to these at
+# both subsets (test_other_drivers_agree_at_a_chirp_subset): at a subset
+# the scatterer drivers synthesize the cubes and run the cube drivers'
+# front end, in both packages.
 DRIVER_CASES = [
     ("cube_batched_fused", (3, 28)), ("cube_batched_pallas", (0, 16)),
-    ("cube_sequential", (0, 16)), ("batched", (3, 28)),
-    ("sequential", (0, 16)), ("rig_batched", (0, 16))]
+    ("cube_sequential", (0, 16)), ("rig_batched", (0, 16))]
 
 
 @pytest.mark.parametrize("driver,subset", DRIVER_CASES)
 def test_drivers_at_a_chirp_subset_match_reference(driver, subset,
                                                    monkeypatch):
-    if driver.startswith("cube"):
-        mode = driver.rsplit("_", 1)[-1]
-        knobs = (dict(fft_mode=mode, use_pallas=mode == "pallas")
-                 if driver != "cube_sequential" else {})
-        ref_cfg, cfg = _narrow(subset, **knobs)
-        jbatch, _ = _scene(FRAMES)
-        sig = np.asarray(jsynth(jbatch, ref_cfg.radar, jax.random.key(1)))
-        fn = ("process_signal_sequence" if driver == "cube_sequential"
-              else "process_signal_sequence_batched")
-        with pltpu.force_tpu_interpret_mode():
-            ref = getattr(jframe, fn)(jnp.asarray(sig), ref_cfg)
-            jax.block_until_ready(ref)
-        got = getattr(tframe, fn)(signals_from_numpy(sig, "cpu"), cfg)
-        _assert_outputs(got, ref)
-        return
-    patch_eager_synthesis(monkeypatch, jframe, jrig)
-    ref_cfg, cfg = _narrow(subset)
-    assert tframe._phase_a_route(
-        dataclasses.replace(cfg, synth_in_kernel=True)) == "materialized"
     if driver == "rig_batched":
+        patch_eager_synthesis(monkeypatch, jrig)
+        ref_cfg, cfg = _narrow(subset)
         jbatch, batch = _scene(FRAMES, RIG2)
         ref = jrig.process_sequence_rig_batched(jbatch, jax.random.key(0),
                                                 ref_cfg, RIG2)
         got = trig.process_sequence_rig_batched(batch, torch.Generator(),
                                                 cfg, RIG2)
-    else:
-        jbatch, batch = _scene(FRAMES)
-        fn, kw = {"batched": ("process_sequence_batched", {}),
-                  "sequential": ("process_sequence", {}),
-                  "chunked": ("process_sequence_chunked",
-                              dict(window=2))}[driver]
-        ref = getattr(jframe, fn)(jbatch, jax.random.key(0), ref_cfg, **kw)
-        got = getattr(tframe, fn)(batch, torch.Generator(), cfg, **kw)
+        _assert_outputs(got, ref)
+        return
+    mode = driver.rsplit("_", 1)[-1]
+    knobs = (dict(fft_mode=mode, use_pallas=mode == "pallas")
+             if driver != "cube_sequential" else {})
+    ref_cfg, cfg = _narrow(subset, **knobs)
+    jbatch, _ = _scene(FRAMES)
+    sig = np.asarray(jsynth(jbatch, ref_cfg.radar, jax.random.key(1)))
+    fn = ("process_signal_sequence" if driver == "cube_sequential"
+          else "process_signal_sequence_batched")
+    with pltpu.force_tpu_interpret_mode():
+        ref = getattr(jframe, fn)(jnp.asarray(sig), ref_cfg)
+        jax.block_until_ready(ref)
+    got = getattr(tframe, fn)(signals_from_numpy(sig, "cpu"), cfg)
     _assert_outputs(got, ref)
 
 
 @pytest.mark.parametrize("subset", SUBSETS)
 def test_other_drivers_agree_at_a_chirp_subset(subset):
     """At each subset the port's drivers that the reference test above
-    does not take agree with those it holds: the cube driver's "fft" and
-    "matmul" RDS routes with its fused route (the same detections, the
-    test's tolerances), and the chunked driver (exact prior) with the
-    sequential one (1e-5 m, as tests/test_torch_sequential.py holds
-    them)."""
+    does not take agree with those it holds, on the same noiseless cubes:
+    the cube driver's "fft" and "matmul" RDS routes with its fused route,
+    the scatterer drivers (on their materialized route) with the cube
+    drivers, at the test's tolerances; the chunked driver (exact prior)
+    with the sequential one to 1e-5 m, as tests/test_torch_sequential.py
+    holds them."""
     _, cfg = _narrow(subset)
+    assert tframe._phase_a_route(
+        dataclasses.replace(cfg, synth_in_kernel=True)) == "materialized"
     _, batch = _scene(FRAMES)
     sig = synthesize_frames_batch(batch, cfg.radar, torch.Generator(),
                                   add_noise=False)
@@ -214,7 +207,10 @@ def test_other_drivers_agree_at_a_chirp_subset(subset):
     for mode in ("fft", "matmul"):
         _assert_outputs(tframe.process_signal_sequence_batched(
             sig, dataclasses.replace(cfg, fft_mode=mode)), fused)
+    _assert_outputs(tframe.process_sequence_batched(batch, torch.Generator(),
+                                                    cfg), fused)
     seq = tframe.process_sequence(batch, torch.Generator(), cfg)
+    _assert_outputs(seq, tframe.process_signal_sequence(sig, cfg))
     chunked = tframe.process_sequence_chunked(batch, torch.Generator(), cfg,
                                               window=2, prior="exact")
     _assert_outputs(chunked, seq)
