@@ -3642,17 +3642,19 @@ def ura_scene(n_frames, cfg, device):
 
 def phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
     """K1 (range frequency, with and without its clutter input), K3, K4,
-    K5 and K7 at the URA's A = 32, C = 32, S = 400 and 512 scatterers, 8
-    frames of the 3-D scene at the production sigma, against their float64
-    oracles at the gates of phases kernel_vs_plain and
-    synth_kernels_vs_plain (K7 as in phase cube_kernels_vs_plain); K1 and
-    K3 on their "tiled_rows" route."""
+    K5, K7 and K8 at the URA's A = 32, C = 32, S = 400 and 512 scatterers,
+    8 frames of the 3-D scene at the production sigma, against their
+    float64 oracles at the gates of phases kernel_vs_plain and
+    synth_kernels_vs_plain (K7 and K8 as in phase cube_kernels_vs_plain);
+    K1 and K3 on their "tiled_rows" route."""
+    from radar_slam_tpu_torch.ops import rds as rds_op
     cfg = ura_config(cfg_mod)
     batch, _ = ura_scene(8, cfg, device)
     seeds = torch.arange(8, dtype=torch.int32, device=device) * 7919 - 3
     wrappers = {"K1": fe.frontend_kernel_split,
                 "K3": fe.frontend_kernel_dense, "K4": sp.scatterer_power,
-                "K5": sp.scatterer_signatures, "K7": power.rds_power_fused}
+                "K5": sp.scatterer_signatures, "K7": power.rds_power_fused,
+                "K8": rds_op.rds_fused}
     zero_counts(*wrappers.values())
     args, prm = kernel_inputs(batch, cfg, seeds)
     exact = plain_args(args, prm)
@@ -3685,6 +3687,11 @@ def phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
     out["K7_oracle_rel"] = rel_err(p7, cube_power_oracle(
         torch, cube, mix, cfg.doppler_window))[1]
     out["K7_repeats"] = bool(torch.equal(p7, p7_again))
+    r8 = rds_op.rds_fused(cube, mix, True, cfg.doppler_window)
+    r8_again = rds_op.rds_fused(cube, mix, True, cfg.doppler_window)
+    out["K8"] = k8_checks(torch, cube, mix, cfg.doppler_window, r8)
+    out["K8"]["repeats"] = bool(torch.equal(r8, r8_again))
+    del r8, r8_again
     torch.cuda.synchronize()
     out["branch_counts"] = {n: branch_counts(w) for n, w in wrappers.items()}
     emit("ura_kernels_vs_plain", frames=8, shape="A=32 (8 x 4), C=32, "
@@ -3692,7 +3699,10 @@ def phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
          tolerance={"K1, K1_clutter, K3": FRONTEND_TOL, "K4_rel": 1e-5,
                     "K4_vs_K7_rel": 1e-5, "K5_abs": 2e-4,
                     "K5_oracle_abs": 1e-5, "K7_rel": 1e-5,
-                    "K7_oracle_rel": 1e-5, "repeats": "bit for bit",
+                    "K7_oracle_rel": 1e-5,
+                    "K8_rel": K8_REFERENCE_CONSTANT_TOL,
+                    "K8_oracle_rel": K8_TOL, "K8_kernel_order_rel": K8_TOL,
+                    "repeats": "bit for bit",
                     "tiled_rows": "every K1 / K3 launch"}, **out)
     for label in ("K1", "K1_clutter"):
         check_frontend(f"A=32 {label}", out[label])
@@ -3711,6 +3721,10 @@ def phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
     check(out["K7_rel"] < 1e-5 and out["K7_oracle_rel"] < 1e-5
           and out["K7_repeats"], f"A=32: K7 {out['K7_rel']} / "
           f"{out['K7_oracle_rel']}")
+    check_k8("A=32 K8", out["K8"])
+    check(out["K8"]["repeats"], "A=32 K8: outputs differ between two runs")
+    check(out["branch_counts"]["K8"]["launches"] == 2,
+          f"A=32: K8 counts {out['branch_counts']['K8']}")
     bc = out["branch_counts"]
     for n in ("K1", "K3"):
         check(bc[n]["launches"] > 0

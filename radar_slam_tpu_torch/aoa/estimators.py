@@ -115,16 +115,19 @@ def _refine_peak_2d(spec: torch.Tensor, az_grid: torch.Tensor,
             el_grid[ie[..., 0]] + de * el_step)
 
 
-# Complex elements per chunk of a spectrum's largest intermediate (~0.2 GB
-# of complex64): MUSIC's residual [n, G, A] holds 32k signatures at the
-# ULA bench's G = 91, A = 8; the URA's joint grids are ~100x larger.
-_ELEMS_PER_CHUNK = (8 * 91) << 15
+# Complex elements per chunk of a spectrum's intermediate.  MUSIC's
+# residual [n, G, A]: ~0.2 GB of complex64, 32k signatures at the ULA
+# bench's G = 91, A = 8.  Beamforming's response [n, G]: 1 GiB, so a ULA
+# at G = 91 stays one product up to 1.47M signatures (8192 frames of
+# K = 64 are 524k) and the URA's 11,041-point joint grid takes 12k.
+_MUSIC_CHUNK_ELEMS = (8 * 91) << 15
+_BEAMFORMING_CHUNK_ELEMS = 1 << 27
 
 
-def _chunk(steering: torch.Tensor, per_point: int) -> int:
-    """Signatures per chunk for the grid of ``steering`` [G, A] and an
-    intermediate of ``per_point`` elements per signature and grid point."""
-    return max(1, _ELEMS_PER_CHUNK // (steering.shape[0] * per_point))
+def _chunk(elems: int, per_signature: int) -> int:
+    """Signatures per chunk of an intermediate of ``per_signature``
+    elements per signature, within ``elems``."""
+    return max(1, elems // per_signature)
 
 
 def beamforming_spectrum(signatures: torch.Tensor,
@@ -132,14 +135,19 @@ def beamforming_spectrum(signatures: torch.Tensor,
     """Conventional beamforming power spectra [..., K, G] = |S A^H|^2, one
     complex product per chunk of signatures."""
     a_h = steering.conj().transpose(0, 1)
-    n = _chunk(steering, 1)
+    G = steering.shape[0]
     s = signatures.reshape(-1, signatures.shape[-1])
-    out = []
-    for i in range(0, max(s.shape[0], 1), n):
-        resp = s[i:i + n] @ a_h
-        out.append(resp.real ** 2 + resp.imag ** 2)
-    spec = out[0] if len(out) == 1 else torch.cat(out)
-    return spec.reshape(*signatures.shape[:-1], steering.shape[0])
+    n = _chunk(_BEAMFORMING_CHUNK_ELEMS, G)
+    if s.shape[0] <= n:
+        resp = s @ a_h
+        spec = resp.real ** 2 + resp.imag ** 2
+    else:
+        spec = torch.empty(s.shape[0], G, dtype=s.real.dtype,
+                           device=s.device)
+        for i in range(0, s.shape[0], n):
+            resp = s[i:i + n] @ a_h
+            spec[i:i + n] = resp.real ** 2 + resp.imag ** 2
+    return spec.reshape(*signatures.shape[:-1], G)
 
 
 def _refine_grid(spec: torch.Tensor, cfg: RadarConfig, aoa: AoAConfig):
@@ -156,14 +164,36 @@ def _refine_grid(spec: torch.Tensor, cfg: RadarConfig, aoa: AoAConfig):
     return az, torch.zeros_like(az)
 
 
+def _grid_search(signatures: torch.Tensor, cfg: RadarConfig,
+                 aoa: AoAConfig, method: str, num_sources=1,
+                 forward_backward: bool = False, refine: bool = True):
+    """The grid search of beamforming or MUSIC: (az_deg, el_deg, spectra),
+    el_deg zero on a ULA.  The peak is refined on the spectrum
+    (beamforming) or on the negated null spectrum (MUSIC); unrefined,
+    which only a ULA's MUSIC takes, the argmax of the pseudo-spectrum."""
+    steering = grid_steering_matrix(cfg, aoa, signatures.device)
+    if method == "beamforming":
+        spec = beamforming_spectrum(signatures, steering)
+        peak = spec
+    elif method == "music":
+        denom = music_denominator(signatures, steering, num_sources,
+                                  forward_backward)
+        spec, peak = _pseudo_spectrum(denom), -denom
+    else:
+        raise ValueError(f"Unknown method: {method}")
+    if not refine and cfg.num_antennas_el == 1:
+        az = azimuth_grid_deg(aoa, spec.device)[torch.argmax(spec, dim=-1)]
+        return az, torch.zeros_like(az), spec
+    return (*_refine_grid(peak, cfg, aoa), spec)
+
+
 def estimate_beamforming(signatures: torch.Tensor, cfg: RadarConfig,
                          aoa: AoAConfig):
     """Batched beamforming AoA with sub-grid refinement:
     (angles_deg [..., K], spectra [..., K, G]); on a URA the azimuth of
     the joint search."""
-    spec = beamforming_spectrum(
-        signatures, grid_steering_matrix(cfg, aoa, signatures.device))
-    return _refine_grid(spec, cfg, aoa)[0], spec
+    az, _, spec = _grid_search(signatures, cfg, aoa, "beamforming")
+    return az, spec
 
 
 def rank1_eigenvalues(signatures: torch.Tensor) -> torch.Tensor:
@@ -265,7 +295,8 @@ def music_denominator(signatures: torch.Tensor, steering: torch.Tensor,
     |a|^2 - sum_j |e_j^H a|^2: near the null both terms of the difference
     are ~A, so it loses ~1e-7 A absolutely -- all of the value at the bins
     the sub-grid refinement fits.  The residual is evaluated over chunks
-    of signatures to bound its [n, G, A] intermediates (:func:`_chunk`)."""
+    of signatures to bound its [n, G, A] intermediates
+    (``_MUSIC_CHUNK_ELEMS``)."""
     lead = signatures.shape[:-1]
     A = signatures.shape[-1]
     m = torch.broadcast_to(torch.as_tensor(num_sources, dtype=torch.int32,
@@ -274,7 +305,7 @@ def music_denominator(signatures: torch.Tensor, steering: torch.Tensor,
                                     forward_backward)            # [n, 2, A]
     m = torch.minimum(m.reshape(-1), rank)
     sig_mask = torch.arange(2, device=m.device)[None, :] < m[:, None]
-    n = _chunk(steering, A)
+    n = _chunk(_MUSIC_CHUNK_ELEMS, steering.shape[0] * A)
     out = []
     for i in range(0, E.shape[0], n):
         e = E[i:i + n]
@@ -310,14 +341,9 @@ def estimate_music(signatures: torch.Tensor, cfg: RadarConfig,
     near-pole there; the unrefined path takes the argmax of the (clamped)
     pseudo-spectrum.  On a URA the azimuth of the joint search, always
     refined, as the reference's."""
-    denom = music_denominator(
-        signatures, grid_steering_matrix(cfg, aoa, signatures.device),
-        num_sources, forward_backward)
-    spec = _pseudo_spectrum(denom)
-    if refine or cfg.num_antennas_el > 1:
-        return _refine_grid(-denom, cfg, aoa)[0], spec
-    grid = azimuth_grid_deg(aoa, signatures.device)
-    return grid[torch.argmax(spec, dim=-1)], spec
+    az, _, spec = _grid_search(signatures, cfg, aoa, "music", num_sources,
+                               forward_backward, refine)
+    return az, spec
 
 
 def _multilag_slope(signatures: torch.Tensor, max_lag: int,
@@ -393,44 +419,26 @@ def estimate_angles(signatures: torch.Tensor, cfg: RadarConfig,
     has no spectra (None).  MUSIC reads ``aoa.music_fb``, ESPRIT
     ``aoa.esprit_weighted``.  On a URA the azimuth of the joint
     estimate."""
-    if method == "beamforming":
-        return estimate_beamforming(signatures, cfg, aoa)
-    if method == "music":
-        return estimate_music(signatures, cfg, aoa, num_sources,
-                              forward_backward=aoa.music_fb)
-    if method == "esprit":
-        if cfg.num_antennas_el > 1:
-            return estimate_esprit_ura(signatures, cfg,
-                                       weighted=aoa.esprit_weighted)[0], None
-        return estimate_esprit(signatures, cfg,
-                               weighted=aoa.esprit_weighted), None
-    raise ValueError(f"Unknown method: {method}")
+    az, _, spec = estimate_angles_2d(signatures, cfg, aoa, method,
+                                     num_sources)
+    return az, spec
 
 
 def estimate_angles_2d(signatures: torch.Tensor, cfg: RadarConfig,
                        aoa: AoAConfig, method: str = "beamforming",
                        num_sources=1):
     """Joint azimuth-elevation estimation: (az_deg, el_deg, spectra, None
-    for ESPRIT).  On a ULA elevation is identically zero and the rest is
-    :func:`estimate_angles`; on a URA the joint grid search (beamforming,
-    or MUSIC refined on the negated null spectrum) or URA ESPRIT."""
-    if cfg.num_antennas_el == 1:
-        az, spec = estimate_angles(signatures, cfg, aoa, method, num_sources)
-        return az, torch.zeros_like(az), spec
+    for ESPRIT).  On a ULA elevation is identically zero; on a URA the
+    joint grid search (beamforming, or MUSIC refined on the negated null
+    spectrum) or URA ESPRIT."""
     if method == "esprit":
-        az, el = estimate_esprit_ura(signatures, cfg,
-                                     weighted=aoa.esprit_weighted)
+        if cfg.num_antennas_el > 1:
+            az, el = estimate_esprit_ura(signatures, cfg,
+                                         weighted=aoa.esprit_weighted)
+        else:
+            az = estimate_esprit(signatures, cfg,
+                                 weighted=aoa.esprit_weighted)
+            el = torch.zeros_like(az)
         return az, el, None
-    steering = grid_steering_matrix(cfg, aoa, signatures.device)
-    if method == "beamforming":
-        spec = beamforming_spectrum(signatures, steering)
-        refine_on = spec
-    elif method == "music":
-        denom = music_denominator(signatures, steering, num_sources,
-                                  forward_backward=aoa.music_fb)
-        spec = _pseudo_spectrum(denom)
-        refine_on = -denom
-    else:
-        raise ValueError(f"Unknown method: {method}")
-    az, el = _refine_grid(refine_on, cfg, aoa)
-    return az, el, spec
+    return _grid_search(signatures, cfg, aoa, method, num_sources,
+                        forward_backward=aoa.music_fb)

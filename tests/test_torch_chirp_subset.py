@@ -9,13 +9,15 @@ JAX reference on the CPU.
   port computes): 1e-5 of the maximum, the tolerance
   ``tests/test_torch_cube.py`` holds the same formulations to.
 - The drivers at a subset on a narrow radar (32 chirps, 128 samples, 3
-  frames) at sigma = 0: the cube drivers and the rig against the
-  reference's (``DRIVER_CASES``: the cubes the same, the rig's synthesis
-  evaluated eagerly in the reference, ``_torch_parity.
-  patch_eager_synthesis``), and the other drivers (the scatterer drivers
-  on the route a subset takes, the materialized one; the chunked driver;
-  the RDS modes) against those at both subsets.  Counts and solve
-  outcomes exact, velocities to 1e-3 m/s and poses to 1e-4 m:
+  frames) at sigma = 0 against the reference's (``DRIVER_CASES``): the
+  batched cube driver on its fused route at both subsets and on K8's
+  route, the sequential cube driver, ``process_sequence_batched``,
+  ``process_sequence``, ``process_sequence_chunked`` and the rig (the
+  scatterer drivers' synthesis evaluated eagerly in the reference,
+  ``_torch_parity.patch_eager_synthesis``); and the port's remaining
+  routes (the cube driver's "fft" and "matmul" RDS, the scatterer
+  drivers at the other subset) held to those at both subsets.  Counts
+  and solve outcomes exact, velocities to 1e-3 m/s and poses to 1e-4 m:
   ``tests/test_torch_sequential.py``'s tolerances for its materialized
   drivers at sigma = 0.
 - The smoothing keys range_bin * D + doppler_bin take D from the subset
@@ -38,7 +40,6 @@ from radar_slam_tpu.io import synthetic as jsyn
 from radar_slam_tpu.pipeline import frame as jframe
 from radar_slam_tpu.pipeline import rig as jrig
 from radar_slam_tpu.signal import rds as jrds
-from radar_slam_tpu.signal.synth import synthesize_frames_batch as jsynth
 from radar_slam_tpu_torch.aoa import smoothing as tsmoothing
 from radar_slam_tpu_torch.core.config import config_from_dict
 from radar_slam_tpu_torch.core.types import (scatterer_batch_from_numpy,
@@ -147,73 +148,123 @@ def _assert_outputs(got, ref):
                                rtol=0, atol=1e-4)
 
 
-# The drivers held to the reference's: the cube drivers (the batched one at
-# both subsets) and the rig, whose mounts no single-sensor driver has.  A
-# reference driver's compile costs 4-8 s here: every driver at both subsets
-# took ~95 s of this file's 60.  The other drivers are held to these at
-# both subsets (test_other_drivers_agree_at_a_chirp_subset): at a subset
-# the scatterer drivers synthesize the cubes and run the cube drivers'
-# front end, in both packages.
+# The drivers held to the reference's, one case per driver and subset (a
+# reference driver's compile costs ~4 s here).  Every driver at a subset
+# sees the same noiseless cubes: the cube drivers take the synthesis of
+# the scene's scatterers, which the scatterer drivers (on the materialized
+# route a subset takes) synthesize in both packages.
 DRIVER_CASES = [
     ("cube_batched_fused", (3, 28)), ("cube_batched_pallas", (0, 16)),
-    ("cube_sequential", (0, 16)), ("rig_batched", (0, 16))]
+    ("cube_sequential", (0, 16)), ("rig_batched", (0, 16)),
+    ("cube_batched_fused", (0, 16)), ("scatterer_batched", (0, 16)),
+    ("scatterer_sequential", (3, 28)), ("scatterer_chunked", (3, 28))]
+CUBE_DRIVERS = {
+    "cube_batched_fused": ("process_signal_sequence_batched",
+                           dict(fft_mode="fused", use_pallas=False)),
+    "cube_batched_pallas": ("process_signal_sequence_batched",
+                            dict(fft_mode="pallas", use_pallas=True)),
+    "cube_sequential": ("process_signal_sequence", {})}
+SCATTERER_DRIVERS = {
+    "scatterer_batched": ("process_sequence_batched", {}),
+    "scatterer_sequential": ("process_sequence", {}),
+    "scatterer_chunked": ("process_sequence_chunked",
+                          dict(window=2, prior="exact"))}
+
+
+@pytest.fixture(scope="module")
+def narrow_scene():
+    """The scene (both packages' batches) and its noiseless cubes."""
+    jbatch, batch = _scene(FRAMES)
+    sig = synthesize_frames_batch(batch, _narrow(None)[1].radar,
+                                  torch.Generator(), add_noise=False)
+    return jbatch, batch, to_np(sig)
+
+
+@pytest.fixture(scope="module")
+def reference(narrow_scene):
+    """The reference's output of (driver, subset), each driver run and
+    compiled once in this module; its scatterer drivers' synthesis
+    evaluated eagerly (``_torch_parity.patch_eager_synthesis``)."""
+    mp = pytest.MonkeyPatch()
+    patch_eager_synthesis(mp, jframe, jrig)
+    jbatch, _, sig = narrow_scene
+    outputs = {}
+
+    def run(driver, subset):
+        ref_cfg = _narrow(subset)[0]
+        if driver == "rig_batched":
+            return jrig.process_sequence_rig_batched(
+                _scene(FRAMES, RIG2)[0], jax.random.key(0), ref_cfg, RIG2)
+        if driver in SCATTERER_DRIVERS:
+            fn, kw = SCATTERER_DRIVERS[driver]
+            return getattr(jframe, fn)(jbatch, jax.random.key(0), ref_cfg,
+                                       **kw)
+        fn, knobs = CUBE_DRIVERS[driver]
+        with pltpu.force_tpu_interpret_mode():
+            return jax.block_until_ready(getattr(jframe, fn)(
+                jnp.asarray(sig), _narrow(subset, **knobs)[0]))
+
+    def get(driver, subset):
+        if (driver, subset) not in outputs:
+            outputs[driver, subset] = run(driver, subset)
+        return outputs[driver, subset]
+
+    yield get
+    mp.undo()
 
 
 @pytest.mark.parametrize("driver,subset", DRIVER_CASES)
 def test_drivers_at_a_chirp_subset_match_reference(driver, subset,
-                                                   monkeypatch):
+                                                   narrow_scene, reference):
+    _, batch, sig = narrow_scene
     if driver == "rig_batched":
-        patch_eager_synthesis(monkeypatch, jrig)
-        ref_cfg, cfg = _narrow(subset)
-        jbatch, batch = _scene(FRAMES, RIG2)
-        ref = jrig.process_sequence_rig_batched(jbatch, jax.random.key(0),
-                                                ref_cfg, RIG2)
-        got = trig.process_sequence_rig_batched(batch, torch.Generator(),
-                                                cfg, RIG2)
-        _assert_outputs(got, ref)
-        return
-    mode = driver.rsplit("_", 1)[-1]
-    knobs = (dict(fft_mode=mode, use_pallas=mode == "pallas")
-             if driver != "cube_sequential" else {})
-    ref_cfg, cfg = _narrow(subset, **knobs)
-    jbatch, _ = _scene(FRAMES)
-    sig = np.asarray(jsynth(jbatch, ref_cfg.radar, jax.random.key(1)))
-    fn = ("process_signal_sequence" if driver == "cube_sequential"
-          else "process_signal_sequence_batched")
-    with pltpu.force_tpu_interpret_mode():
-        ref = getattr(jframe, fn)(jnp.asarray(sig), ref_cfg)
-        jax.block_until_ready(ref)
-    got = getattr(tframe, fn)(signals_from_numpy(sig, "cpu"), cfg)
-    _assert_outputs(got, ref)
+        got = trig.process_sequence_rig_batched(
+            _scene(FRAMES, RIG2)[1], torch.Generator(), _narrow(subset)[1],
+            RIG2)
+    elif driver in SCATTERER_DRIVERS:
+        fn, kw = SCATTERER_DRIVERS[driver]
+        got = getattr(tframe, fn)(batch, torch.Generator(),
+                                  _narrow(subset)[1], **kw)
+    else:
+        fn, knobs = CUBE_DRIVERS[driver]
+        got = getattr(tframe, fn)(signals_from_numpy(sig, "cpu"),
+                                  _narrow(subset, **knobs)[1])
+    _assert_outputs(got, reference(driver, subset))
 
 
 @pytest.mark.parametrize("subset", SUBSETS)
-def test_other_drivers_agree_at_a_chirp_subset(subset):
-    """At each subset the port's drivers that the reference test above
-    does not take agree with those it holds, on the same noiseless cubes:
-    the cube driver's "fft" and "matmul" RDS routes with its fused route,
-    the scatterer drivers (on their materialized route) with the cube
-    drivers, at the test's tolerances; the chunked driver (exact prior)
-    with the sequential one to 1e-5 m, as tests/test_torch_sequential.py
-    holds them."""
+def test_other_drivers_agree_at_a_chirp_subset(subset, narrow_scene,
+                                               reference):
+    """At each subset the port's routes that DRIVER_CASES does not take
+    there are held to the reference's driver of the same semantics on the
+    same cubes (its outputs shared with the test above): the cube driver's
+    "fft" and "matmul" RDS routes and ``process_sequence_batched`` to the
+    reference's fused batched cube driver; ``process_signal_sequence``,
+    ``process_sequence`` and ``process_sequence_chunked`` (exact prior) to
+    the reference's sequential driver, at the test's tolerances.  The
+    chunked driver is also held to the port's sequential one to 1e-5 m,
+    as tests/test_torch_sequential.py holds them."""
     _, cfg = _narrow(subset)
     assert tframe._phase_a_route(
         dataclasses.replace(cfg, synth_in_kernel=True)) == "materialized"
-    _, batch = _scene(FRAMES)
-    sig = synthesize_frames_batch(batch, cfg.radar, torch.Generator(),
-                                  add_noise=False)
-    fused = tframe.process_signal_sequence_batched(sig, cfg)
-    assert to_np(fused.motion.success)[1:].all()
+    _, batch, sig = narrow_scene
+    x = signals_from_numpy(sig, "cpu")
+    batched = reference("cube_batched_fused", subset)
+    assert np.asarray(batched.motion.success)[1:].all()
     for mode in ("fft", "matmul"):
         _assert_outputs(tframe.process_signal_sequence_batched(
-            sig, dataclasses.replace(cfg, fft_mode=mode)), fused)
+            x, dataclasses.replace(cfg, fft_mode=mode)), batched)
     _assert_outputs(tframe.process_sequence_batched(batch, torch.Generator(),
-                                                    cfg), fused)
+                                                    cfg), batched)
+    sequential = reference(next(
+        d for d in ("cube_sequential", "scatterer_sequential")
+        if (d, subset) in DRIVER_CASES), subset)
+    _assert_outputs(tframe.process_signal_sequence(x, cfg), sequential)
     seq = tframe.process_sequence(batch, torch.Generator(), cfg)
-    _assert_outputs(seq, tframe.process_signal_sequence(sig, cfg))
+    _assert_outputs(seq, sequential)
     chunked = tframe.process_sequence_chunked(batch, torch.Generator(), cfg,
                                               window=2, prior="exact")
-    _assert_outputs(chunked, seq)
+    _assert_outputs(chunked, sequential)
     np.testing.assert_allclose(to_np(chunked.pose), to_np(seq.pose), rtol=0,
                                atol=1e-5)
 

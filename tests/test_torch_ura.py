@@ -251,6 +251,34 @@ def test_estimators_match_at_the_ura(method, fb, weighted):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("array", ["ura", "ula"])
+def test_spectra_over_chunks_equal_one_product(array, monkeypatch):
+    """Beamforming spectra and MUSIC null spectra computed over chunks of
+    signatures (budgets cut so that 40 signatures take chunks of 3, the
+    last one short) equal the unchunked product to 1e-6 of each row's
+    maximum: each row is its own product, the chunking only bounds the
+    intermediates."""
+    s = torch.tensor(_ura_signatures(5))
+    cfg = TCFG
+    if array == "ula":
+        cfg = dataclasses.replace(TCFG, radar=dataclasses.replace(
+            TCFG.radar, num_antennas_el=1))
+        s = s[:, :8].contiguous()
+    steering = te.grid_steering_matrix(cfg.radar, cfg.aoa, "cpu")
+    G, A = steering.shape
+    n = torch.full((s.shape[0],), 2, dtype=torch.int32)
+    whole = (te.beamforming_spectrum(s, steering),
+             te.music_denominator(s, steering, n))
+    monkeypatch.setattr(te, "_BEAMFORMING_CHUNK_ELEMS", 3 * G)
+    monkeypatch.setattr(te, "_MUSIC_CHUNK_ELEMS", 3 * G * A)
+    chunked = (te.beamforming_spectrum(s, steering),
+               te.music_denominator(s, steering, n))
+    for got, want in zip(chunked, whole):
+        assert got.shape == want.shape == (40, G)
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        assert ((got - want).abs() / scale).max() < 1e-6
+
+
 def test_angle_confidence_matches_at_the_ura():
     s = _ura_signatures(4)
     rng = np.random.default_rng(5)
