@@ -280,6 +280,34 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     time per 64-frame call of K1, K3, K4, K5, K7 at A = 32
                     and of K7-K10 at C = 16 and 25, with plain times and
                     bounds;
+17d. the SLAM back end (parallel/; no hand kernel of its own, K1 feeds
+                    it): slam_scenes: tests/test_slam.py's circle (90
+                    frames, 120 world points) through refine_trajectory on
+                    the card with CG, Schur over 1 and 8 blocks and each
+                    proposer: a loop accepted and the refined endpoint
+                    error below 0.6x the open-loop one; Schur within 0.3 m
+                    of CG in max error; under a yaw-rate bias the pose
+                    proposer finds nothing and scan context closes the
+                    loop; each run the same loops and poses within 1e-3 m
+                    of the port on the CPU; slam_deep: analyze --slam's
+                    path on the CLI's scene at 2048 frames (num_points
+                    scaled to 3,072): process_sequence_batched (K1 once),
+                    then refine_sequence_output with (cg, pose), (cg,
+                    scancontext) and (schur over 1 block, scancontext):
+                    RMSE open-loop and refined, loops, the time of
+                    proposal, ICP and solve (host clock and CUDA events),
+                    the solve's device launches, peak memory, a repeat
+                    bit for bit or not; gated against the reference on the
+                    same inputs (scripts/slam_reference.py) and, for CG,
+                    against the port on the CPU; scancontext_scale:
+                    descriptors and both retrieval stages on 8,192 frames
+                    of target clouds (the tiled stage 1), the tiled route
+                    held to the dense one at 4,096 frames (indices equal,
+                    values within 1 ulp), times and peak memory of each,
+                    descriptor bins that differ from the CPU's; cli_slam:
+                    analyze --slam --max-frames 64 per solver and
+                    proposer, in process (exit 0, the three slam_* keys,
+                    K1 65 times: 64 analyzer steps and the re-run);
 18. kernels         the per-kernel summary line: launches on the main
                     paths, error against the plain version, kernel and
                     plain times, the shape routes' times and bounds, the
@@ -291,8 +319,9 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     K1's launches per batched rig call (over F * B frames)
                     and per sequential rig step (rig_launches), the
                     launches in each entry-point run of 17b
-                    (entry_point_launches) and in each run of 17c
-                    (estimation_launches), the routes at A = 32 and
+                    (entry_point_launches), in each run of 17c
+                    (estimation_launches) and of 17d (slam_launches), the
+                    routes at A = 32 and
                     C = 16, 25, and the one-call PyTorch time (none of
                     these kernels has one: null).
 
@@ -4103,6 +4132,490 @@ def ura_subset_times(torch, sp, fe, power, k, cfg_mod, device, clock):
     return out
 
 
+# ---- the SLAM back end (parallel/) ------------------------------------------
+
+SLAM_DEEP_FRAMES = 2048
+SC_SCALE_FRAMES = 8192
+SC_SCALE_CHUNK = 2048
+SLAM_CLI_FRAMES = 64
+SLAM_CPU_TOL_M = 1e-3      # tests/test_torch_slam.py: refined poses
+SLAM_DEEP_RUNS = (("cg", "pose", 1), ("cg", "scancontext", 1),
+                  ("schur", "scancontext", 1))
+# What the reference reaches on this phase's inputs: `python
+# scripts/slam_reference.py frontend` on an NVIDIA H100 80GB HBM3 (700 W),
+# then `scripts/slam_reference.py refine` on the CPU (PERF.md, PR 12): by
+# (solver, proposer), the accepted loops and the refined (position,
+# yaw) RMSE; None where the reference's result is not finite (its Schur
+# step diverges in float32 at this depth with these loops).
+SLAM_DEEP_LOOPS = (
+    (140, 1397), (35, 1292), (400, 1656), (642, 1899), (708, 1965),
+    (300, 1557), (342, 1599), (133, 1390), (665, 1922), (722, 1979),
+    (598, 1855), (273, 1530), (780, 2037), (571, 1828), (755, 2012),
+    (355, 1612))
+SLAM_DEEP_REFERENCE = {
+    ("cg", "pose"): dict(loops=(), refined_rmse=(72.22724580612588,
+                                                 0.4419042457140608)),
+    ("cg", "scancontext"): dict(loops=SLAM_DEEP_LOOPS,
+                                refined_rmse=(62.35016101449092,
+                                              0.6780652854149927)),
+    ("schur", "scancontext"): dict(loops=SLAM_DEEP_LOOPS, refined_rmse=None),
+}
+SLAM_DEEP_INPUTS = ("3490f7c17703778e35defcdf64159d1b"
+                    "de0c1410256dece7a1429e894d52ae8b")
+# The truncated CG (60 steps on 2,049 poses with 16 loops) carries last-bit
+# differences of its sums into the poses: the reference and the port on
+# one CPU end 7.7 mm apart, the card and the CPU 1.8 cm (PERF.md, PR 12).
+SLAM_DEEP_POSE_TOL = 0.05   # m, the card against the port on the CPU
+SLAM_DEEP_RMSE_TOL = 0.01   # m, refined position RMSE against the reference
+
+
+def circle_scene(n_frames=90, v=6.0, w=0.7, dt=0.1, n_world=120, seed=2):
+    """tests/test_slam.py:54-79: the ego drives a full circle, world
+    points along it; (poses [F, 3], points [F, K, 2], valid [F, K])."""
+    rng = np.random.default_rng(seed)
+    poses = []
+    x = np.zeros(2)
+    yaw = 0.0
+    for _ in range(n_frames):
+        poses.append([x[0], x[1], yaw])
+        x = x + dt * np.array([v * np.cos(yaw), v * np.sin(yaw)])
+        yaw += w * dt
+    poses = np.array(poses)
+    radius = v / w
+    center = np.array([0.0, radius])
+    ang = rng.uniform(0, 2 * np.pi, n_world)
+    rad = radius + rng.uniform(-12, 12, n_world)
+    world = center + np.stack([rad * np.sin(ang), -rad * np.cos(ang)], -1)
+    pts, msk = [], []
+    for p in poses:
+        c, s = np.cos(p[2]), np.sin(p[2])
+        rel = world - p[:2]
+        body = np.stack([c * rel[:, 0] + s * rel[:, 1],
+                         -s * rel[:, 0] + c * rel[:, 1]], axis=-1)
+        rngs = np.hypot(body[:, 0], body[:, 1])
+        az = np.arctan2(body[:, 1], body[:, 0])
+        pts.append(body.astype(np.float32))
+        msk.append((rngs > 1.5) & (rngs < 40.0) & (np.abs(az) < 1.2))
+    return poses, np.stack(pts), np.stack(msk)
+
+
+def circle_odometry(case, n):
+    """The odometry of tests/test_slam.py:124-156 ("forward_bias": both
+    proposers find the revisit) and tests/test_scancontext.py:72-106
+    ("yaw_bias": the estimated heading sweeps less than 2 pi, so the pose
+    gate misses the revisit); with the loop-closure settings of each."""
+    if case == "forward_bias":
+        rng = np.random.default_rng(5)
+        vel = np.tile([6.0, 0.0, 0.0], (n, 1)) + rng.normal(0, 0.15, (n, 3))
+        vel[:, 0] += 0.25
+        vel[:, 2] = 0.0
+        wz = np.full(n, 0.7) + rng.normal(0, 0.01, n)
+        return vel, wz, dict(revisit_radius=6.0, min_separation=40,
+                             max_rmse=1.0)
+    rng = np.random.default_rng(7)
+    vel = np.tile([6.0, 0.0, 0.0], (n, 1)) + rng.normal(0, 0.1, (n, 3))
+    vel[:, 2] = 0.0
+    wz = np.full(n, 0.7 - 0.1) + rng.normal(0, 0.01, n)
+    return vel, wz, dict(revisit_radius=5.0, min_separation=40,
+                         max_rmse=0.5)
+
+
+def loop_pairs(res):
+    return [(lc["i"], lc["j"]) for lc in res["loop_closures"]]
+
+
+def pose_gap(a, b):
+    """Largest position (m) and yaw (rad) difference of two pose arrays."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return (float(np.abs(d[:, :-1]).max()),
+            float(np.abs(np.angle(np.exp(1j * d[:, -1]))).max()))
+
+
+def phase_slam_scenes(torch, device):
+    """tests/test_slam.py's and tests/test_scancontext.py's circle at full
+    size (90 frames, 120 world points) through ``refine_trajectory`` on the
+    card: CG, Schur over 1 and 8 blocks (12 GN steps, as
+    test_refinement_schur_solver_on_mesh), each proposer, and z-aware CG.
+    Gates: a loop is accepted and the refined endpoint error is below 0.6x
+    the open-loop one; Schur within 0.3 m of CG in max error; under the
+    yaw bias the pose proposer finds nothing and scan context closes the
+    loop; each run equals the port's run on the CPU (same loops, poses
+    within SLAM_CPU_TOL_M)."""
+    from radar_slam_tpu_torch.parallel.loopclosure import LoopClosureConfig
+    from radar_slam_tpu_torch.parallel.slam import refine_trajectory
+    poses, pts, msk = circle_scene()
+    n = len(poses)
+    clouds = {k: (torch.from_numpy(pts).to(d), torch.from_numpy(msk).to(d))
+              for k, d in (("card", device), ("cpu", torch.device("cpu")))}
+    runs = {}
+    for case in ("forward_bias", "yaw_bias"):
+        vel, wz, lc = circle_odometry(case, n)
+        for solver, n_blocks in (("cg", 1), ("schur", 1), ("schur", 8)):
+            for proposer in ("pose", "scancontext"):
+                for use_z in ((False, True) if solver == "cg"
+                              and case == "forward_bias" else (False,)):
+                    res = {}
+                    for k, (p, m) in clouds.items():
+                        t0 = time.perf_counter()
+                        res[k] = refine_trajectory(
+                            vel, wz, np.ones(n, bool), 0.1, frame_points=p,
+                            frame_valid=m,
+                            lc_cfg=LoopClosureConfig(**lc), solver=solver,
+                            proposer=proposer, n_blocks=n_blocks,
+                            gn_iters=12 if solver == "schur" else 10,
+                            use_z=use_z)
+                        res[k]["wall_s"] = time.perf_counter() - t0
+                    r = res["card"]
+                    open_err = np.linalg.norm(
+                        r["open_loop_poses"][:n, :2] - poses[:, :2], axis=1)
+                    err = np.linalg.norm(r["poses"][:n, :2] - poses[:, :2],
+                                         axis=1)
+                    name = (f"{case} {solver}/{n_blocks} {proposer}"
+                            + (" z" if use_z else ""))
+                    gap = pose_gap(r["poses"], res["cpu"]["poses"])
+                    runs[name] = dict(
+                        loops=loop_pairs(r), open_end_err_m=open_err[-1],
+                        end_err_m=err[-1], max_err_m=err.max(),
+                        card_vs_cpu_m=gap[0], card_vs_cpu_rad=gap[1],
+                        cpu_loops_equal=loop_pairs(r) == loop_pairs(
+                            res["cpu"]),
+                        wall_s=r["wall_s"], cpu_wall_s=res["cpu"]["wall_s"])
+                    check(loop_pairs(r) == loop_pairs(res["cpu"])
+                          and gap[0] <= SLAM_CPU_TOL_M and gap[1] <= 1e-4,
+                          f"slam_scenes: {name} card vs CPU {runs[name]}")
+                    if case == "yaw_bias" and proposer == "pose":
+                        check(not r["loop_closures"],
+                              f"slam_scenes: {name} found {loop_pairs(r)}")
+                        continue
+                    check(bool(r["loop_closures"])
+                          and err[-1] < 0.6 * open_err[-1],
+                          f"slam_scenes: {name} {runs[name]}")
+    for case in ("forward_bias",):
+        for proposer in ("pose", "scancontext"):
+            cg = runs[f"{case} cg/1 {proposer}"]["max_err_m"]
+            for nb in (1, 8):
+                sc = runs[f"{case} schur/{nb} {proposer}"]["max_err_m"]
+                check(abs(sc - cg) < 0.3,
+                      f"slam_scenes: schur/{nb} {sc} vs cg {cg}")
+    emit("slam_scenes", frames=n, world_points=120, runs=runs,
+         gates={"refined end error": "< 0.6 x open-loop",
+                "schur vs cg max error": "< 0.3 m",
+                "yaw bias": "pose proposer: no loop; scan context: loop",
+                "card vs CPU": f"same loops, poses <= {SLAM_CPU_TOL_M} m"})
+
+
+def slam_reference_module():
+    """scripts/slam_reference.py: the slam_deep scene (``deep_scene``) and
+    the digest of the refinement's inputs, shared with the reference run
+    that sets this phase's gates."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "slam_reference", REPO / "scripts" / "slam_reference.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class StageClock:
+    """Host-clock and CUDA-event time of every call of the wrapped
+    functions, by stage, each call bracketed by synchronizations."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.host = {}
+        self.cuda = {}
+
+    def wrap(self, stage, fn):
+        torch = self.torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*a, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            self.host[stage] = self.host.get(stage, 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            self.cuda[stage] = self.cuda.get(stage, 0.0) + \
+                start.elapsed_time(stop)
+            return out
+        return timed
+
+
+def refine_staged(torch, out, cfg, solver, proposer, n_blocks):
+    """refine_sequence_output with the time of its stages: proposal (the
+    retrieval: the host [F, F] gate, or descriptors and both stages of
+    scan context, with the ranking), ICP (the batched verification) and the
+    solve; host clock and CUDA events, ms."""
+    from radar_slam_tpu_torch.parallel import loopclosure, scancontext, slam
+    clock = StageClock(torch)
+    saved = (loopclosure._icp_pairs, scancontext._icp_pairs,
+             slam.propose_weighted_loops, slam.ba.gauss_newton_cg,
+             slam.ba.schur_gn_step)
+    icp = clock.wrap("icp", loopclosure._icp_pairs)
+    loopclosure._icp_pairs = scancontext._icp_pairs = icp
+    slam.propose_weighted_loops = clock.wrap("propose_and_icp", saved[2])
+    slam.ba.gauss_newton_cg = clock.wrap("solve", saved[3])
+    slam.ba.schur_gn_step = clock.wrap("solve", saved[4])
+    try:
+        t0 = time.perf_counter()
+        res = slam.refine_sequence_output(out, cfg.frame_dt,
+                                          n_blocks=n_blocks, solver=solver,
+                                          proposer=proposer)
+        wall = time.perf_counter() - t0
+    finally:
+        (loopclosure._icp_pairs, scancontext._icp_pairs,
+         slam.propose_weighted_loops, slam.ba.gauss_newton_cg,
+         slam.ba.schur_gn_step) = saved
+    stages = {}
+    for d, key in ((clock.host, "host_ms"), (clock.cuda, "cuda_ms")):
+        pi = d.get("propose_and_icp", 0.0)
+        stages[key] = {"proposal": pi - d.get("icp", 0.0),
+                       "icp": d.get("icp", 0.0),
+                       "solve": d.get("solve", 0.0)}
+    return res, wall, stages
+
+
+def solve_launches(torch, res, solver, n_blocks):
+    """Device launches, device busy time and host wall time (ms) of the
+    solve alone, one traced call on the refined graph (10 GN iterations,
+    60 CG steps each: the same work from any start)."""
+    from torch.profiler import ProfilerActivity
+    from radar_slam_tpu_torch.parallel import ba
+    graph = res["graph"]
+    if solver == "schur":
+        def run():
+            poses = graph.poses
+            for _ in range(10):
+                poses = ba.schur_gn_step(graph._replace(poses=poses),
+                                         n_blocks)
+            return poses
+    else:
+        def run():
+            return ba.gauss_newton_cg(graph, gn_iters=10, cg_iters=60)
+    events, wall = device_trace(torch, run, [ProfilerActivity.CUDA])
+    return len(events), interval_busy_ms(events), wall * 1e3
+
+
+def phase_slam_deep(torch, counters, device):
+    """The path ``analyze --slam`` takes, at 2048 frames (204.8 s, 1.63
+    laps: frames from 1,257 on revisit the start): process_sequence_batched
+    once (K1: one launch), then refine_sequence_output for (cg, pose), (cg,
+    scancontext) and (schur over 1 block, scancontext).  Per run: open-loop
+    and refined position / yaw RMSE against the ground truth, the accepted
+    loops, host-clock and CUDA-event time of proposal, ICP and solve,
+    device launches of the solve, peak memory, and whether a second run
+    repeats bit for bit.  Gates: each run against the reference on the
+    same inputs (SLAM_DEEP_REFERENCE, from scripts/slam_reference.py):
+    the same accepted (i, j) and the refined RMSE within
+    SLAM_DEEP_RMSE_TOL where the reference's result is finite (no
+    accuracy gate where it is not: its Schur step diverges here); the
+    (cg, *) runs also against the port on the CPU on these inputs (same
+    loops, poses within SLAM_DEEP_POSE_TOL)."""
+    from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
+    from radar_slam_tpu_torch.parallel import slam
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    from radar_slam_tpu_torch.utils.host import device_put
+    ref_mod = slam_reference_module()
+    batch, gt, cfg = ref_mod.deep_scene(SLAM_DEEP_FRAMES, device)
+    gt_poses = np.asarray(gt["poses"])
+    F = SLAM_DEEP_FRAMES
+    t0 = time.perf_counter()
+    out, n = counted(torch, counters, lambda: process_sequence_batched(
+        batch, torch.Generator().manual_seed(0), cfg))
+    frontend_s = time.perf_counter() - t0
+    check(n == {"K1": 1}, f"slam_deep: front-end launches {n}")
+    digest = ref_mod.digest(ref_mod.frontend_arrays(out))
+    cpu_out = device_put(out, "cpu")
+
+    def rmse(p):
+        m = planar_pose_errors(np.asarray(p)[1:F + 1], gt_poses)
+        return m["position_rmse"], m["yaw_rmse"]
+
+    runs = {}
+    for solver, proposer, n_blocks in SLAM_DEEP_RUNS:
+        name = f"{solver}/{n_blocks} {proposer}"
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, stages = refine_staged(torch, out, cfg, solver, proposer,
+                                          n_blocks)
+        peak = torch.cuda.max_memory_allocated()
+        again, _, _ = refine_staged(torch, out, cfg, solver, proposer,
+                                    n_blocks)
+        launches, busy_ms, solve_wall_ms = solve_launches(torch, res, solver,
+                                                          n_blocks)
+        row = dict(open_loop_rmse=rmse(res["open_loop_poses"]),
+                   refined_rmse=rmse(res["poses"]),
+                   loops=loop_pairs(res), wall_s=wall, **stages,
+                   solve_device_launches=launches,
+                   solve_device_busy_ms=busy_ms,
+                   solve_traced_wall_ms=solve_wall_ms,
+                   peak_memory_bytes=peak,
+                   repeats_bit_for_bit=bool(
+                       np.array_equal(res["poses"], again["poses"],
+                                      equal_nan=True)
+                       and loop_pairs(res) == loop_pairs(again)),
+                   repeat_max_diff_m=pose_gap(res["poses"],
+                                              again["poses"])[0])
+        if solver == "cg":
+            t0 = time.perf_counter()
+            cpu = slam.refine_sequence_output(cpu_out, cfg.frame_dt,
+                                              solver=solver,
+                                              proposer=proposer)
+            row["cpu_wall_s"] = time.perf_counter() - t0
+            gap = pose_gap(res["poses"], cpu["poses"])
+            row.update(card_vs_cpu_m=gap[0], card_vs_cpu_rad=gap[1],
+                       cpu_loops=loop_pairs(cpu))
+            check(sorted(loop_pairs(cpu)) == sorted(loop_pairs(res))
+                  and gap[0] <= SLAM_DEEP_POSE_TOL,
+                  f"slam_deep: {name} card vs CPU {row}")
+        ref = SLAM_DEEP_REFERENCE[(solver, proposer)]
+        row["reference"] = ref
+        # Near-equal similarities may rank two loops the other way round:
+        # the set is compared.
+        check(sorted(ref["loops"]) == sorted(loop_pairs(res)),
+              f"slam_deep: {name} loops {loop_pairs(res)} vs the "
+              f"reference's {ref['loops']}")
+        if ref["refined_rmse"] is not None:
+            check(np.isfinite(res["poses"]).all()
+                  and abs(row["refined_rmse"][0] - ref["refined_rmse"][0])
+                  <= SLAM_DEEP_RMSE_TOL,
+                  f"slam_deep: {name} RMSE {row['refined_rmse']} vs the "
+                  f"reference's {ref['refined_rmse']}")
+        row["finite"] = bool(np.isfinite(res["poses"]).all())
+        runs[name] = row
+    emit("slam_deep", frames=F, poses=F + 1, num_points=96 * F // 64,
+         inputs_sha256=digest,
+         inputs_match_reference=digest == SLAM_DEEP_INPUTS,
+         frontend_s=frontend_s, launches=n, runs=runs,
+         gates={"front end": "K1 once",
+                "reference": f"same loops; refined RMSE within "
+                             f"{SLAM_DEEP_RMSE_TOL} m where the "
+                             f"reference's is finite",
+                "card vs CPU (cg)": f"same loops, poses <= "
+                                    f"{SLAM_DEEP_POSE_TOL} m"})
+    return n
+
+
+def phase_scancontext_scale(torch, counters, device):
+    """build_descriptors and _stage2_scores on the target clouds of 8,192
+    frames (6.5 laps) through the slam_deep scene's world (its front end in
+    chunks of 2,048: K1 once a chunk): the tiled stage 1 above the 4,096
+    dense limit.  At
+    4,096 frames the tiled route is held to the dense one (same indices,
+    values within 1 ulp: the reference's claim) and both are timed (CUDA
+    events) with their peak memory; the descriptors are held to the CPU's
+    on the same points (bins that differ are counted)."""
+    from radar_slam_tpu_torch.parallel import scancontext as scm
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    from radar_slam_tpu_torch.pipeline.frame import _frame
+    batch, _, cfg = slam_reference_module().deep_scene(
+        SC_SCALE_FRAMES, device, world_frames=SLAM_DEEP_FRAMES)
+    xy, valid = [], []
+
+    def frontend():
+        for lo in range(0, SC_SCALE_FRAMES, SC_SCALE_CHUNK):
+            o = process_sequence_batched(
+                _frame(batch, lo, lo + SC_SCALE_CHUNK),
+                torch.Generator().manual_seed(lo), cfg)
+            xy.append(o.target_xy)
+            valid.append(o.target_valid)
+
+    _, n = counted(torch, counters, frontend)
+    check(n == {"K1": SC_SCALE_FRAMES // SC_SCALE_CHUNK},
+          f"scancontext_scale: front-end launches {n}")
+    del batch
+    pts, msk = torch.cat(xy), torch.cat(valid)
+    sc = scm.ScanContextConfig()
+    desc = scm.build_descriptors(pts, msk, sc)
+    desc_cpu = scm.build_descriptors(pts.cpu(), msk.cpu(), sc)
+    count = lambda d: torch.round(torch.expm1(d.cpu().double()))  # noqa
+    flips = int((count(desc) != count(desc_cpu)).sum())
+    args = (sc.top_m, sc.min_separation, sc.min_overlap)
+    rows = {}
+
+    def timed(label, fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_time_ms(torch, fn, 3)
+        rows[label] = dict(ms=ms, peak_extra_bytes=(
+            torch.cuda.max_memory_allocated() - base))
+        return fn()
+
+    timed(f"build_descriptors F={SC_SCALE_FRAMES}",
+          lambda: scm.build_descriptors(pts, msk, sc))
+    ok, ii, sim, _ = timed(
+        f"stage2 tiled F={SC_SCALE_FRAMES}",
+        lambda: scm._stage2_scores(desc, *args,
+                                   dense_limit=sc.stage1_dense_limit,
+                                   tile=sc.stage1_tile))
+    t0 = time.perf_counter()
+    cands = scm.propose_candidates(desc, sc)
+    rows[f"propose_candidates F={SC_SCALE_FRAMES}"] = dict(
+        host_ms=(time.perf_counter() - t0) * 1e3, candidates=len(cands))
+    half = desc[:SC_SCALE_FRAMES // 2]
+    keys = scm.ring_keys(half)
+    dv, di = timed(f"stage1 dense F={half.shape[0]}", lambda: scm._stage1_candidates(
+        keys, sc.top_m, sc.min_separation))
+    tv, ti = timed(f"stage1 tiled F={half.shape[0]}",
+                   lambda: scm._stage1_candidates_tiled(
+                       keys, sc.top_m, sc.min_separation, sc.stage1_tile))
+    timed(f"stage2 dense F={half.shape[0]}", lambda: scm._stage2_scores(
+        half, *args, dense_limit=SC_SCALE_FRAMES, tile=sc.stage1_tile))
+    timed(f"stage2 tiled F={half.shape[0]}", lambda: scm._stage2_scores(
+        half, *args, dense_limit=0, tile=sc.stage1_tile))
+    dv, di, tv, ti = (x.cpu().numpy() for x in (dv, di, tv, ti))
+    fin = np.isfinite(dv)
+    ulp = np.spacing(np.abs(dv[fin]).astype(np.float32))
+    value_gap_ulp = float((np.abs(dv[fin] - tv[fin]) / ulp).max())
+    emit("scancontext_scale", frames=SC_SCALE_FRAMES, launches=n,
+         descriptor_bins_card_vs_cpu_differ=flips,
+         stage1_finite_equal=bool(np.array_equal(fin, np.isfinite(tv))),
+         stage1_indices_equal=bool(np.array_equal(di[fin], ti[fin])),
+         stage1_value_gap_ulp=value_gap_ulp,
+         stage2_admitted=int(ok.sum()), candidates=len(cands), runs=rows,
+         gates={"tiled vs dense at 4096": "indices equal, values <= 1 ulp"})
+    check(np.array_equal(fin, np.isfinite(tv))
+          and np.array_equal(di[fin], ti[fin]) and value_gap_ulp <= 1.0,
+          f"scancontext_scale: tiled vs dense at 4096")
+    check(bool(torch.isfinite(sim).all()) and ii.shape[0] ==
+          SC_SCALE_FRAMES * sc.top_m, "scancontext_scale: stage 2")
+    return n
+
+
+def phase_cli_slam(torch, counters, device):
+    """``python -m radar_slam_tpu_torch analyze --slam --max-frames 64``,
+    once per solver and proposer, in this process: exit 0, and
+    slam_loop_closures, slam_position_rmse and slam_yaw_rmse in the JSON;
+    K1 launched once a step of the analyzer and once by the batched
+    re-run."""
+    rows = {}
+    for solver in ("cg", "schur"):
+        for proposer in ("pose", "scancontext"):
+            argv = ["analyze", "--slam", "--max-frames",
+                    str(SLAM_CLI_FRAMES), "--slam-solver", solver,
+                    "--slam-proposer", proposer]
+            t0 = time.perf_counter()
+            (rc, _, r), n = counted(torch, counters,
+                                    lambda: run_cli(argv, device))
+            name = f"{solver} {proposer}"
+            rows[name] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                              launches=n, **{k: r.get(k) for k in (
+                                  "position_rmse", "slam_loop_closures",
+                                  "slam_position_rmse", "slam_yaw_rmse")})
+            check(rc == 0 and all(k in r for k in (
+                "slam_loop_closures", "slam_position_rmse",
+                "slam_yaw_rmse")), f"cli_slam: {name} {rows[name]}")
+            check(n == {"K1": SLAM_CLI_FRAMES + 1},
+                  f"cli_slam: {name} launches {n}")
+    emit("cli_slam", frames=SLAM_CLI_FRAMES, runs=rows)
+    return {k: v["launches"] for k, v in rows.items()}
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -4255,6 +4768,13 @@ def main():
         torch, counters, cfg_mod, device)
     slice_ms = ura_subset_times(torch, sp, fe, power, k, cfg_mod, device,
                                 clock)
+    phase_slam_scenes(torch, device)
+    slam_runs = {"slam_deep process_sequence_batched": phase_slam_deep(
+        torch, counters, device)}
+    slam_runs["scancontext_scale process_sequence_batched"] = \
+        phase_scancontext_scale(torch, counters, device)
+    slam_runs.update({f"cli_slam {k}": v for k, v in phase_cli_slam(
+        torch, counters, device).items()})
     emit("trace_retries", pads_s=list(TRACE_PADS_S),
          final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 
@@ -4346,6 +4866,9 @@ def main():
         runs = {p: n[key] for p, n in slice_runs.items() if key in n}
         if runs:
             e["estimation_launches"] = runs
+        runs = {p: n[key] for p, n in slam_runs.items() if key in n}
+        if runs:
+            e["slam_launches"] = runs
         for shape, times in slice_ms.items():
             if key in times and not e["name"].startswith("K1'"):
                 e.setdefault("routes", {})[f"{shape} {key}"] = {

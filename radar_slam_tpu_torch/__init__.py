@@ -24,6 +24,8 @@ real-time runtime, the RadarScenes loader and the prefetch ingest.
                 the robust per-frame AoA stage
 - ``motion``    mutual-NN association, 6-DoF velocity solve, planar pose
 - ``pipeline``  the batched, sequential and rig drivers, streaming, CLI
+- ``parallel``  the SLAM back end in one process: pose graph, GN-CG and the
+                Schur step, ICP loop closure, scan-context retrieval
 - ``io``        synthetic known-truth scenes, the RadarScenes loader,
                 double-buffered host ingest
 - ``evaluate``  planar pose errors

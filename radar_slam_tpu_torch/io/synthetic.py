@@ -7,7 +7,10 @@ scene, :func:`constant_motion_scene`; in 3-D with heights and elevations,
 mounted rig (:func:`constant_motion_scene_rig`), and the adversarial scene
 with moving actors, transient clutter and other model mismatches
 (:func:`mismatch_scene`); :func:`pipeline_scatterer_pad` fits a batch to a
-pipeline's scatterer capacity.  The numpy core is the reference's, unchanged,
+pipeline's scatterer capacity.  The loop-closure scenes are detection-level
+point clouds: an aliased corridor (:func:`periodic_corridor_scene`) and
+per-frame clutter and movers to add to any such scene
+(:func:`augment_clutter_movers`).  The numpy core is the reference's, unchanged,
 so the same seed gives bit-identical scatterer columns; only the last step
 differs -- the columns become tensors on a caller-chosen device instead of
 JAX arrays.  Seeds are plain integers (the port has no JAX keys).
@@ -530,3 +533,106 @@ def constant_motion_scene_rig(seed: int, num_frames: int, dt: float,
     }
     stack = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
     return scatterer_batch_from_numpy(stack, device), gt
+
+
+# ---------------------------------------------------------------------------
+# Loop-closure characterization scenes (detection-level point clouds)
+# ---------------------------------------------------------------------------
+
+def periodic_corridor_scene(seed: int, n_frames: int = 80,
+                            v: float = 6.0, dt: float = 0.1,
+                            period: float = 18.0, n_per_period: int = 28,
+                            jitter: float = 0.0,
+                            corridor_halfwidth: float = 6.0,
+                            max_range: float = 40.0, capacity: int = 160,
+                            device=DEFAULT):
+    """Perceptually-aliased corridor for loop-closure false-positive tests.
+
+    Ego drives straight through a corridor whose wall-point pattern repeats
+    every ``period`` metres, so frames ``period / (v dt)`` apart see
+    near-identical local geometry WITHOUT being revisits.  Each repetition
+    re-draws the base pattern with per-point ``jitter`` [m].
+
+    Returns (gt_poses [F, 3] numpy, points [F, K, 2], valid [F, K]) with
+    the clouds on ``device`` (the card unless the caller names another), in
+    the detection-cloud convention of ``parallel/loopclosure.py``.
+    """
+    device = resolve(device)
+    rng = _rng(seed)
+    poses = np.zeros((n_frames, 3))
+    poses[:, 0] = v * dt * np.arange(n_frames)
+
+    u = rng.uniform(0.0, period, n_per_period)
+    side = rng.choice([-1.0, 1.0], n_per_period)
+    y = side * (corridor_halfwidth + rng.uniform(-1.0, 1.0, n_per_period))
+    base = np.stack([u, y], axis=-1)                       # [P, 2]
+
+    span = v * dt * n_frames + 2 * max_range
+    k0 = int(np.floor(-max_range / period)) - 1
+    k1 = int(np.ceil(span / period)) + 1
+    reps = []
+    for k in range(k0, k1):
+        rep = base + rng.normal(0.0, jitter, base.shape)
+        rep[:, 0] += k * period
+        reps.append(rep)
+    world = np.concatenate(reps)                           # [M, 2]
+
+    pts = np.zeros((n_frames, capacity, 2), np.float32)
+    msk = np.zeros((n_frames, capacity), bool)
+    for f in range(n_frames):
+        body = world - poses[f, :2]                        # yaw = 0
+        r = np.hypot(body[:, 0], body[:, 1])
+        ok = (r > 1.5) & (r < max_range)
+        sel = np.argsort(np.where(ok, r, np.inf))[:capacity]
+        good = ok[sel]
+        n = int(good.sum())
+        pts[f, :n] = body[sel[:n]]
+        msk[f, :n] = True
+    return (poses, torch.from_numpy(pts).to(device),
+            torch.from_numpy(msk).to(device))
+
+
+def augment_clutter_movers(poses: np.ndarray, pts, msk,
+                           seed: int, clutter_per_frame: int = 12,
+                           n_movers: int = 3, mover_speed: float = 8.0,
+                           max_range: float = 40.0, dt: float = 0.1):
+    """Append per-frame uniform clutter + coherently moving objects to a
+    detection-cloud scene (loop-closure stress variant).
+
+    Clutter points are re-drawn independently every frame; movers travel
+    in straight world-frame lines and are observed in each frame's body
+    frame.  Returns (points, valid) with ``clutter_per_frame + n_movers``
+    extra columns, on the device of ``pts``.
+    """
+    rng = _rng(seed)
+    F = pts.shape[0]
+    pts_np = pts.detach().cpu().numpy()
+    msk_np = msk.detach().cpu().numpy()
+    extra = clutter_per_frame + n_movers
+
+    m0 = rng.uniform(-max_range, max_range, (n_movers, 2)) \
+        + poses[0, :2][None, :]
+    ang = rng.uniform(0, 2 * np.pi, n_movers)
+    mv = mover_speed * np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+
+    add_p = np.zeros((F, extra, 2), np.float32)
+    add_m = np.zeros((F, extra), bool)
+    t = 0.0
+    for f in range(F):
+        c, s = np.cos(poses[f, 2]), np.sin(poses[f, 2])
+        Rw2b = np.array([[c, s], [-s, c]])
+        r_cl = np.sqrt(rng.uniform(0.04, 1.0, clutter_per_frame)) * max_range
+        a_cl = rng.uniform(-np.pi, np.pi, clutter_per_frame)
+        add_p[f, :clutter_per_frame, 0] = r_cl * np.cos(a_cl)
+        add_p[f, :clutter_per_frame, 1] = r_cl * np.sin(a_cl)
+        add_m[f, :clutter_per_frame] = True
+        world_m = m0 + mv * t
+        body_m = (world_m - poses[f, :2]) @ Rw2b.T
+        rr = np.hypot(body_m[:, 0], body_m[:, 1])
+        add_p[f, clutter_per_frame:] = body_m
+        add_m[f, clutter_per_frame:] = (rr > 1.5) & (rr < max_range)
+        t += dt
+    return (torch.from_numpy(np.concatenate([pts_np, add_p],
+                                            axis=1)).to(pts.device),
+            torch.from_numpy(np.concatenate([msk_np, add_m],
+                                            axis=1)).to(msk.device))

@@ -16,7 +16,10 @@ reference's choice of JAX platform.  ``quick-compare`` runs the real
 pipeline on a short synthetic workload and reports its errors against the
 ground truth; ``analyze`` runs the streaming analyzer (synthetic, or a
 RadarScenes recording with ``--dataset``) or, for mounted rigs, the
-batched rig driver through the double-buffered ingest.  ``simulate``
+batched rig driver through the double-buffered ingest; ``analyze --slam``
+then re-runs the batched driver for the target clouds and refines the
+trajectory with loop closures (``parallel/slam.py``; ``--slam-solver
+cg|schur``, ``--slam-proposer pose|scancontext``).  ``simulate``
 writes raw frames, ``process`` their RDS and detections, and ``pipeline``
 runs the six-step artifact pipeline (``pipeline/pipeline.py``; MUSIC
 unless ``--aoa-method`` says otherwise), each in the reference's artifact
@@ -24,7 +27,7 @@ schema (``io/artifacts.py``).
 
 ``analyze-data``, ``evaluate``, ``visualize`` and ``bench`` are registered
 with the reference's flags and raise ``NotImplementedError`` naming the
-ROADMAP item that ports them, as does ``analyze --slam``.  As in the
+ROADMAP item that ports them.  As in the
 reference, ``--fast`` is on whatever is passed, so every subcommand runs
 ``complete_analysis_config()`` (``max_scatterers=512``).
 """
@@ -42,7 +45,6 @@ import numpy as np
 import torch
 
 ROADMAP_VIZ = "ROADMAP section 1, 'Visualization'"
-ROADMAP_SLAM = "ROADMAP section 1, 'Distributed back ends'"
 ROADMAP_BENCH = "ROADMAP section 1, 'The port's benchmark'"
 
 
@@ -179,10 +181,6 @@ def cmd_analyze(args) -> int:
     """Streaming analysis with ground-truth comparison."""
     from radar_slam_tpu_torch.pipeline.streaming import StreamingAnalyzer
 
-    if args.slam:
-        raise NotImplementedError(
-            f"analyze --slam (loop-closure pose-graph refinement) is not "
-            f"ported yet ({ROADMAP_SLAM})")
     device = torch.device(args.device)
     cfg = _cfg_from_args(args)
     if args.rig:
@@ -217,6 +215,8 @@ def cmd_analyze(args) -> int:
         if an.restore_latest():
             print(f"resumed from checkpoint at frame {an.frame_idx}")
     metrics = an.analyze_sequence(batches, gt_poses=gt_poses)
+    if args.slam:
+        metrics.update(_slam_metrics(args, cfg, batches, gt_poses, device))
     print(json.dumps(metrics, indent=2, default=float))
     if args.out:
         out = Path(args.out)
@@ -227,6 +227,33 @@ def cmd_analyze(args) -> int:
               f"(complete_analysis.png) waits for the port of viz "
               f"({ROADMAP_VIZ})")
     return 0
+
+
+def _slam_metrics(args, cfg, batches, gt_poses, device) -> dict:
+    """``analyze --slam``: the analyzer's frames re-run through the batched
+    driver (generator seed 0) for their target clouds, then loop-closure
+    pose-graph refinement on ``device`` (the Schur solver over one block,
+    the reference on one device)."""
+    from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
+    from radar_slam_tpu_torch.io.prefetch import is_host_resident
+    from radar_slam_tpu_torch.parallel import slam
+    from radar_slam_tpu_torch.pipeline import frame as frame_mod
+    from radar_slam_tpu_torch.utils.host import device_put
+
+    if is_host_resident(batches):
+        batches = device_put(batches, device)
+    out = frame_mod.process_sequence_batched(
+        batches, torch.Generator().manual_seed(0), cfg)
+    res = slam.refine_sequence_output(out, cfg.frame_dt, n_blocks=1,
+                                      solver=args.slam_solver,
+                                      proposer=args.slam_proposer)
+    metrics = {"slam_loop_closures": len(res["loop_closures"])}
+    if gt_poses is not None:
+        F = len(gt_poses)
+        m = planar_pose_errors(res["poses"][1:F + 1], np.asarray(gt_poses))
+        metrics["slam_position_rmse"] = m["position_rmse"]
+        metrics["slam_yaw_rmse"] = m["yaw_rmse"]
+    return metrics
 
 
 def _cmd_analyze_rig(args, cfg, device, loader=None, data=None) -> int:
@@ -435,8 +462,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="force the merged-sensor path (reference parity: "
                          "vehicle-origin LOS, sensor-radial vr)")
     sp.add_argument("--slam", action="store_true",
-                    help="loop-closure pose-graph refinement (not ported "
-                         "yet)")
+                    help="loop-closure pose-graph refinement")
     sp.add_argument("--slam-solver", choices=("cg", "schur"), default="cg",
                     help="pose-graph solver (with --slam)")
     sp.add_argument("--slam-proposer", choices=("pose", "scancontext"),

@@ -13,8 +13,8 @@ tests/test_cli_dataset.py:12-112, copied, at 6 and 12 frames).
   the reference test's bounds and keys (test_cli_dataset.py:116-220).  The
   CLI's noise is Philox where the reference's is threefry, so numeric
   parity lives in the sigma-0 module tests (test_torch_streaming.py).
-- Errors: ``--slam`` and the subcommands not ported yet raise
-  ``NotImplementedError``.
+- Errors: the subcommands not ported yet raise ``NotImplementedError``
+  (``analyze --slam`` runs: tests/test_torch_slam_cli.py).
 """
 
 import json
@@ -303,13 +303,6 @@ def test_cli_analyze_synthetic_and_quick_compare(capsys):
                       "compile_time_s", "reference_bounds"}
     assert r["frames"] == 4 and r["position_rmse_m"] <= 0.777
     assert out.strip().splitlines()[-1] == "PARITY: PASS"
-
-
-def test_cli_slam_raises_before_work(capsys):
-    with pytest.raises(NotImplementedError, match="slam"):
-        cli_main(["analyze", "--slam", "--max-frames", "2",
-                  "--device", "cpu"])
-    assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("argv,item", [
