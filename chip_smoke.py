@@ -308,6 +308,34 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     analyze --slam --max-frames 64 per solver and
                     proposer, in process (exit 0, the three slam_* keys,
                     K1 65 times: 64 analyzer steps and the re-run);
+17e. the multi-process back ends (parallel/{mesh,distributed,dp,ba,
+                    multiseq}.py; no hand kernel of their own) and
+                    analyze-data: analyze_data (inside artifact_pipeline):
+                    analyze-data over that phase's run directory, one
+                    frame, --compare and --insights, exit 0 with the
+                    reference's keys and files; dp_frames: world size 1 of
+                    an NCCL group, the 2048-frame bench cell through
+                    process_frames_dp_scatterers against
+                    process_sequence_batched on one generator (success
+                    equal, velocity within 1e-5, pose within 1e-5 of its
+                    largest magnitude; K1 once) and 512 cubes through
+                    process_frames_dp against
+                    process_signal_sequence_batched (K7 once), the calls'
+                    times; dp_ranks: this script again as two gloo ranks
+                    sharing the card (--rank-worker), 1024 frames each of
+                    the same 2048: K1 once per rank, each rank's gathered
+                    outputs held to dp_frames' at those tolerances, times
+                    and frames/s beside world size 1's; ba_ranks: GN-CG
+                    (10 x 60) over 2 gloo ranks against one process
+                    (poses within 1e-3 m) and one ranked Schur step
+                    against the one-process step at 2 blocks (within
+                    1e-4), on slam_scenes' circle graphs and slam_deep's
+                    2049-pose open-loop graph; multiseq: tests/
+                    test_multiseq.py's scenes and gates at world size 1
+                    (sharded, Schur end to end, the loop-closure round
+                    trip), then 8 sequences x 1024 frames at the bench
+                    width through process_sequences_sharded: K1 once a
+                    call, frames/s, device launches, peak memory;
 18. kernels         the per-kernel summary line: launches on the main
                     paths, error against the plain version, kernel and
                     plain times, the shape routes' times and bounds, the
@@ -320,7 +348,8 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     and per sequential rig step (rig_launches), the
                     launches in each entry-point run of 17b
                     (entry_point_launches), in each run of 17c
-                    (estimation_launches) and of 17d (slam_launches), the
+                    (estimation_launches), of 17d (slam_launches) and of
+                    17e (parallel_launches: per rank), the
                     routes at A = 32 and
                     C = 16, 25, and the one-call PyTorch time (none of
                     these kernels has one: null).
@@ -3592,6 +3621,7 @@ def phase_artifact_pipeline(torch, counters, cfg_mod, device):
         check(same_sim, "artifact_pipeline: simulate differs across runs")
         check(same_rds and same_det,
               "artifact_pipeline: process differs from step 2")
+        phase_analyze_data(torch, counters, device, out_a)
 
     # (d) integrate_pose at N = 2048 on the card.
     rng = np.random.default_rng(17)
@@ -4616,6 +4646,585 @@ def phase_cli_slam(torch, counters, device):
     return {k: v["launches"] for k, v in rows.items()}
 
 
+# ---- the multi-process back ends (parallel/{mesh,distributed,dp,ba,
+# multiseq}.py) and analyze-data ---------------------------------------------
+
+DP_FRAMES = 2048
+DP_CUBE_FRAMES = 512
+DP_TOL = 1e-5              # rtol and atol, tests/test_parallel.py:75-100
+BA_RANKS_CG_TOL_M = 1e-3   # tests/test_parallel.py:137
+BA_RANKS_SCHUR_TOL = 1e-4  # tests/test_torch_posegraph.py's mesh tolerance
+MULTISEQ_BENCH = (8, 1024)     # sequences x frames at the bench width
+RANKS = 2                  # ranks sharing the one card over gloo
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(task, world, workdir, timeout=600):
+    """``world`` copies of this script as the ranks of one gloo group on
+    cuda:0 (``--rank-worker``), each running ``RANK_TASKS[task]``; returns
+    each rank's result (pickled to ``workdir``).  Fails if a rank fails or
+    outlives ``timeout``; no rank outlives this call."""
+    import pickle
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank-worker",
+         task, str(world), str(r), port, str(workdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{task}: rank {r} of {world} exited "
+              f"{p.returncode}:\n{out[-3000:]}")
+    results = []
+    for r in range(world):
+        with open(Path(workdir) / f"rank{r}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def rank_worker(argv):
+    """``chip_smoke.py --rank-worker <task> <world> <rank> <port> <dir>``:
+    one rank of a gloo group on cuda:0 (ranks sharing one card: NCCL
+    refuses two ranks on one device).  Imports the port only; the kernels
+    come from the build the parent made."""
+    import pickle
+    task, world, rank, port, workdir = (argv[0], int(argv[1]), int(argv[2]),
+                                        argv[3], Path(argv[4]))
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+    from radar_slam_tpu_torch.ops import frontend as fe
+    from radar_slam_tpu_torch.parallel import distributed
+    from radar_slam_tpu_torch.parallel.mesh import make_mesh
+    fe.use_f32_matmuls()
+    device = torch.device("cuda", 0)
+    topo = distributed.initialize(init_method=f"tcp://127.0.0.1:{port}",
+                                  world_size=world, rank=rank,
+                                  backend="gloo", device=device)
+    mesh = make_mesh(world, device=device)
+    result = RANK_TASKS[task](torch, mesh, workdir)
+    result["topology"] = topo
+    with open(workdir / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def timed_calls(torch, fn, reps=2):
+    """(result of the first call, best host-clock ms, best CUDA-event ms)
+    of ``reps`` synchronized calls after it."""
+    out = fn()
+    torch.cuda.synchronize()
+    host = ev = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        host = min(host, (time.perf_counter() - t0) * 1e3)
+        ev = min(ev, start.elapsed_time(stop))
+    return out, host, ev
+
+
+def dp_gap(got, want):
+    """Largest |got - want| per output, success compared for equality, and
+    whether all are within DP_TOL: velocities as numpy's allclose at rtol
+    = atol = DP_TOL (tests/test_parallel.py:75-100), the pose -- a prefix
+    sum, whose float32 rounding follows the partial sums, not the element
+    -- within DP_TOL of its largest magnitude."""
+    keys = ("velocity", "angular_velocity", "pose")
+    gaps = {k: float(np.abs(np.asarray(got[k], np.float64)
+                            - np.asarray(want[k], np.float64)).max())
+            for k in keys}
+    gaps["success_equal"] = bool(np.array_equal(got["success"],
+                                                want["success"]))
+    pose_scale = max(float(np.abs(want["pose"]).max()), 1.0)
+    gaps["within"] = bool(
+        gaps["success_equal"]
+        and gaps["pose"] <= DP_TOL * pose_scale
+        and all(np.allclose(got[k], want[k], rtol=DP_TOL, atol=DP_TOL)
+                for k in keys[:2]))
+    return gaps
+
+
+def task_dp_ranks(torch, mesh, workdir):
+    """dp_ranks on this rank: the 2,048-frame bench scene, this rank's
+    1,024 frames through K1, the gathered outputs, launches and times."""
+    from radar_slam_tpu_torch.core import config as cfg_mod
+    from radar_slam_tpu_torch.ops import frontend as fe
+    from radar_slam_tpu_torch.parallel import dp
+    from radar_slam_tpu_torch.utils.host import device_get
+    cfg = bench_config(cfg_mod)
+    batch, _ = scene(DP_FRAMES, cfg, mesh.device)
+
+    def run():
+        return dp.process_frames_dp_scatterers(
+            batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg, mesh)
+
+    zero_counts(fe.frontend_kernel_split)
+    out = run()
+    torch.cuda.synchronize()
+    launches = fe.frontend_kernel_split.launches
+    _, host_ms, cuda_ms = timed_calls(torch, run)
+    return {"out": device_get(out), "k1_launches": launches,
+            "host_ms": host_ms, "cuda_ms": cuda_ms}
+
+
+def task_ba_ranks(torch, mesh, workdir):
+    """ba_ranks on this rank: GN-CG and one Schur step over the ranks on
+    every graph of ``graphs.pkl``."""
+    import pickle
+    from radar_slam_tpu_torch.parallel import ba
+    from radar_slam_tpu_torch.parallel.posegraph import posegraph_from_numpy
+    with open(workdir / "graphs.pkl", "rb") as f:
+        graphs = pickle.load(f)
+    res = {}
+    for name, (kind, arrays) in graphs.items():
+        g = posegraph_from_numpy(arrays, mesh.device)
+        t0 = time.perf_counter()
+        if kind == "cg":
+            poses, _ = ba.gauss_newton_cg(g, mesh=mesh, gn_iters=10,
+                                          cg_iters=60)
+        else:
+            poses = ba.schur_gn_step(g, mesh=mesh)
+        torch.cuda.synchronize()
+        res[name] = {"poses": poses.cpu().numpy(),
+                     "host_ms": (time.perf_counter() - t0) * 1e3}
+    return res
+
+
+RANK_TASKS = {"dp_ranks": task_dp_ranks, "ba_ranks": task_ba_ranks}
+
+
+def phase_dp_frames(torch, counters, cfg_mod, device):
+    """World size 1 through an NCCL group on localhost: the 2,048-frame
+    bench cell through ``process_frames_dp_scatterers`` against
+    ``process_sequence_batched`` on the same generator (success equal,
+    velocity and pose within DP_TOL; K1 once), and 512 cubes through
+    ``process_frames_dp`` against ``process_signal_sequence_batched`` (K7
+    once); host-clock and CUDA-event time of each call, frames/s."""
+    import torch.distributed as dist
+    from radar_slam_tpu_torch.parallel import distributed, dp
+    from radar_slam_tpu_torch.parallel.mesh import make_mesh
+    from radar_slam_tpu_torch.pipeline.frame import (
+        process_sequence_batched, process_signal_sequence_batched)
+    from radar_slam_tpu_torch.utils.host import device_get
+    topo = distributed.initialize(
+        init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+        device=device)
+    try:
+        check(topo["backend"] == "nccl", f"dp_frames: backend {topo}")
+        probe = torch.ones(4, device=device)
+        dist.all_reduce(probe)          # the NCCL communicator works
+        mesh = make_mesh(device=device)
+        cfg = bench_config(cfg_mod)
+        batch, _ = scene(DP_FRAMES, cfg, device)
+
+        def gen():
+            return torch.Generator().manual_seed(PIPELINE_SEED)
+
+        out, n = counted(torch, counters, lambda:
+                         dp.process_frames_dp_scatterers(batch, gen(), cfg,
+                                                         mesh))
+        check(n == {"K1": 1}, f"dp_frames: launches {n}")
+        ref = process_sequence_batched(batch, gen(), cfg)
+        want = device_get({"velocity": ref.motion.velocity,
+                           "angular_velocity": ref.motion.angular_velocity,
+                           "pose": ref.pose, "success": ref.motion.success})
+        out = device_get(out)
+        gaps = dp_gap(out, want)
+        check(gaps["within"], f"dp_frames: scatterers {gaps}")
+        _, dp_host, dp_ev = timed_calls(torch, lambda:
+                                        dp.process_frames_dp_scatterers(
+                                            batch, gen(), cfg, mesh))
+        _, b_host, b_ev = timed_calls(torch, lambda: process_sequence_batched(
+            batch, gen(), cfg))
+        del batch, ref
+        sig, _ = cube_signals(DP_CUBE_FRAMES, cfg, device, CUBE_SEED)
+        cube, nc = counted(torch, counters,
+                           lambda: dp.process_frames_dp(sig, cfg, mesh))
+        check(nc == {"K7": 1}, f"dp_frames: cube launches {nc}")
+        cref = process_signal_sequence_batched(sig, cfg)
+        cgaps = dp_gap(device_get(cube), device_get({
+            "velocity": cref.motion.velocity,
+            "angular_velocity": cref.motion.angular_velocity,
+            "pose": cref.pose, "success": cref.motion.success}))
+        check(cgaps["within"], f"dp_frames: cubes {cgaps}")
+        _, c_host, c_ev = timed_calls(torch, lambda: dp.process_frames_dp(
+            sig, cfg, mesh))
+        _, cb_host, cb_ev = timed_calls(
+            torch, lambda: process_signal_sequence_batched(sig, cfg))
+        del sig, cref
+    finally:
+        dist.destroy_process_group()
+    row = dict(
+        backend=topo["backend"], world_size=1, frames=DP_FRAMES,
+        launches=n, scatterer_gaps=gaps,
+        dp_ms={"host": dp_host, "cuda": dp_ev},
+        batched_ms={"host": b_host, "cuda": b_ev},
+        dp_frames_per_s=DP_FRAMES / (dp_ev / 1e3),
+        batched_frames_per_s=DP_FRAMES / (b_ev / 1e3),
+        cube_frames=DP_CUBE_FRAMES, cube_launches=nc, cube_gaps=cgaps,
+        cube_dp_ms={"host": c_host, "cuda": c_ev},
+        cube_batched_ms={"host": cb_host, "cuda": cb_ev},
+        tolerance={"rtol": DP_TOL, "atol": DP_TOL},
+        nvidia_smi=nvidia_smi_line())
+    emit("dp_frames", **row)
+    return out, {"process_frames_dp_scatterers": n,
+                 "process_frames_dp": nc}, row
+
+
+def phase_dp_ranks(torch, world1, world1_row):
+    """Two ranks sharing cuda:0 over gloo, 1,024 frames each of the
+    2,048: K1 once per rank, each rank's gathered outputs within DP_TOL of
+    dp_frames' (success equal); each call's time and frames/s beside world
+    size 1's.  The ranks time-slice one card: a proof of the path, not a
+    throughput cell."""
+    import tempfile
+    torch.cuda.empty_cache()        # the parent's cache, for the ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_ranks("dp_ranks", RANKS, tmp)
+    rows = []
+    for r, x in enumerate(res):
+        gaps = dp_gap(x["out"], world1)
+        check(x["k1_launches"] == 1, f"dp_ranks: rank {r} K1 "
+              f"{x['k1_launches']}")
+        check(gaps["within"], f"dp_ranks: rank {r} {gaps}")
+        rows.append(dict(rank=r, backend=x["topology"]["backend"],
+                         k1_launches=x["k1_launches"], gaps=gaps,
+                         host_ms=x["host_ms"], cuda_ms=x["cuda_ms"],
+                         frames_per_s=DP_FRAMES / (x["host_ms"] / 1e3)))
+    emit("dp_ranks", world_size=RANKS, frames=DP_FRAMES,
+         frames_per_rank=DP_FRAMES // RANKS, ranks=rows,
+         world_size_1={"host_ms": world1_row["dp_ms"]["host"],
+                       "frames_per_s": DP_FRAMES / (
+                           world1_row["dp_ms"]["host"] / 1e3)},
+         nvidia_smi=nvidia_smi_line())
+    return {f"rank {r['rank']}": {"K1": r["k1_launches"]} for r in rows}
+
+
+def ba_graphs(torch, counters, device):
+    """The ba_ranks graphs, as numpy, at their starting poses: the circle
+    scenes' graphs of slam_scenes (each odometry case with the loops scan
+    context accepts; CG on 91 poses and 106 factors, the Schur step on the
+    92 poses its padding gives at 2 blocks) and slam_deep's open-loop
+    graph (2,049 poses and 2,050 factors; the Schur step on 2,050 poses,
+    one weak zero-motion factor added)."""
+    from radar_slam_tpu_torch.parallel import posegraph
+    from radar_slam_tpu_torch.parallel.loopclosure import LoopClosureConfig
+    from radar_slam_tpu_torch.parallel.slam import refine_trajectory
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    from radar_slam_tpu_torch.utils.host import device_get
+
+    poses, pts, msk = circle_scene()
+    n = len(poses)
+    p, m = torch.from_numpy(pts).to(device), torch.from_numpy(msk).to(device)
+    graphs = {}
+    for case in ("forward_bias", "yaw_bias"):
+        vel, wz, lc = circle_odometry(case, n)
+        for solver in ("cg", "schur"):
+            # gn_iters=0: the graph as the solver receives it.
+            res = refine_trajectory(
+                vel, wz, np.ones(n, bool), 0.1, frame_points=p,
+                frame_valid=m, lc_cfg=LoopClosureConfig(**lc),
+                solver=solver, proposer="scancontext", n_blocks=RANKS,
+                gn_iters=0)
+            graphs[f"circle {case} {solver}"] = (
+                solver, device_get(res["graph"]._asdict()))
+    ref_mod = slam_reference_module()
+    batch, _, cfg = ref_mod.deep_scene(SLAM_DEEP_FRAMES, device)
+    out, _ = counted(torch, counters, lambda: process_sequence_batched(
+        batch, torch.Generator().manual_seed(0), cfg))
+    vel, w, ok = (out.motion.velocity, out.motion.angular_velocity[:, 2],
+                  out.motion.success)
+    graphs["deep cg"] = ("cg", device_get(posegraph.from_velocities(
+        vel, w, ok, cfg.frame_dt, loop_capacity=2)._asdict()))
+
+    def pad(x, v):
+        return torch.cat([x, x.new_full((1,) + x.shape[1:], v)])
+
+    graphs["deep schur"] = ("schur", device_get(posegraph.from_velocities(
+        pad(vel, 0.0), pad(w, 0.0), pad(ok, False), cfg.frame_dt,
+        loop_capacity=1)._asdict()))
+    return graphs
+
+
+def phase_ba_ranks(torch, counters, device):
+    """GN-CG (10 x 60) with the factor axis split over 2 ranks sharing
+    cuda:0 (gloo) against the one-process solve, poses within
+    BA_RANKS_CG_TOL_M; one ranked Schur step against the one-process step
+    at n_blocks = 2, within BA_RANKS_SCHUR_TOL; on the circle graphs of
+    slam_scenes and slam_deep's open-loop graph.  Host time of each
+    ranked solve (every gloo collective is a host round trip)."""
+    import pickle
+    import tempfile
+    from radar_slam_tpu_torch.parallel import ba
+    from radar_slam_tpu_torch.parallel.posegraph import posegraph_from_numpy
+    graphs = ba_graphs(torch, counters, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(Path(tmp) / "graphs.pkl", "wb") as f:
+            pickle.dump(graphs, f)
+        res = run_ranks("ba_ranks", RANKS, tmp)
+    rows = {}
+    for name, (kind, arrays) in graphs.items():
+        g = posegraph_from_numpy(arrays, device)
+        t0 = time.perf_counter()
+        if kind == "cg":
+            want, _ = ba.gauss_newton_cg(g, gn_iters=10, cg_iters=60)
+        else:
+            want = ba.schur_gn_step(g, RANKS)
+        want = want.cpu().numpy()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        gaps = [pose_gap(r[name]["poses"], want) for r in res]
+        tol = BA_RANKS_CG_TOL_M if kind == "cg" else BA_RANKS_SCHUR_TOL
+        rows[name] = dict(kind=kind, poses=len(want),
+                          factors=len(arrays["fi"]),
+                          loops=int(arrays["factor_valid"][
+                              len(want) - 1:].sum()),
+                          gap_m=max(x[0] for x in gaps),
+                          gap_rad=max(x[1] for x in gaps),
+                          ranks_host_ms=[r[name]["host_ms"] for r in res],
+                          one_process_host_ms=one_ms)
+        check(np.isfinite(want).all() and all(
+            x[0] <= tol and x[1] <= tol for x in gaps),
+            f"ba_ranks: {name} {rows[name]}")
+    emit("ba_ranks", world_size=RANKS, backend=res[0]["topology"]["backend"],
+         runs=rows, gates={"cg": f"poses <= {BA_RANKS_CG_TOL_M} m",
+                           "schur": f"<= {BA_RANKS_SCHUR_TOL}"},
+         nvidia_smi=nvidia_smi_line())
+
+
+def multiseq_config(cfg_mod):
+    """tests/test_multiseq.py's configuration (16 chirps, 128 samples)."""
+    return cfg_mod.PipelineConfig(
+        radar=cfg_mod.RadarConfig(noise_power=1e-6, num_chirps=16,
+                                  chirp_duration=12.8e-6),
+        detection=cfg_mod.DetectionConfig(
+            cfar_train_cells=6, guard_cells=2, cfar_offset_db=12.0,
+            max_detections=24, max_range=60.0),
+        aoa=cfg_mod.AoAConfig(search_resolution_deg=3.0,
+                              confidence_threshold=0.5, max_targets=24,
+                              track_capacity=64),
+        velocity=cfg_mod.VelocityConfig(), max_scatterers=128)
+
+
+def multiseq_scenes(M, F, speed, cfg, device):
+    """tests/test_multiseq.py's sequences: sequence m at ``speed(m)`` m/s,
+    stacked [M, F, S]."""
+    from radar_slam_tpu_torch.io.synthetic import (SceneConfig,
+                                                   constant_motion_scene)
+    from radar_slam_tpu_torch.parallel.multiseq import _stack
+    return _stack([constant_motion_scene(
+        100 + m, num_frames=F, dt=cfg.frame_dt, v_body=(speed(m), 0.0),
+        yaw_rate=0.0,
+        scene=SceneConfig(num_points=48, max_range=18.0, min_range=3.0,
+                          max_scatterers=cfg.max_scatterers),
+        device=device)[0] for m in range(M)])
+
+
+def gens(n):
+    import torch
+    return [torch.Generator().manual_seed(m) for m in range(n)]
+
+
+def phase_multiseq(torch, counters, cfg_mod, device):
+    """tests/test_multiseq.py's scenes and gates on the card at world size
+    1: the sharded batch (8 sequences of 8 frames: >= 6 recover their
+    speed within 0.5 m/s, endpoints within 1 m), Schur end to end (8 of 7
+    frames: >= 6 endpoints within 1 m) and the loop-closure round trip
+    (two drifted circles: a loop each, refined endpoint error < 0.6 x the
+    open loop's, open loop > 1.5 m); then 8 sequences x 1,024 frames at the
+    bench width through process_sequences_sharded: K1 once a call,
+    frames/s (CUDA events), device launches of a traced call, peak
+    memory."""
+    from torch.profiler import ProfilerActivity
+    from radar_slam_tpu_torch.core.types import FrameOutput, MotionEstimate
+    from radar_slam_tpu_torch.parallel import multiseq, posegraph
+    from radar_slam_tpu_torch.parallel.loopclosure import LoopClosureConfig
+    from radar_slam_tpu_torch.parallel.mesh import make_mesh
+    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    mesh = make_mesh(1, device=device)
+    cfg = multiseq_config(cfg_mod)
+    rows = {}
+
+    M, F = 8, 8
+    batch = multiseq_scenes(M, F, lambda m: 3.0 + 0.5 * m, cfg, device)
+    (out, poses, _), n = counted(torch, counters, lambda:
+                                 multiseq.process_sequences_sharded(
+                                     batch, gens(M), cfg, mesh))
+    v, ok = out.motion.velocity.cpu().numpy(), out.motion.success.cpu().numpy()
+    poses = poses.cpu().numpy()
+    rec, ends = 0, []
+    for m in range(M):
+        if ok[m, 1:].mean() > 0.5:
+            rec += abs(v[m, 1:][ok[m, 1:]][:, 0].mean() - (3.0 + 0.5 * m)) \
+                < 0.5
+            ends.append(float(abs(np.linalg.norm(poses[m, -1, :2])
+                                  - (3.0 + 0.5 * m) * cfg.frame_dt * F)))
+    rows["sharded"] = dict(recovered=int(rec), endpoint_err_m=ends,
+                           launches=n)
+    check(rec >= 6 and max(ends) < 1.0, f"multiseq: sharded {rows}")
+
+    M, F = 8, 7
+    batch = multiseq_scenes(M, F, lambda m: 3.0 + 0.4 * m, cfg, device)
+    (out, poses, _), n = counted(torch, counters, lambda:
+                                 multiseq.process_sequences_schur(
+                                     batch, gens(M), cfg, mesh))
+    ok, poses = out.motion.success.cpu().numpy(), poses.cpu().numpy()
+    good = sum(ok[m, 1:].mean() > 0.5 and abs(
+        np.linalg.norm(poses[m, -1, :2])
+        - (3.0 + 0.4 * m) * cfg.frame_dt * F) < 1.0 for m in range(M))
+    rows["schur_end_to_end"] = dict(good=int(good), launches=n)
+    check(good >= 6, f"multiseq: Schur end to end {rows}")
+
+    M, F, v_true, w_true = 2, 95, 6.0, 0.7
+    outs, gts = [], []
+    for m in range(M):
+        gt, pts, msk = circle_scene(n_frames=F, v=v_true, w=w_true,
+                                    dt=cfg.frame_dt, seed=5 + m)
+        gts.append(gt)
+        z = torch.zeros(F, device=device)
+        outs.append(FrameOutput(
+            motion=MotionEstimate(
+                velocity=torch.tensor([v_true * 1.03, 0.0, 0.0],
+                                      device=device).repeat(F, 1),
+                angular_velocity=torch.stack(
+                    [z, z, torch.full((F,), w_true + 0.03, device=device)],
+                    -1),
+                rmse=z, max_residual=z,
+                num_targets=z.to(torch.int32),
+                success=torch.ones(F, dtype=torch.bool, device=device),
+                cost=z),
+            pose=torch.zeros((F, 3), device=device),
+            num_detections=z.to(torch.int32), num_reliable=z.to(torch.int32),
+            num_associations=z.to(torch.int32),
+            target_xy=torch.from_numpy(pts).to(device),
+            target_valid=torch.from_numpy(msk).to(device)))
+    fo = multiseq._stack(outs)
+    _, poses, _, loops = multiseq.refine_sequences_mesh(
+        None, None, cfg, mesh, steps=10, loop_capacity=4,
+        lc_cfg=LoopClosureConfig(revisit_radius=5.0, min_separation=40),
+        proposer="scancontext", out=fo)
+    poses = poses.cpu().numpy()
+    trip = []
+    for m in range(M):
+        open_g = posegraph.from_velocities(
+            fo.motion.velocity[m], fo.motion.angular_velocity[m, :, 2],
+            fo.motion.success[m], cfg.frame_dt)
+        open_err = float(np.linalg.norm(
+            open_g.poses[-2, :2].cpu().numpy() - gts[m][-1, :2]))
+        err = float(np.linalg.norm(poses[m, -2, :2] - gts[m][-1, :2]))
+        trip.append(dict(loops=len(loops[m]), open_err_m=open_err,
+                         refined_err_m=err))
+        check(len(loops[m]) >= 1 and open_err > 1.5
+              and err < 0.6 * open_err, f"multiseq: round trip {trip}")
+    rows["round_trip"] = trip
+
+    # The bench width: 8 sequences x 1,024 frames, one K1 launch a call.
+    M, F = MULTISEQ_BENCH
+    bcfg = bench_config(cfg_mod)
+    one, _ = scene(F, bcfg, device)
+    batch = multiseq._stack([one] * M)
+
+    def run():
+        return multiseq.process_sequences_sharded(batch, gens(M), bcfg, mesh)
+
+    torch.cuda.reset_peak_memory_stats()
+    (out, poses, costs), n = counted(torch, counters, run)
+    peak = torch.cuda.max_memory_allocated()
+    check(n == {"K1": 1}, f"multiseq: bench-width launches {n}")
+    check(bool(torch.isfinite(poses).all() and torch.isfinite(costs).all()),
+          "multiseq: bench-width poses")
+    _, host_ms, ev_ms = timed_calls(torch, run)
+    events, wall = device_trace(torch, run, [ProfilerActivity.CUDA])
+    # Sequence 0 against the batched driver on its generator (printed).
+    ref = process_sequence_batched(one, gens(1)[0], bcfg)
+    seq0 = dict(pose_max_diff_m=float((out.pose[0] - ref.pose).abs().max()),
+                success_equal=bool(torch.equal(out.motion.success[0],
+                                               ref.motion.success)))
+    rows["bench_width"] = dict(
+        sequences=M, frames=F, k1_launches=n, host_ms=host_ms, cuda_ms=ev_ms,
+        frames_per_s=M * F / (ev_ms / 1e3), peak_memory_bytes=peak,
+        device_launches=len(events), device_busy_ms=interval_busy_ms(events),
+        traced_wall_ms=wall * 1e3,
+        success=float(out.motion.success[:, 1:].float().mean()),
+        sequence0_vs_batched=seq0)
+    emit("multiseq", world_size=1, runs=rows, nvidia_smi=nvidia_smi_line())
+    return {"sharded bench width": n}
+
+
+# The keys of the reference's analyze-data outputs (reference cli.py:412-463
+# and viz/analyze.py).
+ANALYZE_DATA_KEYS = {
+    "frame": {"frame", "peaks", "rds_quality"},
+    "peaks": {"num_detections", "range_stats", "doppler_stats",
+              "power_stats", "radial_velocity_stats", "near_targets",
+              "far_targets", "moving_targets", "stationary_targets"},
+    "rds_quality": {"peak_power_db", "noise_floor_db", "dynamic_range_db",
+                    "peak_snr_db", "mean_power_db",
+                    "energy_concentration_top1pct"},
+    "compare": {"frames", "count_mean", "count_std",
+                "count_drift_per_frame", "range_mean_drift_per_frame"},
+    "insights": {"total_peaks", "total_frames", "peaks_per_frame",
+                 "range_insights", "doppler_insights", "power_insights",
+                 "radial_velocity_insights", "target_classification",
+                 "frame_stability"},
+}
+
+
+def phase_analyze_data(torch, counters, device, run_dir):
+    """``analyze-data`` over the artifact_pipeline phase's run directory,
+    in process: one frame, ``--compare`` and ``--insights``, each exit 0
+    with the reference's keys and files; no kernel launched."""
+    import tempfile
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, flags, files in (
+                ("frame", ["--frame", "3"], ["frame_0003_analysis.json"]),
+                ("compare", ["--compare"], ["frame_comparison.json"]),
+                ("insights", ["--insights"], ["insights.json",
+                                              "insights.md"])):
+            out = Path(tmp) / mode
+            t0 = time.perf_counter()
+            (rc, text, r), n = counted(torch, counters, lambda: run_cli(
+                ["analyze-data", "--output", str(run_dir), *flags, "--out",
+                 str(out)], device))
+            rows[mode] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                              launches=n, files=sorted(
+                                  p.name for p in out.iterdir()))
+            want = ANALYZE_DATA_KEYS[mode]
+            check(rc == 0 and r is not None and set(r) == want
+                  and rows[mode]["files"] == files and not n,
+                  f"analyze_data: {mode} {rows[mode]} {r}")
+            if mode == "frame":
+                check(set(r["peaks"]) == ANALYZE_DATA_KEYS["peaks"]
+                      and set(r["rds_quality"])
+                      == ANALYZE_DATA_KEYS["rds_quality"],
+                      f"analyze_data: frame keys {r}")
+                rows[mode]["num_detections"] = r["peaks"]["num_detections"]
+            if mode == "insights":
+                rows[mode]["total_peaks"] = r["total_peaks"]
+                rows[mode]["total_frames"] = r["total_frames"]
+    emit("analyze_data", run=run_dir.name, runs=rows)
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -4775,6 +5384,14 @@ def main():
         phase_scancontext_scale(torch, counters, device)
     slam_runs.update({f"cli_slam {k}": v for k, v in phase_cli_slam(
         torch, counters, device).items()})
+    dp_out, dp_runs, dp_row = phase_dp_frames(torch, counters, cfg_mod,
+                                              device)
+    parallel_runs = {f"dp_frames {k}": v for k, v in dp_runs.items()}
+    parallel_runs.update({f"dp_ranks {k}": v for k, v in phase_dp_ranks(
+        torch, dp_out, dp_row).items()})
+    phase_ba_ranks(torch, counters, device)
+    parallel_runs.update({f"multiseq {k}": v for k, v in phase_multiseq(
+        torch, counters, cfg_mod, device).items()})
     emit("trace_retries", pads_s=list(TRACE_PADS_S),
          final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 
@@ -4869,6 +5486,9 @@ def main():
         runs = {p: n[key] for p, n in slam_runs.items() if key in n}
         if runs:
             e["slam_launches"] = runs
+        runs = {p: n[key] for p, n in parallel_runs.items() if key in n}
+        if runs:
+            e["parallel_launches"] = runs
         for shape, times in slice_ms.items():
             if key in times and not e["name"].startswith("K1'"):
                 e.setdefault("routes", {})[f"{shape} {key}"] = {
@@ -4885,4 +5505,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

@@ -14,7 +14,9 @@ one-frame steps) with the clutter map and the slot-table smoother, the
 rig drivers, every TPU kernel, hand-written in CUDA for the H100
 (``csrc/``), and the entry points: the CLI (``python -m
 radar_slam_tpu_torch``), the streaming analyzer with checkpoint resume, the
-real-time runtime, the RadarScenes loader and the prefetch ingest.
+real-time runtime, the RadarScenes loader and the prefetch ingest, the
+SLAM back end, its multi-process SPMD drivers on ``torch.distributed``,
+and the visualization: everything the JAX package does but ``bench``.
 
 - ``core``      config, static-shape tensor types, geometry
 - ``signal``    synthesis, DFT constants, detection (CFAR, clutter map)
@@ -24,11 +26,15 @@ real-time runtime, the RadarScenes loader and the prefetch ingest.
                 the robust per-frame AoA stage
 - ``motion``    mutual-NN association, 6-DoF velocity solve, planar pose
 - ``pipeline``  the batched, sequential and rig drivers, streaming, CLI
-- ``parallel``  the SLAM back end in one process: pose graph, GN-CG and the
-                Schur step, ICP loop closure, scan-context retrieval
+- ``parallel``  the SLAM back end: pose graph, GN-CG and the Schur step
+                (in one process or over the ranks of a mesh), ICP loop
+                closure, scan-context retrieval; the mesh of ranks, the
+                frame-parallel driver and sequence-sharded batches
 - ``io``        synthetic known-truth scenes, the RadarScenes loader,
                 double-buffered host ingest
-- ``evaluate``  planar pose errors
+- ``evaluate``  pose and velocity metrics, reports, error figures
+- ``viz``       artifact statistics and figures (matplotlib, imported
+                when a figure is drawn)
 - ``utils``     checkpointing, host transfers of tensor trees, logging
 """
 

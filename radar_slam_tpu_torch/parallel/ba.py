@@ -1,26 +1,34 @@
 """Gauss-Newton for the pose graph: CG inner solves and the Schur step.
 
-Counterpart of ``radar_slam_tpu/parallel/ba.py`` in one process.  Two
-solvers, both generic over the pose dimension (planar (x, y, yaw) or
-z-aware (x, y, z, yaw), ``posegraph.py``):
+Counterpart of ``radar_slam_tpu/parallel/ba.py``.  Two solvers, both
+generic over the pose dimension (planar (x, y, yaw) or z-aware (x, y, z,
+yaw), ``posegraph.py``), and both SPMD over a mesh of ranks
+(``mesh.py``) with the pose vector replicated:
 
 - :func:`gauss_newton_cg` -- GN with a Jacobi-preconditioned CG inner
-  solve over all factors (the reference at ``mesh=None``).  It runs a fixed
-  ``gn_iters x cg_iters`` with the reference's ``1e-30`` guards and no
-  early exit, so nothing in it waits on the device (one host read of the
-  factor endpoints before it, :func:`_incidence`).  The Jacobians and
-  weights depend only on the poses: they are computed once per GN
-  iteration (:func:`_linearize`) and reused by every Hessian-vector
+  solve.  It runs a fixed ``gn_iters x cg_iters`` with the reference's
+  ``1e-30`` guards and no early exit, so nothing in it waits on the device
+  (one host read of the factor endpoints before it, :func:`_incidence`;
+  under gloo every collective is a host round trip of its own).  The
+  Jacobians and weights depend only on the poses: they are computed once
+  per GN iteration (:func:`_linearize`) and reused by every Hessian-vector
   product, whose sums over factors run in a fixed order, so a solve
-  repeats bit for bit.
+  repeats bit for bit.  On a mesh each rank takes a contiguous block of
+  the factor axis and the gradient, diagonal and products are summed over
+  the ranks (the reference's ``psum``).  A stacked graph [M, ...] (every
+  field with a leading sequence axis, as ``multiseq.py`` builds it) is
+  solved as M independent graphs in one set of launches: the reference's
+  ``vmap``.
 - :func:`schur_gn_step` -- one GN step by keyframe-block Schur elimination
-  with the loop closures folded in by a Woodbury correction.  The
-  reference runs one block per device of a mesh; here the ``n_blocks``
-  blocks are a leading batch axis: window Hessians [n_blocks, D, D] solved
-  in one batched call, each ``psum`` a sum over that axis, and
-  ``axis_index`` the block's row.  ``n_blocks = 1`` is the reference on one
-  device (its CLI's ``make_mesh(len(jax.devices()))`` on one chip),
-  ``n_blocks = 8`` the reference on ``make_mesh(8)``.
+  with the loop closures folded in by a Woodbury correction.  The poses
+  split into contiguous blocks.  In one process the ``n_blocks`` blocks are
+  a leading batch axis (window Hessians [n_blocks, D, D] solved in one
+  batched call, each ``psum`` a sum over that axis); on a mesh rank r
+  computes block r alone and the boundary system, ``A y0`` and ``A X`` are
+  summed over the ranks.  One body (:func:`_schur_blocks`) serves both.
+  ``n_blocks = 1`` is the reference on one device (its CLI's
+  ``make_mesh(len(jax.devices()))`` on one chip), ``n_blocks = 8`` the
+  reference on ``make_mesh(8)``.
 
 The reference accumulates with ``.at[idx].add(..., mode="drop")``, which
 drops out-of-range indices (the Schur window sends invalid factors to
@@ -34,6 +42,7 @@ every gather clamps: the same sums as dropping.  Products are float32 (TF32 off,
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -41,6 +50,7 @@ import torch
 
 from radar_slam_tpu_torch.core.geometry import wrap_angle
 from radar_slam_tpu_torch.ops.frontend import use_f32_matmuls
+from radar_slam_tpu_torch.parallel.mesh import Mesh
 from radar_slam_tpu_torch.parallel.posegraph import (PoseGraph,
                                                      anchor_residual,
                                                      clamp_index,
@@ -63,25 +73,43 @@ def _incidence(graph: PoseGraph, N: int) -> torch.Tensor:
     factor, then every j-endpoint), so a sum along K is a fixed-order
     reduction: the same bits on every run, where ``index_add_`` on CUDA
     adds in the order its atomics land.  Endpoints outside [0, N) after
-    wrapping negatives are left out, as ``mode="drop"`` drops them.  One
-    host read of the endpoints; the graph's topology is fixed for a
-    solve."""
-    fi, fj, valid = device_get((graph.fi, graph.fj, graph.factor_valid))
-    M = len(fi)
-    ends = np.stack([fi, fj]).astype(np.int64)                 # [2, M]
+    wrapping negatives are left out, as ``mode="drop"`` drops them.  A
+    stacked graph's endpoints [S, M] are read per sequence and its table
+    covers the S * N poses of :func:`_flatten`.  One host read of the
+    endpoints; the graph's topology is fixed for a solve."""
+    fi, fj, valid = (np.atleast_2d(x) for x in device_get(
+        (graph.fi, graph.fj, graph.factor_valid)))
+    S = fi.shape[0]
+    ends = np.stack([fi, fj]).astype(np.int64)                 # [2, S, M]
     ends = np.where(ends < 0, ends + N, ends)
-    keep = (ends >= 0) & (ends < N) & valid[None, :]
+    keep = ((ends >= 0) & (ends < N) & valid[None]).reshape(2, -1)
+    ends = (ends + N * np.arange(S)[:, None]).reshape(2, -1)
+    M = ends.shape[1]
     k, m = np.nonzero(keep)                                    # (k, m) order
     pose = ends[k, m]
     order = np.argsort(pose, kind="stable")
     pose, slot = pose[order], (2 * m + k)[order]
-    counts = np.bincount(pose, minlength=N)
+    counts = np.bincount(pose, minlength=S * N)
     rank = np.arange(len(pose)) - np.repeat(np.cumsum(counts) - counts,
                                             counts)
-    table = np.full((N, max(int(counts.max(initial=0)), 1)), 2 * M,
+    table = np.full((S * N, max(int(counts.max(initial=0)), 1)), 2 * M,
                     np.int64)
     table[pose, rank] = slot
     return torch.as_tensor(table, device=graph.fi.device)
+
+
+def _flatten(graph: PoseGraph) -> PoseGraph:
+    """A stacked graph [S, ...] as one graph over its S * N poses: each
+    sequence's endpoints read as JAX reads them (``clamp_index``), then
+    offset by s * N.  Its anchor fields are the stacked graph's."""
+    S, N, D = graph.poses.shape
+    off = N * torch.arange(S, device=graph.poses.device)[:, None]
+    return graph._replace(
+        poses=graph.poses.reshape(S * N, D),
+        fi=(clamp_index(graph.fi, N) + off).reshape(-1),
+        fj=(clamp_index(graph.fj, N) + off).reshape(-1),
+        delta=graph.delta.reshape(-1, D), info=graph.info.reshape(-1, D),
+        factor_valid=graph.factor_valid.reshape(-1))
 
 
 class _Linear(NamedTuple):
@@ -136,8 +164,11 @@ def _block_diag(poses, graph: PoseGraph, lin: Optional[_Linear] = None):
 
 
 def _anchor_terms(poses, graph: PoseGraph):
+    """The anchor prior's gradient, at pose 0 of each (stacked) graph."""
+    ra = poses[..., 0, :] - graph.anchor
+    ra = torch.cat([ra[..., :-1], wrap_angle(ra[..., -1:])], dim=-1)
     g = torch.zeros_like(poses)
-    g[0] = graph.anchor_info * anchor_residual(poses, graph)
+    g[..., 0, :] = graph.anchor_info * ra
     return g
 
 
@@ -145,43 +176,75 @@ def _anchor_terms(poses, graph: PoseGraph):
 # GN + CG
 # ---------------------------------------------------------------------------
 
-def gauss_newton_cg(graph: PoseGraph, gn_iters: int = 10,
-                    cg_iters: int = 50, damping: float = 1e-6
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-graph inner products of [S, N, D] arrays, [S, 1, 1]."""
+    return torch.sum(a * b, dim=(1, 2), keepdim=True)
+
+
+def gauss_newton_cg(graph: PoseGraph, mesh: Optional[Mesh] = None,
+                    gn_iters: int = 10, cg_iters: int = 50,
+                    damping: float = 1e-6
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gauss-Newton with preconditioned-CG inner solves.  Returns
-    (optimized poses [N, D], cost)."""
+    (optimized poses [N, D], cost), or ([S, N, D], [S]) for a stacked
+    graph.
+
+    With ``mesh`` each rank sums its block of the factor axis (a multiple
+    of the mesh size, as the reference's shard_map requires) and the sums
+    are added over the ranks; every rank returns the same poses.  Without
+    it, the reference at ``mesh=None``."""
     use_f32_matmuls()
-    poses = graph.poses
+    stacked = graph.poses.dim() == 3
+    g = graph if stacked else PoseGraph(*[x[None] for x in graph])
+    S, N, D = g.poses.shape
+    part = g
+    if mesh is not None:
+        rows = mesh.block(g.fi.shape[1])
+        part = g._replace(fi=g.fi[:, rows], fj=g.fj[:, rows],
+                          delta=g.delta[:, rows], info=g.info[:, rows],
+                          factor_valid=g.factor_valid[:, rows])
+    flat = _flatten(part)
+    table = _incidence(part, N)
+
+    def reduce(x):
+        x = x if mesh is None else mesh.all_reduce(x)
+        return x.view(S, N, D)
+
+    poses = g.poses
     anchor_mask = torch.zeros_like(poses)
-    anchor_mask[0] = graph.anchor_info
-    table = _incidence(graph, poses.shape[0])
+    anchor_mask[:, 0] = g.anchor_info
     for _ in range(gn_iters):
-        lin = _linearize(poses, graph, table)
-        g = _block_gradient(poses, graph, lin) + _anchor_terms(poses, graph)
-        diag = _block_diag(poses, graph, lin)
-        diag[0] += graph.anchor_info
+        pf = poses.reshape(S * N, D)
+        lin = _linearize(pf, flat, table)
+        grad = reduce(_block_gradient(pf, flat, lin)) \
+            + _anchor_terms(poses, g)
+        diag = reduce(_block_diag(pf, flat, lin))
+        diag[:, 0] += g.anchor_info
         minv = 1.0 / (diag + damping)
 
         # Preconditioned CG on H dx = -g, a fixed cg_iters steps.
-        x = torch.zeros_like(g)
-        r = -g
+        x = torch.zeros_like(grad)
+        r = -grad
         z = minv * r
         p = r * minv
-        rz = torch.sum(r * z)
+        rz = _dot(r, z)
         for _ in range(cg_iters):
-            hp = _block_hvp(poses, graph, p, lin)
+            hp = reduce(_block_hvp(pf, flat, p.view(S * N, D), lin))
             hp = hp.addcmul_(anchor_mask, p).add_(p, alpha=damping)
-            alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
+            alpha = rz / torch.clamp_min(_dot(p, hp), 1e-30)
             x = x.addcmul(alpha, p)
             r = r.addcmul(alpha, hp, value=-1.0)
             z = minv * r
-            rz2 = torch.sum(r * z)
+            rz2 = _dot(r, z)
             beta = rz2 / torch.clamp_min(rz, 1e-30)
             p = z.addcmul(beta, p)
             rz = rz2
         poses = poses + x
-        poses = torch.cat([poses[:, :-1], wrap_angle(poses[:, -1:])], dim=1)
-    return poses, total_cost(poses, graph)
+        poses = torch.cat([poses[..., :-1], wrap_angle(poses[..., -1:])],
+                          dim=-1)
+    cost = torch.stack([total_cost(poses[s], PoseGraph(*[x[s] for x in g]))
+                        for s in range(S)])
+    return (poses, cost) if stacked else (poses[0], cost[0])
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +261,8 @@ def _add_at(n: int, idx: torch.Tensor, keep: torch.Tensor,
 
 
 def schur_gn_step(graph: PoseGraph, n_blocks: int = 1,
-                  damping: float = 1e-5, n_chain: Optional[int] = None
-                  ) -> torch.Tensor:
+                  damping: float = 1e-5, n_chain: Optional[int] = None,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One GN step via keyframe-block Schur elimination, with loop closures
     folded in exactly by a Woodbury low-rank correction.
 
@@ -217,22 +280,71 @@ def schur_gn_step(graph: PoseGraph, n_blocks: int = 1,
         X = Hc^{-1} A^T,  y0 = Hc^{-1} g.
 
     Args:
-        n_blocks: the block count (the reference's mesh size); N must be a
-            multiple of it.
+        n_blocks: the block count in one process (the reference's mesh
+            size); N must be a multiple of it.
         n_chain: number of leading chain-factor slots in the graph (default
             N - 1, the ``from_velocities`` layout); slots beyond it are loop
             closures (valid or not).
+        mesh: one block a rank (the reference's mesh): rank r computes
+            block r, the boundary system, ``A y0`` and ``A X`` are summed
+            over the ranks, and every rank returns all poses.
     Returns the new poses [N, Dp].
     """
     use_f32_matmuls()
+    N = graph.poses.shape[0]
+    if mesh is not None and n_blocks not in (1, mesh.size):
+        raise ValueError(f"n_blocks={n_blocks} on a mesh of {mesh.size}: "
+                         f"the mesh sets the blocks")
+    nb = n_blocks if mesh is None else mesh.size
+    if N % nb:
+        raise ValueError(f"{N} poses: pad keyframes to a multiple of "
+                         f"n_blocks={nb}")
+    if mesh is None:
+        bodies = [_schur_block(graph, nb, b, damping, n_chain)
+                  for b in range(nb)]
+        new_poses = _run_blocks(bodies, lambda parts: tuple(
+            functools.reduce(torch.add, xs) for xs in zip(*parts)))
+    else:
+        body = _schur_block(graph, nb, mesh.rank, damping, n_chain)
+        new_poses = mesh.gather(_run_blocks([body], lambda parts: tuple(
+            mesh.all_reduce(x) for x in parts[0])))
+    return torch.cat([new_poses[:, :-1], wrap_angle(new_poses[:, -1:])],
+                     dim=1)
+
+
+def _run_blocks(bodies, reduce) -> torch.Tensor:
+    """Drive the block bodies of :func:`_schur_block` in step: at each of
+    their sums over blocks, ``reduce`` the partials they yield (a sum in
+    block order in one process, an all-reduce over the ranks on a mesh)
+    and send the sum back.  Returns their poses, concatenated."""
+    parts = [next(body) for body in bodies]
+    while True:
+        total = reduce(parts)
+        parts, done = [], []
+        for body in bodies:
+            try:
+                parts.append(body.send(total))
+            except StopIteration as stop:
+                done.append(stop.value)
+        if done:
+            return torch.cat(done)
+
+
+def _schur_block(graph: PoseGraph, nb: int, b: int, damping: float,
+                 n_chain: Optional[int]):
+    """The Schur step's body for block ``b`` of ``nb`` (a generator): its
+    window, its share of the boundary system and of ``A y0`` and ``A X``,
+    each yielded to be summed over the blocks and received back, then its
+    poses after the step, [B, Dp], yaw unwrapped, as its return value.
+    Every block runs the same arithmetic in either route: at two blocks
+    the routes agree bit for bit (a sum of two partials is exact).  The
+    window keeps a leading axis of 1, the shape of the one-block step's
+    batched solves."""
     poses = graph.poses
     N, Dp = poses.shape
     dev = poses.device
-    if N % n_blocks:
-        raise ValueError(f"{N} poses: pad keyframes to a multiple of "
-                         f"n_blocks={n_blocks}")
-    nb = n_blocks
     B = N // nb
+    s0, s1 = b * B, (b + 1) * B             # the block's poses and slots
     if n_chain is None:
         n_chain = N - 1
     L = graph.fi.shape[0] - n_chain     # loop slots (static)
@@ -242,7 +354,7 @@ def schur_gn_step(graph: PoseGraph, n_blocks: int = 1,
     # block b's rows of the slot axis are exactly its window's factors.
     def chain_pad(x):
         return torch.cat([x[:n_chain],
-                          x.new_zeros((N - n_chain,) + x.shape[1:])])
+                          x.new_zeros((N - n_chain,) + x.shape[1:])])[s0:s1]
 
     chain = graph._replace(fi=chain_pad(graph.fi), fj=chain_pad(graph.fj),
                            delta=chain_pad(graph.delta),
@@ -264,46 +376,44 @@ def schur_gn_step(graph: PoseGraph, n_blocks: int = 1,
                               factor_valid=graph.factor_valid[n_chain:])
 
     # ---- per-block dense chain Hessian over the (B+1)-pose window --------
-    r = factor_residuals(poses, chain)                          # [N, Dp]
+    r = factor_residuals(poses, chain)                          # [B, Dp]
     Ji, Jj = factor_jacobians(poses, chain)
     w = chain.factor_valid[:, None] * chain.info
-    J = torch.stack([Ji, Jj], dim=1)                            # [N, 2, Dp, Dp]
+    J = torch.stack([Ji, Jj], dim=1)                            # [B,2,Dp,Dp]
 
     # Local endpoint indices within the window; invalid factors sit at
     # B + 1, outside it, so their entries are dropped.
-    base = (torch.arange(N, device=dev) // B) * B
-    blk = torch.arange(N, device=dev) // B
+    slots = torch.arange(s0, s1, device=dev)
+    base = (slots // B) * B
     valid = chain.factor_valid
     loc = torch.stack([torch.where(valid, chain.fi.long() - base, B + 1),
                        torch.where(valid, chain.fj.long() - base, B + 1)],
-                      dim=1)                                    # [N, 2]
+                      dim=1)                                    # [B, 2]
     inside = loc <= B
 
     D = Dp * (B + 1)
     # blocks[m, k, l] = J_k^T W J_l of factor m (k, l: endpoint i or j).
     blocks = torch.sum(w[:, None, None, :, None, None]
                        * J[:, :, None, :, :, None]
-                       * J[:, None, :, :, None, :], dim=3)      # [N,2,2,Dp,Dp]
-    rows = Dp * loc[:, :, None] + ar                            # [N, 2, Dp]
-    flat = (blk[:, None, None, None, None] * D * D
-            + rows[:, :, None, :, None] * D
-            + rows[:, None, :, None, :])
+                       * J[:, None, :, :, None, :], dim=3)      # [B,2,2,Dp,Dp]
+    rows = Dp * loc[:, :, None] + ar                            # [B, 2, Dp]
+    flat = rows[:, :, None, :, None] * D + rows[:, None, :, None, :]
     keep = (inside[:, :, None] & inside[:, None, :])[..., None, None]
-    H = _add_at(nb * D * D, flat, keep.expand_as(flat),
-                blocks).view(nb, D, D)
+    H = _add_at(D * D, flat, keep.expand_as(flat), blocks).view(1, D, D)
 
     # Chain gradient into the window.
-    gc = torch.sum(J * (w * r)[:, None, :, None], dim=2)        # [N, 2, Dp]
-    g = _add_at(nb * D, blk[:, None, None] * D + rows,
-                inside[:, :, None].expand_as(rows), gc).view(nb, D)
+    gc = torch.sum(J * (w * r)[:, None, :, None], dim=2)        # [B, 2, Dp]
+    g = _add_at(D, rows, inside[:, :, None].expand_as(rows),
+                gc).view(1, D)
 
     # Anchor on global pose 0 (block 0, local pose 0).
-    ra = anchor_residual(poses, graph)
-    H.diagonal(dim1=-2, dim2=-1)[0, :Dp] += graph.anchor_info
-    g[0, :Dp] += graph.anchor_info * ra
+    if b == 0:
+        ra = anchor_residual(poses, graph)
+        H.diagonal(dim1=-2, dim2=-1)[0, :Dp] += graph.anchor_info
+        g[0, :Dp] += graph.anchor_info * ra
     H.diagonal(dim1=-2, dim2=-1).add_(damping)
 
-    # ---- loop factor linearization (shared by all blocks; tiny) ----------
+    # ---- loop factor linearization (every block holds it; tiny) ----------
     rl = factor_residuals(poses, loop)                          # [L, Dp]
     Jl = torch.stack(factor_jacobians(poses, loop), dim=1)      # [L, 2, Dp, Dp]
     wl = (loop.factor_valid[:, None] * loop.info).reshape(-1)   # [Dp L]
@@ -316,26 +426,27 @@ def schur_gn_step(graph: PoseGraph, n_blocks: int = 1,
     lkeep = ((lends >= 0) & (lends < N))[:, :, None, None]
     A = _add_at(Dp * Lr * Dp * N, aflat, lkeep.expand_as(aflat),
                 Jl).view(Dp * Lr, Dp * N)
+    A_own = A[:, Dp * s0:Dp * s1]                               # [Dp L, Dp B]
 
     # The loop gradient A^T W r_l; each pose's share goes to the block
     # that owns it (local rows 0..B-1), so the boundary sum counts it once.
-    g_loop = A.T @ (wl * rl.reshape(-1))                        # [Dp N]
-    g[:, :Dp * B] += g_loop.view(nb, Dp * B)
+    g_loop = A_own.T @ (wl * rl.reshape(-1))                    # [Dp B]
+    g[:, :Dp * B] += g_loop.view(1, Dp * B)
 
     # ---- right-hand sides: [g | A^T rows owned by the block] -------------
     C = 1 + Dp * Lr
-    rhs = H.new_zeros((nb, D, C))
+    rhs = H.new_zeros((1, D, C))
     rhs[:, :, 0] = g
-    rhs[:, :Dp * B, 1:] = A.T.reshape(nb, Dp * B, Dp * Lr)
+    rhs[:, :Dp * B, 1:] = A_own.T.reshape(1, Dp * B, Dp * Lr)
 
     # ---- interior elimination (factor once, solve all RHS) ---------------
     # Boundary: local poses 0 and B; interior: local poses 1..B-1.
     bsel = torch.cat([ar, Dp * B + ar])
-    Hbb = H[:, bsel[:, None], bsel[None, :]]                    # [nb, 2Dp, 2Dp]
-    Hbi = H[:, bsel, Dp:Dp * B]                                 # [nb, 2Dp, I]
+    Hbb = H[:, bsel[:, None], bsel[None, :]]                    # [1, 2Dp, 2Dp]
+    Hbi = H[:, bsel, Dp:Dp * B]                                 # [1, 2Dp, I]
     Hii = H[:, Dp:Dp * B, Dp:Dp * B]
-    rb = rhs[:, bsel]                                           # [nb, 2Dp, C]
-    ri = rhs[:, Dp:Dp * B]                                      # [nb, I, C]
+    rb = rhs[:, bsel]                                           # [1, 2Dp, C]
+    ri = rhs[:, Dp:Dp * B]                                      # [1, I, C]
     del H
     # solve_ex: no host read of the factorization's status, as the
     # reference's solve returns whatever LU gives.
@@ -343,35 +454,34 @@ def schur_gn_step(graph: PoseGraph, n_blocks: int = 1,
         Hii, torch.cat([Hbi.transpose(1, 2), ri], dim=2))[0]
     Hii_inv_Hib = Hii_inv[:, :, :2 * Dp]
     Hii_inv_ri = Hii_inv[:, :, 2 * Dp:]
-    S_local = Hbb - Hbi @ Hii_inv_Hib                           # [nb, 2Dp, 2Dp]
-    y_local = rb - Hbi @ Hii_inv_ri                             # [nb, 2Dp, C]
+    S_local = Hbb - Hbi @ Hii_inv_Hib                           # [1, 2Dp, 2Dp]
+    y_local = rb - Hbi @ Hii_inv_ri                             # [1, 2Dp, C]
 
     # ---- global boundary system: sum over blocks, one solve --------------
     W = Dp * (nb + 1)
-    brow = Dp * torch.arange(nb, device=dev)[:, None] \
-        + torch.arange(2 * Dp, device=dev)                      # [nb, 2Dp]
+    brow = (Dp * b + torch.arange(2 * Dp, device=dev))[None]    # [1, 2Dp]
     ones = torch.ones((), dtype=torch.bool, device=dev)
-    Sg = _add_at(W * W, brow[:, :, None] * W + brow[:, None, :],
-                 ones.expand(nb, 2 * Dp, 2 * Dp), S_local).view(W, W)
-    yg = S_local.new_zeros((W, C)).index_add_(
-        0, brow.reshape(-1), y_local.reshape(nb * 2 * Dp, C))
+    Sg, yg = yield (
+        _add_at(W * W, brow[:, :, None] * W + brow[:, None, :],
+                ones.expand(1, 2 * Dp, 2 * Dp), S_local),
+        S_local.new_zeros((W, C)).index_add_(
+            0, brow.reshape(-1), y_local.reshape(2 * Dp, C)))
     # The last boundary id (pose N, nonexistent) has empty rows.
+    Sg = Sg.view(W, W).clone()
     Sg.diagonal().add_(1e-12)
     db = torch.linalg.solve_ex(Sg, yg)[0]                       # [W, C]
 
-    db_local = db[brow]                                         # [nb, 2Dp, C]
-    di = Hii_inv_ri - Hii_inv_Hib @ db_local                    # [nb, I, C]
+    db_local = db[brow]                                         # [1, 2Dp, C]
+    di = Hii_inv_ri - Hii_inv_Hib @ db_local                    # [1, I, C]
     # Owned rows (local poses 0..B-1) of the solutions Hc^{-1} [g | A^T].
-    sol_own = torch.cat([db_local[:, :Dp], di], dim=1)          # [nb, Dp B, C]
+    sol_own = torch.cat([db_local[:, :Dp], di], dim=1)          # [1, Dp B, C]
     y0_own = sol_own[:, :, 0]
     X_own = sol_own[:, :, 1:]
 
     # ---- Woodbury loop correction ----------------------------------------
-    Ay0 = A @ y0_own.reshape(-1)                                # [Dp L]
-    AX = A @ X_own.reshape(Dp * N, Dp * Lr)                     # [Dp L, Dp L]
+    Ay0, AX = yield (A_own @ y0_own.reshape(-1),               # [Dp L]
+                     A_own @ X_own.reshape(Dp * B, Dp * Lr))
     K = torch.eye(Dp * Lr, device=dev) + wl[:, None] * AX
     corr = torch.linalg.solve_ex(K, (wl * Ay0)[:, None])[0][:, 0]
-    dxb = -(y0_own - X_own @ corr)                              # [nb, Dp B]
-    new_poses = poses + dxb.reshape(N, Dp)
-    return torch.cat([new_poses[:, :-1], wrap_angle(new_poses[:, -1:])],
-                     dim=1)
+    dxb = -(y0_own - X_own @ corr)                              # [1, Dp B]
+    return poses[s0:s1] + dxb.reshape(B, Dp)

@@ -9,6 +9,10 @@ subcommands, flags, printed keys and exit codes:
     python -m radar_slam_tpu_torch analyze [--dataset ... --seq ...]
                                            [--rig | --merged] [--max-frames N]
     python -m radar_slam_tpu_torch quick-compare [--frames N] [--adversarial]
+    python -m radar_slam_tpu_torch analyze-data --output RUN [--output ...]
+    python -m radar_slam_tpu_torch evaluate --run-dir RUN [--gt-velocities
+                                            ... --gt-poses ...]
+    python -m radar_slam_tpu_torch visualize --run-dir RUN
 
 Every subcommand takes ``--device`` (default ``cuda``; ``--device cpu``
 runs the kernels' plain PyTorch versions on the CPU), the counterpart of the
@@ -23,11 +27,18 @@ cg|schur``, ``--slam-proposer pose|scancontext``).  ``simulate``
 writes raw frames, ``process`` their RDS and detections, and ``pipeline``
 runs the six-step artifact pipeline (``pipeline/pipeline.py``; MUSIC
 unless ``--aoa-method`` says otherwise), each in the reference's artifact
-schema (``io/artifacts.py``).
+schema (``io/artifacts.py``).  ``analyze-data`` reports peak, RDS and
+dataset statistics of a run's ``rds/`` artifacts (``viz/analyze.py``,
+numpy only); ``evaluate`` holds a run's velocity and trajectory artifacts
+against ground truth and draws its error figures
+(``evaluate/plots.py``); ``visualize`` draws a run's artifacts
+(``viz/plots.py``); ``analyze --out`` also draws the overview figure.
+These draw with matplotlib, which no module of the port imports with
+itself: they import it when they start, and fail there where it is
+missing (the card's machine has none).
 
-``analyze-data``, ``evaluate``, ``visualize`` and ``bench`` are registered
-with the reference's flags and raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.  As in the
+``bench`` is registered with the reference's flags and raises
+``NotImplementedError`` naming the ROADMAP item that ports it.  As in the
 reference, ``--fast`` is on whatever is passed, so every subcommand runs
 ``complete_analysis_config()`` (``max_scatterers=512``).
 """
@@ -44,7 +55,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-ROADMAP_VIZ = "ROADMAP section 1, 'Visualization'"
 ROADMAP_BENCH = "ROADMAP section 1, 'The port's benchmark'"
 
 
@@ -178,8 +188,13 @@ def cmd_pipeline(args) -> int:
 
 
 def cmd_analyze(args) -> int:
-    """Streaming analysis with ground-truth comparison."""
+    """Streaming analysis with ground-truth comparison; ``--out`` also
+    writes ``analysis_results.json`` and the overview figure
+    ``complete_analysis.png``."""
     from radar_slam_tpu_torch.pipeline.streaming import StreamingAnalyzer
+    from radar_slam_tpu_torch.viz.plots import comprehensive_overview, pyplot
+    if args.out:
+        pyplot()    # without matplotlib, fail before any work
 
     device = torch.device(args.device)
     cfg = _cfg_from_args(args)
@@ -221,11 +236,9 @@ def cmd_analyze(args) -> int:
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
+        comprehensive_overview(an.results, out / "complete_analysis.png")
         with open(out / "analysis_results.json", "w") as f:
             json.dump(metrics, f, indent=2, default=float)
-        print(f"wrote {out / 'analysis_results.json'}; the overview figure "
-              f"(complete_analysis.png) waits for the port of viz "
-              f"({ROADMAP_VIZ})")
     return 0
 
 
@@ -406,6 +419,160 @@ def cmd_quick_compare(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_visualize(args) -> int:
+    """Plot the artifacts of a pipeline run directory (the reference's
+    ``visualize_results.py``); exit 2 where the directory is missing."""
+    from radar_slam_tpu_torch.core.config import complete_analysis_config
+    from radar_slam_tpu_torch.io import artifacts
+    from radar_slam_tpu_torch.viz import plots
+
+    plots.pyplot()    # without matplotlib, fail before any work
+    run = Path(args.run_dir)
+    if not run.is_dir():
+        print(f"error: run directory not found: {run}", file=sys.stderr)
+        return 2
+    out = Path(args.out or run / "visualizations")
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = complete_analysis_config()
+    made = []
+    raw = sorted((run / "raw_sim").glob("frame_*.npy"))
+    if raw:
+        made.append(plots.plot_raw_signals(np.load(raw[0]),
+                                           out / "raw_signals.png"))
+    rds_files = sorted((run / "rds").glob("frame_*_rds.npy"))
+    if rds_files:
+        rds, peaks = artifacts.load_rds_frame(run / "rds", 0)
+        made.append(plots.plot_rds(rds, cfg.radar, out / "rds.png",
+                                   detections=peaks))
+    if (run / "poses" / "trajectory.npz").exists():
+        traj = artifacts.load_trajectory(run / "poses")
+        made.append(plots.plot_trajectory(traj["positions"],
+                                          out / "trajectory.png",
+                                          orientations=traj["orientations"]))
+        made.append(plots.plot_velocity_profile(
+            traj["timestamps"],
+            np.concatenate([traj["velocities"],
+                            traj["angular_velocities"]], axis=1),
+            out / "velocities.png"))
+    print(f"wrote {len(made)} figures to {out}")
+    return 0
+
+
+def cmd_analyze_data(args) -> int:
+    """Peak / RDS / dataset-level analysis of pipeline artifacts (the
+    reference's ``analyze_data.py``: ``--frame`` / ``--antenna`` one frame,
+    ``--compare`` across frames, ``--insights`` the aggregate, repeated
+    ``--output`` across runs); exit 2 where a run has no ``rds/``."""
+    from radar_slam_tpu_torch.evaluate.reports import save_json, write_report
+    from radar_slam_tpu_torch.io import artifacts
+    from radar_slam_tpu_torch.viz import analyze as an
+
+    def load_frames(run: Path):
+        frames = []
+        for f in sorted((run / "rds").glob("frame_*_peaks.npz")):
+            with np.load(f) as z:
+                frames.append({k: z[k] for k in z.files})
+        return frames
+
+    runs = [Path(r) for r in args.output]
+    for r in runs:
+        if not (r / "rds").is_dir():
+            print(f"error: no rds artifacts under {r}", file=sys.stderr)
+            return 2
+    out_dir = Path(args.out or runs[0] / "analysis")
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    if args.insights or len(runs) > 1:
+        seqs = {r.name or str(r): load_frames(r) for r in runs}
+        result = (an.analyze_dataset(seqs) if len(runs) > 1
+                  else an.insights_report(next(iter(seqs.values()))))
+        save_json(result, out_dir / "insights.json")
+        write_report(an.insights_markdown(result), out_dir / "insights.md")
+        print(json.dumps({k: v for k, v in result.items()
+                          if k != "per_sequence"}, indent=2, default=float))
+        print(f"wrote insights.json + insights.md to {out_dir}")
+        return 0
+    if args.compare:
+        result = an.compare_frames(load_frames(runs[0]))
+        save_json(result, out_dir / "frame_comparison.json")
+        print(json.dumps(result, indent=2, default=float))
+        return 0
+    rds, peaks = artifacts.load_rds_frame(runs[0] / "rds", args.frame)
+    result = {
+        "frame": args.frame,
+        "peaks": an.analyze_detections(peaks),
+        "rds_quality": an.analyze_rds_quality(rds, antenna=args.antenna),
+    }
+    save_json(result, out_dir / f"frame_{args.frame:04d}_analysis.json")
+    print(json.dumps(result, indent=2, default=float))
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    """Evaluate a run's velocity / trajectory artifacts against ground
+    truth (the reference's ``compute_velocity_error.py`` and
+    ``compute_pose_error.py``): markdown reports and, through
+    ``emit_error_plots``, their figures; exit 2 where nothing matches."""
+    from radar_slam_tpu_torch.evaluate import (pose_metrics, reports,
+                                               velocity_metrics)
+    from radar_slam_tpu_torch.evaluate.plots import emit_error_plots
+    from radar_slam_tpu_torch.io import artifacts
+    from radar_slam_tpu_torch.viz.plots import pyplot
+
+    pyplot()    # without matplotlib, fail before any work
+    run = Path(args.run_dir)
+    out = Path(args.out or run / "evaluation")
+    out.mkdir(parents=True, exist_ok=True)
+    wrote = []
+
+    vel_dir = run / "velocities"
+    if args.gt_velocities and vel_dir.exists():
+        n = len(sorted(vel_dir.glob("frame_*_velocity.npz")))
+        est = []
+        for i in range(n):
+            v = artifacts.load_velocity_frame(vel_dir, i)
+            est.append(np.concatenate([v["velocity"], v["angular_velocity"]]))
+        est = np.asarray(est)
+        gt = np.load(args.gt_velocities)
+        if gt.shape != (n, 6):
+            print(f"error: GT velocities shape {gt.shape} != ({n}, 6)",
+                  file=sys.stderr)
+            return 2
+        res = velocity_metrics.compute_velocity_errors(est, gt)
+        trends = velocity_metrics.analyze_error_trends(res)
+        reports.write_report(reports.velocity_report_markdown(res, trends),
+                             out / "velocity_report.md")
+        wrote.append("velocity_report.md")
+        wrote += [p.name for p in emit_error_plots(
+            out, velocities_est=est, velocities_gt=gt)]
+
+    if args.gt_poses and (run / "poses" / "trajectory.npz").exists():
+        traj = artifacts.load_trajectory(run / "poses")
+        est7 = np.column_stack([traj["positions"], traj["quaternions"]])
+        gt7 = np.load(args.gt_poses)
+        if gt7.shape != est7.shape:
+            print(f"error: GT poses shape {gt7.shape} != {est7.shape}",
+                  file=sys.stderr)
+            return 2
+        ape = pose_metrics.compute_ape(est7, gt7)
+        rte = pose_metrics.compute_rte(est7, gt7)
+        reports.write_report(reports.pose_report_markdown(ape, rte),
+                             out / "pose_report.md")
+        print(json.dumps({"position_rmse": ape["position_rmse"],
+                          "orientation_rmse": ape["orientation_rmse"]}))
+        wrote.append("pose_report.md")
+        wrote += [p.name for p in emit_error_plots(
+            out, ape=ape, rte=rte, est_positions=est7[:, :3],
+            gt_positions=gt7[:, :3])]
+
+    if not wrote:
+        print("error: nothing to evaluate (need --gt-velocities and/or "
+              "--gt-poses plus matching artifacts)", file=sys.stderr)
+        return 2
+    print(f"wrote {wrote} to {out}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="radar_slam_tpu_torch",
                                 description=__doc__.split("\n")[0])
@@ -486,7 +653,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "targets, jitter, dropped frames) against the "
                          "parity bound")
 
-    sp = add("analyze-data", _not_ported("analyze-data", ROADMAP_VIZ),
+    sp = add("analyze-data", cmd_analyze_data,
              help="peak/RDS/dataset statistics from artifacts")
     sp.add_argument("--output", action="append", required=True,
                     help="pipeline run directory (repeat for multi-"
@@ -499,7 +666,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="aggregate insights report (JSON + markdown)")
     sp.add_argument("--out", default=None)
 
-    sp = add("evaluate", _not_ported("evaluate", ROADMAP_VIZ),
+    sp = add("evaluate", cmd_evaluate,
              help="evaluate saved artifacts vs GT")
     sp.add_argument("--run-dir", required=True)
     sp.add_argument("--gt-velocities", default=None,
@@ -508,7 +675,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help=".npy file of GT poses [F, 7] (xyz + wxyz quat)")
     sp.add_argument("--out", default=None)
 
-    sp = add("visualize", _not_ported("visualize", ROADMAP_VIZ),
+    sp = add("visualize", cmd_visualize,
              help="plot pipeline artifacts")
     sp.add_argument("--run-dir", required=True)
     sp.add_argument("--out", default=None)

@@ -296,20 +296,25 @@ def _aoa_features(det: Detections, sigs: torch.Tensor, cfg: PipelineConfig):
 
 def _batched_assoc_solve(targets: Targets, cfg: PipelineConfig,
                          sensor_pos: Optional[torch.Tensor] = None,
-                         group: Optional[torch.Tensor] = None
+                         group: Optional[torch.Tensor] = None,
+                         halo: Optional[Targets] = None
                          ) -> Tuple[torch.Tensor, MotionEstimate]:
     """Association with the previous frame (a shift, not a scan) and the
     velocity solve, batched over frames; no temporal prior.
     ``sensor_pos`` [K, 3] and ``group`` [K] are the mounted rig's
     per-target sensor origins and sensor-block ids
-    (``pipeline/rig.py``)."""
+    (``pipeline/rig.py``).  ``halo`` (one frame, leading axis 1) is the
+    frame before frame 0, where a frame block continues a sequence
+    (``parallel/dp.py``); without it frame 0 has no predecessor."""
     F = targets.range_m.shape[0]
-    prev = Targets(*[None if x is None else torch.cat([x[:1], x[:-1]])
-                     for x in targets])
+    first = targets if halo is None else halo
+    prev = Targets(*[None if x is None else torch.cat([h[:1], x[:-1]])
+                     for h, x in zip(first, targets)])
     assoc = associate_targets(targets, prev, cfg.frame_dt, cfg.velocity,
                               sensor_pos=sensor_pos, group=group)
-    has_prev = torch.arange(F, device=targets.range_m.device) > 0
-    assoc = assoc._replace(valid=assoc.valid & has_prev[:, None])
+    if halo is None:
+        has_prev = torch.arange(F, device=targets.range_m.device) > 0
+        assoc = assoc._replace(valid=assoc.valid & has_prev[:, None])
     motion = solve_velocity(
         assoc, cfg.frame_dt, cfg.radar.lambda_c, cfg.velocity,
         v_unambiguous=cfg.radar.max_unambiguous_velocity)
@@ -317,11 +322,16 @@ def _batched_assoc_solve(targets: Targets, cfg: PipelineConfig,
 
 
 def _pose_prefix(motion: MotionEstimate, cfg: PipelineConfig,
-                 rotate_pose: bool) -> torch.Tensor:
-    """Planar pose [F, 3] as prefix sums over per-frame increments."""
+                 rotate_pose: bool, exclusive=None) -> torch.Tensor:
+    """Planar pose [F, 3] as prefix sums over per-frame increments.
+    ``exclusive`` maps a frame block's total increment to the sum of the
+    earlier blocks' totals (``parallel/dp.py``); without it the frames
+    are the whole sequence."""
     dtf = float(np.float32(cfg.frame_dt))
     wz = torch.where(motion.success, motion.angular_velocity[:, 2], 0.0)
     yaw_after = torch.cumsum(wz * dtf, dim=0)
+    if exclusive is not None:
+        yaw_after = exclusive(yaw_after[-1]) + yaw_after
     yaw_before = yaw_after - wz * dtf
     v = torch.where(motion.success[:, None], motion.velocity[:, :2], 0.0)
     if rotate_pose:
@@ -331,6 +341,8 @@ def _pose_prefix(motion: MotionEstimate, cfg: PipelineConfig,
     else:
         step_xy = v * dtf
     xy_after = torch.cumsum(step_xy, dim=0)
+    if exclusive is not None:
+        xy_after = exclusive(xy_after[-1]) + xy_after
     return torch.cat([xy_after, yaw_after[:, None]], dim=-1)
 
 

@@ -13,8 +13,10 @@ tests/test_cli_dataset.py:12-112, copied, at 6 and 12 frames).
   the reference test's bounds and keys (test_cli_dataset.py:116-220).  The
   CLI's noise is Philox where the reference's is threefry, so numeric
   parity lives in the sigma-0 module tests (test_torch_streaming.py).
-- Errors: the subcommands not ported yet raise ``NotImplementedError``
-  (``analyze --slam`` runs: tests/test_torch_slam_cli.py).
+- Errors: ``bench``, the one subcommand not ported yet, raises
+  ``NotImplementedError`` (``analyze --slam`` runs:
+  tests/test_torch_slam_cli.py; ``analyze-data``, ``evaluate``,
+  ``visualize`` and ``analyze --out``'s figure: tests/test_torch_viz.py).
 """
 
 import json
@@ -216,7 +218,7 @@ def test_cli_analyze_dataset_defaults_to_rig(mini_dataset, capsys):
 def test_cli_analyze_dataset_merged(mini_dataset, tmp_path, capsys):
     """--merged forces the merged-sensor streaming path
     (test_cli_dataset.py:197-206); --out writes analysis_results.json and
-    says the figure waits for the viz port."""
+    the overview figure complete_analysis.png (cli.py:217-221)."""
     out_dir = tmp_path / "out"
     rc = cli_main(["analyze", "--merged", "--dataset", str(mini_dataset),
                    "--seq", "sequence_9", "--max-frames", "6",
@@ -227,7 +229,8 @@ def test_cli_analyze_dataset_merged(mini_dataset, tmp_path, capsys):
     assert m["frames_processed"] == 6
     assert m["position_rmse"] < 0.5
     assert json.loads((out_dir / "analysis_results.json").read_text()) == m
-    assert "complete_analysis.png" in out.splitlines()[-1]
+    assert sorted(p.name for p in out_dir.iterdir()) == [
+        "analysis_results.json", "complete_analysis.png"]
 
 
 def test_cli_analyze_dataset_rig(mini_dataset, capsys):
@@ -306,9 +309,6 @@ def test_cli_analyze_synthetic_and_quick_compare(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["analyze-data", "--output", "x"], "Visualization"),
-    (["evaluate", "--run-dir", "x"], "Visualization"),
-    (["visualize", "--run-dir", "x"], "Visualization"),
     (["bench"], "The port's benchmark")])
 def test_cli_unported_subcommands_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):

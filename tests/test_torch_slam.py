@@ -209,8 +209,10 @@ def test_targets_to_points_and_bad_options():
 
 def test_parallel_modules_import_and_run_without_jax():
     """A process where ``jax`` and the JAX package cannot be imported
-    imports every module of ``radar_slam_tpu_torch.parallel`` and refines
-    a small circle with both solvers and both proposers on the CPU."""
+    imports every module of ``radar_slam_tpu_torch.parallel`` (the SLAM
+    back end's five and, since the multi-process back ends, ``mesh``,
+    ``distributed``, ``dp`` and ``multiseq``) and refines a small circle
+    with both solvers and both proposers on the CPU."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -277,4 +279,4 @@ def test_parallel_modules_import_and_run_without_jax():
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split("MODULES")[-1]) == 5, res.stdout
+    assert int(res.stdout.split("MODULES")[-1]) == 9, res.stdout
