@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-checks
 
 Builds the port's CUDA kernels from ``radar_slam_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together) and drives the port's main paths on
@@ -336,6 +337,15 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     trip), then 8 sequences x 1024 frames at the bench
                     width through process_sequences_sharded: K1 once a
                     call, frames/s, device launches, peak memory;
+17f. bench          the CLI's ``bench`` in process (bench_torch.py, the
+                    counterpart of bench.py) at the bench's width, its
+                    scan and chunked pairs shrunk to (16, 64) and (128,
+                    512) frames with 2 trials: exit 0, the line's keys
+                    bench.py's in order (read with ast), finite positive
+                    rates, K1 launched in each timed path, its kernel
+                    checks (--kernel-checks, below) passed; the line,
+                    ``sane`` and each ``*_ok`` printed, not gated, and
+                    the phase's seconds;
 18. kernels         the per-kernel summary line: launches on the main
                     paths, error against the plain version, kernel and
                     plain times, the shape routes' times and bounds, the
@@ -348,8 +358,9 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     and per sequential rig step (rig_launches), the
                     launches in each entry-point run of 17b
                     (entry_point_launches), in each run of 17c
-                    (estimation_launches), of 17d (slam_launches) and of
-                    17e (parallel_launches: per rank), the
+                    (estimation_launches), of 17d (slam_launches), of
+                    17e (parallel_launches: per rank) and of 17f
+                    (bench_launches), the
                     routes at A = 32 and
                     C = 16, 25, and the one-call PyTorch time (none of
                     these kernels has one: null).
@@ -357,6 +368,11 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
 a kernel does not build or launch, or any check fails.  Imports no JAX.
+
+``--kernel-checks`` runs only phases 2, 4, 6, 8 and ura_kernels_vs_plain
+(17c), with their gates, and prints one count line
+``{"phase": "kernel_checks", "passed": N, ...}``; it exits 1 on a failed
+check.  bench_torch.py's ``chip_tests`` runs it.
 """
 
 import concurrent.futures
@@ -474,9 +490,13 @@ K8_TOL = 1e-5
 K8_REFERENCE_CONSTANT_TOL = 2e-5
 
 
+CHECKS_PASSED = [0]
+
+
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+    CHECKS_PASSED[0] += 1
 
 
 def emit(phase, **fields):
@@ -1034,12 +1054,14 @@ def device_trace(torch, fn, activities):
     this script on an H100, K5's two launches were missing from a short
     trace, and a traced driver call of CPU and CUDA activity lost its
     first 5-13 kernels unless the trace had run for ~2 s before the call
-    (PERF.md, Findings, PR 8).  So the call sits between two spin kernels
-    and host sleeps of a pad from ``TRACE_PADS_S``, and the trace is taken
-    again with the next pad until both spin kernels are in it; later
+    (PERF.md, Findings).  So the call sits between two spin kernels,
+    after a host sleep of a pad from ``TRACE_PADS_S``, and the trace is
+    taken again with the next pad until both spin kernels are in it; later
     traces start at the pad that worked (``TRACE_PAD``).  It raises if the
     last pad still loses one.  Each retry, with the spin kernel it lost,
-    is appended to ``TRACE_RETRIES``."""
+    is appended to ``TRACE_RETRIES``.  Only the leading spin kernel has
+    been lost (the retries recorded on the H100 kept the trailing one, at
+    every pad), so the sleep after the call stays the shortest pad."""
     from torch.profiler import profile
     while TRACE_PAD[0] < len(TRACE_PADS_S):
         pad = TRACE_PADS_S[TRACE_PAD[0]]
@@ -1053,7 +1075,7 @@ def device_trace(torch, fn, activities):
             wall = time.perf_counter() - t0
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            time.sleep(pad)
+            time.sleep(TRACE_PADS_S[0])
         events = [ev for ev in prof.events()
                   if str(ev.device_type).endswith("CUDA")]
         spins = [ev.time_range.start for ev in events
@@ -5225,6 +5247,88 @@ def phase_analyze_data(torch, counters, device, run_dir):
     emit("analyze_data", run=run_dir.name, runs=rows)
 
 
+def bench_py_keys():
+    """The keys of bench.py's result line and of its frontend_knobs, in
+    order, read from its ``result = {...}`` literal (bench.py is not
+    imported: it imports JAX)."""
+    import ast
+    tree = ast.parse((REPO / "bench.py").read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(getattr(t, "id", None) == "result"
+                        for t in node.targets)):
+            keys = [k.value for k in node.value.keys]
+            knobs = node.value.values[keys.index("frontend_knobs")]
+            return keys, [k.value for k in knobs.keys]
+    raise RuntimeError("chip_smoke: no result literal in bench.py")
+
+
+# bench_torch's timed calls of one run, in the order main() makes them:
+# time_one on the accuracy batch, then time_pair per driver.
+BENCH_TIMED = ("headline_one", "headline", "scan", "chunked", "music",
+               "rig")
+
+
+def phase_bench(torch, counters, fe, device):
+    """``bench`` through the CLI in process at the bench's width, the scan
+    and chunked pairs shrunk to (16, 64) and (128, 512) frames with 2
+    trials (every other size as bench_torch.py has it), its kernel checks
+    (``chip_smoke.py --kernel-checks``) run once through its
+    ``chip_tests``: exit 0; the line's keys bench.py's, in order; every rate
+    finite and positive; K1 launched in each timed path (time_one and
+    each time_pair, counted around the call); the kernel checks passed.
+    ``sane`` and each ``*_ok`` are printed, not gated (the accuracy gates
+    are gated at seed PIPELINE_SEED above; the bench judges seed 0)."""
+    import bench_torch
+    keys, knob_keys = bench_py_keys()
+    k1 = fe.frontend_kernel_split
+    timed = []
+
+    def counting(fn):
+        def run(*args, **kw):
+            before = k1.launches
+            out = fn(*args, **kw)
+            timed.append(k1.launches - before)
+            return out
+        return run
+
+    saved = {n: getattr(bench_torch, n)
+             for n in ("SCAN", "CHUNKED", "time_one", "time_pair")}
+    bench_torch.SCAN = bench_torch.Pair(16, 64, 2)
+    bench_torch.CHUNKED = bench_torch.Pair(128, 512, 2)
+    bench_torch.time_one = counting(saved["time_one"])
+    bench_torch.time_pair = counting(saved["time_pair"])
+    torch.cuda.empty_cache()       # its kernel checks' process shares the card
+    t0 = time.perf_counter()
+    try:
+        (rc, _, r), n = counted(torch, counters,
+                                lambda: run_cli(["bench"], device))
+    finally:
+        for name, v in saved.items():
+            setattr(bench_torch, name, v)
+    seconds = time.perf_counter() - t0
+    check(rc == 0 and r is not None, f"bench: exit {rc}, line {r}")
+    check(list(r) == keys and list(r["frontend_knobs"]) == knob_keys,
+          f"bench: keys {list(r)}, knobs {list(r['frontend_knobs'])}")
+    rates = {k: r[k] for k in ("value", "scan_driver_fps",
+                               "chunked_driver_fps", "music_fps",
+                               "rig_fps_4sensor", "dispatch_s_64f")}
+    rates.update({f"stage {k}": v for k, v in r["stage_us_per_64f"].items()})
+    check(all(math.isfinite(v) and v > 0 for v in rates.values()),
+          f"bench: rates {rates}")
+    per_path = dict(zip(BENCH_TIMED, timed))
+    check(len(timed) == len(BENCH_TIMED) and all(timed),
+          f"bench: K1 launches per timed path {timed}")
+    check(r["device"] == torch.cuda.get_device_name(0)
+          and r["chip_tests_ok"] is True and r["chip_tests_passed"] > 0,
+          f"bench: device {r['device']}, chip tests "
+          f"{r['chip_tests_ok']} ({r['chip_tests_passed']})")
+    emit("bench", seconds=round(seconds, 1), sane=r["sane"],
+         gates={k: v for k, v in r.items() if k.endswith("_ok")},
+         k1_launches_per_timed_path=per_path, launches=n, result=r)
+    return n
+
+
 def build_kernels(_build):
     """Build every CUDA source at once (one nvcc each); returns seconds
     per source and the compiler's register / spill report."""
@@ -5264,18 +5368,76 @@ def ptxas_report(text):
     return rows
 
 
-def main():
+def open_card():
+    """torch, with the repo on the path, or None (and why, on stderr) where
+    there is no card or no package beside this script."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
-        return 2
+        return None
     if not (REPO / "radar_slam_tpu_torch").is_dir():
         print(f"chip_smoke: no radar_slam_tpu_torch package beside "
               f"{Path(__file__).name}; run it from a checkout of the repo",
               file=sys.stderr)
-        return 2
+        return None
     sys.path.insert(0, str(REPO))
+    return torch
+
+
+def kernel_checks():
+    """``chip_smoke.py --kernel-checks``: only the phases that hold every
+    kernel against its plain version, with their gates (kernel_vs_plain,
+    cube_kernels_vs_plain, synth_kernels_vs_plain,
+    k1prime_kernels_vs_plain, ura_kernels_vs_plain), then one count line
+    ``{"phase": "kernel_checks", "passed": N, ...}``: the checks passed, in
+    all and per phase.  Exits 1 at the first failed check (the line then
+    names it), 2 where there is no card."""
+    torch = open_card()
+    if torch is None:
+        return 2
+    from radar_slam_tpu_torch.core import config as cfg_mod
+    from radar_slam_tpu_torch.ops import _build, cfar, dechirp, power
+    from radar_slam_tpu_torch.ops import frontend as fe
+    from radar_slam_tpu_torch.ops import rds as rds_op
+    from radar_slam_tpu_torch.ops import synthpower as sp
+
+    device = torch.device("cuda", 0)
+    fe.use_f32_matmuls()
+    build_kernels(_build)
+    k = (power, rds_op, dechirp, cfar)
+    phases = {
+        "kernel_vs_plain": lambda: phase_kernel_vs_plain(
+            torch, fe, cfg_mod, device),
+        "cube_kernels_vs_plain": lambda: phase_cube_kernels_vs_plain(
+            torch, k, cfg_mod, device),
+        "synth_kernels_vs_plain": lambda: phase_synth_kernels_vs_plain(
+            torch, sp, fe, power, cfg_mod, device),
+        "k1prime_kernels_vs_plain": lambda: phase_k1prime_kernels_vs_plain(
+            torch, fe, sp, cfg_mod, device),
+        "ura_kernels_vs_plain": lambda: phase_ura_kernels_vs_plain(
+            torch, sp, fe, power, cfg_mod, device),
+    }
+    t0 = time.perf_counter()
+    per_phase, failed = {}, None
+    for name, run in phases.items():
+        before = CHECKS_PASSED[0]
+        try:
+            run()
+        except RuntimeError as e:
+            failed = f"{name}: {e}"
+            break
+        finally:
+            per_phase[name] = CHECKS_PASSED[0] - before
+    emit("kernel_checks", passed=CHECKS_PASSED[0], per_phase=per_phase,
+         failed=failed, seconds=round(time.perf_counter() - t0, 1))
+    return 1 if failed else 0
+
+
+def main():
+    torch = open_card()
+    if torch is None:
+        return 2
     from radar_slam_tpu_torch.core import config as cfg_mod
     from radar_slam_tpu_torch.ops import _build, cfar, dechirp, power
     from radar_slam_tpu_torch.ops import frontend as fe
@@ -5392,6 +5554,7 @@ def main():
     phase_ba_ranks(torch, counters, device)
     parallel_runs.update({f"multiseq {k}": v for k, v in phase_multiseq(
         torch, counters, cfg_mod, device).items()})
+    bench_launches = phase_bench(torch, counters, fe, device)
     emit("trace_retries", pads_s=list(TRACE_PADS_S),
          final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 
@@ -5496,6 +5659,10 @@ def main():
                         "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
                         "bound_pipe")}
     kernels[0]["routes"]["A32_C32 K1"]["max_abs_err"] = ura_err["K1"]
+    for e in kernels:
+        key = e["name"].split()[0]
+        if key in bench_launches:
+            e["bench_launches"] = bench_launches[key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5507,4 +5674,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(sys.argv[2:]))
+    if sys.argv[1:] == ["--kernel-checks"]:
+        sys.exit(kernel_checks())
     sys.exit(main())

@@ -15,7 +15,8 @@ is always LAST and rotates the xy plane only):
 Every factor array has a static shape with a validity mask.  Graphs and
 their tensors are data: the device comes from the inputs.
 :func:`posegraph_from_numpy` builds a graph from a dict of arrays (the
-reference's graph fetched to numpy, for example).
+reference's graph fetched to numpy, for example), on the card unless the
+caller names another device.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 from radar_slam_tpu_torch.core.geometry import wrap_angle
 
 
@@ -40,9 +42,11 @@ class PoseGraph(NamedTuple):
 
 
 def posegraph_from_numpy(arrays: Dict[str, np.ndarray],
-                         device="cpu") -> PoseGraph:
+                         device=DEFAULT) -> PoseGraph:
     """A :class:`PoseGraph` from a dict of arrays keyed by field name
-    (int32 endpoints, bool validity, float32 otherwise), on ``device``."""
+    (int32 endpoints, bool validity, float32 otherwise), on ``device`` --
+    the card unless the caller names another."""
+    device = resolve(device)
     dtypes = {"fi": torch.int32, "fj": torch.int32,
               "factor_valid": torch.bool}
     return PoseGraph(**{

@@ -13,6 +13,7 @@ subcommands, flags, printed keys and exit codes:
     python -m radar_slam_tpu_torch evaluate --run-dir RUN [--gt-velocities
                                             ... --gt-poses ...]
     python -m radar_slam_tpu_torch visualize --run-dir RUN
+    python -m radar_slam_tpu_torch bench
 
 Every subcommand takes ``--device`` (default ``cuda``; ``--device cpu``
 runs the kernels' plain PyTorch versions on the CPU), the counterpart of the
@@ -37,10 +38,11 @@ These draw with matplotlib, which no module of the port imports with
 itself: they import it when they start, and fail there where it is
 missing (the card's machine has none).
 
-``bench`` is registered with the reference's flags and raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  As in the
-reference, ``--fast`` is on whatever is passed, so every subcommand runs
-``complete_analysis_config()`` (``max_scatterers=512``).
+``bench`` runs the root script ``bench_torch.py`` (the counterpart of
+``bench.py``, which the reference's ``bench`` runs) on ``--device`` and
+prints its one JSON line.  As in the reference, ``--fast`` is on whatever
+is passed, so every other subcommand runs ``complete_analysis_config()``
+(``max_scatterers=512``).
 """
 
 from __future__ import annotations
@@ -54,8 +56,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-ROADMAP_BENCH = "ROADMAP section 1, 'The port's benchmark'"
 
 
 def _cfg_from_args(args):
@@ -94,12 +94,6 @@ def _load_dataset_frames(args, cfg, device):
         frames = frames[:args.max_frames]
     return loader.frames_as_batches(data, frames, cfg.max_scatterers,
                                     device=device)
-
-
-def _not_ported(what: str, item: str):
-    def cmd(args) -> int:
-        raise NotImplementedError(f"{what} is not ported yet ({item})")
-    return cmd
 
 
 def cmd_simulate(args) -> int:
@@ -573,6 +567,20 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The benchmark, ``bench_torch.py`` at the root of the checkout this
+    package sits in (imported once as ``bench_torch``), on ``--device``."""
+    bench = sys.modules.get("bench_torch")
+    if bench is None:
+        import importlib.util
+        path = Path(__file__).resolve().parents[2] / "bench_torch.py"
+        spec = importlib.util.spec_from_file_location("bench_torch", path)
+        bench = importlib.util.module_from_spec(spec)
+        sys.modules["bench_torch"] = bench
+        spec.loader.exec_module(bench)
+    return bench.main(["--device", args.device])
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="radar_slam_tpu_torch",
                                 description=__doc__.split("\n")[0])
@@ -680,8 +688,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--run-dir", required=True)
     sp.add_argument("--out", default=None)
 
-    add("bench", _not_ported("bench", ROADMAP_BENCH),
-        help="run the benchmark")
+    add("bench", cmd_bench, help="run the benchmark (bench_torch.py)")
     return p
 
 

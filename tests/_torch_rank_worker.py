@@ -71,10 +71,10 @@ def _graph(arrays):
     import torch
     if arrays["poses"].ndim == 3:
         graphs = [posegraph.posegraph_from_numpy(
-            {k: v[m] for k, v in arrays.items()})
+            {k: v[m] for k, v in arrays.items()}, device="cpu")
             for m in range(arrays["poses"].shape[0])]
         return posegraph.PoseGraph(*[torch.stack(x) for x in zip(*graphs)])
-    return posegraph.posegraph_from_numpy(arrays)
+    return posegraph.posegraph_from_numpy(arrays, device="cpu")
 
 
 def task_topology(mesh, topology):

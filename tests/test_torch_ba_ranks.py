@@ -104,7 +104,8 @@ def test_schur_step_ranks_match_reference_mesh(ranks, name, world):
     want = np.asarray(jba.schur_gn_step(g, make_mesh(world)))
     got = ranks[world][f"schur {name}"]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
-    one = tba.schur_gn_step(tpg.posegraph_from_numpy(arrays(g)), world)
+    one = tba.schur_gn_step(tpg.posegraph_from_numpy(arrays(g), device="cpu"),
+                           world)
     np.testing.assert_allclose(got, one.numpy(), rtol=0, atol=1e-4)
 
 
@@ -123,7 +124,8 @@ def test_schur_ranks_close_the_loops(ranks, world):
 
 
 def test_cg_mesh_needs_equal_factor_blocks():
-    g = tpg.posegraph_from_numpy(arrays(chain(16, 2)))   # 17 factors
+    g = tpg.posegraph_from_numpy(arrays(chain(16, 2)),  # 17 factors
+                               device="cpu")
     two = tba.Mesh(None, 2, 0, torch.device("cpu"))
     with pytest.raises(ValueError, match="equal blocks"):
         tba.gauss_newton_cg(g, mesh=two)

@@ -13,10 +13,10 @@ tests/test_cli_dataset.py:12-112, copied, at 6 and 12 frames).
   the reference test's bounds and keys (test_cli_dataset.py:116-220).  The
   CLI's noise is Philox where the reference's is threefry, so numeric
   parity lives in the sigma-0 module tests (test_torch_streaming.py).
-- Errors: ``bench``, the one subcommand not ported yet, raises
-  ``NotImplementedError`` (``analyze --slam`` runs:
-  tests/test_torch_slam_cli.py; ``analyze-data``, ``evaluate``,
-  ``visualize`` and ``analyze --out``'s figure: tests/test_torch_viz.py).
+- Errors: an unknown subcommand is argparse's.  The other subcommands
+  have their own files: ``analyze --slam`` tests/test_torch_slam_cli.py;
+  ``analyze-data``, ``evaluate``, ``visualize`` and ``analyze --out``'s
+  figure tests/test_torch_viz.py; ``bench`` tests/test_torch_bench.py.
 """
 
 import json
@@ -306,13 +306,6 @@ def test_cli_analyze_synthetic_and_quick_compare(capsys):
                       "compile_time_s", "reference_bounds"}
     assert r["frames"] == 4 and r["position_rmse_m"] <= 0.777
     assert out.strip().splitlines()[-1] == "PARITY: PASS"
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["bench"], "The port's benchmark")])
-def test_cli_unported_subcommands_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
-        cli_main(argv + ["--device", "cpu"])
 
 
 def test_cli_unknown_subcommand_is_an_argparse_error(capsys):

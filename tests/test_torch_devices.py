@@ -8,6 +8,7 @@ import), so every worker collects the same tests."""
 import dataclasses
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,7 @@ from radar_slam_tpu_torch.io.synthetic import (SceneConfig,
                                                constant_motion_scene)
 from radar_slam_tpu_torch.ops import _build, range_dft
 from radar_slam_tpu_torch.ops.windows import get_window
+from radar_slam_tpu_torch.parallel import posegraph
 from radar_slam_tpu_torch.pipeline import frame
 from radar_slam_tpu_torch.signal import rds, synth
 
@@ -28,6 +30,15 @@ def _scene(**kw):
     return constant_motion_scene(
         7, num_frames=2, dt=CFG.frame_dt, v_body=(8.0, 0.5), yaw_rate=0.05,
         scene=SceneConfig(num_points=16, max_scatterers=32), **kw)[0].range_m
+
+
+def _graph(**kw):
+    """A two-pose chain with its anchor, built from numpy arrays."""
+    arrays = {"poses": np.zeros((2, 3)), "fi": np.zeros(1),
+              "fj": np.ones(1), "delta": np.zeros((1, 3)),
+              "info": np.ones((1, 3)), "factor_valid": np.ones(1, bool),
+              "anchor": np.zeros(3), "anchor_info": np.ones(3)}
+    return posegraph.posegraph_from_numpy(arrays, **kw).poses
 
 
 # Each entry point with the arguments it needs, returning one tensor it
@@ -53,6 +64,7 @@ ENTRY_POINTS = {
     "antenna_positions": lambda **kw: geometry.antenna_positions(8, 0.002,
                                                                  **kw),
     "range_dft.twiddles": lambda **kw: range_dft.twiddles(400, **kw),
+    "posegraph_from_numpy": _graph,
 }
 
 

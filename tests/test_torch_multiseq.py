@@ -123,7 +123,8 @@ def test_stacked_cg_matches_reference_solve_batch():
     batch, graphs = _loopy_graphs(M=4, n=16)
     want_p, want_c = jms._solve_batch(batch, gn_iters=6, cg_iters=40)
     stacked = tpg.PoseGraph(*[torch.stack(x) for x in zip(*[
-        tpg.posegraph_from_numpy(graph_arrays(g)) for g in graphs])])
+        tpg.posegraph_from_numpy(graph_arrays(g), device="cpu")
+        for g in graphs])])
     got_p, got_c = tba.gauss_newton_cg(stacked, gn_iters=6, cg_iters=40)
     assert got_p.shape == (4, 16, 3) and got_c.shape == (4,)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=0,

@@ -37,7 +37,8 @@ from tests.test_parallel import _loopy_graph, _z_graph, make_noisy_chain
 
 def to_torch(g):
     return tpg.posegraph_from_numpy({k: np.asarray(v)
-                                     for k, v in g._asdict().items()})
+                                     for k, v in g._asdict().items()},
+                                    device="cpu")
 
 
 def rel(got, want):
