@@ -198,14 +198,20 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     --adversarial (six scenarios pass; K1 50 launches: the
                     reference_fidelity scenario keeps fft_mode "fft" and
                     launches no hand kernel), analyze --max-frames 10
-                    (frames_processed 10, K1 10) and analyze --rig (frames
-                    10, K1 once);
+                    (frames_processed 10, K1 2: the analyzer's eager step
+                    and its capture, its 8 replays launch the graph) and
+                    analyze --rig (frames 10, K1 once);
                     streaming: StreamingAnalyzer over 256 frames of the
                     bench scene: host-clock p50 / p99 a frame, frames/s,
-                    launches a step; its trajectory, from device tensors
-                    and from host numpy (through the chunk uploader),
-                    equal bit for bit to the loop of process_scatterers
-                    with its seeds;
+                    launches a step (through the wrappers: the eager step
+                    and the capture launch K1, a replayed CUDA graph
+                    launches none), the steps by path (1 eager, 1
+                    capture, 254 replays), and K1's kernels in a device
+                    trace of a fresh analyzer over 32 frames (each of
+                    range_fft, z_power and cfar once a frame); its
+                    trajectory, from device tensors and from host numpy
+                    (through the chunk uploader), equal bit for bit to
+                    the loop of process_scatterers with its seeds;
                     streaming_resume: a child process checkpoints every 10
                     frames and os._exit(0)s after frame 37; restored at
                     frame 30 and finished, bit for bit the uninterrupted
@@ -357,7 +363,9 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     K1's launches per batched rig call (over F * B frames)
                     and per sequential rig step (rig_launches), the
                     launches in each entry-point run of 17b
-                    (entry_point_launches), in each run of 17c
+                    (entry_point_launches: the host's, through the
+                    wrappers; a replayed CUDA graph launches none), in
+                    each run of 17c
                     (estimation_launches), of 17d (slam_launches), of
                     17e (parallel_launches: per rank) and of 17f
                     (bench_launches), the
@@ -2838,6 +2846,7 @@ def phase_seed_spread_gates(torch, cfg_mod, device):
 
 STREAM_FRAMES = 256
 STREAM_WARMUP = 8
+STREAM_TRACE_FRAMES = 32
 RESUME_FRAMES = 64
 RESUME_EVERY = 10
 RESUME_LAST_FRAME = 37
@@ -2921,7 +2930,9 @@ def phase_cli(torch, counters, device):
     rows["analyze"] = dict(rc=rc, result=r, launches=n)
     check(rc == 0 and r["frames_processed"] == 10
           and r["position_rmse"] <= 0.777, f"cli: analyze {r}")
-    check(n.get("K1", 0) == 10, f"cli: analyze launches {n}")
+    # The analyzer's eager step and its capture launch K1; its 8 replays
+    # launch the CUDA graph.
+    check(n.get("K1", 0) == 2, f"cli: analyze launches {n}")
     (rc, _, r), n = counted(torch, counters, lambda: run_cli(
         ["analyze", "--rig", "--max-frames", "10"], device))
     rows["analyze_rig"] = dict(rc=rc, result=r, launches=n)
@@ -2946,11 +2957,26 @@ def step_loop_poses(torch, cfg, batch, device):
     return torch.cat(poses).cpu().numpy()
 
 
+def k1_device_kernels(torch, run):
+    """K1's kernels the device ran in one traced call of ``run``, by name:
+    each K1 launch runs ``range_fft_kernel``, ``z_power_kernel`` and
+    ``cfar_kernel`` once, whether the host launched it through the
+    wrapper or a CUDA graph replayed it."""
+    from torch.profiler import ProfilerActivity
+    events, _ = device_trace(torch, run, [ProfilerActivity.CUDA])
+    return {k: sum(k in ev.name for ev in events)
+            for k in ("range_fft_kernel", "z_power_kernel", "cfar_kernel")}
+
+
 def phase_streaming(torch, counters, cfg_mod, device):
     """StreamingAnalyzer at the CLI's configuration over 256 frames of the
-    bench scene: host-clock latency per frame, frames/s, launches per
-    step; its trajectory, from device tensors and from host numpy (through
-    the chunk uploader), equal bit for bit to the loop of steps."""
+    bench scene: host-clock latency per frame, frames/s, launches through
+    the wrappers per step (only the eager step and the capture launch K1:
+    a replay launches the CUDA graph), the steps by path (one eager, one
+    captured, the rest replays); K1's kernels in a device trace of a fresh
+    analyzer over STREAM_TRACE_FRAMES frames, one of each a frame; its
+    trajectory, from device tensors and from host numpy (through the chunk
+    uploader), equal bit for bit to the loop of steps."""
     from radar_slam_tpu_torch.pipeline import frame as fr
     from radar_slam_tpu_torch.pipeline.streaming import StreamingAnalyzer
     cfg = cfg_mod.complete_analysis_config()   # the CLI's (S_max 512)
@@ -2976,6 +3002,16 @@ def phase_streaming(torch, counters, cfg_mod, device):
         fr._map(lambda x: x.cpu().numpy(), batch), gt_poses=gt["poses"]))
     host_est = np.asarray(host_an.results["estimated_trajectory"])
     same_host = bool(np.array_equal(host_est, loop))
+    T = STREAM_TRACE_FRAMES
+    traced_paths = []
+
+    def traced_run():
+        a = StreamingAnalyzer(cfg, device=device)
+        for i in range(T):
+            a.process_frame(fr._frame(batch, i, i + 1))
+        traced_paths.append(a.step_paths)
+
+    k1_kernels = k1_device_kernels(torch, traced_run)
     emit("streaming", frames=F, max_scatterers=cfg.max_scatterers,
          warmup_frames=STREAM_WARMUP, host_ms_p50=float(np.percentile(ms, 50)),
          host_ms_p99=float(np.percentile(ms, 99)), host_ms_max=float(ms.max()),
@@ -2983,6 +3019,9 @@ def phase_streaming(torch, counters, cfg_mod, device):
          launches_per_step={k: v / F for k, v in n.items()},
          position_rmse_m=metrics["position_rmse"],
          successful_estimates=metrics["successful_estimates"],
+         step_paths=an.step_paths,
+         traced=dict(frames=T, step_paths=traced_paths[-1],
+                     k1_device_kernels=k1_kernels),
          bitwise_equal_to_step_loop=same,
          max_abs_diff_m=float(np.abs(est - loop).max()),
          host_input=dict(launches=n_host,
@@ -2991,8 +3030,19 @@ def phase_streaming(torch, counters, cfg_mod, device):
     check(same, "streaming: analyzer trajectory differs from the step loop")
     check(same_host, "streaming: analyzer on host input (chunk_uploader) "
           "differs from the step loop")
-    check(n_host.get("K1", 0) == F, f"streaming: host-input launches {n_host}")
-    check(n.get("K1", 0) == F, f"streaming: launches {n}")
+    check(n_host.get("K1", 0) == host_an.step_paths["eager"]
+          + host_an.step_paths["capture"],
+          f"streaming: host-input launches {n_host}, steps by path "
+          f"{host_an.step_paths}")
+    check(n.get("K1", 0) == an.step_paths["eager"]
+          + an.step_paths["capture"],
+          f"streaming: launches {n}, steps by path {an.step_paths}")
+    check(an.step_paths == {"eager": 1, "capture": 1, "replay": F - 2},
+          f"streaming: steps by path {an.step_paths}")
+    check(traced_paths[-1] == {"eager": 1, "capture": 1, "replay": T - 2}
+          and all(c == T for c in k1_kernels.values()),
+          f"streaming: K1's kernels on the device {k1_kernels} over {T} "
+          f"frames, steps by path {traced_paths[-1]}")
     check(bool(np.isfinite(est).all()), "streaming: pose not finite")
     return n
 

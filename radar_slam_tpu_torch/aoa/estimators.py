@@ -23,6 +23,7 @@ are computed over chunks of signatures.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -272,7 +273,7 @@ def _rank2_signal_eigvecs(signatures: torch.Tensor, forward_backward: bool):
              > v1a[..., 0].abs() + v1a[..., 1].abs())
     v1 = torch.where(use_b[..., None], v1b, v1a)
     n1 = torch.sqrt(torch.sum(v1.abs() ** 2, dim=-1, keepdim=True))
-    e0 = torch.tensor([1.0, 0.0], dtype=v1.dtype, device=v1.device)
+    e0 = _unit_pair(v1.dtype, str(v1.device))
     v1 = torch.where(n1 > eps, v1 / torch.clamp(n1, min=eps), e0)
     # The in-span orthogonal complement is the lam2 eigenvector.
     v2 = torch.stack([-v1[..., 1].conj(), v1[..., 0].conj()], dim=-1)
@@ -282,6 +283,13 @@ def _rank2_signal_eigvecs(signatures: torch.Tensor, forward_backward: bool):
     e2 = torch.where(rank2[..., None], e2, 0.0)
     rank = (ns[..., 0] > 0).to(torch.int32) + rank2.to(torch.int32)
     return torch.stack([e1, e2], dim=-2), rank
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_pair(dtype: torch.dtype, device: str) -> torch.Tensor:
+    """(1, 0) [2] in ``dtype`` on ``device``, read-only, built once per
+    pair: the MUSIC eigenvectors copy nothing from the host per call."""
+    return torch.tensor([1.0, 0.0], dtype=dtype, device=device)
 
 
 def music_denominator(signatures: torch.Tensor, steering: torch.Tensor,

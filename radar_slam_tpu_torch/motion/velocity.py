@@ -11,6 +11,7 @@ small system is solved by the same unrolled Cholesky.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -65,13 +66,30 @@ def smart_initial_guess(assoc: Associations,
 
 
 def _prior_matrix(cfg: VelocityConfig, full: bool, device) -> torch.Tensor:
-    """Diagonal Tikhonov prior [6, 6] (reference regularizers as ridge)."""
+    """Diagonal Tikhonov prior [6, 6] (reference regularizers as ridge),
+    read-only: one per (configuration, ``full``, device), built on first
+    use (:func:`_prior_matrix_on`)."""
+    return _prior_matrix_on(cfg, full, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _prior_matrix_on(cfg: VelocityConfig, full: bool,
+                     device: str) -> torch.Tensor:
     lam = cfg.regularization_weight
     diag = torch.full((6,), lam, dtype=torch.float32, device=device)
     diag[2] = lam * cfg.z_velocity_weight
     if not full:
         diag[3:] = 1e6      # v-only step: pin omega hard
     return torch.diag(diag)
+
+
+@functools.lru_cache(maxsize=None)
+def _alias_bonus(device: str) -> torch.Tensor:
+    """The alias candidates' tie-break bonuses [3] (previous motion, zero,
+    guess), read-only, built once per device."""
+    bonus = torch.zeros(3, dtype=torch.float32, device=device)
+    bonus[0], bonus[1] = 2e-3, 1e-3
+    return bonus
 
 
 def _chol_solve_unrolled(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -239,8 +257,7 @@ def solve_velocity(assoc: Associations, dt: float, lambda_c: float,
         w = torch.where(assoc.valid, 1.0, 0.0)[:, None, :]
         support = (torch.sum((folded.abs() < 1.5) * w, dim=-1)
                    / torch.clamp(torch.sum(w, dim=-1), min=1.0))
-        bonus = torch.zeros(3, dtype=torch.float32, device=dev)
-        bonus[0], bonus[1] = 2e-3, 1e-3
+        bonus = _alias_bonus(str(dev))
         best = torch.argmax(support + bonus, dim=-1)              # [F]
         x_ref = torch.gather(cands, 1, best[:, None, None].expand(F, 1, 6))
         assoc = dealias_doppler(assoc, x_ref[:, 0], v_unambiguous)

@@ -45,6 +45,7 @@ code (``cuda``) or runs its plain PyTorch version (``cpu``).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -131,6 +132,17 @@ def _check_supported(cfg: PipelineConfig) -> None:
     _check_common(cfg)
 
 
+@functools.lru_cache(maxsize=None)
+def _front_end_constants(radar, window, fidelity: str, device: str):
+    """The scatterer front ends' constants on ``device``: the baseband mix
+    vector [S] and the fast-time base [S], built once per (configuration,
+    device) and shared read-only, so that a step builds none (the
+    streaming step's CUDA graph reads them)."""
+    S = radar.samples_per_chirp
+    return (_mix_vector(radar, window, "baseband", S, device=device),
+            fast_time_base(radar, fidelity, device=device))
+
+
 def _onepass_frontend(scatterers: ScattererBatch, seeds: torch.Tensor,
                       cfg: PipelineConfig,
                       clutter: Optional[torch.Tensor] = None):
@@ -143,8 +155,8 @@ def _onepass_frontend(scatterers: ScattererBatch, seeds: torch.Tensor,
     S = cfg.radar.samples_per_chirp
     sigma = float(cfg.radar.noise_power) ** 0.5
     d = cfg.detection
-    dev = scatterers.range_m.device
-    mix = _mix_vector(cfg.radar, cfg.window, "baseband", S, device=dev)
+    mix, t = _front_end_constants(cfg.radar, cfg.window, cfg.synth_fidelity,
+                                  str(scatterers.range_m.device))
     lo, hi = detect_mod.range_gate_bin_interval(cfg.radar, S, d)
     common = dict(
         train=d.cfar_train_cells, guard=d.guard_cells,
@@ -160,7 +172,6 @@ def _onepass_frontend(scatterers: ScattererBatch, seeds: torch.Tensor,
     if cfg.frontend_factors == "split":
         split = synthesis_factors_split(scatterers, cfg.radar,
                                         cfg.synth_fidelity)
-        t = fast_time_base(cfg.radar, cfg.synth_fidelity, device=dev)
         echo_upper = (cfg.radar.chirp_duration
                       if cfg.synth_fidelity == "reference" else None)
         p_lin, rb, db, vals, sigs = fe.scatterer_frontend_split(
@@ -188,8 +199,8 @@ def _three_dispatch_frontend(scatterers: ScattererBatch,
     C = cfg.radar.num_chirps
     S = cfg.radar.samples_per_chirp
     sigma = float(cfg.radar.noise_power) ** 0.5
-    mix = _mix_vector(cfg.radar, cfg.window, "baseband", S,
-                      device=scatterers.range_m.device)
+    mix = _front_end_constants(cfg.radar, cfg.window, cfg.synth_fidelity,
+                               str(scatterers.range_m.device))[0]
     e_ac, e_fast = synthesis_factors(scatterers, cfg.radar,
                                      cfg.synth_fidelity)
     p_lin = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,

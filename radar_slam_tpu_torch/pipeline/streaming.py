@@ -22,6 +22,19 @@ Counterpart of ``radar_slam_tpu/pipeline/streaming.py``.  Two layers:
 Every frame's noise seed is its index (:func:`frame_seed`), as the
 reference keys frame i with ``jax.random.key(i)``: a restored analyzer
 draws the same noise with no generator state in its checkpoint.
+
+The analyzer's step runs over static buffers -- the frame's scatterer
+fields, the seed [1] and every leaf of the :class:`FrameState` -- and
+ends by copying the next state into the state buffers; ``analyzer.state``
+reads a copy of those buffers and its setter copies into them.  On a CUDA device
+the step is one CUDA graph per input shape: a shape's first step runs
+eagerly (it builds the kernels and every lazy constant), the next is
+captured, and every later one replays the graph, so the host
+does four things a frame: copy the frame in, fill the seed, replay, fetch
+the packed result.  Where a capture raises, the analyzer stays eager and
+logs one warning.  ``analyzer.step_paths`` counts the steps by path
+(``eager``, ``capture``, ``replay``), as the ``step`` span's ``path``
+attribute names them.
 """
 
 from __future__ import annotations
@@ -56,6 +69,41 @@ def frame_seed(index: int, device) -> torch.Tensor:
     return torch.tensor([index], dtype=torch.int32, device=device)
 
 
+def _owned(tree):
+    """A copy of ``tree`` whose every leaf has storage of its own (leaves of
+    a fresh state share zeros)."""
+    return fr._map(lambda x: x.clone(), tree)
+
+
+def _assign(dst, src) -> None:
+    """Copy the leaves of ``src`` into those of ``dst`` in place (the same
+    structure and shapes).  A leaf of ``src`` on the storage of a ``dst``
+    leaf other than itself is cloned first, so that no copy reads what
+    an earlier one wrote."""
+    dsts, srcs = tree_leaves(dst), tree_leaves(src)
+    if len(dsts) != len(srcs):
+        raise ValueError(f"the state has {len(dsts)} leaves, the new one "
+                         f"{len(srcs)}")
+    held = {d.untyped_storage().data_ptr() for d in dsts}
+    pairs = []
+    for d, x in zip(dsts, srcs):
+        if tuple(x.shape) != tuple(d.shape):
+            raise ValueError(f"state leaf shape {tuple(x.shape)}, the "
+                             f"state has {tuple(d.shape)}")
+        if x is not d:
+            aliased = x.untyped_storage().data_ptr() in held
+            pairs.append((d, x.clone() if aliased else x))
+    for d, x in pairs:
+        d.copy_(x)
+
+
+def _input_key(scatterers: ScattererBatch) -> tuple:
+    """What a step's graph depends on in its input: each field's shape
+    and dtype (None where absent)."""
+    return tuple(None if x is None else (tuple(x.shape), x.dtype)
+                 for x in scatterers)
+
+
 def _leaf_paths(tree, prefix=()) -> List[tuple]:
     """The field path of every leaf of a NamedTuple tree, in leaf order."""
     out: List[tuple] = []
@@ -83,10 +131,33 @@ class StreamingAnalyzer:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = max(int(checkpoint_every), 1)
         self.device = resolve(device)
+        self.step_paths: Dict[str, int] = dict.fromkeys(
+            ("eager", "capture", "replay"), 0)
+        self._state: Optional[fr.FrameState] = None
+        self._seed = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._inputs: Dict[tuple, ScattererBatch] = {}
+        self._graphs: Dict[tuple, tuple] = {}   # key: (graph, pack)
+        self._warm: set = set()                 # keys run eagerly
+        self._eager_only = self.device.type != "cuda"
         self.reset()
 
+    @property
+    def state(self) -> fr.FrameState:
+        """A copy of the tracker's state: the step's static buffers, which
+        every step overwrites in place, stay inside; the setter copies a
+        state into them."""
+        return _owned(self._state)
+
+    @state.setter
+    def state(self, state: fr.FrameState) -> None:
+        _assign(self._state, state)
+
     def reset(self, initial_pose: Optional[np.ndarray] = None):
-        self.state = fr.init_state(self.cfg, initial_pose, self.device)
+        state = fr.init_state(self.cfg, initial_pose, self.device)
+        if self._state is None:
+            self._state = _owned(state)
+        else:
+            self.state = state
         self.results: Dict[str, List] = collections.defaultdict(list)
         self.frame_idx = 0
 
@@ -97,7 +168,7 @@ class StreamingAnalyzer:
         current frame."""
         d = Path(self.checkpoint_dir)
         checkpointing.save_pytree(d / f"state_{self.frame_idx:06d}",
-                                  self.state, step=self.frame_idx)
+                                  self._state, step=self.frame_idx)
         np.savez(d / f"results_{self.frame_idx:06d}.npz",
                  **{k: np.asarray(v) for k, v in self.results.items() if v})
 
@@ -106,14 +177,14 @@ class StreamingAnalyzer:
         carry a leading axis of 1), or by the reference (they do not),
         which ``frame_state_from_numpy`` carries across."""
         leaves, meta = checkpointing.load_leaves(ckpt)
-        like = tree_leaves(self.state)
+        like = tree_leaves(self._state)
         if len(leaves) != len(like):
             raise ValueError(f"{ckpt}: {len(leaves)} leaves, the state has "
                              f"{len(like)}")
         if all(a.shape == tuple(b.shape) for a, b in zip(leaves, like)):
-            return checkpointing.load_pytree(ckpt, self.state)[0]
+            return checkpointing.load_pytree(ckpt, self._state)[0]
         fields: Dict = {}
-        for path, a in zip(_leaf_paths(self.state), leaves):
+        for path, a in zip(_leaf_paths(self._state), leaves):
             node = fields
             for name in path[:-1]:
                 node = node.setdefault(name, {})
@@ -145,37 +216,108 @@ class StreamingAnalyzer:
                     self.results[k] = list(z[k])
         return True
 
+    def _path(self, key: tuple) -> str:
+        if key in self._graphs:
+            return "replay"
+        if self._eager_only or key not in self._warm:
+            return "eager"
+        return "capture"
+
+    def _body(self, inputs: ScattererBatch) -> torch.Tensor:
+        """The step on the static buffers: ``process_scatterers`` on the
+        input and seed buffers, the next state copied into the state
+        buffers; returns the [12] float32 the host fetches (pose, velocity,
+        angular velocity, success, reliable targets, associations)."""
+        state, out = fr.process_scatterers(self._state, inputs, self._seed,
+                                           self.cfg, self.rotate_pose)
+        m = out.motion
+        pack = torch.cat([
+            out.pose.reshape(-1), m.velocity.reshape(-1),
+            m.angular_velocity.reshape(-1),
+            torch.stack([m.success[0].to(torch.float32),
+                         out.num_reliable[0].to(torch.float32),
+                         out.num_associations[0].to(torch.float32)]),
+        ])
+        _assign(self._state, state)
+        return pack
+
+    def _capture(self, key: tuple, inputs: ScattererBatch) -> torch.Tensor:
+        """Capture the step at ``key`` as a CUDA graph and replay it once;
+        where the capture raises, warn, stay eager and run the step."""
+        stream = torch.cuda.current_stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                pack = self._body(inputs)
+        except RuntimeError:   # torch's and CUDA's capture errors
+            torch.cuda.set_stream(stream)
+            self._eager_only = True
+            logger.warning("StreamingAnalyzer: the step's CUDA graph capture "
+                           "failed; this analyzer stays eager",
+                           exc_info=True)
+            return self._body(inputs)
+        self._graphs[key] = (graph, pack)
+        with span("step.replay"):
+            graph.replay()
+        return pack
+
+    def _replay(self, key: tuple) -> torch.Tensor:
+        graph, pack = self._graphs[key]
+        graph.replay()
+        return pack
+
+    def _load(self, inputs: ScattererBatch, scatterers: ScattererBatch,
+              seed: Optional[torch.Tensor]) -> None:
+        """The frame and its seed into the step's input buffers."""
+        for buf, x in zip(inputs, scatterers):
+            if buf is not None:
+                buf.copy_(x)
+        if seed is None:
+            self._seed.fill_(self.frame_idx)
+        else:
+            self._seed.copy_(seed)
+
     def process_frame(self, scatterers: ScattererBatch,
                       gt_pose: Optional[np.ndarray] = None,
                       gt_velocity: Optional[np.ndarray] = None,
                       seed: Optional[torch.Tensor] = None) -> Dict:
-        """One frame: scatterers [1, S_max] on the analyzer's device, and
-        the noise seed [1] of :func:`frame_seed` unless one is given.
-        Span ``step`` (request: the frame index) over the step, with
-        ``step.front_end``, ``step.aoa``, ``step.tail`` and ``step.fetch``
-        (the one device -> host fetch) inside."""
+        """One frame: scatterers [1, S_max], and the noise seed [1] of
+        :func:`frame_seed` unless one is given.  Span ``step`` (request:
+        the frame index; ``path``: eager, capture or replay) over the
+        step, with ``step.fetch`` (the one device -> host fetch) inside;
+        an eager or captured step has ``step.front_end``, ``step.aoa`` and
+        ``step.tail`` inside too, a replayed one ``step.replay`` (the copy
+        in, the seed and the replay), a captured one its first replay."""
         t0 = time.perf_counter()
-        with span("step", request=self.frame_idx):
-            if seed is None:
-                seed = frame_seed(self.frame_idx, self.device)
-            self.state, out = fr.process_scatterers(
-                self.state, scatterers, seed, self.cfg, self.rotate_pose)
+        key = _input_key(scatterers)
+        path = self._path(key)
+        self.step_paths[path] += 1
+        with span("step", request=self.frame_idx, path=path):
+            inputs = self._inputs.get(key)
+            if inputs is None:
+                inputs = self._inputs[key] = fr._map(
+                    lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device=self.device), scatterers)
+            if path == "replay":
+                with span("step.replay"):
+                    self._load(inputs, scatterers, seed)
+                    pack = self._replay(key)
+            else:
+                self._load(inputs, scatterers, seed)
+                if path == "capture":
+                    pack = self._capture(key, inputs)
+                else:
+                    pack = self._body(inputs)
+                    self._warm.add(key)
             # One device -> host fetch for everything the host needs.
             with span("step.fetch"):
-                m = out.motion
-                host = torch.cat([
-                    out.pose.reshape(-1), m.velocity.reshape(-1),
-                    m.angular_velocity.reshape(-1),
-                    torch.stack([m.success[0].to(torch.float32),
-                                 out.num_reliable[0].to(torch.float32),
-                                 out.num_associations[0].to(torch.float32)]),
-                ]).cpu().numpy()
+                host = pack.cpu().numpy()
             est_pose, vel, ang = host[0:3], host[3:6], host[6:9]
             success = bool(host[9])
 
             if not success and self.gt_fallback and gt_pose is not None:
                 est_pose = np.asarray(gt_pose, np.float64)
-                self.state = self.state._replace(pose=torch.as_tensor(
+                self.state = self._state._replace(pose=torch.as_tensor(
                     est_pose, dtype=torch.float32,
                     device=self.device).reshape(1, 3))
 
@@ -349,9 +491,9 @@ class RealTimeProcessor:
 
     def _loop(self) -> None:
         dev = self.analyzer.device
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
         try:
+            if dev.type == "cuda" and dev.index is not None:
+                torch.cuda.set_device(dev)
             while self._running:
                 try:
                     item = self.queue.get(timeout=0.1)

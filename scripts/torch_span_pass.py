@@ -21,9 +21,14 @@ kernels:
 From the span pass:
 
 - ``step_host_ms.<stage>`` (front_end, aoa, tail, fetch): ms per traced
-  step of the ``step.<stage>`` spans, the K1 wrapper's ``k1`` and
-  ``finalize`` spans counted inside ``front_end``; ``step_self`` the
-  ``step`` span less its stages; their sum against the mean ``step``;
+  eager step (``step`` span with ``path`` "eager") of the
+  ``step.<stage>`` spans, the K1 wrapper's ``k1`` and ``finalize`` spans
+  counted inside ``front_end``; ``step_self`` the ``step`` span less its
+  stages; their sum against the mean ``step``;
+- ``replay_host_ms.<stage>`` (replay, fetch): the same over the steps
+  that replayed the analyzer's CUDA graph (``path`` "replay"), whose host
+  work before the fetch is one ``step.replay`` span; every path's stages
+  are in ``step_ms_by_path``;
 - ``idle_share_by_span.<phase>`` (phase_a, phase_b, ingest): the device's
   idle gaps in the pass's window whose middle falls in that phase (the
   innermost span open there, or one of its parents, is ``phase_a``,
@@ -61,6 +66,12 @@ sys.path.insert(0, str(REPO))
 from radar_slam_tpu_torch.utils import profiling  # noqa: E402
 
 STAGES = ("front_end", "aoa", "tail", "fetch")
+# Each step path's stages: an eager step's, a captured step's (the front
+# end, AoA and tail recorded while capturing, then its first replay) and a
+# replayed step's.
+PATH_STAGES = {"eager": STAGES, "capture": STAGES[:3] + ("replay", "fetch"),
+               "replay": ("replay", "fetch")}
+ROW_STAGES = PATH_STAGES["capture"]
 PHASES = ("phase_a", "phase_b", "ingest")
 
 
@@ -71,16 +82,20 @@ def on_clock(spans: List[profiling.Span], origin_ns: int):
                        end_ns=(s.end_ns - origin_ns) * 1e-9) for s in spans]
 
 
-def step_host_ms(spans) -> Optional[Dict[str, float]]:
-    """Per traced step (ms): each stage's ``step.<stage>`` spans, the
-    ``step`` span's self time (less its stages) and the mean ``step``."""
-    steps = {s.id: s for s in spans if s.name == "step"}
+def step_host_ms(spans, path: str = "eager"
+                 ) -> Optional[Dict[str, float]]:
+    """Per traced step of ``path`` (ms; a ``step`` span without the
+    attribute counts as eager): each of the path's stages'
+    ``step.<stage>`` spans, the ``step`` span's self time (less its
+    stages) and the mean ``step``."""
+    steps = {s.id: s for s in spans if s.name == "step"
+             and s.attrs.get("path", "eager") == path}
     if not steps:
         return None
     n = len(steps)
     out = {stage: sum(s.end_ns - s.start_ns for s in spans
                       if s.name == f"step.{stage}" and s.parent in steps)
-           / n * 1e3 for stage in STAGES}
+           / n * 1e3 for stage in PATH_STAGES[path]}
     own = profiling.self_ns(spans)
     out["step_self"] = sum(own[i] for i in steps) / n * 1e3
     out["step"] = sum(s.end_ns - s.start_ns for s in steps.values()) / n * 1e3
@@ -89,12 +104,12 @@ def step_host_ms(spans) -> Optional[Dict[str, float]]:
 
 def step_rows(spans) -> List[List[float]]:
     """One row a step (ms; spans in s): the ``step`` span, then its
-    stages."""
-    rows = {s.id: [(s.end_ns - s.start_ns) * 1e3] + [0.0] * len(STAGES)
+    stages (``ROW_STAGES``, 0 where its path has none)."""
+    rows = {s.id: [(s.end_ns - s.start_ns) * 1e3] + [0.0] * len(ROW_STAGES)
             for s in spans if s.name == "step"}
     for s in spans:
         if s.parent in rows and s.name.startswith("step."):
-            rows[s.parent][1 + STAGES.index(s.name[5:])] += (
+            rows[s.parent][1 + ROW_STAGES.index(s.name[5:])] += (
                 (s.end_ns - s.start_ns) * 1e3)
     return list(rows.values())
 
@@ -124,7 +139,7 @@ def window_ab(times: Dict[bool, List[float]], rows: List[List[float]]
                            ("slow", lambda r: r[0] > cut)):
             sel = [r for r in rows if pick(r)]
             out[side] = {"steps": len(sel), "mean_ms": dict(zip(
-                ("step",) + STAGES,
+                ("step",) + ROW_STAGES,
                 [statistics.fmean(c) for c in zip(*sel)] if sel else []))}
         out["slow_share_off"] = statistics.fmean(
             t * 1e3 > cut for t in times[False])
@@ -342,13 +357,17 @@ def main(argv=None) -> int:
         units(1), [ProfilerActivity.CPU, ProfilerActivity.CUDA], pads)
     after, _ = ab_window(args.window_s)
 
-    stages = step_host_ms(spans)
+    by_path = {p: step_host_ms(spans, p) for p in PATH_STAGES}
+    stages = by_path["eager"]
     idle = idle_by_span(spans, rec_on.events, t0, t1)
     by_name = idle_by_name(spans, rec_on.events, t0, t1)
     names = {s.name.split(".")[0] for s in spans}
     metrics = {}
     if stages is not None:
         metrics.update({f"step_host_ms.{k}": stages[k] for k in STAGES})
+    if by_path["replay"] is not None:
+        metrics.update({f"replay_host_ms.{k}": by_path["replay"][k]
+                        for k in PATH_STAGES["replay"]})
     if idle is not None:
         metrics.update({f"idle_share_by_span.{k}": idle[k] / wall_on
                         for k in PHASES if k in names})
@@ -358,12 +377,15 @@ def main(argv=None) -> int:
     result = {
         "workload": args.workload, "seed": args.seed, "units": n,
         "metrics": metrics,
-        "step_ms": stages,
+        "step_ms_by_path": by_path,
+        "steps_by_path": {p: sum(1 for s in spans if s.name == "step"
+                                 and s.attrs.get("path", "eager") == p)
+                          for p in PATH_STAGES},
         "window": before,
         "window_after_traces": after,
-        "step_sum_off": (None if stages is None else
-                         (sum(stages[k] for k in STAGES)
-                          + stages["step_self"]) / stages["step"] - 1),
+        "step_sum_off": {p: (sum(m[k] for k in PATH_STAGES[p])
+                             + m["step_self"]) / m["step"] - 1
+                         for p, m in by_path.items() if m is not None},
         "idle_s": idle,
         "idle_s_by_span": by_name,
         "idle_share_pass": tr.idle_share(rec_on),

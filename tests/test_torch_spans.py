@@ -380,6 +380,46 @@ def test_step_host_ms_reads_each_stage_and_the_step():
     assert _script().step_host_ms([_span("call", 0, 1, 1)]) is None
 
 
+def test_step_host_ms_reads_each_path_apart():
+    """Steps by their ``path`` (s): the eager stages over the eager step
+    only, a replayed step's ``step.replay`` and ``step.fetch`` under
+    ``replay``, a captured step's under ``capture``; a row a step with
+    each stage in its column."""
+    def s(name, start, end, id, parent=None, **attrs):
+        return profiling.Span(name, start, end, id, parent, 1, 0, attrs)
+
+    spans = [s("step", 0.0, 0.040, 1, path="eager"),
+             s("step.front_end", 0.001, 0.021, 2, 1),
+             s("step.aoa", 0.021, 0.025, 3, 1),
+             s("step.tail", 0.025, 0.035, 4, 1),
+             s("step.fetch", 0.035, 0.0395, 5, 1),
+             s("step", 3.0, 3.100, 31, path="capture"),
+             s("step.front_end", 3.001, 3.021, 32, 31),
+             s("step.aoa", 3.021, 3.025, 33, 31),
+             s("step.tail", 3.025, 3.035, 34, 31),
+             s("step.replay", 3.035, 3.095, 35, 31),
+             s("step.fetch", 3.095, 3.0995, 36, 31)]
+    for k, t in enumerate((1.0, 2.0)):
+        b = 10 * (k + 1)
+        spans += [s("step", t, t + 0.006, b + 1, path="replay"),
+                  s("step.replay", t + 0.0005, t + 0.0045, b + 2, b + 1),
+                  s("step.fetch", t + 0.0045, t + 0.0055, b + 3, b + 1)]
+    mod = _script()
+    assert mod.step_host_ms(spans) == pytest.approx(
+        {"front_end": 20.0, "aoa": 4.0, "tail": 10.0, "fetch": 4.5,
+         "step_self": 1.5, "step": 40.0})
+    assert mod.step_host_ms(spans, "replay") == pytest.approx(
+        {"replay": 4.0, "fetch": 1.0, "step_self": 1.0, "step": 6.0})
+    assert mod.step_host_ms(spans, "capture") == pytest.approx(
+        {"front_end": 20.0, "aoa": 4.0, "tail": 10.0, "replay": 60.0,
+         "fetch": 4.5, "step_self": 1.5, "step": 100.0})
+    np.testing.assert_allclose(mod.step_rows(spans), [
+        [40.0, 20.0, 4.0, 10.0, 0.0, 4.5],
+        [100.0, 20.0, 4.0, 10.0, 60.0, 4.5],
+        [6.0, 0.0, 0.0, 0.0, 4.0, 1.0], [6.0, 0.0, 0.0, 0.0, 4.0, 1.0]],
+        rtol=1e-9, atol=1e-9)
+
+
 def test_idle_by_span_counts_each_gap_once():
     """A 10 s window: gaps under ``call`` alone (other), inside ``k1`` of
     ``phase_a``, in ``ingest.fill``, in ``phase_b`` and after the call

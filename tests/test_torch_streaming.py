@@ -16,6 +16,20 @@ checkpointing (``utils/checkpointing.py``) against the reference's.
 - ``gt_fallback``, the ``FrameBuffer`` memory budget, and the real-time
   runtime: dropped frames are counted and a worker's exception is raised
   again, not lost with its thread.
+- The step over static buffers: on the CPU every step is eager (the path
+  counter and the ``step`` span's ``path``), ``state`` reads a copy and
+  writes the buffers (restore, ``gt_fallback``, ``reset``), and
+  the front end's and the solve's cached constants equal the values built
+  per call bit for bit.
+- On the card (``card``, skipped without one): the analyzer's CUDA graph
+  against a plain loop of ``process_scatterers``, bit for bit over two
+  512-frame episodes at the benchmark's operating point, with a restore,
+  ``gt_fallback`` steps, ``reset()``, a frame of another S_max, the
+  real-time worker thread, and a capture that fails.  The JAX package is
+  imported inside the CPU tests that use it, so that the card tests run
+  where JAX is not installed:
+
+      python -m pytest tests/test_torch_streaming.py -q -m card --noconftest
 """
 
 import dataclasses
@@ -30,12 +44,7 @@ import time
 import numpy as np
 import pytest
 import torch
-from _torch_parity import patch_eager_synthesis, to_np
 
-from radar_slam_tpu.core import config as jcfg
-from radar_slam_tpu.io.synthetic import SceneConfig, constant_motion_scene
-from radar_slam_tpu.pipeline import frame as jframe
-from radar_slam_tpu.pipeline import streaming as jstream
 from radar_slam_tpu_torch.core import config as tcfg
 from radar_slam_tpu_torch.core.types import scatterer_batch_from_numpy
 from radar_slam_tpu_torch.io import synthetic as tsyn
@@ -45,6 +54,7 @@ from radar_slam_tpu_torch.pipeline.streaming import (FrameBuffer,
                                                      create_real_time_estimator,
                                                      frame_seed)
 from radar_slam_tpu_torch.utils import checkpointing as tckpt
+from radar_slam_tpu_torch.utils import profiling
 from radar_slam_tpu_torch.utils.host import tree_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,6 +64,7 @@ CKPT_EVERY = 3
 
 def fast_test_config(noise_power=0.0):
     """tests/test_streaming_resume.py:31-38, at ``noise_power``."""
+    from radar_slam_tpu.core import config as jcfg
     return jcfg.PipelineConfig(
         radar=jcfg.RadarConfig(noise_power=noise_power, num_chirps=32),
         detection=jcfg.DetectionConfig(cfar_train_cells=8, guard_cells=2,
@@ -70,6 +81,7 @@ def _port_cfg(ref_cfg):
 def _scene(cfg, frames=FRAMES):
     """tests/test_streaming_resume.py's scene: the reference's batch, the
     port's copy on the CPU, the ground truth."""
+    from radar_slam_tpu.io.synthetic import SceneConfig, constant_motion_scene
     jbatch, gt = constant_motion_scene(
         0, frames, cfg.frame_dt, (6.0, 0.3), 0.05,
         SceneConfig(num_points=24, max_scatterers=cfg.max_scatterers))
@@ -82,6 +94,10 @@ def _scene(cfg, frames=FRAMES):
 def reference_run(tmp_path_factory):
     """The reference analyzer over the scene at sigma = 0, checkpointing
     every CKPT_EVERY frames: its results, metrics and checkpoint folder."""
+    from _torch_parity import patch_eager_synthesis
+
+    from radar_slam_tpu.pipeline import frame as jframe
+    from radar_slam_tpu.pipeline import streaming as jstream
     ref_cfg = fast_test_config()
     jbatch, batch, gt = _scene(ref_cfg)
     ckdir = tmp_path_factory.mktemp("ref_ck")
@@ -222,7 +238,7 @@ def test_resume_matches_uninterrupted(uninterrupted, tmp_path):
     for i in range(RESUME_FRAMES):
         state, out = tframe.process_scatterers(
             state, tframe._frame(batch, i, i + 1), frame_seed(i, "cpu"), cfg)
-        poses.append(to_np(out.pose)[0])
+        poses.append(out.pose.numpy()[0])
     np.testing.assert_array_equal(np.asarray(poses), uninterrupted)
 
 
@@ -392,3 +408,307 @@ def test_realtime_worker_error_is_raised_again(monkeypatch):
                  est.get_performance_metrics, est.stop_estimation):
         with pytest.raises(ValueError, match="injected worker failure"):
             call()
+
+
+# ---- the step over static buffers (CPU) --------------------------------------
+
+def _narrow_scene(frames):
+    cfg = _narrow_cfg()
+    batch, gt = tsyn.constant_motion_scene(
+        3, frames, cfg.frame_dt, (5.0, 0.3), 0.05,
+        tsyn.SceneConfig(num_points=48, max_scatterers=64), device="cpu")
+    return cfg, batch, gt
+
+
+def _same_bits(a, b):
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.numpy().tobytes() == b.numpy().tobytes())
+
+
+def test_cpu_steps_are_eager_in_the_counter_and_the_step_span():
+    """On the CPU there is no graph: every step is counted ``eager`` and
+    its ``step`` span says so, with the eager stages and no
+    ``step.replay``."""
+    cfg, batch, _ = _narrow_scene(3)
+    an = StreamingAnalyzer(cfg, device="cpu")
+    profiling.collect()
+    profiling.enable()
+    try:
+        for i in range(3):
+            an.process_frame(tframe._frame(batch, i, i + 1))
+    finally:
+        profiling.disable()
+    spans = profiling.collect()
+    assert an.step_paths == {"eager": 3, "capture": 0, "replay": 0}
+    steps = [s for s in spans if s.name == "step"]
+    assert [s.attrs for s in steps] == [{"path": "eager"}] * 3
+    for step in steps:
+        assert [s.name for s in spans if s.parent == step.id] == [
+            "step.front_end", "step.aoa", "step.tail", "step.fetch"]
+    assert not an._graphs
+
+
+def test_state_reads_a_copy_and_writes_the_step_buffers(tmp_path):
+    """``state`` reads a copy of the step's buffers, which later steps
+    leave as it was; the setter copies into the buffers, each leaf with
+    storage of its own: a restore, the ``gt_fallback`` pose and
+    ``reset()`` leave the same buffers holding the new values, and a leaf
+    of another shape is refused."""
+    cfg, batch, gt = _narrow_scene(5)
+    gt_poses = gt["poses"] + np.array([1.0, -2.0, 0.3])
+    an = StreamingAnalyzer(cfg, gt_fallback=True, device="cpu",
+                           checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    bufs = tree_leaves(an._state)
+    assert len({b.untyped_storage().data_ptr() for b in bufs}) == len(bufs)
+
+    def same_buffers():
+        return all(a is b for a, b in zip(tree_leaves(an._state), bufs))
+
+    def same_state(a, b):
+        return all(_same_bits(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    held = an.state
+    an.process_frame(tframe._frame(batch, 0, 1), gt_pose=gt_poses[0])
+    assert same_state(held, tframe.init_state(cfg, device="cpu"))
+    assert not an.results["success"][0]
+    np.testing.assert_array_equal(
+        an.state.pose.numpy(), gt_poses[0][None].astype(np.float32))
+    for i in range(1, 4):
+        an.process_frame(tframe._frame(batch, i, i + 1), gt_pose=gt_poses[i])
+    at4 = an.state
+    an.process_frame(tframe._frame(batch, 4, 5), gt_pose=gt_poses[4])
+    assert not same_state(at4, an.state)
+    assert an.restore_latest() and an.frame_idx == 4
+    assert same_buffers() and same_state(at4, an.state)
+    an.reset(initial_pose=np.array([3.0, 4.0, 0.5]))
+    assert same_buffers() and an.frame_idx == 0
+    assert same_state(an.state, tframe.init_state(
+        cfg, np.array([3.0, 4.0, 0.5]), device="cpu"))
+    with pytest.raises(ValueError, match="shape"):
+        an.state = an.state._replace(pose=torch.zeros(1, 4))
+
+
+def test_cached_constants_equal_the_values_built_per_call():
+    """The constants a step reads from a cache (the front end's mix vector
+    and fast-time base, the solve's prior and alias bonuses, the MUSIC
+    basis vector) equal the values built per call bit for bit, and a
+    second call returns the same tensor."""
+    from radar_slam_tpu_torch.aoa import estimators
+    from radar_slam_tpu_torch.motion import velocity
+    from radar_slam_tpu_torch.signal.rds import _mix_vector
+    from radar_slam_tpu_torch.signal.synth import fast_time_base
+    cfg = tcfg.complete_analysis_config()
+    S = cfg.radar.samples_per_chirp
+    for fid in ("tpu", "reference"):
+        got = tframe._front_end_constants(cfg.radar, cfg.window, fid, "cpu")
+        assert tframe._front_end_constants(cfg.radar, cfg.window, fid,
+                                           "cpu") is got
+        assert _same_bits(got[0], _mix_vector(cfg.radar, cfg.window,
+                                              "baseband", S, device="cpu"))
+        assert _same_bits(got[1], fast_time_base(cfg.radar, fid, "cpu"))
+    for full in (False, True):
+        prior = velocity._prior_matrix(cfg.velocity, full, "cpu")
+        assert velocity._prior_matrix(cfg.velocity, full,
+                                      torch.device("cpu")) is prior
+        assert _same_bits(prior, velocity._prior_matrix_on.__wrapped__(
+            cfg.velocity, full, "cpu"))
+    bonus = velocity._alias_bonus("cpu")
+    assert velocity._alias_bonus("cpu") is bonus
+    assert _same_bits(bonus, velocity._alias_bonus.__wrapped__("cpu"))
+    e0 = estimators._unit_pair(torch.complex64, "cpu")
+    assert _same_bits(e0, torch.tensor([1.0, 0.0], dtype=torch.complex64))
+
+
+# ---- the CUDA graph on the card ----------------------------------------------
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _bench_cfg():
+    """The benchmark's operating point: complete_analysis_config at
+    S_max 128 (bench.py:364)."""
+    return dataclasses.replace(tcfg.complete_analysis_config(),
+                               max_scatterers=128)
+
+
+def _bench_scene(seed, frames, device):
+    cfg = _bench_cfg()
+    return tsyn.constant_motion_scene(
+        seed, frames, cfg.frame_dt, (8.0, 0.5), 0.05,
+        tsyn.SceneConfig(num_points=96, max_scatterers=128), device=device)
+
+
+class _StepLoop:
+    """The analyzer's step written out: ``process_scatterers`` from a state
+    with ``frame_seed(i)``, and the analyzer's ``gt_fallback`` rule; each
+    step's row is the analyzer's results for the frame (pose, velocity,
+    angular velocity, success, reliable targets, associations)."""
+
+    def __init__(self, cfg, device):
+        self.cfg, self.device = cfg, device
+        self.state = tframe.init_state(cfg, device=device)
+
+    def step(self, frame, i, gt_pose=None):
+        state, out = tframe.process_scatterers(
+            self.state, frame, frame_seed(i, self.device), self.cfg)
+        m = out.motion
+        row = torch.cat([
+            out.pose.reshape(-1), m.velocity.reshape(-1),
+            m.angular_velocity.reshape(-1),
+            torch.stack([m.success[0].to(torch.float32),
+                         out.num_reliable[0].to(torch.float32),
+                         out.num_associations[0].to(torch.float32)]),
+        ]).cpu().numpy().astype(np.float64)
+        if not row[9] and gt_pose is not None:
+            row[0:3] = gt_pose
+            state = state._replace(pose=torch.as_tensor(
+                gt_pose, dtype=torch.float32,
+                device=self.device).reshape(1, 3))
+        self.state = state
+        return row
+
+
+def _rows(results):
+    r = results
+    return np.concatenate([
+        np.asarray(r["estimated_trajectory"], np.float64),
+        np.asarray(r["velocity_estimates"], np.float64),
+        np.stack([np.asarray(r[k], np.float64) for k in (
+            "success", "num_targets", "num_associations")], axis=-1)],
+        axis=-1)
+
+
+def _assert_state(got, want):
+    a, b = tree_leaves(got), tree_leaves(want)
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert _same_bits(x, y), f"state leaf {i}"
+
+
+@pytest.mark.card
+def test_graph_step_equals_the_step_loop_on_the_card(card, tmp_path):
+    """Two 512-frame episodes at the benchmark's operating point, with
+    ``gt_fallback`` (frame 200 of the first has no valid scatterer, so
+    replayed steps fail and take the ground-truth pose), a restore from
+    the checkpoint at 256 after 300 frames, ``reset()`` between the
+    episodes, then frames of S_max 64 and one of 128 again: every result
+    and the state equal the plain loop's bit for bit; one eager step and
+    one capture a shape, replays otherwise, and K1's wrapper launched on
+    the host in the eager steps and the captures only (a replay launches
+    the graph)."""
+    from radar_slam_tpu_torch.ops import frontend
+    cfg, L = _bench_cfg(), 512
+    b1, gt1 = _bench_scene(1, L, card)
+    b2, gt2 = _bench_scene(2, L, card)
+    valid = b1.valid.clone()
+    valid[200] = False
+    b1 = b1._replace(valid=valid)
+    narrow = tframe._map(lambda x: x[:, :64].contiguous(), b2)
+    # The plain loop: the first episode, the second from a fresh state,
+    # then four frames of S_max 64 and one of 128 carried on from it.
+    loop = _StepLoop(cfg, card)
+    want1 = np.stack([loop.step(tframe._frame(b1, i, i + 1), i,
+                                gt1["poses"][i]) for i in range(L)])
+    state1 = loop.state
+    assert not want1[200, 9] and not want1[201, 9]
+    loop = _StepLoop(cfg, card)
+    want2 = np.stack([loop.step(tframe._frame(b2, i, i + 1), i,
+                                gt2["poses"][i]) for i in range(L)])
+    state2 = loop.state
+    tail = [tframe._frame(narrow, j, j + 1) for j in range(4)] + [
+        tframe._frame(b2, 0, 1)]
+    want3 = np.stack([loop.step(x, L + j) for j, x in enumerate(tail)])
+
+    k1 = frontend.frontend_kernel_split.launches
+    an = StreamingAnalyzer(cfg, gt_fallback=True, device=card,
+                           checkpoint_dir=str(tmp_path), checkpoint_every=128)
+    for i in list(range(300)) + [None] + list(range(256, L)):
+        if i is None:
+            assert an.restore_latest() and an.frame_idx == 256
+            continue
+        an.process_frame(tframe._frame(b1, i, i + 1), gt_pose=gt1["poses"][i])
+    assert an.step_paths == {"eager": 1, "capture": 1, "replay": 554}
+    np.testing.assert_array_equal(_rows(an.results), want1)
+    _assert_state(an.state, state1)
+
+    an.reset()
+    for i in range(L):
+        an.process_frame(tframe._frame(b2, i, i + 1), gt_pose=gt2["poses"][i])
+    assert an.step_paths == {"eager": 1, "capture": 1, "replay": 1066}
+    np.testing.assert_array_equal(_rows(an.results), want2)
+    _assert_state(an.state, state2)
+
+    for x in tail:
+        an.process_frame(x)
+    assert an.step_paths == {"eager": 2, "capture": 2, "replay": 1069}
+    np.testing.assert_array_equal(_rows(an.results)[L:], want3)
+    _assert_state(an.state, loop.state)
+    assert (frontend.frontend_kernel_split.launches - k1
+            == an.step_paths["eager"] + an.step_paths["capture"])
+
+
+@pytest.mark.card
+def test_graph_step_in_the_real_time_worker_thread(card):
+    """The real-time processor's worker thread runs the analyzer: its
+    first step eager, then a capture and replays, results equal to the
+    plain loop bit for bit."""
+    from radar_slam_tpu_torch.pipeline.streaming import RealTimeProcessor
+    cfg, F = _bench_cfg(), 64
+    batch, _ = _bench_scene(3, F, card)
+    loop = _StepLoop(cfg, card)
+    want = np.stack([loop.step(tframe._frame(batch, i, i + 1), i)
+                     for i in range(F)])
+    proc = RealTimeProcessor(cfg, queue_size=F, device=card)
+    proc.start_processing()
+    try:
+        for i in range(F):
+            assert proc.add_frame_for_processing(
+                tframe._frame(batch, i, i + 1))
+        assert _wait(lambda: proc.frames_processed == F)
+    finally:
+        proc.stop_processing()
+    an = proc.analyzer
+    assert an.step_paths == {"eager": 1, "capture": 1, "replay": F - 2}
+    np.testing.assert_array_equal(_rows(an.results), want)
+    _assert_state(an.state, loop.state)
+
+
+@pytest.mark.card
+def test_a_failed_capture_leaves_the_analyzer_eager(card, monkeypatch,
+                                                   caplog):
+    """A step that reads the device from the host cannot be captured: the
+    analyzer warns once, runs that step and every later one eagerly, and
+    gives the plain loop's results; K1's wrapper launched once a step (the
+    capture failed before it reached K1)."""
+    import logging
+
+    from radar_slam_tpu_torch.ops import frontend
+    from radar_slam_tpu_torch.pipeline import streaming
+    cfg, F = _bench_cfg(), 6
+    batch, _ = _bench_scene(4, F, card)
+    loop = _StepLoop(cfg, card)
+    want = np.stack([loop.step(tframe._frame(batch, i, i + 1), i)
+                     for i in range(F)])
+    real = tframe.process_scatterers
+
+    def reads_the_device(state, scatterers, seed, *args):
+        float(seed.sum())
+        return real(state, scatterers, seed, *args)
+
+    monkeypatch.setattr(streaming.fr, "process_scatterers", reads_the_device)
+    k1 = frontend.frontend_kernel_split.launches
+    an = StreamingAnalyzer(cfg, device=card)
+    with caplog.at_level(logging.WARNING, logger=streaming.__name__):
+        for i in range(F):
+            an.process_frame(tframe._frame(batch, i, i + 1))
+    assert an.step_paths == {"eager": F - 1, "capture": 1, "replay": 0}
+    assert len([r for r in caplog.records if "capture" in r.getMessage()]) == 1
+    assert frontend.frontend_kernel_split.launches - k1 == F
+    np.testing.assert_array_equal(_rows(an.results), want)
+    _assert_state(an.state, loop.state)
