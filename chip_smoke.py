@@ -5188,7 +5188,8 @@ def phase_multiseq(torch, counters, cfg_mod, device):
             num_detections=z.to(torch.int32), num_reliable=z.to(torch.int32),
             num_associations=z.to(torch.int32),
             target_xy=torch.from_numpy(pts).to(device),
-            target_valid=torch.from_numpy(msk).to(device)))
+            target_valid=torch.from_numpy(msk).to(device),
+            target_z=torch.zeros(msk.shape, device=device)))
     fo = multiseq._stack(outs)
     _, poses, _, loops = multiseq.refine_sequences_mesh(
         None, None, cfg, mesh, steps=10, loop_capacity=4,

@@ -131,24 +131,40 @@ def _chunk(elems: int, per_signature: int) -> int:
     return max(1, elems // per_signature)
 
 
+def _count_product(rows: int, G: int) -> None:
+    beamforming_spectrum.chunks += 1
+    beamforming_spectrum.products += rows * G
+
+
 def beamforming_spectrum(signatures: torch.Tensor,
                          steering: torch.Tensor) -> torch.Tensor:
     """Conventional beamforming power spectra [..., K, G] = |S A^H|^2, one
-    complex product per chunk of signatures."""
+    complex product per chunk of signatures.  ``.calls`` counts the calls,
+    ``.chunks`` the products launched and ``.products`` their signature x
+    grid-point pairs, on the host at each launch (a replayed CUDA graph
+    adds none); a caller resets them by assigning 0."""
     a_h = steering.conj().transpose(0, 1)
     G = steering.shape[0]
     s = signatures.reshape(-1, signatures.shape[-1])
     n = _chunk(_BEAMFORMING_CHUNK_ELEMS, G)
+    beamforming_spectrum.calls += 1
     if s.shape[0] <= n:
+        _count_product(s.shape[0], G)
         resp = s @ a_h
         spec = resp.real ** 2 + resp.imag ** 2
     else:
         spec = torch.empty(s.shape[0], G, dtype=s.real.dtype,
                            device=s.device)
         for i in range(0, s.shape[0], n):
+            _count_product(min(n, s.shape[0] - i), G)
             resp = s[i:i + n] @ a_h
             spec[i:i + n] = resp.real ** 2 + resp.imag ** 2
     return spec.reshape(*signatures.shape[:-1], G)
+
+
+beamforming_spectrum.calls = 0
+beamforming_spectrum.chunks = 0
+beamforming_spectrum.products = 0
 
 
 def _refine_grid(spec: torch.Tensor, cfg: RadarConfig, aoa: AoAConfig):

@@ -184,3 +184,4 @@ class FrameOutput(NamedTuple):
     num_associations: torch.Tensor  # [F] int32
     target_xy: torch.Tensor         # [F, K, 2] float32 body-frame positions
     target_valid: torch.Tensor      # [F, K] bool (valid & reliable)
+    target_z: torch.Tensor          # [F, K] float32 heights (0 on a ULA)

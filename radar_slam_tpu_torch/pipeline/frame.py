@@ -293,18 +293,34 @@ def sequence_features_scatterers_fused(scatterers: ScattererBatch,
 def _aoa_features(det: Detections, sigs: torch.Tensor, cfg: PipelineConfig):
     """MDL model order, angles and confidence for every frame's detections
     [F, K].  Returns (det, sigs, keep, num_sources, is_multi, angles_deg,
-    el_deg, conf)."""
+    el_deg, conf).  Spans: ``aoa_features``, and inside it ``aoa_grid``
+    (attrs ``signatures``, ``grid_points``: the search grid's points, the
+    URA's joint grid, 0 for ESPRIT; ``elements``) and ``aoa_confidence``."""
     with span("aoa_features"):
         K = det.range_bin.shape[-1]
         keep = (det.valid & (det.power_db > cfg.aoa.power_filter_db)
                 & (torch.arange(K, device=sigs.device) < cfg.aoa.max_targets))
         eigvals = estimators.rank1_eigenvalues(sigs)
         num_sources, is_multi, _ = conf_mod.mdl_model_order(eigvals)
-        angles_deg, el_deg, _ = estimators.estimate_angles_2d(
-            sigs, cfg.radar, cfg.aoa, method=cfg.aoa.method,
-            num_sources=num_sources)
-        conf = conf_mod.angle_confidence(sigs, angles_deg, cfg.radar, el_deg)
+        A = sigs.shape[-1]
+        with span("aoa_grid", signatures=sigs.numel() // A,
+                  grid_points=_grid_points(cfg), elements=A):
+            angles_deg, el_deg, _ = estimators.estimate_angles_2d(
+                sigs, cfg.radar, cfg.aoa, method=cfg.aoa.method,
+                num_sources=num_sources)
+        with span("aoa_confidence"):
+            conf = conf_mod.angle_confidence(sigs, angles_deg, cfg.radar,
+                                             el_deg)
     return det, sigs, keep, num_sources, is_multi, angles_deg, el_deg, conf
+
+
+def _grid_points(cfg: PipelineConfig) -> int:
+    """Points of the AoA search grid: G_az on a ULA, G_el * G_az on a URA,
+    0 for ESPRIT (no grid)."""
+    if cfg.aoa.method == "esprit":
+        return 0
+    el = cfg.aoa.num_el_grid_points if cfg.radar.num_antennas_el > 1 else 1
+    return cfg.aoa.num_grid_points * el
 
 
 def _batched_assoc_solve(targets: Targets, cfg: PipelineConfig,
@@ -389,14 +405,16 @@ def _sequence_from_features(features, cfg: PipelineConfig,
     targets = _smoothed_targets(features, angles_s, conf_s, cfg)
     n_assoc, motion = _batched_assoc_solve(targets, cfg)
     pose = _pose_prefix(motion, cfg, rotate_pose)
+    pos = targets.position
     return FrameOutput(
         motion=motion, pose=pose,
         num_detections=torch.sum(det.valid, dim=-1).to(torch.int32),
         num_reliable=torch.sum(targets.is_reliable,
                                dim=-1).to(torch.int32),
         num_associations=n_assoc.to(torch.int32),
-        target_xy=targets.position[..., :2],
-        target_valid=targets.valid & targets.is_reliable)
+        target_xy=pos[..., :2],
+        target_valid=targets.valid & targets.is_reliable,
+        target_z=pos[..., 2])
 
 
 def frame_features(signals: torch.Tensor, cfg: PipelineConfig):
@@ -602,14 +620,16 @@ def _step_from_targets(state: FrameState, det: Detections, targets: Targets,
             smoother=smoother, prev_targets=targets,
             prev_valid=torch.sum(targets.valid, dim=-1) > 0,
             prev_motion=prev_motion, pose=pose, clutter=clutter)
+        pos = targets.position
         out = FrameOutput(
             motion=motion, pose=pose,
             num_detections=torch.sum(det.valid, dim=-1).to(torch.int32),
             num_reliable=torch.sum(targets.is_reliable,
                                    dim=-1).to(torch.int32),
             num_associations=assoc.num_valid.to(torch.int32),
-            target_xy=targets.position[..., :2],
-            target_valid=targets.valid & targets.is_reliable)
+            target_xy=pos[..., :2],
+            target_valid=targets.valid & targets.is_reliable,
+            target_z=pos[..., 2])
     return new_state, out
 
 
@@ -804,6 +824,7 @@ def process_sequence_chunked(scatterers: ScattererBatch,
                 assoc_b, prev_m, pose0, cfg, rotate_pose)
             pose0 = pose_b[-1]
 
+        pos = targets.position
         outs.append(FrameOutput(
             motion=motion_b, pose=pose_b,
             num_detections=torch.sum(det.valid, dim=1).to(torch.int32),
@@ -811,8 +832,9 @@ def process_sequence_chunked(scatterers: ScattererBatch,
                                    dim=1).to(torch.int32),
             num_associations=torch.sum(assoc_b.valid,
                                        dim=1).to(torch.int32),
-            target_xy=targets.position[..., :2],
-            target_valid=targets.valid & targets.is_reliable))
+            target_xy=pos[..., :2],
+            target_valid=targets.valid & targets.is_reliable,
+            target_z=pos[..., 2]))
         if H > 0:
             hist = tuple(torch.cat([h, x])[-H:] for h, x in zip(
                 hist, (torch.where(keep, det_keys, -1).to(torch.int32),

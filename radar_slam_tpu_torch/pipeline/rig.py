@@ -200,6 +200,7 @@ def _rig_tail(state: FrameState, targets_b: Targets,
             smoother=smoother, prev_targets=merged,
             prev_valid=torch.sum(merged.valid, dim=-1) > 0,
             prev_motion=prev_motion, pose=pose, clutter=clutter)
+        pos = merged.position
         out = FrameOutput(
             motion=motion, pose=pose,
             num_detections=torch.sum(
@@ -207,8 +208,9 @@ def _rig_tail(state: FrameState, targets_b: Targets,
             num_reliable=torch.sum(merged.is_reliable,
                                    dim=-1).to(torch.int32),
             num_associations=assoc.num_valid.to(torch.int32),
-            target_xy=merged.position[..., :2],
-            target_valid=merged.valid & merged.is_reliable)
+            target_xy=pos[..., :2],
+            target_valid=merged.valid & merged.is_reliable,
+            target_z=pos[..., 2])
     return new_state, out
 
 
@@ -286,13 +288,15 @@ def _rig_sequence_from_features(features, cfg: PipelineConfig, rig: Rig,
                                               sensor_pos=sensor_pos,
                                               group=group)
     pose = fr._pose_prefix(motion, cfg, rotate_pose)
+    pos = merged.position
     return FrameOutput(
         motion=motion, pose=pose,
         num_detections=torch.sum(keep, dim=(1, 2)).to(torch.int32),
         num_reliable=torch.sum(merged.is_reliable, dim=-1).to(torch.int32),
         num_associations=n_assoc.to(torch.int32),
-        target_xy=merged.position[..., :2],
-        target_valid=merged.valid & merged.is_reliable)
+        target_xy=pos[..., :2],
+        target_valid=merged.valid & merged.is_reliable,
+        target_z=pos[..., 2])
 
 
 def process_sequence_rig(scatterers: ScattererBatch,

@@ -37,7 +37,13 @@ From the span pass:
   the family, whose sum is held against the pass's own idle share;
 - the clock check: every K1 ``range_fft_kernel`` starts after the start of
   the ``k1`` span that launched it, and no device event before the pass's
-  first span.
+  first span;
+- ``span_host_ms.<name>`` (``aoa_features``, its ``aoa_grid`` and
+  ``aoa_confidence``): ms per unit of those spans, with the first
+  ``aoa_grid``'s attrs (signatures, grid points, elements), and the
+  counters per unit over the pass: ``beamforming_spectrum``'s calls,
+  chunks and products, and K1's launches by branch (a URA call's
+  ``tiled_rows``).
 
 Besides: each pass's host wall per unit, and the host cost of ``span()``
 off and on.  With ``--window-s``, before the traces and again after them,
@@ -73,6 +79,7 @@ PATH_STAGES = {"eager": STAGES, "capture": STAGES[:3] + ("replay", "fetch"),
                "replay": ("replay", "fetch")}
 ROW_STAGES = PATH_STAGES["capture"]
 PHASES = ("phase_a", "phase_b", "ingest")
+AOA_SPANS = ("aoa_features", "aoa_grid", "aoa_confidence")
 
 
 def on_clock(spans: List[profiling.Span], origin_ns: int):
@@ -236,6 +243,31 @@ def k1_clock_check(spans, events) -> Dict:
                 and ev.start < first)}
 
 
+def span_host_ms(spans, names, units: int) -> Dict[str, float]:
+    """Host ms per unit of each span name in ``names`` (spans in s)."""
+    return {name: sum(s.end_ns - s.start_ns for s in spans
+                      if s.name == name) / units * 1e3 for name in names}
+
+
+def counters() -> Dict[str, float]:
+    """The program's launch counters: ``beamforming_spectrum``'s calls,
+    chunks and products, K1's launches and launches by branch."""
+    from radar_slam_tpu_torch.aoa import estimators
+    from radar_slam_tpu_torch.ops import frontend
+    bf, k1 = estimators.beamforming_spectrum, frontend.frontend_kernel_split
+    out = {f"beamforming_spectrum.{k}": getattr(bf, k)
+           for k in ("calls", "chunks", "products")}
+    out["k1.launches"] = k1.launches
+    out.update({f"k1.branch_launches.{b}": n
+                for b, n in k1.branch_launches.items()})
+    return out
+
+
+def per_unit(after: Dict, before: Dict, units: int) -> Dict:
+    """Counter increments per unit between two :func:`counters` readings."""
+    return {k: (v - before[k]) / units for k, v in after.items()}
+
+
 def launch_lags_s(prof) -> Optional[Dict[str, float]]:
     """From a CPU + CUDA profile: each kernel's start on the device less
     the start of its launch on the host (s), matched by correlation id."""
@@ -313,11 +345,13 @@ def main(argv=None) -> int:
         def fn():
             window["t0"] = time.time_ns()
             profiling.collect()        # a retried trace starts afresh
+            window["counters0"] = counters()
             for _ in range(k):
                 drv.prepare(state["i"])
                 state["failed"] += guarded_step(drv, state["i"])
                 state["i"] += 1
             torch.cuda.synchronize()
+            window["counters1"] = counters()
             window["t1"] = time.time_ns()
         return fn
 
@@ -349,6 +383,7 @@ def main(argv=None) -> int:
     prof, raw, wall_on = tr.device_trace(units(n),
                                          [ProfilerActivity.CUDA], pads)
     profiling.disable()
+    counted = per_unit(window["counters1"], window["counters0"], n)
     origin = prof.profiler.kineto_results.trace_start_ns()
     spans = on_clock(profiling.collect(), origin)
     rec_on = tr.Traced(tr.device_events(raw), wall_on, n, 0, 0)
@@ -395,6 +430,10 @@ def main(argv=None) -> int:
         "wall_per_unit_s": {"cuda_only": wall_off / n, "spans": wall_on / n},
         "window_s": {"host_wall": wall_on, "mapped": t1 - t0},
         "clock": k1_clock_check(spans, rec_on.events),
+        "span_host_ms": span_host_ms(spans, AOA_SPANS, n),
+        "aoa_grid_attrs": next((s.attrs for s in spans
+                                if s.name == "aoa_grid"), None),
+        "counters_per_unit": counted,
         "launch_lag_s": launch_lags_s(prof_cpu),
         "builds": [{"name": s.attrs["name"], "compiled": s.attrs["compiled"],
                     "s": (s.end_ns - s.start_ns) * 1e-9} for s in builds],

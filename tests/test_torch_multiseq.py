@@ -81,7 +81,8 @@ def drifted_circles(M=2, F=95):
             num_reliable=np.zeros(F, np.int32),
             num_associations=np.zeros(F, np.int32),
             target_xy=np.asarray(pts, np.float32),
-            target_valid=np.asarray(msk)))
+            target_valid=np.asarray(msk),
+            target_z=np.zeros(np.shape(msk), np.float32)))
     return {k: np.stack([o[k] for o in outs]) for k in outs[0]}, gts
 
 

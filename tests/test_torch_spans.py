@@ -26,10 +26,12 @@ import pytest
 import torch
 
 import bench_torch
+from radar_slam_tpu_torch.aoa import estimators
 from radar_slam_tpu_torch.core import config as tcfg
 from radar_slam_tpu_torch.io import prefetch
 from radar_slam_tpu_torch.io.synthetic import (SceneConfig,
                                                constant_motion_scene,
+                                               constant_motion_scene_3d,
                                                constant_motion_scene_rig)
 from radar_slam_tpu_torch.ops import _build
 from radar_slam_tpu_torch.pipeline import frame as tframe
@@ -283,6 +285,83 @@ def test_rig_batched_prefetch_yields_the_ingest_spans(spans_on):
     assert call.attrs == {"frames": 5}
     assert _children(spans, call) == ["ingest.fill", "phase_a"] * 3 + [
         "phase_b"]
+
+
+# The AoA stage's spans and counters, on a URA (the ura8x4_s512
+# configuration's 181 x 61 joint grid at a 4 x 2 array) and on a ULA (the
+# bench's 91-point grid at 2 deg).
+URA_CFG = dataclasses.replace(
+    CFG, radar=dataclasses.replace(CFG.radar, num_antennas=4,
+                                   num_antennas_el=2),
+    aoa=dataclasses.replace(CFG.aoa, search_resolution_deg=1.0,
+                            el_min_deg=-45.0, el_max_deg=45.0,
+                            el_resolution_deg=1.5))
+ULA_CFG = dataclasses.replace(
+    CFG, aoa=dataclasses.replace(CFG.aoa, search_resolution_deg=2.0))
+AOA_CASES = {"ura": (URA_CFG, 181 * 61, 8), "ula": (ULA_CFG, 91, 8)}
+
+
+def _aoa_call(cfg, frames=3):
+    batch, _ = constant_motion_scene_3d(
+        5, num_frames=frames, dt=cfg.frame_dt, v_body=(8.0, 0.5, 1.0),
+        yaw_rate=0.05,
+        scene=SceneConfig(num_points=24, max_scatterers=cfg.max_scatterers),
+        z_span=5.0, device="cpu")
+    return tframe.process_sequence_batched(
+        batch, torch.Generator().manual_seed(0), cfg)
+
+
+@pytest.mark.parametrize("case", sorted(AOA_CASES))
+def test_aoa_grid_and_confidence_nest_under_aoa_features(spans_on, case):
+    cfg, grid_points, elements = AOA_CASES[case]
+    _aoa_call(cfg)
+    spans = profiling.collect()
+    (feat,) = [s for s in spans if s.name == "aoa_features"]
+    assert _children(spans, feat) == ["aoa_grid", "aoa_confidence"]
+    (grid,) = [s for s in spans if s.name == "aoa_grid"]
+    assert grid.attrs == {"signatures": 3 * cfg.detection.max_detections,
+                          "grid_points": grid_points, "elements": elements}
+    assert {s.request for s in spans} == {feat.request}
+
+
+@pytest.mark.parametrize("case", sorted(AOA_CASES))
+def test_beamforming_counters_count_signature_grid_pairs(case, monkeypatch):
+    """One call, one chunk, signatures x grid points products, counted
+    with the spans off as on; reset by assigning 0."""
+    cfg, grid_points, _ = AOA_CASES[case]
+    bf = estimators.beamforming_spectrum
+    for name in ("calls", "chunks", "products"):
+        monkeypatch.setattr(bf, name, 0)
+    _aoa_call(cfg)
+    signatures = 3 * cfg.detection.max_detections
+    assert (bf.calls, bf.chunks, bf.products) == (
+        1, 1, signatures * grid_points)
+
+
+def test_span_pass_reads_the_aoa_spans_and_counters(spans_on):
+    """The script's readers on two URA calls: host ms a unit of each AoA
+    span, and the counters' increments a unit (one K1 wrapper call on the
+    CPU launches no kernel, so K1's launch counts stay)."""
+    script = _script()
+    before = script.counters()
+    for _ in range(2):
+        _aoa_call(URA_CFG)
+    counted = script.per_unit(script.counters(), before, 2)
+    spans = script.on_clock(profiling.collect(), 0)
+    ms = script.span_host_ms(spans, script.AOA_SPANS, 2)
+    assert ms["aoa_features"] >= ms["aoa_grid"] + ms["aoa_confidence"] > 0
+    assert counted["beamforming_spectrum.calls"] == 1
+    assert counted["beamforming_spectrum.products"] == (
+        3 * URA_CFG.detection.max_detections * 181 * 61)
+    assert counted["k1.launches"] == 0
+    assert counted["k1.branch_launches.tiled_rows"] == 0
+
+
+def test_aoa_spans_off_record_nothing():
+    profiling.disable()
+    profiling.collect()
+    _aoa_call(URA_CFG, frames=2)
+    assert profiling.collect() == []
 
 
 def _aten_ops(fn):
