@@ -664,7 +664,7 @@ def phase_kernel_vs_plain(torch, fe, cfg_mod, device):
         after = branch_counts(fe.frontend_kernel_split)
         moved = {k: after[k] - before[k] for k in after}
         dense = range_plan(S) == "dense route"
-        check(moved == {k: 2 * int(k == "launches"
+        check(moved == {k: 2 * int(k in ("launches", "wgmma")
                                    or (k == "dense_range" and dense))
                         for k in moved}, f"{label}: counts {moved}")
         plain = as_f32(fe.scatterer_frontend_split_reference(
@@ -2031,8 +2031,8 @@ def phase_onchip_routes(torch, sp, fe, power, cfg_mod, device):
     for n in ("K1", "K3"):
         check_frontend(f"A=16 C=64 {n}", a16[n])
         c = a16["branch_counts"][n]
-        check(c["launches"] == 1 and c["tiled_rows"] == 1,
-              f"A=16 C=64: {n} counts {c}")
+        check(c["launches"] == 1 and c["tiled_rows"] == 1
+              and c["wgmma"] == 1, f"A=16 C=64: {n} counts {c}")
     c = a16["branch_counts"]["K8"]
     check(c["launches"] == 1 and c["cluster_rows"] == 1,
           f"A=16 C=64: K8 counts {c}")
@@ -2422,8 +2422,10 @@ def k1p_checks(torch, fe, sp, cfg, batch, seeds, label):
             torch.cuda.synchronize()
             after = branch_counts(wrapper)
             moved = {k: after[k] - before[k] for k in after}
+            route = fe._check_launch(F, A, C, S, prm_b,
+                                     split=kname == "K1")
             want = {k: 2 * int(k == "launches"
-                               or k in fe._branches(prm_b, cl, S))
+                               or k in fe._branches(prm_b, cl, S, route))
                     for k in after}
             check(moved == want, f"{label} {kname} {branch}: counts {moved}")
             res = frontend_errors(torch, fe, cfg, kern, plain(),
@@ -2696,28 +2698,59 @@ def phase_k1prime_throughput(torch, fe, cfg_mod, device):
 
 
 def phase_frontend_breakdown(torch, fe, cfg_mod, device):
-    """Where the one-pass kernels' time goes (printed, not gated): K3's
-    kernels in each noise domain, 64 frames, at product depths Sc = 32 and
-    128 (the slope is the true product's cost) and at sigma 0 and the
-    production sigma (the difference is the noise's)."""
+    """Where the one-pass kernels' time goes (printed, not gated), 64
+    frames a call: K3's kernels at the bench's shape in each noise domain
+    at product depths Sc = 32 and 128; K1's (split tables, range
+    frequency) at the ingest's shape (A = 8, C = 32) and the URA's (A = 32,
+    C = 32: "tiled_rows") at Sc = 128 and 512.  Each at sigma 0 and the
+    production sigma.  Of ``z_power_kernel``: the true product (the slope
+    in Sc, at sigma 0, times Sc), the noise (the production sigma less
+    sigma 0) and the rest ("fixed"), ms per 64 frames at the larger Sc;
+    and its launches on wgmma against its launches."""
     cfg = bench_config(cfg_mod)
     batch, _ = scene(64, cfg, device)
     seeds = torch.arange(64, dtype=torch.int32, device=device)
     args, prm = kernel_inputs(batch, cfg, seeds)
     e_ac, e_fast, mix = synth_inputs(batch, cfg)
     C = cfg.radar.num_chirps
-    out = {}
+    out, split = {}, {}
     for Sc in (32, 128):
         ea, ef = e_ac[:, :Sc].contiguous(), e_fast[:, :Sc].contiguous()
         for domain in ("range_freq", "time"):
             for sigma in (0.0, prm.sigma):
                 prm_b = dataclasses.replace(prm, sigma=sigma,
                                             noise_domain=domain)
-                out[f"{domain}_Sc{Sc}_sigma{sigma:g}"] = kernel_profile(
+                out[f"K3_{domain}_Sc{Sc}_sigma{sigma:g}"] = kernel_profile(
                     torch, lambda: fe.frontend_kernel_dense(
                         ea, ef, seeds, mix, args[8], prm_b, C))
-    emit("frontend_breakdown", kernel="K3 frontend_dense", frames=64,
-         sub_ms=out)
+    w = fe.frontend_kernel_split
+    for label, kcfg, make in (
+            ("K1_ingest", bench_config(cfg_mod, max_scatterers=512), scene),
+            ("K1_ura", ura_config(cfg_mod), ura_scene)):
+        b, _ = make(64, kcfg, device)
+        a, p = kernel_inputs(b, kcfg, seeds)
+        zp = {}
+        # .get: a tree from before the "wgmma" counter reads 0 launches.
+        before = (w.launches, w.branch_launches.get("wgmma", 0))
+        for Sc in (128, 512):
+            sl = tuple(x[:, :Sc].contiguous() for x in a[:5]) + a[5:]
+            for sigma in (0.0, p.sigma):
+                prm_b = dataclasses.replace(p, sigma=sigma)
+                per = kernel_profile(torch, lambda: w(*sl, prm_b))
+                out[f"{label}_Sc{Sc}_sigma{sigma:g}"] = per
+                zp[Sc, sigma] = sum(v for k, v in per.items()
+                                    if k.startswith("z_power_kernel"))
+        torch.cuda.synchronize()
+        product = (zp[512, 0.0] - zp[128, 0.0]) / (512 - 128) * 512
+        split[label] = dict(
+            z_power_ms=zp[512, p.sigma], product_ms=product,
+            noise_ms=zp[512, p.sigma] - zp[512, 0.0],
+            fixed_ms=zp[512, 0.0] - product,
+            launches=w.launches - before[0],
+            wgmma_launches=w.branch_launches.get("wgmma", 0) - before[1])
+    emit("frontend_breakdown", kernels="K3 frontend_dense (bench), K1 "
+         "frontend_split (ingest, URA)", frames=64, sub_ms=out,
+         z_power_split_ms_per_64f=split)
 
 
 def phase_sequential_latency(torch, fe, cfg_mod, device):
@@ -3834,7 +3867,8 @@ def phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
                     "K8_rel": K8_REFERENCE_CONSTANT_TOL,
                     "K8_oracle_rel": K8_TOL, "K8_kernel_order_rel": K8_TOL,
                     "repeats": "bit for bit",
-                    "tiled_rows": "every K1 / K3 launch"}, **out)
+                    "tiled_rows": "every K1 / K3 launch",
+                    "wgmma": "every K1 / K3 launch"}, **out)
     for label in ("K1", "K1_clutter"):
         check_frontend(f"A=32 {label}", out[label])
         check(out[label]["repeats"], f"A=32 {label}: outputs differ "
@@ -3859,7 +3893,8 @@ def phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod, device):
     bc = out["branch_counts"]
     for n in ("K1", "K3"):
         check(bc[n]["launches"] > 0
-              and bc[n]["tiled_rows"] == bc[n]["launches"],
+              and bc[n]["tiled_rows"] == bc[n]["launches"]
+              and bc[n]["wgmma"] == bc[n]["launches"],
               f"A=32: {n} counts {bc[n]}")
     check(bc["K1"]["clutter"] == 2, f"A=32: K1 clutter {bc['K1']}")
     return {"K1": out["K1"]["p_max_abs_err"]}
@@ -4693,8 +4728,9 @@ def phase_cli_slam(torch, counters, device):
     """``python -m radar_slam_tpu_torch analyze --slam --max-frames 64``,
     once per solver and proposer, in this process: exit 0, and
     slam_loop_closures, slam_position_rmse and slam_yaw_rmse in the JSON;
-    K1 launched once a step of the analyzer and once by the batched
-    re-run."""
+    K1 launched from the host three times: the analyzer's first step
+    (eager) and its second (captured into the CUDA graph that its later
+    steps replay), and the batched re-run."""
     rows = {}
     for solver in ("cg", "schur"):
         for proposer in ("pose", "scancontext"):
@@ -4712,8 +4748,7 @@ def phase_cli_slam(torch, counters, device):
             check(rc == 0 and all(k in r for k in (
                 "slam_loop_closures", "slam_position_rmse",
                 "slam_yaw_rmse")), f"cli_slam: {name} {rows[name]}")
-            check(n == {"K1": SLAM_CLI_FRAMES + 1},
-                  f"cli_slam: {name} launches {n}")
+            check(n == {"K1": 3}, f"cli_slam: {name} launches {n}")
     emit("cli_slam", frames=SLAM_CLI_FRAMES, runs=rows)
     return {k: v["launches"] for k, v in rows.items()}
 

@@ -41,17 +41,20 @@
 // What the design does about it.
 // - Range frequency, three launches: range_fft_kernel (8 rows of e_fast
 //   per block through the FFT -> T [F, Sc, S]); z_power_kernel (one block
-//   of 16 warps per 32 range bins of a frame: Z = e_at T for all A*C rows
-//   in 3xTF32 mma.sync.m16n8k8, its operands on a two-stage cp.async ring
-//   -- K1 stages the split tables' dopp and ant rows and forms e_at in the
-//   fragment loads, K3 stages e_ac --, the noise drawn once per tile plus
-//   a halo of the window taps' reach (4 of 36 columns redrawn), DC zeroed,
-//   Z kept in shared memory, written transposed, and its Doppler power, a
-//   second 3xTF32 product per antenna, summed over antennas in antenna
-//   order in registers -> p); then the CFAR.  Where the A*C rows of Z do
-//   not fit a block (A*C > ~540: A = 16 at C = 64), the block runs the
-//   product, Z store and Doppler power per group of antennas ("tiled
-//   rows"), the running power sum carried across groups in antenna order.
+//   of four warpgroups per 32 range bins of a frame: Z = e_at T for all
+//   A*C rows, 256 a chunk, in 3xTF32 on warpgroup MMA -- wgmma.m64n64k8,
+//   A' from registers, each warpgroup composing and splitting its rows of
+//   e_at once (K1 from the split tables' dopp and ant rows, K3 from e_ac),
+//   B' = the stacked real form of T split once per stage into shared
+//   memory, the A factors and T arriving by cp.async a stage ahead --,
+//   the noise drawn once per tile plus a halo of the window taps' reach
+//   (4 of 36 columns redrawn), DC zeroed, Z kept in shared memory, written
+//   transposed, and its Doppler power, a second 3xTF32 product per antenna
+//   (mma.sync), summed over antennas in antenna order in registers -> p);
+//   then the CFAR.  Where the A*C rows of Z do not fit a block (A*C >
+//   ~540: A = 16 at C = 64, the 8 x 4 URA), the block runs the product, Z
+//   store and Doppler power per group of antennas ("tiled rows"), the
+//   running power sum carried across groups in antenna order.
 // - Time domain, three launches: cube_onchip_kernel (X never leaves shared
 //   memory; Z and one power plane per antenna out; a cluster of
 //   ceil(C / 32) blocks per antenna where C > 32), antenna_sum_kernel, the
@@ -60,10 +63,15 @@
 //   prefix-sum CFAR the map and two scan planes (154 KB at C = 32).  The
 //   box-sum CFAR spreads a small batch's frames over up to four blocks
 //   each (a block per frame leaves most SMs idle below 132 frames).
-// What still holds it back (PERF.md, sub-kernel times): the product is
-// held by its fragment loads and hi / lo splits rather than the tensor
-// cores, the noise sits near its INT32 bound, and one block per SM leaves
-// the two unoverlapped.
+// What still holds it back (PERF.md §6, clock64 profile): the product runs
+// at a third to a half of its 3xTF32 bound -- a warpgroup composes its A'
+// (~55 instructions a warp per k-step, four warps an SM sub-partition)
+// and waits for each k-step's products, and once a stage copies and stages
+// B' (~1,000-1,700 cycles, its cp.async issue the most of it), while its
+// 64 accumulators a thread hold a 512-thread block at the 128-register
+// cap, so a second A' register set (composing under the products) spills
+// or is serialized; then the noise, near its INT32 bound, and one block
+// per SM leaving the two unoverlapped.
 // No floating-point atomics: every output repeats bit for bit.
 //
 // Built as a shared library with a plain C interface (no PyTorch headers):
@@ -79,6 +87,7 @@
 #include "philox.cuh"
 #include "range_fft.cuh"
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -155,29 +164,52 @@ range_fft_kernel(Factors fa, const float2* __restrict__ mix,
 }
 
 // ---- 2. Z = e_at T + noise, Doppler power: one block per ZK_NT range bins
+//
+// The product on warpgroup MMA: four warpgroups of 64 Z rows, each a
+// 64 x 64 tile of wgmma.m64n64k8 in 3xTF32 whose 64 columns are the real
+// and the imaginary parts of the block's 32 range bins.  The complex
+// product is the stacked real one: per 4 complex k, A' = [Ar | Ai] (8
+// columns) and B' = [[Tr, Ti], [-Ti, Tr]] (8 x 64), so A' B' = [Zr | Zi].
+// A' comes from registers: each thread composes e_at[m, k] (K1: dopp[k, c]
+// ant[k, a]; K3: e_ac) for its two fragment rows and splits it into TF32
+// high and low parts, every element once per block and chunk.  B' is
+// staged per ring stage from the stage's T tile (copied by cp.async): each
+// thread splits one T element into its four B' places, high and low, in
+// the layout wgmma reads (csrc/wgmma.cuh).  hi hi goes to the main
+// accumulators, hi lo and lo hi to separate small-term ones.
 
-constexpr int ZK_THREADS = 512;  // 16 warps: 8 row strips x 2 column halves
-constexpr int ZK_MC = 256;      // rows per chunk: 8 x 32
-constexpr int ZK_NT = 32;       // range bins per block
-constexpr int ZK_KC = 16;       // reduction depth per ring stage (dense)
-constexpr int ZK_KCS = 32;      // the same for the split tables
-constexpr int ZK_LDA = 260;     // frag_pitch(ZK_MC)
-constexpr int ZK_LDB = 36;      // frag_pitch(ZK_NT)
+constexpr int ZK_THREADS = 512;  // 4 warpgroups x 64 rows
+constexpr int ZK_MC = 256;      // rows per chunk
+constexpr int ZK_NT = 32;       // range bins per block (64 wgmma columns)
+constexpr int ZK_KC = 8;        // complex reduction depth per ring stage (dense)
+constexpr int ZK_KCS = 16;      // the same for the split tables
+constexpr int ZK_LDA = 260;     // e_ac rows of a stage: pitch (float2)
 constexpr int ZK_LDZ = 36;      // Z tile pitch
 constexpr int ZK_GW = ZK_NT + 2 * MAX_HALO;          // noise tile pitch
 
-// A ring stage (float2): dense, the e_ac rows [ZK_KC][ZK_LDA] and the T
-// tile [ZK_KC][ZK_LDB]; split, the dopp rows [ZK_KCS][frag_pitch(C)], the
-// ant rows [ZK_KCS][frag_pitch(A)] and the T tile [ZK_KCS][ZK_LDB].
-__host__ __device__ __forceinline__ int zk_stage(bool split, int A, int C) {
-  return split ? ZK_KCS * (frag_pitch(C) + frag_pitch(A) + ZK_LDB)
-               : ZK_KC * (ZK_LDA + ZK_LDB);
+// The ring (float2), two stages of each: B' (KC / 4 k-steps, high then
+// low parts, WG_TILE_WORDS words each: KC * 128 float2), the T tile
+// [KC][ZK_NT] and the A factors -- K1 the dopp rows [KC][frag_pitch(C)]
+// and the ant rows [KC][frag_pitch(A)], K3 the e_ac rows [KC][ZK_LDA].
+__host__ __device__ __forceinline__ int zk_ring(bool split, int A, int C) {
+  const int kc = split ? ZK_KCS : ZK_KC;
+  const int d = split ? frag_pitch(C) + frag_pitch(A) : ZK_LDA;
+  return kc * 2 * (128 + ZK_NT + d);
+}
+
+// A 16-byte cp.async (two complex values), L2 only, zero-filled when
+// !valid.
+__device__ __forceinline__ void cp_async16(float2* smem, const float2* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0));
 }
 
 // The first region of shared memory (float2): the ring, then the noise
 // tile, then W_dop^T [C16][frag_pitch(Cp)].
 __host__ __device__ __forceinline__ int zk_r0(bool split, int A, int C) {
-  const int ring = 2 * zk_stage(split, A, C), noise = ZK_MC * ZK_GW;
+  const int ring = zk_ring(split, A, C), noise = ZK_MC * ZK_GW;
   const int w = ((C + 15) & ~15) * frag_pitch((C + 7) & ~7);
   const int r = ring > noise ? ring : noise;
   return r > w ? r : w;
@@ -204,9 +236,22 @@ __host__ __forceinline__ int zk_group_antennas(bool split, int A, int C) {
   return ag < 1 ? 0 : (int)(ag < A ? ag : A);
 }
 
+// Whether z_power_kernel's copies can move 16 bytes: every row of the A
+// factors (K1: dopp [C], ant [A]; K3: e_ac [A C]) and of T [S] starts
+// 16-byte aligned.
+__host__ __forceinline__ bool zk_wide(bool split, const Factors& fa,
+                                      const float2* T, int A, int C, int S) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(T) |
+                          reinterpret_cast<uintptr_t>(fa.ant) |
+                          (split ? reinterpret_cast<uintptr_t>(fa.dopp) : 0);
+  return ((C | S | (split ? A : 0)) & 1) == 0 && (bases & 15) == 0;
+}
+
 // TILED: the rows of ag antennas a pass (zk_group_antennas); otherwise all
-// A in one pass, the loop below folded away at compile time.
-template <bool SPLIT, int IMPL, bool TILED>
+// A in one pass, the loop below folded away at compile time.  WIDE: the
+// copies move 16 bytes (two complex values), where every row of the tables
+// and of T starts 16-byte aligned (zk_wide), else 8.
+template <bool SPLIT, int IMPL, bool TILED, bool WIDE>
 __global__ void __launch_bounds__(ZK_THREADS, 1)
 z_power_kernel(Factors fa, const float2* __restrict__ tin,
                const int* __restrict__ seeds, const float2* __restrict__ wdt,
@@ -215,19 +260,32 @@ z_power_kernel(Factors fa, const float2* __restrict__ tin,
                NoiseTaps taps, int dc_removal, float inv_a, int ag) {
   extern __shared__ __align__(16) float2 zsm[];
   constexpr int KC = SPLIT ? ZK_KCS : ZK_KC;
+  constexpr int KS = KC / 4;                 // wgmma k-steps a stage
+  constexpr int BSTAGE = 2 * KS * WG_TILE_WORDS;   // words of a B' stage
   const int f = blockIdx.y, n0 = blockIdx.x * ZK_NT;
   const int M = A * C;
-  const int stage = zk_stage(SPLIT, A, C);
   const int ldd = frag_pitch(C), ldn = frag_pitch(A);
+  const int dstage = KC * (SPLIT ? ldd + ldn : ZK_LDA);
   float2* R0 = zsm;
+  uint32_t* Bc = reinterpret_cast<uint32_t*>(zsm);   // [2][BSTAGE]
+  float2* Traw = zsm + KC * 256;                     // [2][KC][ZK_NT]
+  float2* Draw = Traw + 2 * KC * ZK_NT;              // [2][dstage]
   float2* Zt = zsm + zk_r0(SPLIT, A, C);            // [ag C + 8][ZK_LDZ]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mw = warp & 7, nw = warp >> 3;   // rows 32 mw.., cols 16 nw..
+  const int wg = warp >> 2, wq = warp & 3;   // rows 64 wg + 16 wq + g (+ 8)
   const int nk = (Sc + KC - 1) / KC;
   const bool noisy = sn != 0.0f;
   const unsigned seed = noisy ? (unsigned)seeds[f] : 0u;
   const float2* tf = tin + (size_t)f * Sc * S;
+  // The T element of a stage this thread splits into B', where
+  // threadIdx.x < KC * 32: k 4 wg + t (k-step wg, B' row t), range bin
+  // 8 wq + g -- a warp's 32 stores of one B' row then hit 32 consecutive
+  // words.
+  const bool t_own = threadIdx.x < KC * 32;
+  const int t_k = 4 * wg + t, t_n = 8 * wq + g;
+  static_assert(ZK_KCS == ZK_THREADS / 32 && 2 * ZK_KC == ZK_THREADS / 32,
+                "a warp copies one row of a stage's A factors (K3: half)");
   // Rows ag C.. ag C + 7 are read by the Doppler product's last tile:
   // zeros (a smaller last group reads finite rows of the one before,
   // against zero columns of W_dop^T).
@@ -241,111 +299,199 @@ z_power_kernel(Factors fa, const float2* __restrict__ tin,
     const int a1 = TILED ? min(A, a0 + ag) : A;
     const int mlo = a0 * C, mhi = a1 * C;
     for (int m0 = mlo; m0 < mhi; m0 += ZK_MC) {
-      // Every stage arrives by cp.async: the e_ac rows, or the split
-      // tables' dopp and ant rows, whose products the fragment loads form.
-      auto load_stage = [&](int it) {
-        float2* As = R0 + (it & 1) * stage;
-        float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
-        const int k0 = it * KC;
+      // Copies by cp.async, zero beyond Sc, S and the group: stage it's A
+      // factors into ring slot it & 1 -- the split tables' dopp and ant
+      // rows, warp q copying row q (loops kept rolled: one pass where C,
+      // A <= 32 or 64), or the e_ac rows, warp q half of row q / 2 ...
+      auto load_a = [&](int it) {
+        float2* As = Draw + (it & 1) * dstage;
         if constexpr (SPLIT) {
-          float2* Ns = As + KC * ldd;
-          for (int e = threadIdx.x; e < KC * C; e += ZK_THREADS) {
-            const int kk = e / C, c = e % C, sc = k0 + kk;
-            const bool ok = sc < Sc;
-            cp_async8(&As[kk * ldd + c],
-                      ok ? fa.dopp + ((size_t)f * Sc + sc) * C + c : fa.dopp,
-                      ok);
-          }
-          for (int e = threadIdx.x; e < KC * A; e += ZK_THREADS) {
-            const int kk = e / A, aa = e % A, sc = k0 + kk;
-            const bool ok = sc < Sc;
-            cp_async8(&Ns[kk * ldn + aa],
-                      ok ? fa.ant + ((size_t)f * Sc + sc) * A + aa : fa.ant,
-                      ok);
+          const int sc = it * KC + warp;
+          const bool ok = sc < Sc;
+          const float2* dr = fa.dopp + ((size_t)f * Sc + sc) * C;
+          const float2* ar = fa.ant + ((size_t)f * Sc + sc) * A;
+          float2* dd = As + warp * ldd;
+          float2* ad = As + KC * ldd + warp * ldn;
+          if constexpr (WIDE) {
+#pragma unroll 1
+            for (int c = 2 * lane; c < C; c += 64)
+              cp_async16(dd + c, ok ? dr + c : fa.dopp, ok);
+#pragma unroll 1
+            for (int a = 2 * lane; a < A; a += 64)
+              cp_async16(ad + a, ok ? ar + a : fa.ant, ok);
+          } else {
+#pragma unroll 1
+            for (int c = lane; c < C; c += 32)
+              cp_async8(dd + c, ok ? dr + c : fa.dopp, ok);
+#pragma unroll 1
+            for (int a = lane; a < A; a += 32)
+              cp_async8(ad + a, ok ? ar + a : fa.ant, ok);
           }
         } else {
-          for (int e = threadIdx.x; e < KC * ZK_MC; e += ZK_THREADS) {
-            const int kk = e / ZK_MC, mm = e % ZK_MC;
-            const int sc = k0 + kk, m = m0 + mm;
-            const bool ok = sc < Sc && m < mhi;
-            cp_async8(&As[kk * ZK_LDA + mm],
-                      ok ? fa.ant + ((size_t)f * Sc + sc) * M + m : fa.ant,
-                      ok);
+          const int sc = it * KC + (warp >> 1);
+          const float2* er = fa.ant + ((size_t)f * Sc + sc) * M + m0;
+          float2* ed = As + (warp >> 1) * ZK_LDA + (warp & 1) * (ZK_MC / 2);
+          er += (warp & 1) * (ZK_MC / 2);
+          const int mo = m0 + (warp & 1) * (ZK_MC / 2);
+          if constexpr (WIDE) {
+#pragma unroll
+            for (int j = 0; j < ZK_MC / 128; ++j) {
+              const int mm = 64 * j + 2 * lane;
+              const bool ok = sc < Sc && mo + mm < mhi;
+              cp_async16(ed + mm, ok ? er + mm : fa.ant, ok);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < ZK_MC / 64; ++j) {
+              const int mm = 32 * j + lane;
+              const bool ok = sc < Sc && mo + mm < mhi;
+              cp_async8(ed + mm, ok ? er + mm : fa.ant, ok);
+            }
           }
         }
-        for (int e = threadIdx.x; e < KC * ZK_NT; e += ZK_THREADS) {
-          const int kk = e / ZK_NT, nn = e % ZK_NT;
-          const int sc = k0 + kk, n = n0 + nn;
+      };
+      // ... and stage it's T tile into slot it & 1.
+      auto load_t = [&](int it) {
+        float2* Ts = Traw + (it & 1) * KC * ZK_NT;
+        if constexpr (WIDE) {
+          // Row e / 16, range bins 2 (e % 16) and the next.
+          const int e = threadIdx.x;
+          if (e < KC * ZK_NT / 2) {
+            const int r = e >> 4, nn = 2 * (e & 15), sc = it * KC + r;
+            const bool ok = sc < Sc && n0 + nn < S;
+            cp_async16(Ts + r * ZK_NT + nn,
+                       ok ? tf + (size_t)sc * S + n0 + nn : tf, ok);
+          }
+        } else if (t_own) {
+          const int sc = it * KC + t_k, n = n0 + t_n;
           const bool ok = sc < Sc && n < S;
-          cp_async8(&Bs[kk * ZK_LDB + nn],
+          cp_async8(Ts + t_k * ZK_NT + t_n,
                     ok ? tf + (size_t)sc * S + n : tf, ok);
         }
+      };
+      // One cp.async group: stage ia's A factors and stage jt's T tile
+      // (a stage out of range skipped).
+      auto load_stage = [&](int ia, int jt) {
+        if (ia >= 0 && ia < nk) load_a(ia);
+        if (jt < nk) load_t(jt);
         cp_async_commit();
       };
-      // The split tables: this thread's fragment rows m = m0 + 32 mw +
-      // 16 h + g + 8 j as (chirp, antenna), or -1 beyond M.
-      int row_c[2][2], row_a[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int m = m0 + 32 * mw + 16 * h + g + 8 * j;
-          row_a[h][j] = m < mhi ? m / C : -1;
-          row_c[h][j] = m < mhi ? m - (m / C) * C : 0;
+      // ... split into its four B' places of ring stage (it & 1): (t, n)
+      // Tr, (t, 32 + n) Ti, (t + 4, n) -Ti, (t + 4, 32 + n) Tr, at o =
+      // bt_offset(t, n) = 64 wq + lane, o + 256, o + 32 and o + 288.
+      static_assert(bt_offset(0, 32) == 256 && bt_offset(4, 0) == 32 &&
+                        bt_offset(4, 32) == 288,
+                    "B' places of one T element");
+      auto stage_b = [&](int it) {
+        if (t_own) {
+          const float2 v = Traw[((it & 1) * KC + t_k) * ZK_NT + t_n];
+          uint32_t rh, rl, ih, il;
+          tf32_pair(v.x, rh, rl);
+          tf32_pair(v.y, ih, il);
+          uint32_t* hi =
+              Bc + (it & 1) * BSTAGE + wg * WG_TILE_WORDS + 64 * wq + lane;
+          uint32_t* lo = hi + KS * WG_TILE_WORDS;
+          hi[0] = rh;
+          hi[256] = ih;
+          hi[32] = ih ^ 0x80000000u;
+          hi[288] = rh;
+          lo[0] = rl;
+          lo[256] = il;
+          lo[32] = il ^ 0x80000000u;
+          lo[288] = rl;
+          fence_proxy_async();
         }
-
-      float accr[2][2][4], acci[2][2][4];
+      };
+      // This thread's fragment rows m = m0 + 64 wg + 16 wq + g + 8 h: where
+      // they lie in a stage's A factors, at k = t.  The split tables: (c, a)
+      // of m, a clamped into the table beyond the group (such rows of Z
+      // are never stored, and each row of a product depends on its own
+      // row of A' alone).
+      int pd[2], pa[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h) {
+        const int mm = 64 * wg + 16 * wq + g + 8 * h, m = m0 + mm;
+        if constexpr (SPLIT) {
+          const int a = min(m / C, A - 1);
+          pd[h] = t * ldd + m % C;
+          pa[h] = KC * ldd + t * ldn + a;
+        } else {
+          pd[h] = t * ZK_LDA + mm;
+          pa[h] = 0;
+        }
+      }
+      // A' of k-step ks of stage it: (row, t) Ar, (row, t + 4) Ai of
+      // e_at[row, 4 ks + t], high and low.
+      auto compose_a = [&](const float2* As, int ks, uint32_t (&ah)[4],
+                           uint32_t (&al)[4]) {
+        float2 v[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) accr[h][j][i] = acci[h][j][i] = 0.f;
-      const bool active = m0 + 32 * mw < mhi;
-      load_stage(0);
-      for (int it = 0; it < nk; ++it) {
-        if (it + 1 < nk) load_stage(it + 1);
-        else cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const float2* As = R0 + (it & 1) * stage;
-        const float2* Bs = As + (SPLIT ? KC * (ldd + ldn) : KC * ZK_LDA);
-        if (active) {
-          for (int ks = 0; ks < KC && it * KC + ks < Sc; ks += 8) {
-            FragA a0, a1;
-            if constexpr (SPLIT) {
-              // e_at[m, k] = dopp[k, c] ant[k, a].
-              const float2* Ns = As + KC * ldd;
-              float2 v[2][4];
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                  const int j = i & 1, k = ks + t + 4 * (i >> 1);
-                  const float2 d = As[k * ldd + row_c[h][j]];
-                  const float2 w = row_a[h][j] >= 0 ? Ns[k * ldn + row_a[h][j]]
-                                                    : make_float2(0.f, 0.f);
-                  v[h][i] = make_float2(d.x * w.x - d.y * w.y,
-                                        d.x * w.y + d.y * w.x);
-                }
-              a0 = make_frag_a(v[0]);
-              a1 = make_frag_a(v[1]);
-            } else {
-              a0 = load_frag_a(As, 1, ZK_LDA, 32 * mw, ks);
-              a1 = load_frag_a(As, 1, ZK_LDA, 32 * mw + 16, ks);
-            }
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const int nb = 16 * nw + 8 * nt;
-              if (n0 + nb >= S) continue;
-              const FragB fb = load_frag_b(Bs, ZK_LDB, ks, nb);
-              cmma3(accr[0][nt], acci[0][nt], a0, fb);
-              cmma3(accr[1][nt], acci[1][nt], a1, fb);
-            }
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (SPLIT) {
+            // e_at[m, k] = dopp[k, c] ant[k, a].
+            const float2 d = As[pd[h] + 4 * ks * ldd];
+            const float2 w = As[pa[h] + 4 * ks * ldn];
+            v[h] = make_float2(d.x * w.x - d.y * w.y, d.x * w.y + d.y * w.x);
+          } else {
+            v[h] = As[pd[h] + 4 * ks * ZK_LDA];
           }
         }
+        tf32_pair(v[0].x, ah[0], al[0]);
+        tf32_pair(v[1].x, ah[1], al[1]);
+        tf32_pair(v[0].y, ah[2], al[2]);
+        tf32_pair(v[1].y, ah[3], al[3]);
+      };
+
+      // Accumulators: column 8 j + 2 t + e of row 8 h of this thread's
+      // 16 at [4 j + 2 h + e]; columns 0-31 Zr, 32-63 Zi.
+      float zm[32], zs[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) zm[i] = zs[i] = 0.f;
+      // The pipeline: while stage it - 1's products run, each warpgroup
+      // under its own k-step's (warpgroup w: k-step w mod KS, so the other
+      // three keep issuing products meanwhile), stage it's B' is staged
+      // from its T tile, and stage it's A factors and stage it + 1's T
+      // tile are copied.  A warpgroup waits for each k-step's products
+      // before it composes the next k-step's A' into the same registers,
+      // so at the barrier no product of the stage before is in flight.
+      load_stage(0, 0);
+      load_stage(-1, 1);
+      cp_async_wait<0>();
+      __syncthreads();
+      stage_b(0);
+      for (int it = 0; it < nk; ++it) {
+        // Stage it's A factors and B' and stage it + 1's T tile are in
+        // place for every thread; no thread reads the slots that stage
+        // it + 1's A factors and B' and stage it + 2's T tile take.
+        cp_async_wait<0>();
         __syncthreads();
+        const float2* As = Draw + (it & 1) * dstage;
+        const uint64_t desc = wg_desc(Bc + (it & 1) * BSTAGE);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t ah[4], al[4];
+          compose_a(As, ks, ah, al);
+          wg_operands(ah);
+          wg_operands(al);
+          wg_fence();
+          // B' tiles: high parts of k-step ks, then the low parts.
+          const uint64_t bh = desc + wg_desc_step(ks);
+          const uint64_t bl = desc + wg_desc_step(KS + ks);
+          wgmma_tf32_m64n64k8(zm, ah, bh);
+          wgmma_tf32_m64n64k8(zs, ah, bl);
+          wgmma_tf32_m64n64k8(zs, al, bh);
+          wg_commit();
+          if (ks == wg % KS) {
+            if (it + 1 < nk) stage_b(it + 1);
+            load_stage(it + 1, it + 2);
+          }
+          wg_wait<0>();
+        }
       }
+      wg_operands(zm);
+      wg_operands(zs);
+      cp_async_wait<0>();
+      __syncthreads();
 
       // Epilogue: sigma sqrt(S) (g (*) taps), each value drawn once per tile
       // (columns n0 - H .. n0 + ZK_NT + H - 1 mod S) into the free ring.
@@ -374,39 +520,35 @@ z_power_kernel(Factors fa, const float2* __restrict__ tin,
         }
         __syncthreads();
       }
-      if (active) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int mm = 32 * mw + 16 * h + g + 8 * (i >> 1);
-              const int nn = 16 * nw + 8 * nt + 2 * t + (i & 1);
-              const int m = m0 + mm, n = n0 + nn;
-              if (m >= mhi) continue;
-              float vr = accr[h][nt][i], vi = acci[h][nt][i];
-              if (n >= S) {
-                vr = vi = 0.f;
-              } else {
-                if (noisy) {
-                  float cr = 0.f, ci = 0.f;
-                  for (int q = 0; q < taps.n; ++q) {
-                    // roll by off: the tap reads column n - off.
-                    const float2 gv = G[mm * ZK_GW + nn + H - taps.off[q]];
-                    const float tr = __fmul_rn(taps.coef[q], gv.x);
-                    const float ti = __fmul_rn(taps.coef[q], gv.y);
-                    cr = (q == 0) ? tr : __fadd_rn(cr, tr);
-                    ci = (q == 0) ? ti : __fadd_rn(ci, ti);
-                  }
-                  vr = __fadd_rn(vr, __fmul_rn(sn, cr));
-                  vi = __fadd_rn(vi, __fmul_rn(sn, ci));
-                }
-                if (dc_removal && n == 0) vr = vi = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const int mm = 64 * wg + 16 * wq + g + 8 * (i >> 1);
+          const int nn = 8 * j + 2 * t + (i & 1);
+          const int m = m0 + mm, n = n0 + nn;
+          if (m >= mhi) continue;
+          float vr = zm[4 * j + i] + zs[4 * j + i];
+          float vi = zm[16 + 4 * j + i] + zs[16 + 4 * j + i];
+          if (n >= S) {
+            vr = vi = 0.f;
+          } else {
+            if (noisy) {
+              float cr = 0.f, ci = 0.f;
+              for (int q = 0; q < taps.n; ++q) {
+                // roll by off: the tap reads column n - off.
+                const float2 gv = G[mm * ZK_GW + nn + H - taps.off[q]];
+                const float tr = __fmul_rn(taps.coef[q], gv.x);
+                const float ti = __fmul_rn(taps.coef[q], gv.y);
+                cr = (q == 0) ? tr : __fadd_rn(cr, tr);
+                ci = (q == 0) ? ti : __fadd_rn(ci, ti);
               }
-              Zt[(m - mlo) * ZK_LDZ + nn] = make_float2(vr, vi);
+              vr = __fadd_rn(vr, __fmul_rn(sn, cr));
+              vi = __fadd_rn(vi, __fmul_rn(sn, ci));
             }
+            if (dc_removal && n == 0) vr = vi = 0.f;
           }
+          Zt[(m - mlo) * ZK_LDZ + nn] = make_float2(vr, vi);
         }
       }
       __syncthreads();
@@ -766,11 +908,24 @@ int launch_frontend(const Factors& fa, const void* seeds, const void* mix,
         fa, mx, twp, psp, plan, dc_removal, T, S, Sc);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const bool tiled = ag < A;
+    const bool wide = zk_wide(SPLIT, fa, T, A, C, S);
     auto zk = impl == IMPL_BOX_MULLER
-                  ? (tiled ? z_power_kernel<SPLIT, IMPL_BOX_MULLER, true>
-                           : z_power_kernel<SPLIT, IMPL_BOX_MULLER, false>)
-                  : (tiled ? z_power_kernel<SPLIT, IMPL_FAST, true>
-                           : z_power_kernel<SPLIT, IMPL_FAST, false>);
+                  ? (tiled ? (wide ? z_power_kernel<SPLIT, IMPL_BOX_MULLER,
+                                                    true, true>
+                                   : z_power_kernel<SPLIT, IMPL_BOX_MULLER,
+                                                    true, false>)
+                           : (wide ? z_power_kernel<SPLIT, IMPL_BOX_MULLER,
+                                                    false, true>
+                                   : z_power_kernel<SPLIT, IMPL_BOX_MULLER,
+                                                    false, false>))
+                  : (tiled ? (wide ? z_power_kernel<SPLIT, IMPL_FAST, true,
+                                                    true>
+                                   : z_power_kernel<SPLIT, IMPL_FAST, true,
+                                                    false>)
+                           : (wide ? z_power_kernel<SPLIT, IMPL_FAST, false,
+                                                    true>
+                                   : z_power_kernel<SPLIT, IMPL_FAST, false,
+                                                    false>));
     err = cudaFuncSetAttribute(zk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)zk_smem);
     if (err != cudaSuccess) return (int)err;

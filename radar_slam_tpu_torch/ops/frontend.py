@@ -49,7 +49,10 @@ Three layers per kernel:
   non-default branch ("dense_range": an S with a prime factor above 5,
   whose range DFT has no factored plan; "cluster_rows": the time domain at
   C > 32, a cluster of blocks per antenna; "tiled_rows": the range
-  frequency with more Z rows than a block holds, A*C > ~540).
+  frequency with more Z rows than a block holds, A*C > ~540) and those
+  whose true product e_at T ran on warpgroup MMA ("wgmma": every
+  range-frequency launch; the time domain's on-chip cube kernel keeps
+  ``mma.sync``).
 - :func:`scatterer_frontend_split_reference` /
   :func:`scatterer_frontend_reference` -- the plain versions: the factor
   planes, then one shared body (:func:`_frontend_body_reference`), the
@@ -116,21 +119,24 @@ _DOMAINS = {"range_freq": 0, "time": 1}    # csrc/frontend.cu: DOMAIN_*
 _IMPLS = {"fast": 0, "box_muller": 1}      # csrc/frontend.cu: IMPL_*
 _CFARS = {"matmul": 0, "cumsum": 1}        # csrc/frontend.cu: CFAR_*
 _BRANCHES = ("time", "box_muller", "cumsum", "clutter", "dense_range",
-             "cluster_rows", "tiled_rows")
+             "cluster_rows", "tiled_rows", "wgmma")
+# The routes of z_power_kernel (_check_launch), whose product runs on wgmma.
+_WGMMA_ROUTES = ("all_rows", "tiled_rows")
 
 
 def _branches(prm: FrontendParams, clutter, S: Optional[int] = None,
               route: Optional[str] = None) -> Tuple[str, ...]:
     """The non-default branches a launch with ``prm`` (and, where given,
     S samples per chirp and the shape route of :func:`_check_launch`)
-    runs (K1')."""
+    runs (K1'), and "wgmma" where the route is ``z_power_kernel``'s."""
     on = {"time": prm.noise_domain == "time",
           "box_muller": prm.noise_impl == "box_muller",
           "cumsum": prm.cfar_impl == "cumsum",
           "clutter": clutter is not None,
           "dense_range": S is not None and range_dft.plan(S) is None,
           "cluster_rows": route == "cluster_rows",
-          "tiled_rows": route == "tiled_rows"}
+          "tiled_rows": route == "tiled_rows",
+          "wgmma": route in _WGMMA_ROUTES}
     return tuple(b for b in _BRANCHES if on[b])
 
 
@@ -512,12 +518,18 @@ def frag_pitch(n: int) -> int:
     return n + (20 - n % 16) % 16
 
 
+def _z_ring(split: bool, A: int, C: int) -> int:
+    """csrc/frontend.cu: zk_ring (float2), z_power_kernel's ring: two
+    stages each of B' (128 float2 per complex k), of the T tile (32) and of
+    the A factors, at 16 (split) or 8 (dense) complex k a stage."""
+    kc, d = (16, frag_pitch(C) + frag_pitch(A)) if split else (8, 260)
+    return kc * 2 * (128 + 32 + d)
+
+
 def _z_r0(split: bool, A: int, C: int) -> int:
     """csrc/frontend.cu: zk_r0 (float2), the ring / noise / W_dop^T
     region."""
-    stage = (32 * (frag_pitch(C) + frag_pitch(A) + 36) if split
-             else 16 * (260 + 36))
-    return max(2 * stage, 256 * 36,
+    return max(_z_ring(split, A, C), 256 * 36,
                -(-C // 16) * 16 * frag_pitch(-(-C // 8) * 8))
 
 
@@ -770,6 +782,16 @@ def _params(sigma, noise_taps, echo_upper, dc_removal, train, guard,
         clutter_offset_db=float(clutter_offset_db))
 
 
+def _product(noise_domain: str, device) -> str:
+    """The ``k1`` span's ``product`` attribute: what runs the true product
+    e_at T -- "wgmma" (``z_power_kernel``, the range-frequency domain),
+    "mma_sync" (the time domain's on-chip cube kernel) or "plain" (the
+    plain version, for a CPU tensor)."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "wgmma" if noise_domain == "range_freq" else "mma_sync"
+
+
 def _clutter_ds(clutter: Optional[torch.Tensor], F: int, S: int, C: int):
     """The clutter map [F, R, D] in the kernel's layout [F, D, R]."""
     if clutter is None:
@@ -808,10 +830,11 @@ def scatterer_frontend_split(
          top_vals_db [F, K] f32 with -inf for exhausted slots,
          signatures [F, K, A] complex64 unit-power).
 
-    Spans: ``k1`` (up to the kernel's launch), then ``finalize``.
+    Spans: ``k1`` (up to the kernel's launch; attr ``product``, see
+    :func:`_product`), then ``finalize``.
     """
     from radar_slam_tpu_torch.signal.rds import _check_precision
-    with span("k1"):
+    with span("k1", product=_product(noise_domain, ant.device)):
         _check_topk(topk_mode)
         _check_precision(synth_precision, doppler_precision, sig_precision)
         if doppler_layout not in ("loop", "wide"):
@@ -851,7 +874,7 @@ def scatterer_frontend(
     [F, Sc, S] complex64 (``signal/synth.py:synthesis_factors``).  Same
     knobs, defaults, returns and spans as :func:`scatterer_frontend_split`."""
     from radar_slam_tpu_torch.signal.rds import _check_precision
-    with span("k1"):
+    with span("k1", product=_product(noise_domain, e_ac.device)):
         _check_topk(topk_mode)
         _check_precision(synth_precision, precision_name, doppler_precision,
                          sig_precision)

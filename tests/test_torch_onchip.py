@@ -129,7 +129,7 @@ def test_routes_are_counted_as_branches():
     assert fe._branches(prm, None, 400, "cluster_rows") == (
         "time", "cluster_rows")
     assert fe._branches(_prm("range_freq"), None, 400, "tiled_rows") == (
-        "tiled_rows",)
+        "tiled_rows", "wgmma")
     assert fe._branches(prm, None, 400, "one_block") == ("time",)
     for w in (sp.scatterer_power, sp.scatterer_signatures,
               power.rds_power_fused, trds_op.rds_fused):
