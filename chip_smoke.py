@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+"""Checks of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-checks
 
 Builds the port's CUDA kernels from ``radar_slam_tpu_torch/csrc`` (one
-``nvcc`` per source, started together) and drives the port's main paths on
-the 96-point constant-motion bench scene at the bench operating point
+``nvcc`` per source, started together) and holds the port's main paths to
+their gates on the card: every kernel against its plain PyTorch version,
+on the 96-point constant-motion bench scene at the bench operating point
 (``complete_analysis_config()``, max_scatterers=128): the scatterer driver
 ``pipeline.frame.process_sequence_batched`` on its one-pass route (kernel
 K1; K3 with ``frontend_factors="dense"``) and its three-dispatch route
@@ -26,7 +27,11 @@ loader with the double-buffered prefetch drivers (``io/radarscenes.py``,
 (``pipeline/pipeline.py``, ``io/artifacts.py``) with its ``simulate``,
 ``process`` and ``pipeline`` subcommands.  K6
 draws the noise K4 and K5 draw and is their validation surface; the
-prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSON line per phase:
+prefix-sum CFAR of K1' is a kernel argument; no driver launches either.
+The port's speed is measured by the benchmark (``portbench/``), not here:
+the few times still printed beside a phase's checks are never gated, and
+frontend_breakdown is the one phase that only times.  One JSON line per
+phase:
 
 1. env              torch / CUDA versions, the card, kernel build times;
 2. kernel_vs_plain  K1 against its plain PyTorch version evaluated in
@@ -55,7 +60,6 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     RMSE <= 0.15 m, bench.py:417-429; solve success > 0.9)
                     and "esprit" (RMSE <= 1.5x the pipeline phase's, the
                     reference's bound, tests/test_aoa_methods_e2e.py:173);
-                    MUSIC's frames/s from the (2048, 8192) pair;
 3c. adversarial     bench.py's mismatch scene (12 frames, four oncoming
                     movers, ten clutter returns a frame; bench.py:299-315)
                     through the batched driver: RMSE <= 0.777 m;
@@ -65,8 +69,7 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     frames; the sequential rig (K1 once a step) within
                     1e-4 m / 1e-3 m/s of the batched rig at
                     temporal_weight 0, track_capacity 256, with equal
-                    success and counts (tests/test_rig.py:180-208); rig
-                    frames/s from the (64, 512) and (512, 2048) pairs.
+                    success and counts (tests/test_rig.py:180-208).
                     All of 3-3d at generator seed PIPELINE_SEED;
 4. cube_kernels_vs_plain  K7 (power map), K8 (RDS), K9 (dechirp) and K10
                     (CFAR mask) against their plain versions on 8 frames of
@@ -124,7 +127,8 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     (OS_SEED), and on the dense one-pass route
                     (PIPELINE_SEED; pose difference from the pipeline
                     phase shown): bench.py's gates in each, K4 and K5 (or
-                    K3) launched and K1 not;
+                    K3) launched and K1 not; K5's call two device launches
+                    in a trace (the on-chip kernel and the normalization);
 8. k1prime_kernels_vs_plain  K1 and K3 in each K1' branch (time-domain
                     noise with either transform, range-frequency Box-Muller,
                     the prefix-sum CFAR, the clutter input) against their
@@ -149,48 +153,13 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     three-dispatch route (one noisy cube), with the fast
                     transform, and Box-Muller in either domain on the
                     batched driver;
-11. throughput      frames/s of the scatterer pipeline (CUDA events, 2048
-                    vs 512 and 8192 vs 2048 frames differenced, interleaved
-                    trials, peak device memory), K1's and its plain
-                    version's time per 64-frame call, K1's kernels' times
-                    from a profile of one call, and K1's time at F = 1;
-12. cube_throughput the same for the fused cube driver (cubes synthesized
-                    before timing; 2048 vs 512 and 8192 vs 2048 frames)
-                    and the time per 64-frame call of K7, K8, K9, K10 and
-                    of each plain version, K7's, K8's and K10's kernels
-                    from a profile (not gated);
-13. three_dispatch_throughput  the same for the OS three-dispatch scatterer
-                    driver, and the time per 64-frame call of K3, K4, K5,
-                    K6 and of each plain version, K3's, K4's and K5's
-                    kernels from a profile (not gated; K5's call must be
-                    two device launches);
-13b. route_throughput  time per 64-frame call of each shape route of
-                    phase onchip_routes (K4, K5, K7, K8, K1' and K3 time at
-                    C = 64; K1, K3 range frequency and K8 at A = 16,
-                    C = 64) and of K10 at D = 128, its plain version's, its
-                    bound (not gated);
-14. k1prime_throughput  K1's time per 64-frame call in each K1' branch, its
-                    kernels from a profile, and its plain version's (not
-                    gated); frontend_breakdown: K3's kernels in each noise
-                    domain at product depths 32 and 128 and at sigma 0 and
-                    the production sigma (not gated);
-15. sequential_latency  p50 / p99 of one process_scatterers step (CUDA
-                    events and host clock, 256 frames after 16 of
-                    warm-up), frames/s of the chunked driver (2048 vs 512),
-                    profiles of one chunk and one step (not gated);
-16. seed_spread     bench.py's gates over generator seeds 0-15 for
-                    process_sequence with the clutter map and
-                    process_signal_sequence, and the position RMSE of the
-                    MUSIC, rig and adversarial runs of phases 3b-3d
-                    (printed, not gated);
-17. profile         one traced 2048-frame call of each batched driver
-                    (torch.profiler; the scatterer driver on its one-pass
-                    route with beamforming and with MUSIC and on its OS
-                    three-dispatch route), of the OS-CFAR order-statistic
-                    stage alone, and one 512-frame call of the batched
-                    rig (2048 frame x sensor frames): device busy time,
-                    idle share, launches, the costliest kernels;
-17b. the entry points, at the CLI's configuration
+11. frontend_breakdown  where the one-pass kernels' time goes (printed, not
+                    gated): K3's kernels in each noise domain at product
+                    depths 32 and 128, K1's at the ingest's and the URA's
+                    shapes at 128 and 512 scatterers, each at sigma 0 and
+                    the production sigma; z_power_kernel's time split into
+                    product, noise and the rest;
+12. the entry points, at the CLI's configuration
                     (complete_analysis_config(), max_scatterers 512), each
                     run's kernel launches counted from 0:
                     cli: cli.main in process: quick-compare --frames 10
@@ -227,15 +196,14 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     (the rig; RMSE < 0.6 m, |mean yaw rate| < 0.15); 2048
                     rig frames x 4 sensors (~60 returns each) through the
                     rig prefetch driver (chunks of 32, 128 and 512 rig
-                    frames, 512 its default) and the one-shot batched
-                    rig: the loader's host seconds, rig frames/s (CUDA
-                    events), device idle share, peak memory, each chunk's
-                    success and num_reliable equal to the one-shot's and
-                    its poses within 1e-5 m (compared at
-                    half the frames if the one-shot peak, scaled from 256
-                    rig frames, would pass 60 GB); 64 host cubes through
-                    the cube prefetch driver, bit for bit
-                    process_signal_sequence, K7 64 launches;
+                    frames, 512 its default; K1 once a chunk) and the
+                    one-shot batched rig: each chunk's success and
+                    num_reliable equal to the one-shot's and its poses
+                    within 1e-5 m (compared at half the frames if the
+                    one-shot peak, scaled from 256 rig frames, would pass
+                    60 GB); 64 host cubes through the cube prefetch
+                    driver, bit for bit process_signal_sequence, K7 64
+                    launches;
                     artifact_pipeline: the six-step artifact pipeline
                     (pipeline/pipeline.py): (a) ``pipeline --max-frames
                     256`` through the CLI (MUSIC; no hand kernel: step 2
@@ -254,13 +222,13 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     FFT route; (d) integrate_pose at N = 2048 against a
                     float64 sequential loop: errors, time per call,
                     device launches per call;
-                    then trace_retries: every trace of the script (the
-                    profiles above and each phase's kernel_profile) sits
-                    between host sleeps and two spin kernels, and is taken
-                    again with a longer sleep until both spin kernels are
-                    in it, later traces starting at the sleep that worked
-                    (device_trace); the retries it needed;
-17c. URA arrays, chirp subsets and greedy association:
+                    then trace_retries: every trace of the script (each
+                    phase's kernel_profile and the streaming phase's
+                    trace) sits between host sleeps and two spin kernels,
+                    and is taken again with a longer sleep until both spin
+                    kernels are in it, later traces starting at the sleep
+                    that worked (device_trace); the retries it needed;
+13. URA arrays, chirp subsets and greedy association:
                     ura_kernels_vs_plain: K1 (with and without its clutter
                     input), K3, K4, K5 and K7 at tests/test_elevation.py's
                     8 x 4 URA (A = 32, C = 32, S = 400, 512 scatterers), 8
@@ -274,7 +242,7 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     A = 32 on a sequential run with the map; its joint
                     azimuth / elevation recovery at fft_mode "pallas"
                     (K8 once; 2 and 3 deg); the batched URA driver's
-                    frames/s from the (512, 2048) pair (printed);
+                    frames/s from the (512, 2048) pair, K1 once a call;
                     chirp_subset: K7-K10 on subsets (0, 16) and (3, 28)
                     of the 64-frame bench cubes at phase 4's gates; the
                     cube, batched and sequential drivers at (0, 16) (K7,
@@ -283,11 +251,8 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     within 1e-5 of max |rds| of the FFT route, sets equal
                     but ties); greedy: the 64-frame scene at greedy
                     association beside mutual (success > 0.9; device
-                    launches a call, printed); ura_subset_throughput:
-                    time per 64-frame call of K1, K3, K4, K5, K7 at A = 32
-                    and of K7-K10 at C = 16 and 25, with plain times and
-                    bounds;
-17d. the SLAM back end (parallel/; no hand kernel of its own, K1 feeds
+                    launches a call, printed);
+14. the SLAM back end (parallel/; no hand kernel of its own, K1 feeds
                     it): slam_scenes: tests/test_slam.py's circle (90
                     frames, 120 world points) through refine_trajectory on
                     the card with CG, Schur over 1 and 8 blocks and each
@@ -301,21 +266,21 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     scaled to 3,072): process_sequence_batched (K1 once),
                     then refine_sequence_output with (cg, pose), (cg,
                     scancontext) and (schur over 1 block, scancontext):
-                    RMSE open-loop and refined, loops, the time of
-                    proposal, ICP and solve (host clock and CUDA events),
-                    the solve's device launches, peak memory, a repeat
-                    bit for bit or not; gated against the reference on the
-                    same inputs (scripts/slam_reference.py) and, for CG,
-                    against the port on the CPU; scancontext_scale:
-                    descriptors and both retrieval stages on 8,192 frames
-                    of target clouds (the tiled stage 1), the tiled route
-                    held to the dense one at 4,096 frames (indices equal,
-                    values within 1 ulp), times and peak memory of each,
-                    descriptor bins that differ from the CPU's; cli_slam:
-                    analyze --slam --max-frames 64 per solver and
-                    proposer, in process (exit 0, the three slam_* keys,
-                    K1 65 times: 64 analyzer steps and the re-run);
-17e. the multi-process back ends (parallel/{mesh,distributed,dp,ba,
+                    RMSE open-loop and refined, loops, peak memory, a
+                    repeat bit for bit or not; gated against the reference
+                    on the same inputs (scripts/slam_reference.py) and,
+                    for CG, against the port on the CPU;
+                    scancontext_scale: descriptors and both retrieval
+                    stages on 8,192 frames of target clouds (the tiled
+                    stage 1), the tiled route held to the dense one at
+                    4,096 frames (indices equal, values within 1 ulp),
+                    times and peak memory of each, descriptor bins that
+                    differ from the CPU's; cli_slam: analyze --slam
+                    --max-frames 64 per solver and proposer, in process
+                    (exit 0, the three slam_* keys, K1 3 times: the
+                    analyzer's eager step and its capture, and the
+                    re-run);
+15. the multi-process back ends (parallel/{mesh,distributed,dp,ba,
                     multiseq}.py; no hand kernel of their own) and
                     analyze-data: analyze_data (inside artifact_pipeline):
                     analyze-data over that phase's run directory, one
@@ -327,12 +292,11 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     equal, velocity within 1e-5, pose within 1e-5 of its
                     largest magnitude; K1 once) and 512 cubes through
                     process_frames_dp against
-                    process_signal_sequence_batched (K7 once), the calls'
-                    times; dp_ranks: this script again as two gloo ranks
-                    sharing the card (--rank-worker), 1024 frames each of
-                    the same 2048: K1 once per rank, each rank's gathered
-                    outputs held to dp_frames' at those tolerances, times
-                    and frames/s beside world size 1's; ba_ranks: GN-CG
+                    process_signal_sequence_batched (K7 once); dp_ranks:
+                    this script again as two gloo ranks sharing the card
+                    (--rank-worker), 1024 frames each of the same 2048: K1
+                    once per rank, each rank's gathered outputs held to
+                    dp_frames' at those tolerances; ba_ranks: GN-CG
                     (10 x 60) over 2 gloo ranks against one process
                     (poses within 1e-3 m) and one ranked Schur step
                     against the one-process step at 2 blocks (within
@@ -342,8 +306,8 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     (sharded, Schur end to end, the loop-closure round
                     trip), then 8 sequences x 1024 frames at the bench
                     width through process_sequences_sharded: K1 once a
-                    call, frames/s, device launches, peak memory;
-17f. bench          the CLI's ``bench`` in process (bench_torch.py, the
+                    call, finite poses, peak memory;
+16. bench           the CLI's ``bench`` in process (bench_torch.py, the
                     counterpart of bench.py) at the bench's width, its
                     scan and chunked pairs shrunk to (16, 64) and (128,
                     512) frames with 2 trials: exit 0, the line's keys
@@ -352,33 +316,24 @@ prefix-sum CFAR of K1' is a kernel argument; no driver launches either.  One JSO
                     checks (--kernel-checks, below) passed; the line,
                     ``sane`` and each ``*_ok`` printed, not gated, and
                     the phase's seconds;
-18. kernels         the per-kernel summary line: launches on the main
-                    paths, error against the plain version, kernel and
-                    plain times, the shape routes' times and bounds, the
-                    bound (the largest of the FP32, 3xTF32
-                    tensor-core and INT32 pipes' times for the work and of
-                    the bytes' time, each DFT stage counted as an FFT where
-                    that is less work; bound_pipe names it, bound_fp32_ms
-                    is the FP32-only count), sub-kernel times, K1 at F = 1,
-                    K1's launches per batched rig call (over F * B frames)
-                    and per sequential rig step (rig_launches), the
-                    launches in each entry-point run of 17b
-                    (entry_point_launches: the host's, through the
+17. kernels         the per-kernel summary line: launches on the main
+                    paths, error against the plain version (K1's also at
+                    the URA's A = 32), K1's launches per batched rig call
+                    (over F * B frames) and per sequential rig step
+                    (rig_launches), the launches on the "cluster_rows"
+                    route (phase onchip_routes), in each entry-point run
+                    of 12 (entry_point_launches: the host's, through the
                     wrappers; a replayed CUDA graph launches none), in
-                    each run of 17c
-                    (estimation_launches), of 17d (slam_launches), of
-                    17e (parallel_launches: per rank) and of 17f
-                    (bench_launches), the
-                    routes at A = 32 and
-                    C = 16, 25, and the one-call PyTorch time (none of
-                    these kernels has one: null).
+                    each run of 13 (estimation_launches), of 14
+                    (slam_launches), of 15 (parallel_launches: per rank)
+                    and of 16 (bench_launches).
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
 a kernel does not build or launch, or any check fails.  Imports no JAX.
 
 ``--kernel-checks`` runs only phases 2, 4, 6, 8 and ura_kernels_vs_plain
-(17c), with their gates, and prints one count line
+(13), with their gates, and prints one count line
 ``{"phase": "kernel_checks", "passed": N, ...}``; it exits 1 on a failed
 check.  bench_torch.py's ``chip_tests`` runs it.
 """
@@ -429,10 +384,8 @@ OS_SEED = 15
 # path's own setting) meets both gates for 6 of generator seeds 0-15 of this
 # scene (1, 2, 4, 10, 11, 15); seed 2 has the widest margin.  The
 # sequential cube driver with the clutter map meets them at CUBE_SEED.
-# Phase seed_spread prints both spreads over SPREAD_SEEDS.
 SEQ_SEED = 2
 CLUTTER_ALPHA = 0.05
-SPREAD_SEEDS = range(16)
 # bench.py's four-sensor rig (bench.py:265-266): (x, y, yaw) mounts.
 RIG4 = ((3.6, 0.8, 0.55), (3.6, -0.8, -0.55),
         (2.4, 0.9, 1.48), (2.4, -0.9, -1.48))
@@ -446,30 +399,10 @@ K1P_BRANCHES = {
     "clutter": dict(),
 }
 # The kernels line has one entry per K1' setting: its launches come from
-# the main-path run in that setting, its times and error from that setting.
+# the main-path run in that setting, its error from that setting.
 K1P_LINE = {"time": "time_fast", "time_box_muller": "time_box_muller",
             "box_muller": "freq_box_muller", "cumsum": "cumsum",
             "clutter": "clutter"}
-# Peak rates of one NVIDIA H100 SXM (data sheet, at 700 W): FP32 outside
-# the tensor cores, TF32 on the tensor cores (a 3xTF32 product takes three
-# passes: 495 / 3 TFLOP/s), HBM3; and the INT32 pipe, 64 operations per SM
-# per clock on 132 SMs at the SM clock nvidia-smi reports.  A kernel's
-# bound is the largest of the times its work needs on each pipe and its
-# bytes (each input read once, each output written once) need at the
-# memory rate; bound_fp32_ms is the earlier count (every floating-point
-# operation on the FP32 pipe, no integer work), kept for comparison.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32X3_FLOPS = 495e12 / 3
-PEAK_BYTES_S = 3.35e12
-INT32_OPS_PER_SM_CLOCK = 64
-H100_SMS = 132
-# INT32 instructions of one Philox-4x32-10 block: 10 rounds of 2 wide
-# multiplies (one IMAD.WIDE gives both halves), 2 three-input XORs and a
-# key add; and of the "fast" transform's four byte sums.  (A first count,
-# 100 and 40, took hi and lo as two multiplies and the XORs as four: K6
-# then read faster than its bound.)
-PHILOX_BLOCK_OPS = 50
-BYTE_SUM_OPS = 20
 # The one-pass kernels against their plain versions evaluated in float64
 # on the exact DFT (the oracle: the kernels' function, its rounding
 # negligible).  At float32 the plain versions' dense 400-term sums are
@@ -846,8 +779,7 @@ def with_method(cfg, method):
 def phase_music_pipeline(torch, fe, cfg_mod, device, bf_rmse):
     """The 64-frame scene through the batched driver with MUSIC and with
     ESPRIT (PIPELINE_SEED), bench.py's music gate and the reference's
-    ESPRIT bound; MUSIC's frames/s from the (2048, 8192) pair (its traced
-    2048-frame call is in the profile phase)."""
+    ESPRIT bound."""
     from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
     cfg = bench_config(cfg_mod)
     batch, gt = scene(64, cfg, device)
@@ -862,26 +794,9 @@ def phase_music_pipeline(torch, fe, cfg_mod, device, bf_rmse):
         runs[method] = dict(success=success, final_pose_err_m=pose_err,
                             pos_rmse_m=rmse, final_pose=pose[-1].tolist(),
                             K1_launches=fe.frontend_kernel_split.launches)
-    del batch
-    music = with_method(cfg, "music")
-    batches = {}
-
-    def run_for(n):
-        if n not in batches:
-            batches[n] = scene(n, cfg, device)[0]
-        b = batches[n]
-        return lambda: process_sequence_batched(
-            b, torch.Generator().manual_seed(0), music)
-
-    torch.cuda.reset_peak_memory_stats()
-    fps, t2048, t8192 = frames_per_s(torch, run_for, (2048, 8192), trials=3)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    batches.clear()
     emit("music_pipeline", frames=64, generator_seed=PIPELINE_SEED,
          music=runs["music"], esprit=runs["esprit"],
          beamforming_pos_rmse_m=bf_rmse,
-         frames_per_s_2048_8192=fps, t2048_ms=t2048, t8192_ms=t8192,
-         peak_mem_gb=peak,
          gates={"music pos_rmse_m": "<= 0.15", "music success": "> 0.9",
                 "esprit pos_rmse_m": "<= 1.5 x beamforming",
                 "K1_launches": "> 0"})
@@ -944,9 +859,7 @@ def phase_rig_pipeline(torch, fe, cfg_mod, device):
     """The 32-frame 4-sensor scene through the batched rig (bench.py's rig
     gate, K1 once over the F * B frames) and the sequential rig (K1 once a
     step); the two drivers against each other at temporal_weight 0 and
-    track_capacity 256 (tests/test_rig.py:180-208's tolerances); rig
-    frames/s from the (64, 512) and (512, 2048) pairs (its traced
-    512-frame call is in the profile phase)."""
+    track_capacity 256 (tests/test_rig.py:180-208's tolerances)."""
     from radar_slam_tpu_torch.pipeline.rig import (
         process_sequence_rig, process_sequence_rig_batched)
     cfg = bench_config(cfg_mod)
@@ -978,21 +891,6 @@ def phase_rig_pipeline(torch, fe, cfg_mod, device):
     pose_ok = bool(torch.allclose(b.pose, a.pose, rtol=1e-4, atol=1e-4))
     vel_ok = bool(torch.allclose(b.motion.velocity, a.motion.velocity,
                                  rtol=1e-3, atol=1e-3))
-    del batch
-
-    scenes = {}
-
-    def run_for(n):
-        if n not in scenes:
-            scenes[n] = rig_scene(n, cfg, device)[0]
-        sc = scenes[n]
-        return lambda: process_sequence_rig_batched(
-            sc, torch.Generator().manual_seed(0), cfg, RIG4)
-
-    fps_lo, t64, t512 = frames_per_s(torch, run_for, (64, 512))
-    scenes.pop(64)
-    fps_hi, _, t2048 = frames_per_s(torch, run_for, (512, 2048), trials=3)
-    scenes.clear()
     emit("rig_pipeline", frames=F, sensors=B, rig=RIG4,
          generator_seed=PIPELINE_SEED, success=success,
          final_pose_err_m=pose_err, pos_rmse_m=rmse,
@@ -1002,8 +900,6 @@ def phase_rig_pipeline(torch, fe, cfg_mod, device):
          K1_launches_sequential=step_launches,
          sequential_vs_batched=dict(max_pose_diff_m=d_pose,
                                     max_velocity_diff_mps=d_vel, **same),
-         frames_per_s_64_512=fps_lo, t64_ms=t64, t512_ms=t512,
-         frames_per_s_512_2048=fps_hi, t2048_ms=t2048,
          gates={"pos_rmse_m": "<= 0.10",
                 "K1_launches_batched_call": "== 1 (F * B frames)",
                 "K1_launches_sequential": f"== {F} (one a step)",
@@ -1054,9 +950,8 @@ TRACE_PAD = [0]
 TRACE_RETRIES = []
 
 
-def device_trace(torch, fn, activities):
-    """The device kernels of one traced call of ``fn`` and its host wall
-    time (s, ``fn`` to the card's synchronization).
+def device_trace(torch, fn):
+    """The device kernels of one traced call of ``fn``.
 
     A trace can come back without the first of its kernels: on runs of
     this script on an H100, K5's two launches were missing from a short
@@ -1070,17 +965,15 @@ def device_trace(torch, fn, activities):
     is appended to ``TRACE_RETRIES``.  Only the leading spin kernel has
     been lost (the retries recorded on the H100 kept the trailing one, at
     every pad), so the sleep after the call stays the shortest pad."""
-    from torch.profiler import profile
+    from torch.profiler import ProfilerActivity, profile
     while TRACE_PAD[0] < len(TRACE_PADS_S):
         pad = TRACE_PADS_S[TRACE_PAD[0]]
-        with profile(activities=activities) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(TRACE_PADS_S[0])
@@ -1090,7 +983,7 @@ def device_trace(torch, fn, activities):
                  if "spin_kernel" in ev.name]
         body = [ev for ev in events if "spin_kernel" not in ev.name]
         if len(spins) == 2:
-            return body, wall
+            return body
         first = min((ev.time_range.start for ev in body), default=0)
         TRACE_RETRIES.append(dict(
             pad_s=pad, kernels=len(body),
@@ -1101,26 +994,12 @@ def device_trace(torch, fn, activities):
                        f"bracketing kernel at every pad {TRACE_PADS_S}")
 
 
-def interval_busy_ms(events):
-    """Device busy time (ms): the union of the events' intervals (kernels
-    and copies on any stream; on one stream, the sum of their times)."""
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in events)
-    busy, end = 0.0, -math.inf
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy / 1e3
-
-
 def kernel_profile(torch, fn, launches=None):
     """Device time (ms) by kernel name of one traced call; with a dict
     ``launches``, the number of device launches by name into it."""
-    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    events, _ = device_trace(torch, fn, [ProfilerActivity.CUDA])
+    events = device_trace(torch, fn)
     per = {}
     for ev in events:
         name = kernel_name(ev.name)
@@ -1143,56 +1022,6 @@ def kernel_name(full):
             end = i
             break
     return name[:end][:80]
-
-
-def phase_throughput(torch, fe, cfg_mod, device):
-    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
-    cfg = bench_config(cfg_mod)
-    batches = {}
-
-    def run_for(n):
-        if n not in batches:
-            batches[n] = scene(n, cfg, device)[0]
-        b = batches[n]
-        return lambda: process_sequence_batched(
-            b, torch.Generator().manual_seed(0), cfg)
-
-    torch.cuda.reset_peak_memory_stats()
-    fps, t512, t2048 = frames_per_s(torch, run_for, (512, 2048))
-    batches.pop(512)
-    fps_hi, _, t8192 = frames_per_s(torch, run_for, (2048, 8192), trials=3)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    batches.clear()
-
-    b64, _ = scene(64, cfg, device)
-    seeds = torch.arange(64, dtype=torch.int32, device=device)
-    args, prm = kernel_inputs(b64, cfg, seeds)
-    kern = lambda: fe.frontend_kernel_split(*args, prm)
-    plain = lambda: fe.scatterer_frontend_split_reference(
-        *plain_args(args, prm, exact=False), prm)
-    kern()
-    plain()
-    torch.cuda.synchronize()
-    plain_ms = [cuda_time_ms(torch, plain, 5)]
-    kern_ms = [cuda_time_ms(torch, kern, 20), cuda_time_ms(torch, kern, 20)]
-    plain_ms.append(cuda_time_ms(torch, plain, 5))
-    sub = kernel_profile(torch, kern)
-    # One frame: the sequential step's call.
-    b1, _ = scene(1, cfg, device)
-    args1, _ = kernel_inputs(b1, cfg, seeds[:1])
-    one = lambda: fe.frontend_kernel_split(*args1, prm)
-    one()
-    torch.cuda.synchronize()
-    f1_ms = min(cuda_time_ms(torch, one, 50) for _ in range(2))
-    f1_sub = kernel_profile(torch, one)
-    emit("throughput", frames_per_s=fps, frames_delta=2048 - 512,
-         t512_ms=t512, t2048_ms=t2048,
-         frames_per_s_2048_8192=fps_hi, t8192_ms=t8192,
-         kernel_ms_per_64f=min(kern_ms), plain_ms_per_64f=min(plain_ms),
-         kernel_ms_trials=kern_ms, plain_ms_trials=plain_ms,
-         kernel_sub_ms_per_64f=sub, kernel_ms_f1=f1_ms,
-         kernel_sub_ms_f1=f1_sub, peak_mem_gb=peak)
-    return min(kern_ms), min(plain_ms), sub, f1_ms
 
 
 def cube_signals(n_frames, cfg, device, seed):
@@ -1425,72 +1254,6 @@ def phase_cube_pipeline(torch, k, cfg_mod, device):
          gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
                 "pos_rmse_m": "<= 0.16", "launches": "> 0"}, **runs)
     return launches, fused_pose
-
-
-def phase_cube_throughput(torch, k, cfg_mod, device):
-    from radar_slam_tpu_torch.pipeline.frame import (
-        process_signal_sequence_batched)
-    from radar_slam_tpu_torch.signal.rds import _mix_vector
-    power, rds_op, dechirp, cfar = k
-    cfg = bench_config(cfg_mod)
-    cubes = {}
-
-    def run_for(n):
-        # Cubes synthesized before timing, once per size.
-        if n not in cubes:
-            cubes[n] = cube_signals(n, cfg, device, 0)[0]
-        sig = cubes[n]
-        return lambda: process_signal_sequence_batched(sig, cfg)
-
-    torch.cuda.reset_peak_memory_stats()
-    fps, t2, t3 = frames_per_s(torch, run_for, (512, 2048))
-    cubes.pop(512)
-    fps_hi, _, t4 = frames_per_s(torch, run_for, (2048, 8192), trials=3)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    sig = cubes[2048][:64].contiguous()
-    cubes.clear()
-    d = cfg.detection
-    mix = _mix_vector(cfg.radar, cfg.window, "baseband", sig.shape[-1],
-                      device=device)
-    rds = rds_op.rds_fused_reference(sig, mix, True, cfg.doppler_window)
-    kw = dict(threshold_db=d.threshold_db, neighborhood=d.neighborhood,
-              train=d.cfar_train_cells, guard=d.guard_cells,
-              offset_db=d.cfar_offset_db)
-    pairs = {
-        "K7": (lambda: power.rds_power_fused(sig, mix, True,
-                                             cfg.doppler_window),
-               lambda: power.rds_power_reference(sig, mix, True,
-                                                 cfg.doppler_window)),
-        "K8": (lambda: rds_op.rds_fused(sig, mix, True, cfg.doppler_window),
-               lambda: rds_op.rds_fused_reference(sig, mix, True,
-                                                  cfg.doppler_window)),
-        "K9": (lambda: dechirp.dechirp_window_dc(sig, mix, True),
-               lambda: dechirp.dechirp_window_dc_reference(sig, mix, True)),
-        "K10": (lambda: cfar.cfar_mask(rds, **kw),
-                lambda: cfar.cfar_mask_reference(rds, **kw)),
-    }
-    times = {}
-    for name, (kern, plain) in pairs.items():
-        kern()
-        plain()
-        torch.cuda.synchronize()
-        plain_ms = [cuda_time_ms(torch, plain, 5)]
-        kern_ms = [cuda_time_ms(torch, kern, 20),
-                   cuda_time_ms(torch, kern, 20)]
-        plain_ms.append(cuda_time_ms(torch, plain, 5))
-        times[name] = dict(kernel_ms_per_64f=min(kern_ms),
-                           plain_ms_per_64f=min(plain_ms),
-                           kernel_ms_trials=kern_ms,
-                           plain_ms_trials=plain_ms)
-        if name in ("K7", "K8", "K10"):
-            times[name]["kernel_sub_ms_per_64f"] = kernel_profile(torch,
-                                                                  kern)
-    emit("cube_throughput", frames_per_s=fps, frames_delta=2048 - 512,
-         t512_ms=t2, t2048_ms=t3, frames_per_s_2048_8192=fps_hi,
-         t8192_ms=t4, kernels=times, peak_mem_gb=peak)
-    return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"],
-                t.get("kernel_sub_ms_per_64f"))
-            for n, t in times.items()}
 
 
 def synth_inputs(batch, cfg):
@@ -1846,127 +1609,6 @@ def route_cfg(cfg_mod, antennas, chirps=64):
         base.radar, num_antennas=antennas))
 
 
-def time_pairs(torch, pairs, shape, clock):
-    """For each name -> (kernel call, plain call[, kernel_work knobs]): the
-    time per call (CUDA events, best of 2 x 20 kernel and 2 x 3 plain
-    calls), the bound of kernel_work(name, **shape) and the kernel's
-    sub-kernels from a profile."""
-    times = {}
-    for name, (kern, plain, *work) in pairs.items():
-        kern()
-        plain()
-        torch.cuda.synchronize()
-        plain_ms = [cuda_time_ms(torch, plain, 3)]
-        kern_ms = [cuda_time_ms(torch, kern, 20),
-                   cuda_time_ms(torch, kern, 20)]
-        plain_ms.append(cuda_time_ms(torch, plain, 3))
-        b_ms, b_by, pipe, _ = bound(kernel_work(
-            name.split()[0].rstrip("'"), **shape, **(work[0] if work
-                                                     else {})), clock)
-        times[name] = dict(kernel_ms_per_64f=min(kern_ms),
-                           plain_ms_per_64f=min(plain_ms),
-                           kernel_ms_trials=kern_ms, bound_ms=b_ms,
-                           bound_by=b_by, bound_pipe=pipe,
-                           kernel_sub_ms_per_64f=kernel_profile(torch, kern))
-    return times
-
-
-def route_times(torch, sp, fe, power, cfg_mod, device, clock):
-    """Time per 64-frame call (CUDA events, best of 2 x 20 kernel and
-    2 x 3 plain calls) of each shape route, its plain version's and its
-    bound: K4, K5, K7, K8, K1' time and K3 time at C = 64
-    ("cluster_rows"), K1 and K3 in the range-frequency domain at A = 16,
-    C = 64 ("tiled_rows") and K8 there ("cluster_rows"), K10 at D = 128
-    (the maps of 128-chirp cubes)."""
-    from radar_slam_tpu_torch.ops import cfar
-    from radar_slam_tpu_torch.ops import rds as rds_op
-    from radar_slam_tpu_torch.signal.detect import detect_peaks_from_power
-    out = {}
-    for label, antennas, chirps in (("C64", 8, 64), ("A16_C64", 16, 64),
-                                    ("D128", 8, 128)):
-        cfg = route_cfg(cfg_mod, antennas, chirps)
-        A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
-        S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
-        K = cfg.detection.max_detections
-        sigma = float(cfg.radar.noise_power) ** 0.5
-        dw, impl = cfg.doppler_window, cfg.noise_impl
-        batch, _ = scene(64, cfg, device)
-        seeds = torch.arange(64, dtype=torch.int32, device=device)
-        args, prm = kernel_inputs(batch, cfg, seeds)
-        ref = plain_args(args, prm, exact=False)
-        e_ac, e_fast, mix = synth_inputs(batch, cfg)
-        dense_ref = (e_ac, e_fast, seeds, ref[7], args[8])
-        cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
-                + sigma * sp.noise_cube(seeds, A * C, S, impl)).reshape(
-                    64, A, C, S)
-        k8 = (lambda: rds_op.rds_fused(cube, mix, True, dw),
-              lambda: rds_op.rds_fused_reference(cube, mix, True, dw), {})
-        if label == "C64":
-            prm_t = dataclasses.replace(prm, **K1P_BRANCHES["time_fast"])
-            det = detect_peaks_from_power(
-                sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
-                                   doppler_window=dw, noise_impl=impl),
-                cfg.radar, cfg.detection)
-            rb, db = det.range_bin, det.doppler_bin
-            pairs = {
-                "K4": (lambda: sp.scatterer_power(
-                           e_ac, e_fast, seeds, mix, C, sigma,
-                           doppler_window=dw, noise_impl=impl),
-                       lambda: sp.scatterer_power_reference(
-                           e_ac, e_fast, seeds, mix, C, sigma, True, dw,
-                           impl), {}),
-                "K5": (lambda: sp.scatterer_signatures(
-                           e_ac, e_fast, seeds, rb, db, mix, C, sigma,
-                           doppler_window=dw, noise_impl=impl),
-                       lambda: sp.scatterer_signatures_reference(
-                           e_ac, e_fast, seeds, rb, db, mix, C, sigma, True,
-                           dw, impl), {}),
-                "K7": (lambda: power.rds_power_fused(cube, mix, True, dw),
-                       lambda: power.rds_power_reference(cube, mix, True,
-                                                         dw), {}),
-                "K8": k8,
-                "K1' time": (lambda: fe.frontend_kernel_split(*args, prm_t),
-                             lambda: fe.scatterer_frontend_split_reference(
-                                 *ref, prm_t),
-                             dict(time_domain=True)),
-                "K3 time": (lambda: fe.frontend_kernel_dense(
-                                e_ac, e_fast, seeds, mix, args[8], prm_t, C),
-                            lambda: fe.scatterer_frontend_reference(
-                                *dense_ref, prm_t, C),
-                            dict(time_domain=True)),
-            }
-        elif label == "A16_C64":
-            pairs = {
-                "K1": (lambda: fe.frontend_kernel_split(*args, prm),
-                       lambda: fe.scatterer_frontend_split_reference(
-                           *ref, prm), {}),
-                "K3": (lambda: fe.frontend_kernel_dense(
-                           e_ac, e_fast, seeds, mix, args[8], prm, C),
-                       lambda: fe.scatterer_frontend_reference(
-                           *dense_ref, prm, C), {}),
-                "K8": k8,
-            }
-        else:
-            d = cfg.detection
-            kw = dict(threshold_db=d.threshold_db,
-                      neighborhood=d.neighborhood, train=d.cfar_train_cells,
-                      guard=d.guard_cells, offset_db=d.cfar_offset_db)
-            rds = rds_op.rds_fused_reference(cube, mix, True, dw)
-            pairs = {"K10": (lambda: cfar.cfar_mask(rds, **kw),
-                             lambda: cfar.cfar_mask_reference(rds, **kw),
-                             {})}
-        out[label] = time_pairs(torch, pairs, dict(F=64, A=A, C=C, S=S,
-                                                   Sc=Sc, K=K, impl=impl),
-                                clock)
-        del cube
-    emit("route_throughput", frames=64, shapes={"C64": "A=8, C=64, S=400",
-                                                "A16_C64": "A=16, C=64, "
-                                                           "S=400",
-                                                "D128": "A=8, C=128, S=400"},
-         **out)
-    return out
-
-
 def phase_onchip_routes(torch, sp, fe, power, cfg_mod, device):
     """The shape routes: C = 64 on the on-chip cube kernel (K4, K5, K7, K8,
     K1' and K3 in the time domain: "cluster_rows"), A = 16 with C = 64 on
@@ -2048,6 +1690,7 @@ def phase_onchip_routes(torch, sp, fe, power, cfg_mod, device):
 def phase_three_dispatch_pipeline(torch, sp, fe, cfg_mod, device,
                                   cube_pose, split_pose):
     from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
+    from radar_slam_tpu_torch.signal import detect as detect_mod
     counters = {"K1": fe.frontend_kernel_split,
                 "K3": fe.frontend_kernel_dense, "K4": sp.scatterer_power,
                 "K5": sp.scatterer_signatures, "K6": sp.noise_cube}
@@ -2090,8 +1733,26 @@ def phase_three_dispatch_pipeline(torch, sp, fe, cfg_mod, device,
             check(runs[label]["max_pose_diff"] <= ref_gate,
                   f"{label}: pose differs from the cube pipeline's by "
                   f"{runs[label]['max_pose_diff']}")
+    # K5 on the card: the on-chip kernel and the normalization, nothing
+    # else (no torch arithmetic around them), on the OS route's detections.
+    cfg = dataclasses.replace(base, detection=os_det)
+    C = cfg.radar.num_chirps
+    sigma = float(cfg.radar.noise_power) ** 0.5
+    dw, impl = cfg.doppler_window, cfg.noise_impl
+    seeds = torch.arange(64, dtype=torch.int32, device=device)
+    e_ac, e_fast, mix = synth_inputs(batch, cfg)
+    det = detect_mod.detect_peaks_from_power(
+        sp.scatterer_power_reference(e_ac, e_fast, seeds, mix, C, sigma,
+                                     True, dw, impl), cfg.radar,
+        cfg.detection)
+    k5 = {}
+    kernel_profile(torch, lambda: sp.scatterer_signatures(
+        e_ac, e_fast, seeds, det.range_bin, det.doppler_bin, mix, C, sigma,
+        doppler_window=dw, noise_impl=impl), k5)
+    check(sum(k5.values()) == 2, f"K5 device launches per call {k5}")
     emit("three_dispatch_pipeline", frames=64,
          gt_final=gt["poses"][-1].tolist(),
+         K5_device_launches_per_call=k5,
          gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
                 "pos_rmse_m": "<= 0.16", "launches": "> 0 (others 0)",
                 "ca max_pose_diff from cube_pipeline fused": "<= 0.01"},
@@ -2104,241 +1765,7 @@ def phase_three_dispatch_pipeline(torch, sp, fe, cfg_mod, device,
     return launches
 
 
-def phase_three_dispatch_throughput(torch, sp, fe, cfg_mod, device):
-    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
-    from radar_slam_tpu_torch.signal import detect as detect_mod
-    base = bench_config(cfg_mod)
-    cfg = dataclasses.replace(base, detection=dataclasses.replace(
-        base.detection, cfar_mode="os"))
-    f2, f3 = 512, 2048
-    b2, _ = scene(f2, cfg, device)
-    b3, _ = scene(f3, cfg, device)
-
-    def run(b):
-        return lambda: process_sequence_batched(
-            b, torch.Generator().manual_seed(0), cfg)
-
-    run(b2)()
-    run(b3)()
-    torch.cuda.synchronize()
-    t2 = t3 = float("inf")
-    for _ in range(4):
-        t2 = min(t2, cuda_time_ms(torch, run(b2), 1))
-        t3 = min(t3, cuda_time_ms(torch, run(b3), 1))
-    fps = (f3 - f2) / max((t3 - t2) / 1e3, 1e-9)
-    del b3
-
-    b64, _ = scene(64, cfg, device)
-    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
-    S = cfg.radar.samples_per_chirp
-    sigma = float(cfg.radar.noise_power) ** 0.5
-    dw, impl = cfg.doppler_window, cfg.noise_impl
-    seeds = torch.arange(64, dtype=torch.int32, device=device)
-    e_ac, e_fast, mix = synth_inputs(b64, cfg)
-    det = detect_mod.detect_peaks_from_power(
-        sp.scatterer_power_reference(e_ac, e_fast, seeds, mix, C, sigma,
-                                     True, dw, impl), cfg.radar,
-        cfg.detection)
-    rb, db = det.range_bin, det.doppler_bin
-    args, prm = kernel_inputs(b64, cfg, seeds)
-    dense = (e_ac, e_fast, seeds, args[7], args[8])
-    dense_plain = (e_ac, e_fast, seeds,
-                   plain_args(args, prm, exact=False)[7], args[8])
-    pairs = {
-        "K3": (lambda: fe.frontend_kernel_dense(*dense, prm, C),
-               lambda: fe.scatterer_frontend_reference(*dense_plain, prm,
-                                                       C)),
-        "K4": (lambda: sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
-                                          doppler_window=dw,
-                                          noise_impl=impl),
-               lambda: sp.scatterer_power_reference(
-                   e_ac, e_fast, seeds, mix, C, sigma, True, dw, impl)),
-        "K5": (lambda: sp.scatterer_signatures(
-                   e_ac, e_fast, seeds, rb, db, mix, C, sigma,
-                   doppler_window=dw, noise_impl=impl),
-               lambda: sp.scatterer_signatures_reference(
-                   e_ac, e_fast, seeds, rb, db, mix, C, sigma, True, dw,
-                   impl)),
-        "K6": (lambda: sp.noise_cube(seeds, A * C, S, impl),
-               lambda: sp.noise_cube_reference(seeds, A * C, S, impl)),
-    }
-    times = {}
-    for name, (kern, plain) in pairs.items():
-        kern()
-        plain()
-        torch.cuda.synchronize()
-        plain_ms = [cuda_time_ms(torch, plain, 5)]
-        kern_ms = [cuda_time_ms(torch, kern, 20),
-                   cuda_time_ms(torch, kern, 20)]
-        plain_ms.append(cuda_time_ms(torch, plain, 5))
-        times[name] = dict(kernel_ms_per_64f=min(kern_ms),
-                           plain_ms_per_64f=min(plain_ms),
-                           kernel_ms_trials=kern_ms,
-                           plain_ms_trials=plain_ms)
-        if name in ("K3", "K4", "K5"):
-            launches = {}
-            times[name]["kernel_sub_ms_per_64f"] = kernel_profile(
-                torch, kern, launches)
-            times[name]["device_launches_per_call"] = launches
-    emit("three_dispatch_throughput", driver="process_sequence_batched",
-         cfar_mode="os", frames_per_s=fps, frames_delta=f3 - f2,
-         t512_ms=t2, t2048_ms=t3, noise_impl=impl, kernels=times,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # K5 on the card: the on-chip kernel and the normalization, nothing
-    # else (no torch arithmetic around them).
-    k5 = times["K5"]["device_launches_per_call"]
-    check(sum(k5.values()) == 2, f"K5 device launches per call {k5}")
-    return {n: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"],
-                t.get("kernel_sub_ms_per_64f"))
-            for n, t in times.items()}
-
-
-def phase_profile(torch, label, run, n_frames, top=8):
-    """One traced call of a driver: device busy time, idle share of the
-    host wall, kernel launches, and the kernels that take the most time."""
-    from torch.profiler import ProfilerActivity
-    run()
-    torch.cuda.synchronize()
-    events, wall = device_trace(
-        torch, run, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    per_kernel = {}
-    for ev in events:
-        n, us = per_kernel.get(ev.name, (0, 0.0))
-        per_kernel[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
-    busy_ms = interval_busy_ms(events)
-    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
-    emit("profile", driver=label, frames=n_frames,
-         traced_wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-         device_idle_share=max(0.0, 1.0 - busy_ms / (wall * 1e3)),
-         launches=sum(n for n, _ in per_kernel.values()),
-         top_kernels=[[name[:80], n, us / 1e3]
-                      for name, (n, us) in ranked])
-
-
-def os_cfar_stage(torch, sp, cfg, batch):
-    """The OS-CFAR order-statistic stage (``detect._os_noise``) alone,
-    traced on the 2048 power maps the OS three-dispatch route detects on."""
-    from radar_slam_tpu_torch.signal import detect as detect_mod
-    C, S = cfg.radar.num_chirps, cfg.radar.samples_per_chirp
-    e_ac, e_fast, mix = synth_inputs(batch, cfg)
-    seeds = torch.arange(e_ac.shape[0], dtype=torch.int32,
-                         device=e_ac.device)
-    p = sp.scatterer_power(e_ac, e_fast, seeds, mix, C,
-                           float(cfg.radar.noise_power) ** 0.5,
-                           doppler_window=cfg.doppler_window,
-                           noise_impl=cfg.noise_impl) + 1e-12
-    del e_ac, e_fast
-    d = cfg.detection
-    phase_profile(torch, "signal.detect._os_noise (OS-CFAR order statistic)",
-                  lambda: detect_mod._os_noise(p, d.cfar_train_cells,
-                                               d.guard_cells, d.os_rank),
-                  p.shape[0])
-
-
 # ---- K1' and the sequential drivers ----------------------------------------
-
-def sm_clock_hz():
-    """The SM clock the INT32 rate is counted at: nvidia-smi's maximum."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return float(out.stdout.strip().splitlines()[0]) * 1e6
-
-
-def bound(work, clock_hz):
-    """(least time in ms, "operations" or "bytes", the pipe that bounds it,
-    the FP32-SIMT-only bound in ms) for work = {"fp32", "tf32x3", "int32",
-    "bytes"}: the largest of each pipe's time and the bytes' time."""
-    times = {"fp32": work["fp32"] / PEAK_FP32_FLOPS,
-             "tf32x3": work["tf32x3"] / PEAK_TF32X3_FLOPS,
-             "int32": work["int32"] / (INT32_OPS_PER_SM_CLOCK * H100_SMS
-                                       * clock_hz),
-             "bytes": work["bytes"] / PEAK_BYTES_S}
-    pipe = max(times, key=times.get)
-    fp32_only = max((work["fp32"] + work["tf32x3"]) / PEAK_FP32_FLOPS,
-                    times["bytes"])
-    return (times[pipe] * 1e3, "bytes" if pipe == "bytes" else "operations",
-            pipe, fp32_only * 1e3)
-
-
-def dft_ops(n, bins, rows):
-    """FP32 operations of ``rows`` DFTs of ``n`` complex points evaluated
-    at ``bins`` frequencies: the lesser of the dense product (8 per complex
-    MAC) and a whole FFT (5 n log2 n)."""
-    return rows * min(8 * n * bins, 5 * n * math.log2(n))
-
-
-def philox_ops(draws, impl):
-    """INT32 operations of ``draws`` noise pairs: two Philox blocks and the
-    byte sums for the "fast" transform, one block for Box-Muller."""
-    per = (PHILOX_BLOCK_OPS if impl == "box_muller"
-           else 2 * PHILOX_BLOCK_OPS + BYTE_SUM_OPS)
-    return draws * per
-
-
-def kernel_work(name, F, A, C, S, Sc, K, B=128, time_domain=False,
-                clutter=False, impl="fast"):
-    """The work one call of a kernel must do on F frames at these shapes,
-    by pipe: {"fp32", "tf32x3", "int32", "bytes"}.  The true products --
-    the synthesis e_at e_fast and the antenna-chirp product e_at T -- at 8
-    operations per complex MAC, each DFT stage at dft_ops; where a kernel
-    runs them as 3xTF32 on the tensor cores (K1, K3, K4, K5: the true
-    product and the Doppler DFT; K7, K8: the Doppler DFT) they count at the
-    tensor-core rate, the FFT, K5's per-cell sums and everything in K9-K10
-    at the FP32 rate.  The Philox words of
-    every noise value the function draws on the INT32 pipe (windows, DC
-    projection, power and the CFAR's few MFLOP are not counted); bytes of
-    the data inputs read once and the outputs written once (the DFT tables
-    are not counted: an FFT needs none)."""
-    M, Q = A * C, -(-S // B)
-    cmac = 8
-    doppler = dft_ops(C, C, A * S)                # every (antenna, range bin)
-    z_out = 2 * S * M * 4 + 2 * C * S * 4         # zr, zi, p, score
-    noise = F * philox_ops(M * S, impl)
-    work = {"fp32": 0.0, "tf32x3": 0.0, "int32": 0.0, "bytes": 0.0}
-    if name in ("K1", "K3"):
-        # Time domain: X = e_at e_fast, then the range DFT of its M rows;
-        # range frequency: the range DFT of e_fast's Sc rows, then e_at T.
-        ins = (Sc * (A + C + Q + B) * 8 + Sc * 4 if name == "K1"
-               else Sc * (M + S) * 8)
-        work.update(
-            tf32x3=F * (cmac * M * Sc * S + doppler),
-            fp32=F * dft_ops(S, S, M if time_domain else Sc), int32=noise,
-            bytes=F * (ins + 4 + z_out + (C * S * 4 if clutter else 0))
-            + S * 4)
-    elif name == "K4":
-        work.update(tf32x3=F * (cmac * M * Sc * S + doppler),
-                    fp32=F * dft_ops(S, S, M), int32=noise,
-                    bytes=F * (Sc * (M + S) * 8 + 4 + S * C * 4) + S * 8)
-    elif name == "K5":
-        # K4's synthesis and range DFT at the K detected bins, then one
-        # Doppler bin each.
-        work.update(tf32x3=F * cmac * M * Sc * S,
-                    fp32=F * (dft_ops(S, K, M) + dft_ops(C, 1, A * K)),
-                    int32=noise,
-                    bytes=F * (Sc * (M + S) * 8 + 4 + 2 * K * 4 + K * A * 8)
-                    + S * 8)
-    elif name == "K6":
-        work.update(fp32=F * M * S * 20, int32=noise,
-                    bytes=F * (4 + M * S * 8))
-    elif name == "K7":
-        work.update(tf32x3=F * doppler,
-                    fp32=F * (M * S * 10 + dft_ops(S, S, M)),
-                    bytes=F * (M * S * 8 + S * C * 4) + S * 8)
-    elif name == "K8":
-        work.update(tf32x3=F * doppler,
-                    fp32=F * (M * S * 10 + dft_ops(S, S, M)),
-                    bytes=F * 2 * M * S * 8 + S * 8)
-    elif name == "K9":
-        work.update(fp32=F * M * S * 10, bytes=F * 2 * M * S * 8 + S * 8)
-    elif name == "K10":
-        work.update(fp32=F * S * C * (4 * A + 50),
-                    bytes=F * (M * S * 8 + S * C * 5))
-    else:
-        raise ValueError(name)
-    return work
-
 
 def zero_counts(*wrappers):
     for w in wrappers:
@@ -2661,42 +2088,6 @@ def phase_driver_consistency(torch, fe, sp, cfg_mod, device):
             "box_muller": k1_bm["freq_box_muller"]["launches"]}
 
 
-def phase_k1prime_throughput(torch, fe, cfg_mod, device):
-    """Time per 64-frame call of K1 in each K1' branch and of its plain
-    version (CUDA events, interleaved)."""
-    cfg = bench_config(cfg_mod)
-    b64, _ = scene(64, cfg, device)
-    seeds = torch.arange(64, dtype=torch.int32, device=device)
-    args, prm = kernel_inputs(b64, cfg, seeds)
-    ref = plain_args(args, prm, exact=False)
-    clut = k1p_clutter(torch, fe.scatterer_frontend_split_reference(
-        *ref, prm)[2], 11)
-    times = {}
-    for branch in K1P_LINE.values():
-        prm_b = dataclasses.replace(prm, **K1P_BRANCHES[branch])
-        cl = clut if branch == "clutter" else None
-        kern = lambda: fe.frontend_kernel_split(*args, prm_b, cl)
-        plain = lambda: fe.scatterer_frontend_split_reference(*ref, prm_b,
-                                                              cl)
-        kern()
-        plain()
-        torch.cuda.synchronize()
-        plain_ms = [cuda_time_ms(torch, plain, 5)]
-        kern_ms = [cuda_time_ms(torch, kern, 20),
-                   cuda_time_ms(torch, kern, 20)]
-        plain_ms.append(cuda_time_ms(torch, plain, 5))
-        times[branch] = dict(kernel_ms_per_64f=min(kern_ms),
-                             plain_ms_per_64f=min(plain_ms),
-                             kernel_ms_trials=kern_ms,
-                             plain_ms_trials=plain_ms,
-                             kernel_sub_ms_per_64f=kernel_profile(torch,
-                                                                  kern))
-    emit("k1prime_throughput", kernel="K1 frontend_split", frames=64,
-         branches=times)
-    return {b: (t["kernel_ms_per_64f"], t["plain_ms_per_64f"],
-                t["kernel_sub_ms_per_64f"]) for b, t in times.items()}
-
-
 def phase_frontend_breakdown(torch, fe, cfg_mod, device):
     """Where the one-pass kernels' time goes (printed, not gated), 64
     frames a call: K3's kernels at the bench's shape in each noise domain
@@ -2753,128 +2144,6 @@ def phase_frontend_breakdown(torch, fe, cfg_mod, device):
          z_power_split_ms_per_64f=split)
 
 
-def phase_sequential_latency(torch, fe, cfg_mod, device):
-    """Per-frame latency of one process_scatterers step (printed, not
-    gated), frames/s of the chunked driver, and profiles of one step and
-    one chunk."""
-    from radar_slam_tpu_torch.ops.noise import frame_seeds
-    from radar_slam_tpu_torch.pipeline import frame as fr
-    cfg = seq_config(cfg_mod)
-    n_warm, n = 16, 256
-    batch, _ = scene(n_warm + n, cfg, device)
-    seeds = frame_seeds(torch.Generator().manual_seed(0), n_warm + n, device)
-    state = fr.init_state(cfg, device=device)
-    ev_ms, host_ms = [], []
-    for f in range(n_warm + n):
-        one = fr._frame(batch, f, f + 1)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        state, _ = fr.process_scatterers(state, one, seeds[f:f + 1], cfg)
-        stop.record()
-        torch.cuda.synchronize()
-        if f >= n_warm:
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-            ev_ms.append(start.elapsed_time(stop))
-    pct = lambda x, q: float(np.percentile(np.asarray(x), q))
-
-    base = bench_config(cfg_mod)
-    f2, f3 = 512, 2048
-    b2, _ = scene(f2, base, device)
-    b3, _ = scene(f3, base, device)
-
-    def run(b):
-        return lambda: fr.process_sequence_chunked(
-            b, torch.Generator().manual_seed(0), base, window=16)
-
-    run(b2)()
-    run(b3)()
-    torch.cuda.synchronize()
-    t2 = t3 = float("inf")
-    for _ in range(3):
-        t2 = min(t2, cuda_time_ms(torch, run(b2), 1))
-        t3 = min(t3, cuda_time_ms(torch, run(b3), 1))
-    emit("sequential_latency", driver="process_scatterers",
-         clutter_map_alpha=CLUTTER_ALPHA, frames=n, warmup=n_warm,
-         step_event_ms_p50=pct(ev_ms, 50), step_event_ms_p99=pct(ev_ms, 99),
-         step_host_ms_p50=pct(host_ms, 50), step_host_ms_p99=pct(host_ms, 99),
-         step_event_ms_max=max(ev_ms),
-         chunked=dict(driver="process_sequence_chunked", prior="jacobi",
-                      window=16, frames_per_s=(f3 - f2) / max(
-                          (t3 - t2) / 1e3, 1e-9), t512_ms=t2, t2048_ms=t3))
-    b16 = fr._frame(b2, 0, 16)
-    phase_profile(torch, "process_sequence_chunked (one 16-frame window)",
-                  lambda: fr.process_sequence_chunked(
-                      b16, torch.Generator().manual_seed(0), base,
-                      window=16), 16)
-    one = fr._frame(batch, 0, 1)
-    phase_profile(torch, "process_scatterers (one step, clutter map)",
-                  lambda: fr.process_scatterers(state, one, seeds[:1], cfg),
-                  1)
-
-
-def phase_seed_spread(torch, cfg_mod, device):
-    """bench.py's gates over SPREAD_SEEDS (printed, not gated): the
-    sequential scatterer driver and the sequential cube driver (cubes
-    synthesized from each seed), both with the clutter map."""
-    from radar_slam_tpu_torch.pipeline.frame import (process_sequence,
-                                                     process_signal_sequence)
-    cfg = seq_config(cfg_mod)
-    batch, gt = scene(64, cfg, device)
-    rows = {"process_sequence": [], "process_signal_sequence": []}
-    for seed in SPREAD_SEEDS:
-        runs = (("process_sequence", lambda: process_sequence(
-                    batch, torch.Generator().manual_seed(seed), cfg)),
-                ("process_signal_sequence", lambda: process_signal_sequence(
-                    cube_signals(64, cfg, device, seed)[0], cfg)))
-        for driver, run in runs:
-            success, err, rmse, _ = pipeline_errors(run(), gt, 64,
-                                                    f"{driver} seed {seed}")
-            rows[driver].append(dict(
-                seed=seed, success=success, final_pose_err_m=err,
-                pos_rmse_m=rmse,
-                passes=success > 0.9 and err <= 0.35 and rmse <= 0.16))
-    emit("seed_spread", frames=64, clutter_map_alpha=CLUTTER_ALPHA,
-         gates={"success": "> 0.9", "final_pose_err_m": "<= 0.35",
-                "pos_rmse_m": "<= 0.16"},
-         **{d: dict(passing_seeds=[r["seed"] for r in rs if r["passes"]],
-                    median_final_pose_err_m=float(np.median(
-                        [r["final_pose_err_m"] for r in rs])),
-                    seeds=rs) for d, rs in rows.items()})
-
-
-def phase_seed_spread_gates(torch, cfg_mod, device):
-    """The new gates' position RMSE over SPREAD_SEEDS (printed, not gated):
-    MUSIC on the 64-frame scene, the 32-frame rig scene through the batched
-    rig, the adversarial scene through the batched driver."""
-    from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
-    from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
-    from radar_slam_tpu_torch.pipeline.rig import process_sequence_rig_batched
-    cfg = bench_config(cfg_mod)
-    music = with_method(cfg, "music")
-    b64, g64 = scene(64, cfg, device)
-    brig, grig = rig_scene(32, cfg, device)
-    badv, gadv = adversarial_scene(cfg, device)
-    runs = {"music": (lambda g: process_sequence_batched(b64, g, music),
-                      g64, 0.15),
-            "rig": (lambda g: process_sequence_rig_batched(brig, g, cfg,
-                                                          RIG4), grig, 0.10),
-            "adversarial": (lambda g: process_sequence_batched(badv, g, cfg),
-                            gadv, 0.777)}
-    rows = {}
-    for name, (run, gt, limit) in runs.items():
-        rmse = [float(planar_pose_errors(
-            run(torch.Generator().manual_seed(seed)).pose.cpu().numpy(),
-            gt["poses"])["position_rmse"]) for seed in SPREAD_SEEDS]
-        rows[name] = dict(pos_rmse_m=rmse, limit_m=limit,
-                          passing_seeds=[s for s, r in zip(SPREAD_SEEDS, rmse)
-                                         if r <= limit],
-                          median_m=float(np.median(rmse)))
-    emit("seed_spread_gates", seeds=list(SPREAD_SEEDS), **rows)
-
-
 # ---- the entry points: CLI, streaming analyzer, real-time runtime, ingest --
 
 STREAM_FRAMES = 256
@@ -2885,8 +2154,8 @@ RESUME_EVERY = 10
 RESUME_LAST_FRAME = 37
 RT_PACED, RT_BURST, RT_QUEUE, RT_HZ = 128, 64, 8, 20.0
 INGEST_RIG_FRAMES = 2048
-# The rig prefetch driver's chunk sizes (rig frames) timed against each
-# other; 32 is the reference's default.
+# The rig prefetch driver's chunk sizes (rig frames) held to the one-shot
+# driver; 32 is the reference's default.
 INGEST_CHUNKS = (32, 128, 512)
 INGEST_PEAK_LIMIT = 60e9
 INGEST_CUBE_FRAMES = 64
@@ -2995,8 +2264,7 @@ def k1_device_kernels(torch, run):
     each K1 launch runs ``range_fft_kernel``, ``z_power_kernel`` and
     ``cfar_kernel`` once, whether the host launched it through the
     wrapper or a CUDA graph replayed it."""
-    from torch.profiler import ProfilerActivity
-    events, _ = device_trace(torch, run, [ProfilerActivity.CUDA])
+    events = device_trace(torch, run)
     return {k: sum(k in ev.name for ev in events)
             for k in ("range_fft_kernel", "z_power_kernel", "cfar_kernel")}
 
@@ -3292,39 +2560,6 @@ def in_memory_loader(radarscenes, data, sensors):
     return InMemory
 
 
-def traced_idle(torch, run):
-    """One traced call of ``run``: (device busy ms, idle share of its host
-    wall)."""
-    from torch.profiler import ProfilerActivity
-    events, wall = device_trace(torch, run, [ProfilerActivity.CUDA])
-    busy = interval_busy_ms(events)
-    return busy, max(0.0, 1.0 - busy / (wall * 1e3))
-
-
-def timed_driver(torch, counters, run, n_frames):
-    """A driver's warm-up call, then one call timed with CUDA events (its
-    launches counted, its peak memory), then one traced call."""
-    run()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-
-    def call():
-        start.record()
-        out = run()
-        stop.record()
-        return out
-
-    out, n = counted(torch, counters, call)
-    ms = start.elapsed_time(stop)
-    peak = torch.cuda.max_memory_allocated()
-    busy, idle = traced_idle(torch, run)
-    return out, dict(ms=ms, rig_frames_per_s=n_frames / (ms / 1e3),
-                     peak_bytes=peak, device_busy_ms=busy,
-                     device_idle_share=idle, launches=n)
-
-
 def phase_ingest(torch, counters, cfg_mod, device):
     """RadarScenes-layout recordings built in memory, through the loader
     from extract_radar_frames on: (a) the moving-ego fixture of
@@ -3361,14 +2596,12 @@ def phase_ingest(torch, counters, cfg_mod, device):
 
     data, sensors = rs_recording(INGEST_RIG_FRAMES)
     returns = len(data["radar_data"]["timestamp"])
-    t0 = time.perf_counter()
     loader = in_memory_loader(radarscenes, data, sensors)("in-memory")
     frames = loader.extract_radar_frames(loader.load_sequence_data("long"),
                                          cfg.frame_duration_ms)
     host, rig, gt = loader.frames_as_batches_rig(data, frames,
                                                  cfg.max_scatterers,
                                                  host=True)
-    loader_s = time.perf_counter() - t0
     F = len(frames)
     check(abs(F - INGEST_RIG_FRAMES) <= 1
           and host.range_m.shape == (F, 4, cfg.max_scatterers),
@@ -3385,8 +2618,9 @@ def phase_ingest(torch, counters, cfg_mod, device):
 
     pre, pre_rows = {}, {}
     for chunk in INGEST_CHUNKS:
-        pre[chunk], pre_rows[chunk] = timed_driver(
-            torch, counters, lambda c=chunk: prefetched(c), F)
+        pre[chunk], n = counted(torch, counters,
+                                lambda c=chunk: prefetched(c))
+        pre_rows[chunk] = dict(launches=n)
         check(pre_rows[chunk]["launches"].get("K1", 0)
               == -(-F // min(chunk, F)),
               f"ingest: prefetch chunk {chunk} launches "
@@ -3410,7 +2644,7 @@ def phase_ingest(torch, counters, cfg_mod, device):
         return rigmod.process_sequence_rig_batched(
             dev, torch.Generator().manual_seed(0), cfg, rig)
 
-    one, one_row = timed_driver(torch, counters, one_shot, F_cmp)
+    one, n_shot = counted(torch, counters, one_shot)
     if F_cmp != F:
         pre = {c: prefetched(c, cmp_host) for c in INGEST_CHUNKS}
     diffs = {}
@@ -3426,13 +2660,13 @@ def phase_ingest(torch, counters, cfg_mod, device):
     rows["long"] = dict(
         rig_frames=F, sensors=4, returns=returns,
         returns_per_sensor_frame=returns / (4 * F),
-        max_scatterers=cfg.max_scatterers, loader_host_s=loader_s,
+        max_scatterers=cfg.max_scatterers,
         prefetch=dict(chunk=INGEST_CHUNKS[0],
                       **pre_rows[INGEST_CHUNKS[0]]),
         prefetch_by_chunk={c: dict(vs_one_shot=diffs[c], **pre_rows[c])
                            for c in INGEST_CHUNKS},
         prefetch_default_chunk=default_chunk,
-        one_shot=dict(rig_frames=F_cmp, **one_row),
+        one_shot=dict(rig_frames=F_cmp, launches=n_shot),
         one_shot_peak_predicted_bytes=predicted_peak,
         compared_rig_frames=F_cmp, position_rmse_m=rmse,
         **diffs[INGEST_CHUNKS[0]])
@@ -4188,87 +3422,6 @@ def phase_greedy(torch, counters, cfg_mod, device):
     return runs["greedy"]["launches"]
 
 
-def ura_subset_times(torch, sp, fe, power, k, cfg_mod, device, clock):
-    """Time per 64-frame call (CUDA events, as route_times) of K1, K3, K4,
-    K5 and K7 at the URA's A = 32, C = 32 (512 scatterers; K1 and K3 on
-    "tiled_rows") and of K7, K8, K9 and K10 on the bench cubes' chirp
-    subsets (C = 16 and 25), each beside its plain version and its
-    bound."""
-    from radar_slam_tpu_torch.signal.detect import detect_peaks_from_power
-    from radar_slam_tpu_torch.signal.rds import _mix_vector
-    _, rds_op, dechirp, cfar = k
-    out = {}
-    cfg = ura_config(cfg_mod)
-    A, C = cfg.radar.total_antennas, cfg.radar.num_chirps
-    S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
-    sigma = float(cfg.radar.noise_power) ** 0.5
-    dw, impl = cfg.doppler_window, cfg.noise_impl
-    batch, _ = ura_scene(64, cfg, device)
-    seeds = torch.arange(64, dtype=torch.int32, device=device)
-    args, prm = kernel_inputs(batch, cfg, seeds)
-    ref = plain_args(args, prm, exact=False)
-    e_ac, e_fast, mix = synth_inputs(batch, cfg)
-    cube = (torch.matmul(e_ac.transpose(-1, -2), e_fast)
-            + sigma * sp.noise_cube(seeds, A * C, S, impl)).reshape(
-                64, A, C, S)
-    det = detect_peaks_from_power(power.rds_power_fused(cube, mix, True, dw),
-                                  cfg.radar, cfg.detection)
-    rb, db = det.range_bin, det.doppler_bin
-    out["A32_C32"] = time_pairs(torch, {
-        "K1": (lambda: fe.frontend_kernel_split(*args, prm),
-               lambda: fe.scatterer_frontend_split_reference(*ref, prm)),
-        "K3": (lambda: fe.frontend_kernel_dense(e_ac, e_fast, seeds, mix,
-                                                args[8], prm, C),
-               lambda: fe.scatterer_frontend_reference(
-                   e_ac, e_fast, seeds, ref[7], args[8], prm, C)),
-        "K4": (lambda: sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
-                                          doppler_window=dw,
-                                          noise_impl=impl),
-               lambda: sp.scatterer_power_reference(
-                   e_ac, e_fast, seeds, mix, C, sigma, True, dw, impl)),
-        "K5": (lambda: sp.scatterer_signatures(
-                   e_ac, e_fast, seeds, rb, db, mix, C, sigma,
-                   doppler_window=dw, noise_impl=impl),
-               lambda: sp.scatterer_signatures_reference(
-                   e_ac, e_fast, seeds, rb, db, mix, C, sigma, True, dw,
-                   impl)),
-        "K7": (lambda: power.rds_power_fused(cube, mix, True, dw),
-               lambda: power.rds_power_reference(cube, mix, True, dw))},
-        dict(F=64, A=A, C=C, S=S, Sc=Sc, K=cfg.detection.max_detections,
-             impl=impl), clock)
-    del cube, e_ac, e_fast, args, ref
-    base = bench_config(cfg_mod)
-    sig, _ = cube_signals(64, base, device, CUBE_SEED)
-    d = base.detection
-    kw = dict(threshold_db=d.threshold_db, neighborhood=d.neighborhood,
-              train=d.cfar_train_cells, guard=d.guard_cells,
-              offset_db=d.cfar_offset_db)
-    mix = _mix_vector(base.radar, base.window, "baseband", sig.shape[-1],
-                      device=device)
-    dw = base.doppler_window
-    for lo, hi in SUBSETS:
-        sub = sig[:, :, lo:hi].contiguous()
-        rds = rds_op.rds_fused_reference(sub, mix, True, dw)
-        out[f"C{hi - lo}"] = time_pairs(torch, {
-            "K7": (lambda: power.rds_power_fused(sub, mix, True, dw),
-                   lambda: power.rds_power_reference(sub, mix, True, dw)),
-            "K8": (lambda: rds_op.rds_fused(sub, mix, True, dw),
-                   lambda: rds_op.rds_fused_reference(sub, mix, True, dw)),
-            "K9": (lambda: dechirp.dechirp_window_dc(sub, mix, True),
-                   lambda: dechirp.dechirp_window_dc_reference(sub, mix,
-                                                               True)),
-            "K10": (lambda: cfar.cfar_mask(rds, **kw),
-                    lambda: cfar.cfar_mask_reference(rds, **kw))},
-            dict(F=64, A=sub.shape[1], C=hi - lo, S=sub.shape[-1],
-                 Sc=base.max_scatterers, K=d.max_detections), clock)
-        del sub, rds
-    emit("ura_subset_throughput", frames=64,
-         shapes={"A32_C32": "A=32 (8 x 4), C=32, S=400, Sc=512",
-                 "C16": "A=8, C=16 (chirps 0..15), S=400",
-                 "C25": "A=8, C=25 (chirps 3..27), S=400"}, **out)
-    return out
-
-
 # ---- the SLAM back end (parallel/) ------------------------------------------
 
 SLAM_DEEP_FRAMES = 2048
@@ -4453,105 +3606,20 @@ def slam_reference_module():
     return mod
 
 
-class StageClock:
-    """Host-clock and CUDA-event time of every call of the wrapped
-    functions, by stage, each call bracketed by synchronizations."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.host = {}
-        self.cuda = {}
-
-    def wrap(self, stage, fn):
-        torch = self.torch
-
-        def timed(*a, **kw):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            out = fn(*a, **kw)
-            stop.record()
-            torch.cuda.synchronize()
-            self.host[stage] = self.host.get(stage, 0.0) + (
-                time.perf_counter() - t0) * 1e3
-            self.cuda[stage] = self.cuda.get(stage, 0.0) + \
-                start.elapsed_time(stop)
-            return out
-        return timed
-
-
-def refine_staged(torch, out, cfg, solver, proposer, n_blocks):
-    """refine_sequence_output with the time of its stages: proposal (the
-    retrieval: the host [F, F] gate, or descriptors and both stages of
-    scan context, with the ranking), ICP (the batched verification) and the
-    solve; host clock and CUDA events, ms."""
-    from radar_slam_tpu_torch.parallel import loopclosure, scancontext, slam
-    clock = StageClock(torch)
-    saved = (loopclosure._icp_pairs, scancontext._icp_pairs,
-             slam.propose_weighted_loops, slam.ba.gauss_newton_cg,
-             slam.ba.schur_gn_step)
-    icp = clock.wrap("icp", loopclosure._icp_pairs)
-    loopclosure._icp_pairs = scancontext._icp_pairs = icp
-    slam.propose_weighted_loops = clock.wrap("propose_and_icp", saved[2])
-    slam.ba.gauss_newton_cg = clock.wrap("solve", saved[3])
-    slam.ba.schur_gn_step = clock.wrap("solve", saved[4])
-    try:
-        t0 = time.perf_counter()
-        res = slam.refine_sequence_output(out, cfg.frame_dt,
-                                          n_blocks=n_blocks, solver=solver,
-                                          proposer=proposer)
-        wall = time.perf_counter() - t0
-    finally:
-        (loopclosure._icp_pairs, scancontext._icp_pairs,
-         slam.propose_weighted_loops, slam.ba.gauss_newton_cg,
-         slam.ba.schur_gn_step) = saved
-    stages = {}
-    for d, key in ((clock.host, "host_ms"), (clock.cuda, "cuda_ms")):
-        pi = d.get("propose_and_icp", 0.0)
-        stages[key] = {"proposal": pi - d.get("icp", 0.0),
-                       "icp": d.get("icp", 0.0),
-                       "solve": d.get("solve", 0.0)}
-    return res, wall, stages
-
-
-def solve_launches(torch, res, solver, n_blocks):
-    """Device launches, device busy time and host wall time (ms) of the
-    solve alone, one traced call on the refined graph (10 GN iterations,
-    60 CG steps each: the same work from any start)."""
-    from torch.profiler import ProfilerActivity
-    from radar_slam_tpu_torch.parallel import ba
-    graph = res["graph"]
-    if solver == "schur":
-        def run():
-            poses = graph.poses
-            for _ in range(10):
-                poses = ba.schur_gn_step(graph._replace(poses=poses),
-                                         n_blocks)
-            return poses
-    else:
-        def run():
-            return ba.gauss_newton_cg(graph, gn_iters=10, cg_iters=60)
-    events, wall = device_trace(torch, run, [ProfilerActivity.CUDA])
-    return len(events), interval_busy_ms(events), wall * 1e3
-
-
 def phase_slam_deep(torch, counters, device):
     """The path ``analyze --slam`` takes, at 2048 frames (204.8 s, 1.63
     laps: frames from 1,257 on revisit the start): process_sequence_batched
     once (K1: one launch), then refine_sequence_output for (cg, pose), (cg,
     scancontext) and (schur over 1 block, scancontext).  Per run: open-loop
     and refined position / yaw RMSE against the ground truth, the accepted
-    loops, host-clock and CUDA-event time of proposal, ICP and solve,
-    device launches of the solve, peak memory, and whether a second run
-    repeats bit for bit.  Gates: each run against the reference on the
-    same inputs (SLAM_DEEP_REFERENCE, from scripts/slam_reference.py):
-    the same accepted (i, j) and the refined RMSE within
-    SLAM_DEEP_RMSE_TOL where the reference's result is finite (no
-    accuracy gate where it is not: its Schur step diverges here); the
-    (cg, *) runs also against the port on the CPU on these inputs (same
-    loops, poses within SLAM_DEEP_POSE_TOL)."""
+    loops, peak memory, and whether a second run repeats bit for bit.
+    Gates: each run against the reference on the same inputs
+    (SLAM_DEEP_REFERENCE, from scripts/slam_reference.py): the same
+    accepted (i, j) and the refined RMSE within SLAM_DEEP_RMSE_TOL where
+    the reference's result is finite (no accuracy gate where it is not:
+    its Schur step diverges here); the (cg, *) runs also against the port
+    on the CPU on these inputs (same loops, poses within
+    SLAM_DEEP_POSE_TOL)."""
     from radar_slam_tpu_torch.evaluate.pose_metrics import planar_pose_errors
     from radar_slam_tpu_torch.parallel import slam
     from radar_slam_tpu_torch.pipeline.frame import process_sequence_batched
@@ -4560,10 +3628,8 @@ def phase_slam_deep(torch, counters, device):
     batch, gt, cfg = ref_mod.deep_scene(SLAM_DEEP_FRAMES, device)
     gt_poses = np.asarray(gt["poses"])
     F = SLAM_DEEP_FRAMES
-    t0 = time.perf_counter()
     out, n = counted(torch, counters, lambda: process_sequence_batched(
         batch, torch.Generator().manual_seed(0), cfg))
-    frontend_s = time.perf_counter() - t0
     check(n == {"K1": 1}, f"slam_deep: front-end launches {n}")
     digest = ref_mod.digest(ref_mod.frontend_arrays(out))
     cpu_out = device_put(out, "cpu")
@@ -4572,24 +3638,21 @@ def phase_slam_deep(torch, counters, device):
         m = planar_pose_errors(np.asarray(p)[1:F + 1], gt_poses)
         return m["position_rmse"], m["yaw_rmse"]
 
+    def refine(solver, proposer, n_blocks):
+        return slam.refine_sequence_output(out, cfg.frame_dt,
+                                           n_blocks=n_blocks, solver=solver,
+                                           proposer=proposer)
+
     runs = {}
     for solver, proposer, n_blocks in SLAM_DEEP_RUNS:
         name = f"{solver}/{n_blocks} {proposer}"
         torch.cuda.reset_peak_memory_stats()
-        res, wall, stages = refine_staged(torch, out, cfg, solver, proposer,
-                                          n_blocks)
+        res = refine(solver, proposer, n_blocks)
         peak = torch.cuda.max_memory_allocated()
-        again, _, _ = refine_staged(torch, out, cfg, solver, proposer,
-                                    n_blocks)
-        launches, busy_ms, solve_wall_ms = solve_launches(torch, res, solver,
-                                                          n_blocks)
+        again = refine(solver, proposer, n_blocks)
         row = dict(open_loop_rmse=rmse(res["open_loop_poses"]),
                    refined_rmse=rmse(res["poses"]),
-                   loops=loop_pairs(res), wall_s=wall, **stages,
-                   solve_device_launches=launches,
-                   solve_device_busy_ms=busy_ms,
-                   solve_traced_wall_ms=solve_wall_ms,
-                   peak_memory_bytes=peak,
+                   loops=loop_pairs(res), peak_memory_bytes=peak,
                    repeats_bit_for_bit=bool(
                        np.array_equal(res["poses"], again["poses"],
                                       equal_nan=True)
@@ -4597,11 +3660,9 @@ def phase_slam_deep(torch, counters, device):
                    repeat_max_diff_m=pose_gap(res["poses"],
                                               again["poses"])[0])
         if solver == "cg":
-            t0 = time.perf_counter()
             cpu = slam.refine_sequence_output(cpu_out, cfg.frame_dt,
                                               solver=solver,
                                               proposer=proposer)
-            row["cpu_wall_s"] = time.perf_counter() - t0
             gap = pose_gap(res["poses"], cpu["poses"])
             row.update(card_vs_cpu_m=gap[0], card_vs_cpu_rad=gap[1],
                        cpu_loops=loop_pairs(cpu))
@@ -4626,7 +3687,7 @@ def phase_slam_deep(torch, counters, device):
     emit("slam_deep", frames=F, poses=F + 1, num_points=96 * F // 64,
          inputs_sha256=digest,
          inputs_match_reference=digest == SLAM_DEEP_INPUTS,
-         frontend_s=frontend_s, launches=n, runs=runs,
+         launches=n, runs=runs,
          gates={"front end": "K1 once",
                 "reference": f"same loops; refined RMSE within "
                              f"{SLAM_DEEP_RMSE_TOL} m where the "
@@ -4831,25 +3892,6 @@ def rank_worker(argv):
     return 0
 
 
-def timed_calls(torch, fn, reps=2):
-    """(result of the first call, best host-clock ms, best CUDA-event ms)
-    of ``reps`` synchronized calls after it."""
-    out = fn()
-    torch.cuda.synchronize()
-    host = ev = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        host = min(host, (time.perf_counter() - t0) * 1e3)
-        ev = min(ev, start.elapsed_time(stop))
-    return out, host, ev
-
-
 def dp_gap(got, want):
     """Largest |got - want| per output, success compared for equality, and
     whether all are within DP_TOL: velocities as numpy's allclose at rtol
@@ -4873,25 +3915,19 @@ def dp_gap(got, want):
 
 def task_dp_ranks(torch, mesh, workdir):
     """dp_ranks on this rank: the 2,048-frame bench scene, this rank's
-    1,024 frames through K1, the gathered outputs, launches and times."""
+    1,024 frames through K1, the gathered outputs and K1's launches."""
     from radar_slam_tpu_torch.core import config as cfg_mod
     from radar_slam_tpu_torch.ops import frontend as fe
     from radar_slam_tpu_torch.parallel import dp
     from radar_slam_tpu_torch.utils.host import device_get
     cfg = bench_config(cfg_mod)
     batch, _ = scene(DP_FRAMES, cfg, mesh.device)
-
-    def run():
-        return dp.process_frames_dp_scatterers(
-            batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg, mesh)
-
     zero_counts(fe.frontend_kernel_split)
-    out = run()
+    out = dp.process_frames_dp_scatterers(
+        batch, torch.Generator().manual_seed(PIPELINE_SEED), cfg, mesh)
     torch.cuda.synchronize()
-    launches = fe.frontend_kernel_split.launches
-    _, host_ms, cuda_ms = timed_calls(torch, run)
-    return {"out": device_get(out), "k1_launches": launches,
-            "host_ms": host_ms, "cuda_ms": cuda_ms}
+    return {"out": device_get(out),
+            "k1_launches": fe.frontend_kernel_split.launches}
 
 
 def task_ba_ranks(torch, mesh, workdir):
@@ -4926,7 +3962,7 @@ def phase_dp_frames(torch, counters, cfg_mod, device):
     ``process_sequence_batched`` on the same generator (success equal,
     velocity and pose within DP_TOL; K1 once), and 512 cubes through
     ``process_frames_dp`` against ``process_signal_sequence_batched`` (K7
-    once); host-clock and CUDA-event time of each call, frames/s."""
+    once)."""
     import torch.distributed as dist
     from radar_slam_tpu_torch.parallel import distributed, dp
     from radar_slam_tpu_torch.parallel.mesh import make_mesh
@@ -4958,11 +3994,6 @@ def phase_dp_frames(torch, counters, cfg_mod, device):
         out = device_get(out)
         gaps = dp_gap(out, want)
         check(gaps["within"], f"dp_frames: scatterers {gaps}")
-        _, dp_host, dp_ev = timed_calls(torch, lambda:
-                                        dp.process_frames_dp_scatterers(
-                                            batch, gen(), cfg, mesh))
-        _, b_host, b_ev = timed_calls(torch, lambda: process_sequence_batched(
-            batch, gen(), cfg))
         del batch, ref
         sig, _ = cube_signals(DP_CUBE_FRAMES, cfg, device, CUBE_SEED)
         cube, nc = counted(torch, counters,
@@ -4974,36 +4005,21 @@ def phase_dp_frames(torch, counters, cfg_mod, device):
             "angular_velocity": cref.motion.angular_velocity,
             "pose": cref.pose, "success": cref.motion.success}))
         check(cgaps["within"], f"dp_frames: cubes {cgaps}")
-        _, c_host, c_ev = timed_calls(torch, lambda: dp.process_frames_dp(
-            sig, cfg, mesh))
-        _, cb_host, cb_ev = timed_calls(
-            torch, lambda: process_signal_sequence_batched(sig, cfg))
         del sig, cref
     finally:
         dist.destroy_process_group()
-    row = dict(
-        backend=topo["backend"], world_size=1, frames=DP_FRAMES,
-        launches=n, scatterer_gaps=gaps,
-        dp_ms={"host": dp_host, "cuda": dp_ev},
-        batched_ms={"host": b_host, "cuda": b_ev},
-        dp_frames_per_s=DP_FRAMES / (dp_ev / 1e3),
-        batched_frames_per_s=DP_FRAMES / (b_ev / 1e3),
-        cube_frames=DP_CUBE_FRAMES, cube_launches=nc, cube_gaps=cgaps,
-        cube_dp_ms={"host": c_host, "cuda": c_ev},
-        cube_batched_ms={"host": cb_host, "cuda": cb_ev},
-        tolerance={"rtol": DP_TOL, "atol": DP_TOL},
-        nvidia_smi=nvidia_smi_line())
-    emit("dp_frames", **row)
-    return out, {"process_frames_dp_scatterers": n,
-                 "process_frames_dp": nc}, row
+    emit("dp_frames", backend=topo["backend"], world_size=1,
+         frames=DP_FRAMES, launches=n, scatterer_gaps=gaps,
+         cube_frames=DP_CUBE_FRAMES, cube_launches=nc, cube_gaps=cgaps,
+         tolerance={"rtol": DP_TOL, "atol": DP_TOL})
+    return out, {"process_frames_dp_scatterers": n, "process_frames_dp": nc}
 
 
-def phase_dp_ranks(torch, world1, world1_row):
+def phase_dp_ranks(torch, world1):
     """Two ranks sharing cuda:0 over gloo, 1,024 frames each of the
     2,048: K1 once per rank, each rank's gathered outputs within DP_TOL of
-    dp_frames' (success equal); each call's time and frames/s beside world
-    size 1's.  The ranks time-slice one card: a proof of the path, not a
-    throughput cell."""
+    dp_frames' (success equal).  The ranks time-slice one card: a proof of
+    the path, not a throughput cell."""
     import tempfile
     torch.cuda.empty_cache()        # the parent's cache, for the ranks
     with tempfile.TemporaryDirectory() as tmp:
@@ -5015,15 +4031,9 @@ def phase_dp_ranks(torch, world1, world1_row):
               f"{x['k1_launches']}")
         check(gaps["within"], f"dp_ranks: rank {r} {gaps}")
         rows.append(dict(rank=r, backend=x["topology"]["backend"],
-                         k1_launches=x["k1_launches"], gaps=gaps,
-                         host_ms=x["host_ms"], cuda_ms=x["cuda_ms"],
-                         frames_per_s=DP_FRAMES / (x["host_ms"] / 1e3)))
+                         k1_launches=x["k1_launches"], gaps=gaps))
     emit("dp_ranks", world_size=RANKS, frames=DP_FRAMES,
-         frames_per_rank=DP_FRAMES // RANKS, ranks=rows,
-         world_size_1={"host_ms": world1_row["dp_ms"]["host"],
-                       "frames_per_s": DP_FRAMES / (
-                           world1_row["dp_ms"]["host"] / 1e3)},
-         nvidia_smi=nvidia_smi_line())
+         frames_per_rank=DP_FRAMES // RANKS, ranks=rows)
     return {f"rank {r['rank']}": {"K1": r["k1_launches"]} for r in rows}
 
 
@@ -5158,10 +4168,8 @@ def phase_multiseq(torch, counters, cfg_mod, device):
     frames: >= 6 endpoints within 1 m) and the loop-closure round trip
     (two drifted circles: a loop each, refined endpoint error < 0.6 x the
     open loop's, open loop > 1.5 m); then 8 sequences x 1,024 frames at the
-    bench width through process_sequences_sharded: K1 once a call,
-    frames/s (CUDA events), device launches of a traced call, peak
-    memory."""
-    from torch.profiler import ProfilerActivity
+    bench width through process_sequences_sharded: K1 once a call, finite
+    poses and costs, peak memory."""
     from radar_slam_tpu_torch.core.types import FrameOutput, MotionEstimate
     from radar_slam_tpu_torch.parallel import multiseq, posegraph
     from radar_slam_tpu_torch.parallel.loopclosure import LoopClosureConfig
@@ -5250,31 +4258,25 @@ def phase_multiseq(torch, counters, cfg_mod, device):
     bcfg = bench_config(cfg_mod)
     one, _ = scene(F, bcfg, device)
     batch = multiseq._stack([one] * M)
-
-    def run():
-        return multiseq.process_sequences_sharded(batch, gens(M), bcfg, mesh)
-
     torch.cuda.reset_peak_memory_stats()
-    (out, poses, costs), n = counted(torch, counters, run)
+    (out, poses, costs), n = counted(
+        torch, counters,
+        lambda: multiseq.process_sequences_sharded(batch, gens(M), bcfg,
+                                                   mesh))
     peak = torch.cuda.max_memory_allocated()
     check(n == {"K1": 1}, f"multiseq: bench-width launches {n}")
     check(bool(torch.isfinite(poses).all() and torch.isfinite(costs).all()),
           "multiseq: bench-width poses")
-    _, host_ms, ev_ms = timed_calls(torch, run)
-    events, wall = device_trace(torch, run, [ProfilerActivity.CUDA])
     # Sequence 0 against the batched driver on its generator (printed).
     ref = process_sequence_batched(one, gens(1)[0], bcfg)
     seq0 = dict(pose_max_diff_m=float((out.pose[0] - ref.pose).abs().max()),
                 success_equal=bool(torch.equal(out.motion.success[0],
                                                ref.motion.success)))
     rows["bench_width"] = dict(
-        sequences=M, frames=F, k1_launches=n, host_ms=host_ms, cuda_ms=ev_ms,
-        frames_per_s=M * F / (ev_ms / 1e3), peak_memory_bytes=peak,
-        device_launches=len(events), device_busy_ms=interval_busy_ms(events),
-        traced_wall_ms=wall * 1e3,
+        sequences=M, frames=F, k1_launches=n, peak_memory_bytes=peak,
         success=float(out.motion.success[:, 1:].float().mean()),
         sequence0_vs_batched=seq0)
-    emit("multiseq", world_size=1, runs=rows, nvidia_smi=nvidia_smi_line())
+    emit("multiseq", world_size=1, runs=rows)
     return {"sharded bench width": n}
 
 
@@ -5529,9 +4531,6 @@ def main():
     from radar_slam_tpu_torch.ops import frontend as fe
     from radar_slam_tpu_torch.ops import rds as rds_op
     from radar_slam_tpu_torch.ops import synthpower as sp
-    from radar_slam_tpu_torch.pipeline.frame import (
-        process_sequence_batched, process_signal_sequence_batched)
-    from radar_slam_tpu_torch.pipeline.rig import process_sequence_rig_batched
 
     device = torch.device("cuda", 0)
     fe.use_f32_matmuls()
@@ -5563,45 +4562,8 @@ def main():
         torch, fe, sp, power, cfg_mod, device)}
     k1p_launches.update(phase_driver_consistency(torch, fe, sp, cfg_mod,
                                                  device))
-    ms, plain_ms, k1_sub, k1_f1 = phase_throughput(torch, fe, cfg_mod,
-                                                   device)
-    cube_ms = phase_cube_throughput(torch, k, cfg_mod, device)
-    synth_ms = phase_three_dispatch_throughput(torch, sp, fe, cfg_mod,
-                                               device)
-    k1p_ms = phase_k1prime_throughput(torch, fe, cfg_mod, device)
-    clock = sm_clock_hz()
-    route_ms = route_times(torch, sp, fe, power, cfg_mod, device, clock)
     phase_frontend_breakdown(torch, fe, cfg_mod, device)
-    phase_sequential_latency(torch, fe, cfg_mod, device)
-    phase_seed_spread(torch, cfg_mod, device)
-    phase_seed_spread_gates(torch, cfg_mod, device)
 
-    cfg = bench_config(cfg_mod)
-    batch, _ = scene(2048, cfg, device)
-    phase_profile(torch, "process_sequence_batched", lambda:
-                  process_sequence_batched(
-                      batch, torch.Generator().manual_seed(0), cfg), 2048)
-    os_cfg = dataclasses.replace(cfg, detection=dataclasses.replace(
-        cfg.detection, cfar_mode="os"))
-    phase_profile(torch, "process_sequence_batched (OS three-dispatch)",
-                  lambda: process_sequence_batched(
-                      batch, torch.Generator().manual_seed(0), os_cfg), 2048)
-    os_cfar_stage(torch, sp, os_cfg, batch)
-    phase_profile(torch, "process_sequence_batched (MUSIC)",
-                  lambda: process_sequence_batched(
-                      batch, torch.Generator().manual_seed(0),
-                      with_method(cfg, "music")), 2048)
-    del batch
-    rig_batch, _ = rig_scene(512, cfg, device)
-    phase_profile(torch, "process_sequence_rig_batched (4 sensors)",
-                  lambda: process_sequence_rig_batched(
-                      rig_batch, torch.Generator().manual_seed(0), cfg,
-                      RIG4), 512)
-    del rig_batch
-    sig, _ = cube_signals(2048, cfg, device, 0)
-    phase_profile(torch, "process_signal_sequence_batched",
-                  lambda: process_signal_sequence_batched(sig, cfg), 2048)
-    del sig
     counters = kernel_counters(fe, sp, power, rds_op, dechirp, cfar)
     entry_runs = {f"cli {k}": v
                   for k, v in phase_cli(torch, counters, device).items()}
@@ -5623,8 +4585,6 @@ def main():
         torch, k, counters, cfg_mod, device).items()})
     slice_runs["greedy process_sequence_batched"] = phase_greedy(
         torch, counters, cfg_mod, device)
-    slice_ms = ura_subset_times(torch, sp, fe, power, k, cfg_mod, device,
-                                clock)
     phase_slam_scenes(torch, device)
     slam_runs = {"slam_deep process_sequence_batched": phase_slam_deep(
         torch, counters, device)}
@@ -5632,11 +4592,10 @@ def main():
         phase_scancontext_scale(torch, counters, device)
     slam_runs.update({f"cli_slam {k}": v for k, v in phase_cli_slam(
         torch, counters, device).items()})
-    dp_out, dp_runs, dp_row = phase_dp_frames(torch, counters, cfg_mod,
-                                              device)
+    dp_out, dp_runs = phase_dp_frames(torch, counters, cfg_mod, device)
     parallel_runs = {f"dp_frames {k}": v for k, v in dp_runs.items()}
     parallel_runs.update({f"dp_ranks {k}": v for k, v in phase_dp_ranks(
-        torch, dp_out, dp_row).items()})
+        torch, dp_out).items()})
     phase_ba_ranks(torch, counters, device)
     parallel_runs.update({f"multiseq {k}": v for k, v in phase_multiseq(
         torch, counters, cfg_mod, device).items()})
@@ -5644,29 +4603,15 @@ def main():
     emit("trace_retries", pads_s=list(TRACE_PADS_S),
          final_pad_s=TRACE_PADS_S[TRACE_PAD[0]], retries=TRACE_RETRIES)
 
-    # Bounds at the timed shapes: 64 frames of the bench cell.
-    A, C = cfg.radar.num_antennas, cfg.radar.num_chirps
-    S, Sc = cfg.radar.samples_per_chirp, cfg.max_scatterers
-    shapes = dict(F=64, A=A, C=C, S=S, Sc=Sc, K=cfg.detection.max_detections)
-
-    def entry(name, wrapper, source, replaces, launches, err, times,
-              **work):
-        b_ms, b_by, pipe, fp32_ms = bound(kernel_work(
-            name.split()[0].rstrip("'"), **shapes, **work), clock)
-        e = {"name": f"{name} {wrapper}", "route": "cuda",
-             "source": source, "replaces": replaces,
-             "launches": launches, "max_abs_err": err, "ms": times[0],
-             "plain_ms": times[1], "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None, "bound_pipe": pipe,
-             "bound_fp32_ms": fp32_ms}
-        if len(times) > 2 and times[2]:
-            e["sub_ms"] = times[2]
-        return e
+    def entry(name, wrapper, source, replaces, launches, err):
+        return {"name": f"{name} {wrapper}", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err}
 
     kernels = [entry("K1", "frontend_split", KERNEL_SOURCE, KERNEL_REPLACES,
-                     launches, max_err, (ms, plain_ms, k1_sub))]
-    kernels[0]["ms_f1"] = k1_f1
+                     launches, max_err)]
     kernels[0]["rig_launches"] = rig_launches
+    kernels[0]["routes"] = {"A32_C32 K1": {"max_abs_err": ura_err["K1"]}}
     for name, wrapper in (("K3", "frontend_dense"),
                           ("K4", "scatterer_power"),
                           ("K5", "scatterer_signatures"),
@@ -5674,7 +4619,7 @@ def main():
         kernels.append(entry(
             name, wrapper, KERNEL_SOURCE if name == "K3" else SYNTH_SOURCE,
             SYNTH_REPLACES[name], synth_launches.get(name, 0),
-            synth_err[name], synth_ms[name], impl=cfg.noise_impl))
+            synth_err[name]))
     # K6 is the validation surface of K4 and K5 (it draws their noise) and
     # is on no driver path, as in the reference: its main-path count is 0.
     kernels[-1]["on_driver_path"] = False
@@ -5682,25 +4627,7 @@ def main():
                           ("K9", "dechirp_window_dc"),
                           ("K10", "cfar_mask")):
         kernels.append(entry(name, wrapper, CUBE_SOURCE, CUBE_REPLACES[name],
-                             cube_launches[name], cube_err[name],
-                             cube_ms[name]))
-    # The shape routes (phases onchip_routes and route_throughput, not a
-    # main path): their launches there, times, plain times and bounds.
-    routes = {"K1": (("A16_C64", "K1"),), "K3": (("C64", "K3 time"),
-                                                  ("A16_C64", "K3")),
-              "K4": (("C64", "K4"),), "K5": (("C64", "K5"),),
-              "K7": (("C64", "K7"),),
-              "K8": (("C64", "K8"), ("A16_C64", "K8")),
-              "K10": (("D128", "K10"),)}
-    for e in kernels:
-        key = e["name"].split()[0]
-        if key in cluster_launches:
-            e["cluster_rows_launches"] = cluster_launches[key]
-        for shape, name in routes.get(key, ()):
-            e.setdefault("routes", {})[f"{shape} {name}"] = {
-                k: route_ms[shape][name][k] for k in (
-                    "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
-                    "bound_pipe")}
+                             cube_launches[name], cube_err[name]))
     # K1' (K1's other branches): main-path launches through each branch --
     # the clutter input on the sequential driver, time-domain and
     # Box-Muller noise on the driver-consistency runs; the prefix-sum CFAR
@@ -5709,44 +4636,25 @@ def main():
         kernels.append(entry(
             "K1'", f"frontend_split [{branch}]", KERNEL_SOURCE,
             "radar_slam_tpu/ops/frontend_pallas.py:186",
-            k1p_launches.get(branch, 0), k1p_err[setting], k1p_ms[setting],
-            time_domain=setting.startswith("time"),
-            clutter=setting == "clutter",
-            impl=K1P_BRANCHES[setting].get("noise_impl", "fast")))
+            k1p_launches.get(branch, 0), k1p_err[setting]))
         if branch == "cumsum":
             kernels[-1]["on_driver_path"] = False
-        if branch == "time":
-            kernels[-1]["routes"] = {"C64 K1' time": {
-                k: route_ms["C64"]["K1' time"][k] for k in (
-                    "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
-                    "bound_pipe")}}
-    # The entry points' runs (phases cli, streaming, ingest): each kernel's
-    # launches in each, counted from 0; and so the runs of phases
-    # ura_pipeline, chirp_subset and greedy, with the times of the URA's
-    # A = 32 and the chirp subsets' C = 16 and 25 (ura_subset_throughput).
+    # Each kernel's launches on the "cluster_rows" route (phase
+    # onchip_routes), in the entry points' runs (phases cli, streaming,
+    # ingest, artifact_pipeline), in the runs of phases ura_pipeline,
+    # chirp_subset and greedy, of the SLAM and multi-process phases and of
+    # phase bench: each counted from 0.
     for e in kernels:
         key = e["name"].split()[0]
-        runs = {p: n[key] for p, n in entry_runs.items() if key in n}
-        if runs:
-            e["entry_point_launches"] = runs
-        runs = {p: n[key] for p, n in slice_runs.items() if key in n}
-        if runs:
-            e["estimation_launches"] = runs
-        runs = {p: n[key] for p, n in slam_runs.items() if key in n}
-        if runs:
-            e["slam_launches"] = runs
-        runs = {p: n[key] for p, n in parallel_runs.items() if key in n}
-        if runs:
-            e["parallel_launches"] = runs
-        for shape, times in slice_ms.items():
-            if key in times and not e["name"].startswith("K1'"):
-                e.setdefault("routes", {})[f"{shape} {key}"] = {
-                    k: times[key][k] for k in (
-                        "kernel_ms_per_64f", "plain_ms_per_64f", "bound_ms",
-                        "bound_pipe")}
-    kernels[0]["routes"]["A32_C32 K1"]["max_abs_err"] = ura_err["K1"]
-    for e in kernels:
-        key = e["name"].split()[0]
+        if key in cluster_launches:
+            e["cluster_rows_launches"] = cluster_launches[key]
+        for field, path_runs in (("entry_point_launches", entry_runs),
+                                 ("estimation_launches", slice_runs),
+                                 ("slam_launches", slam_runs),
+                                 ("parallel_launches", parallel_runs)):
+            runs = {p: n[key] for p, n in path_runs.items() if key in n}
+            if runs:
+                e[field] = runs
         if key in bench_launches:
             e["bench_launches"] = bench_launches[key]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,8 +45,8 @@ _TWO_PER_SM = 233472 // 2 - 1024
 _RB = 4               # csrc/cube.cu: CFAR_RB, cells a thread's sums take
 # Candidate tiles (multiples of _RB), largest first.  No more than 32: at
 # the bench map (R = 400, D = 32, a halo of 10) T = 32 ran faster than 64,
-# more blocks outweighing the halo read again (scripts/torch_cfar_tiles.py,
-# PERF.md).
+# more blocks outweighing the halo read again (the tile sweep on an H100
+# when K10 took range tiles: CHANGES.md, PERF.md).
 _TILE_ROWS = (32, 16, 8, 4)
 _LOG10_E = 0.4342944819032518      # 1 / ln(10), as jnp.log10 multiplies
 
