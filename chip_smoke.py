@@ -234,7 +234,13 @@ phase:
                     8 x 4 URA (A = 32, C = 32, S = 400, 512 scatterers), 8
                     frames of its 3-D scene at the production sigma, at the
                     gates of phases 2, 4 and 6, K1 and K3 on "tiled_rows";
-                    ura_pipeline: that test's 10-frame scene through
+                    beam_vs_plain: the fused beamforming search
+                    (csrc/beam.cu) against its plain version at the URA's
+                    181 x 61 grid, the bench ULA's 91 points and a
+                    32-element line on a 0.1 deg grid (random, planted,
+                    near-tie and zero rows; indices, tie values and taps
+                    at 1e-5); ura_pipeline: that test's 10-frame scene
+                    through
                     process_sequence and process_sequence_batched on the
                     one-pass route, URA (|v_x - 8| and |v_z - 1| <= 0.4
                     m/s over frames 1..9) and ULA (|v_z| < 0.5, |v_x - 8|
@@ -332,8 +338,8 @@ Then the card's name and power limit (nvidia-smi) and, last, the result
 line.  Exits non-zero, printing no result, when there is no CUDA device,
 a kernel does not build or launch, or any check fails.  Imports no JAX.
 
-``--kernel-checks`` runs only phases 2, 4, 6, 8 and ura_kernels_vs_plain
-(13), with their gates, and prints one count line
+``--kernel-checks`` runs only phases 2, 4, 6, 8, ura_kernels_vs_plain
+and beam_vs_plain (13), with their gates, and prints one count line
 ``{"phase": "kernel_checks", "passed": N, ...}``; it exits 1 on a failed
 check.  bench_torch.py's ``chip_tests`` runs it.
 """
@@ -371,6 +377,7 @@ PIPELINE_SEED = 1
 # between kernel and plain version cannot move it past a gate.
 CUBE_SEED = 15
 SYNTH_SOURCE = "radar_slam_tpu_torch/csrc/synthpower.cu"
+BEAM_SOURCE = "radar_slam_tpu_torch/csrc/beam.cu"
 SYNTH_REPLACES = {"K3": "radar_slam_tpu/ops/frontend_pallas.py:296",
                   "K4": "radar_slam_tpu/ops/synthpower_pallas.py:153",
                   "K5": "radar_slam_tpu/ops/synthpower_pallas.py:248",
@@ -2172,11 +2179,13 @@ RS_ODO_DTYPE = [("timestamp", "i8"), ("x_seq", "f8"), ("y_seq", "f8"),
 
 def kernel_counters(fe, sp, power, rds_op, dechirp, cfar):
     """Every kernel wrapper's launch counter, by kernel."""
+    from radar_slam_tpu_torch.ops import beam
     return {"K1": fe.frontend_kernel_split, "K3": fe.frontend_kernel_dense,
             "K4": sp.scatterer_power, "K5": sp.scatterer_signatures,
             "K6": sp.noise_cube, "K7": power.rds_power_fused,
             "K8": rds_op.rds_fused, "K9": dechirp.dechirp_window_dc,
-            "K10": cfar.cfar_mask}
+            "K10": cfar.cfar_mask, "beam_peak": beam.peak_taps}
+
 
 
 def counted(torch, counters, fn):
@@ -3147,13 +3156,109 @@ def velocity_errors(out, n_frames, label):
                 success=float(out.motion.success[1:].float().mean().item()))
 
 
+BEAM_TOL = 1e-5          # phase beam_vs_plain: tie values and taps, relative
+# Random rows whose index the plain argmax gives; on the 0.1 deg grid
+# neighbouring points differ by less than float32 rounding near more
+# peaks, and there the values at the two indices decide.
+BEAM_SAME_SHARE = {"URA": 0.999, "ULA": 0.999, "ULA32_fine": 0.99}
+
+
+def beam_errors(torch, s, consts):
+    """The fused search (ops/beam.py:peak_taps) on signatures ``s`` against
+    its plain version: the share of rows with the plain argmax's index;
+    the largest relative gap of the plain spectrum's values at the two
+    indices where they differ; the taps' largest error against a float64
+    evaluation at the kernel's index, relative to the row's peak."""
+    from radar_slam_tpu_torch.aoa.estimators import beamforming_spectrum
+    from radar_slam_tpu_torch.ops import beam
+    g_el, g_az = consts.g_el, consts.g_az
+    idx, taps = beam.peak_taps(s, consts)
+    want, _ = beam.peak_taps_reference(s, consts.steering, g_el, g_az)
+    spec = beamforming_spectrum(s, consts.steering)
+    v_k = spec.gather(-1, idx[:, None])[:, 0]
+    v_p = spec.gather(-1, want[:, None])[:, 0]
+    rows = beam.tap_indices(idx, g_el, g_az)
+    st = consts.steering.to(torch.complex128)[rows]
+    exact = (s.to(torch.complex128)[:, None, :] * st.conj()).sum(-1)
+    exact = exact.real ** 2 + exact.imag ** 2
+    scale = exact[:, :1].clamp(min=1e-30)
+    return (idx, taps,
+            {"same_share": (idx == want).double().mean().item(),
+             "tie_rel": ((v_k - v_p).abs() / v_p.clamp(min=1e-30)
+                         ).max().item(),
+             "taps_rel": ((taps.double() - exact).abs() / scale
+                          ).max().item()})
+
+
+def phase_beam_vs_plain(torch, cfg_mod, device):
+    """The fused beamforming search (ops/beam.py, csrc/beam.cu) against its
+    plain version at the URA cell's shape (A = 32, the 181 x 61 joint grid),
+    the bench ULA's (A = 8, G = 91) and a 32-element ULA on a 0.1 deg grid
+    (four chunks of 8 elements, eight tiles a row): 12,157 random
+    signatures (indices equal on >= 99.9 % of them, 99 % on the 0.1 deg
+    grid; where not, the plain spectrum's values at the two within 1e-5),
+    the steering of the grid's corners and edge
+    midpoints as planted sources, two equal sources (near-ties); every tap
+    within 1e-5 of a float64 evaluation at the kernel's index (relative to
+    the row's peak); zero rows at index 0 with zero taps; two runs bit for
+    bit; one launch a call."""
+    from radar_slam_tpu_torch.aoa import estimators
+    from radar_slam_tpu_torch.ops import beam
+    out = {}
+    wide = bench_config(cfg_mod)
+    wide = dataclasses.replace(
+        wide, radar=dataclasses.replace(wide.radar, num_antennas=32),
+        aoa=dataclasses.replace(wide.aoa, search_resolution_deg=0.1))
+    for label, cfg in (("URA", ura_config(cfg_mod)),
+                       ("ULA", bench_config(cfg_mod)), ("ULA32_fine", wide)):
+        consts = estimators._fused_search_constants(
+            cfg.radar, cfg.aoa, str(device))[0]
+        A, G = cfg.radar.total_antennas, consts.g_el * consts.g_az
+        g = torch.Generator().manual_seed(2024 + A)
+        s = torch.complex(torch.randn(12157, A, generator=g),
+                          torch.randn(12157, A, generator=g)).to(device)
+        before = beam.peak_taps.launches
+        idx, taps, err = beam_errors(torch, s, consts)
+        again = beam.peak_taps(s, consts)
+        check(beam.peak_taps.launches == before + 2,
+              f"{label} beam_peak: one launch a call")
+        check(torch.equal(idx, again[0]) and torch.equal(taps, again[1]),
+              f"{label} beam_peak: two runs bit for bit")
+        check(err["same_share"] >= BEAM_SAME_SHARE[label],
+              f"{label} beam_peak index share {err['same_share']}")
+        e_az = [0, 1, consts.g_az // 2, consts.g_az - 2, consts.g_az - 1]
+        e_el = sorted({0, consts.g_el // 2, consts.g_el - 1})
+        planted = consts.steering[[e * consts.g_az + a for e in e_el
+                                   for a in e_az]]
+        pairs = torch.randint(0, G, (256, 2), generator=g).to(device)
+        ties = consts.steering[pairs[:, 0]] + consts.steering[pairs[:, 1]]
+        errs = [err, beam_errors(torch, planted, consts)[2],
+                beam_errors(torch, ties, consts)[2]]
+        for name in ("tie_rel", "taps_rel"):
+            worst = max(e[name] for e in errs)
+            check(worst <= BEAM_TOL, f"{label} beam_peak {name} {worst}")
+        z_idx, z_taps = beam.peak_taps(
+            torch.zeros(5, A, dtype=torch.complex64, device=device), consts)
+        check(not z_idx.any() and not z_taps.any(),
+              f"{label} beam_peak: zero rows at index 0, zero taps")
+        torch.cuda.synchronize()
+        out[label] = {"A": A, "grid": [consts.g_el, consts.g_az],
+                      "random": err, "planted": errs[1], "ties": errs[2]}
+    emit("beam_vs_plain", tolerance={"tie_rel": BEAM_TOL,
+                                     "taps_rel": BEAM_TOL,
+                                     "same_share": BEAM_SAME_SHARE}, **out)
+    return out
+
+
 def phase_ura_pipeline(torch, fe, rds_op, cfg_mod, device):
     """tests/test_elevation.py on the card: its 10-frame 3-D scene through
     process_sequence (K1 once a step) and process_sequence_batched (K1
     once), URA and ULA; the sequential URA step with the clutter map
     (K1' clutter at A = 32); the joint recovery of
     test_joint_az_el_recovery at fft_mode "pallas" (K8 at A = 32); the
-    batched URA driver's frames/s (printed)."""
+    batched URA driver's frames/s (printed).  The drivers' beamforming
+    search is the fused kernel: one launch a step or a call, no spectrum
+    chunk."""
     from radar_slam_tpu_torch.aoa.estimators import estimate_angles_2d
     from radar_slam_tpu_torch.core.types import ScattererBatch
     from radar_slam_tpu_torch.pipeline.frame import (
@@ -3162,7 +3267,9 @@ def phase_ura_pipeline(torch, fe, rds_op, cfg_mod, device):
         detect_peaks, extract_spatial_signatures)
     from radar_slam_tpu_torch.signal.rds import range_doppler_spectrum
     from radar_slam_tpu_torch.signal.synth import synthesize_frame
-    k1 = fe.frontend_kernel_split
+    from radar_slam_tpu_torch.aoa.estimators import beamforming_spectrum as bf
+    from radar_slam_tpu_torch.ops import beam
+    k1, bp = fe.frontend_kernel_split, beam.peak_taps
     runs, launches = {}, {}
     for array, el in (("ura", 4), ("ula", 1)):
         cfg = ura_config(cfg_mod, el)
@@ -3170,14 +3277,23 @@ def phase_ura_pipeline(torch, fe, rds_op, cfg_mod, device):
         for name, driver in (("process_sequence", process_sequence),
                              ("process_sequence_batched",
                               process_sequence_batched)):
-            zero_counts(k1)
+            zero_counts(k1, bp)
+            bf.chunks = 0
             out = driver(batch, torch.Generator().manual_seed(URA_SEED), cfg)
             torch.cuda.synchronize()
             r = velocity_errors(out, URA_FRAMES, f"{array} {name}")
             r["K1"] = branch_counts(k1)
+            r["beam_peak"], r["spectrum_chunks"] = bp.launches, bf.chunks
+            # The beamforming search is the fused kernel: one launch a
+            # step (process_sequence) or a call, no spectrum.
+            check(bp.launches == (URA_FRAMES if name == "process_sequence"
+                                  else 1) and bf.chunks == 0,
+                  f"{array} {name}: beam_peak {bp.launches}, spectrum "
+                  f"chunks {bf.chunks}")
             runs[f"{array} {name}"] = r
             if array == "ura":
-                launches[name] = k1.launches
+                launches[name] = {"K1": k1.launches,
+                                  "beam_peak": bp.launches}
     cfg = ura_config(cfg_mod)
     batch, _ = ura_scene(URA_FRAMES, cfg, device)
     clut = dataclasses.replace(cfg, detection=dataclasses.replace(
@@ -3189,7 +3305,7 @@ def phase_ura_pipeline(torch, fe, rds_op, cfg_mod, device):
     runs["ura process_sequence clutter"] = dict(
         **velocity_errors(out, URA_FRAMES, "ura clutter"),
         K1=branch_counts(k1))
-    launches["process_sequence clutter"] = k1.launches
+    launches["process_sequence clutter"] = {"K1": k1.launches}
 
     # test_joint_az_el_recovery (tests/test_elevation.py:48-95).
     truth = [(20.0, 0.30, 0.15), (35.0, -0.40, -0.20), (48.0, 0.05, 0.08)]
@@ -3417,7 +3533,7 @@ def phase_greedy(torch, counters, cfg_mod, device):
          gates={"greedy success": "> 0.9"})
     check(runs["greedy"]["success"] > 0.9,
           f"greedy: success {runs['greedy']['success']}")
-    check(runs["greedy"]["launches"] == {"K1": 1},
+    check(runs["greedy"]["launches"] == {"K1": 1, "beam_peak": 1},
           f"greedy: launches {runs['greedy']['launches']}")
     return runs["greedy"]["launches"]
 
@@ -3630,7 +3746,8 @@ def phase_slam_deep(torch, counters, device):
     F = SLAM_DEEP_FRAMES
     out, n = counted(torch, counters, lambda: process_sequence_batched(
         batch, torch.Generator().manual_seed(0), cfg))
-    check(n == {"K1": 1}, f"slam_deep: front-end launches {n}")
+    check(n == {"K1": 1, "beam_peak": 1},
+          f"slam_deep: front-end launches {n}")
     digest = ref_mod.digest(ref_mod.frontend_arrays(out))
     cpu_out = device_put(out, "cpu")
 
@@ -3722,7 +3839,8 @@ def phase_scancontext_scale(torch, counters, device):
             valid.append(o.target_valid)
 
     _, n = counted(torch, counters, frontend)
-    check(n == {"K1": SC_SCALE_FRAMES // SC_SCALE_CHUNK},
+    chunks = SC_SCALE_FRAMES // SC_SCALE_CHUNK
+    check(n == {"K1": chunks, "beam_peak": chunks},
           f"scancontext_scale: front-end launches {n}")
     del batch
     pts, msk = torch.cat(xy), torch.cat(valid)
@@ -3809,7 +3927,8 @@ def phase_cli_slam(torch, counters, device):
             check(rc == 0 and all(k in r for k in (
                 "slam_loop_closures", "slam_position_rmse",
                 "slam_yaw_rmse")), f"cli_slam: {name} {rows[name]}")
-            check(n == {"K1": 3}, f"cli_slam: {name} launches {n}")
+            check(n == {"K1": 3, "beam_peak": 3},
+                  f"cli_slam: {name} launches {n}")
     emit("cli_slam", frames=SLAM_CLI_FRAMES, runs=rows)
     return {k: v["launches"] for k, v in rows.items()}
 
@@ -3986,7 +4105,7 @@ def phase_dp_frames(torch, counters, cfg_mod, device):
         out, n = counted(torch, counters, lambda:
                          dp.process_frames_dp_scatterers(batch, gen(), cfg,
                                                          mesh))
-        check(n == {"K1": 1}, f"dp_frames: launches {n}")
+        check(n == {"K1": 1, "beam_peak": 1}, f"dp_frames: launches {n}")
         ref = process_sequence_batched(batch, gen(), cfg)
         want = device_get({"velocity": ref.motion.velocity,
                            "angular_velocity": ref.motion.angular_velocity,
@@ -3998,7 +4117,8 @@ def phase_dp_frames(torch, counters, cfg_mod, device):
         sig, _ = cube_signals(DP_CUBE_FRAMES, cfg, device, CUBE_SEED)
         cube, nc = counted(torch, counters,
                            lambda: dp.process_frames_dp(sig, cfg, mesh))
-        check(nc == {"K7": 1}, f"dp_frames: cube launches {nc}")
+        check(nc == {"K7": 1, "beam_peak": 1},
+              f"dp_frames: cube launches {nc}")
         cref = process_signal_sequence_batched(sig, cfg)
         cgaps = dp_gap(device_get(cube), device_get({
             "velocity": cref.motion.velocity,
@@ -4264,7 +4384,8 @@ def phase_multiseq(torch, counters, cfg_mod, device):
         lambda: multiseq.process_sequences_sharded(batch, gens(M), bcfg,
                                                    mesh))
     peak = torch.cuda.max_memory_allocated()
-    check(n == {"K1": 1}, f"multiseq: bench-width launches {n}")
+    check(n == {"K1": 1, "beam_peak": 1},
+          f"multiseq: bench-width launches {n}")
     check(bool(torch.isfinite(poses).all() and torch.isfinite(costs).all()),
           "multiseq: bench-width poses")
     # Sequence 0 against the batched driver on its generator (printed).
@@ -4387,6 +4508,8 @@ def phase_bench(torch, counters, fe, device):
     bench_torch.time_one = counting(saved["time_one"])
     bench_torch.time_pair = counting(saved["time_pair"])
     torch.cuda.empty_cache()       # its kernel checks' process shares the card
+    from radar_slam_tpu_torch.aoa.estimators import beamforming_spectrum as bf
+    bf.chunks = 0
     t0 = time.perf_counter()
     try:
         (rc, _, r), n = counted(torch, counters,
@@ -4407,13 +4530,17 @@ def phase_bench(torch, counters, fe, device):
     per_path = dict(zip(BENCH_TIMED, timed))
     check(len(timed) == len(BENCH_TIMED) and all(timed),
           f"bench: K1 launches per timed path {timed}")
+    check(n.get("beam_peak", 0) > 0 and bf.chunks == 0,
+          f"bench: beam_peak launches {n.get('beam_peak', 0)}, spectrum "
+          f"chunks {bf.chunks}")
     check(r["device"] == torch.cuda.get_device_name(0)
           and r["chip_tests_ok"] is True and r["chip_tests_passed"] > 0,
           f"bench: device {r['device']}, chip tests "
           f"{r['chip_tests_ok']} ({r['chip_tests_passed']})")
     emit("bench", seconds=round(seconds, 1), sane=r["sane"],
          gates={k: v for k, v in r.items() if k.endswith("_ok")},
-         k1_launches_per_timed_path=per_path, launches=n, result=r)
+         k1_launches_per_timed_path=per_path, launches=n,
+         spectrum_chunks=bf.chunks, result=r)
     return n
 
 
@@ -4425,7 +4552,7 @@ def build_kernels(_build):
         _build.load(name)
         return time.perf_counter() - t0
 
-    names = ("frontend", "cube", "synthpower")
+    names = ("frontend", "cube", "synthpower", "beam")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         secs = dict(zip(names, pool.map(one, names)))
     ptxas = {}
@@ -4477,7 +4604,8 @@ def kernel_checks():
     """``chip_smoke.py --kernel-checks``: only the phases that hold every
     kernel against its plain version, with their gates (kernel_vs_plain,
     cube_kernels_vs_plain, synth_kernels_vs_plain,
-    k1prime_kernels_vs_plain, ura_kernels_vs_plain), then one count line
+    k1prime_kernels_vs_plain, ura_kernels_vs_plain, beam_vs_plain), then
+    one count line
     ``{"phase": "kernel_checks", "passed": N, ...}``: the checks passed, in
     all and per phase.  Exits 1 at the first failed check (the line then
     names it), 2 where there is no card."""
@@ -4505,6 +4633,7 @@ def kernel_checks():
             torch, fe, sp, cfg_mod, device),
         "ura_kernels_vs_plain": lambda: phase_ura_kernels_vs_plain(
             torch, sp, fe, power, cfg_mod, device),
+        "beam_vs_plain": lambda: phase_beam_vs_plain(torch, cfg_mod, device),
     }
     t0 = time.perf_counter()
     per_phase, failed = {}, None
@@ -4578,7 +4707,8 @@ def main():
                                                device).items()})
     ura_err = phase_ura_kernels_vs_plain(torch, sp, fe, power, cfg_mod,
                                          device)
-    slice_runs = {f"ura_pipeline {n}": {"K1": c} for n, c in
+    beam_err = phase_beam_vs_plain(torch, cfg_mod, device)
+    slice_runs = {f"ura_pipeline {n}": c for n, c in
                   phase_ura_pipeline(torch, fe, rds_op, cfg_mod,
                                      device).items()}
     slice_runs.update({f"chirp_subset {n}": c for n, c in phase_chirp_subset(
@@ -4639,6 +4769,16 @@ def main():
             k1p_launches.get(branch, 0), k1p_err[setting]))
         if branch == "cumsum":
             kernels[-1]["on_driver_path"] = False
+    # The fused beamforming search replaces no TPU kernel; its error is
+    # the taps' (relative to the row's peak, phase beam_vs_plain) and its
+    # launches the URA's batched call's.
+    kernels.append(entry(
+        "beam_peak", "peak_taps", BEAM_SOURCE, "none",
+        slice_runs["ura_pipeline process_sequence_batched"]["beam_peak"],
+        None))
+    kernels[-1]["taps_rel"] = max(
+        v[k]["taps_rel"] for v in beam_err.values()
+        for k in ("random", "planted", "ties"))
     # Each kernel's launches on the "cluster_rows" route (phase
     # onchip_routes), in the entry points' runs (phases cli, streaming,
     # ingest, artifact_pipeline), in the runs of phases ura_pipeline,

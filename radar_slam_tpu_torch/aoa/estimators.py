@@ -19,6 +19,10 @@ On a URA (``num_antennas_el > 1``) the grid is the el-major joint grid
 [G_el * G_az], and the peak is refined along each axis
 (:func:`_refine_peak_2d`).  Its spectra are G_el times a ULA's, so they
 are computed over chunks of signatures.
+
+:func:`locate_angles_2d` gives the angles alone: on the card a
+beamforming search then finds each peak and its neighbour taps in one
+kernel (``ops/beam.py``) and keeps no spectrum.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from radar_slam_tpu_torch.core.config import AoAConfig, RadarConfig
 from radar_slam_tpu_torch.core.device import DEFAULT, resolve
 from radar_slam_tpu_torch.core.geometry import (steering_matrix,
                                                 ura_steering_vector)
+from radar_slam_tpu_torch.ops import beam
 
 
 def azimuth_grid_deg(aoa: AoAConfig, device=DEFAULT) -> torch.Tensor:
@@ -75,19 +80,33 @@ def _parabola(ym, y0, yp, interior):
     return torch.where(interior, torch.clamp(delta, -0.5, 0.5), 0.0)
 
 
+def _angles_from_taps(idx: torch.Tensor, taps: torch.Tensor,
+                      az_grid: torch.Tensor, el_grid=None):
+    """(az_deg [...], el_deg [...]) from peak indices [...] of the
+    flattened el-major grid and their taps [..., 5] (``ops/beam.py``'s
+    ``TAP_STEPS``): a parabola along each axis through the peak's
+    neighbours on that axis, interior peaks only; el_deg is zero where
+    ``el_grid`` is None (a ULA)."""
+    Gaz = az_grid.shape[0]
+    ie, ia = idx // Gaz, idx % Gaz
+    y0 = taps[..., 0]
+    da = _parabola(taps[..., 1], y0, taps[..., 2], (ia > 0) & (ia < Gaz - 1))
+    az_step = az_grid[1] - az_grid[0] if Gaz > 1 else 0.0
+    az = az_grid[ia] + da * az_step
+    if el_grid is None:
+        return az, torch.zeros_like(az)
+    Gel = el_grid.shape[0]
+    de = _parabola(taps[..., 3], y0, taps[..., 4], (ie > 0) & (ie < Gel - 1))
+    el_step = el_grid[1] - el_grid[0] if Gel > 1 else 0.0
+    return az, el_grid[ie] + de * el_step
+
+
 def _refine_peak(spectrum: torch.Tensor,
                  grid_deg: torch.Tensor) -> torch.Tensor:
     """Argmax (first maximum, as ``jnp.argmax``) + parabolic sub-bin
     interpolation over the grid, interior peaks only."""
-    g = spectrum.shape[-1]
-    idx = torch.argmax(spectrum, dim=-1, keepdim=True)
-    ym = torch.gather(spectrum, -1, torch.clamp(idx - 1, 0, g - 1))[..., 0]
-    y0 = torch.gather(spectrum, -1, idx)[..., 0]
-    yp = torch.gather(spectrum, -1, torch.clamp(idx + 1, 0, g - 1))[..., 0]
-    idx = idx[..., 0]
-    delta = _parabola(ym, y0, yp, (idx > 0) & (idx < g - 1))
-    step = grid_deg[1] - grid_deg[0]
-    return grid_deg[idx] + delta * step
+    idx, taps = beam.spectrum_peak_taps(spectrum, 1, spectrum.shape[-1])
+    return _angles_from_taps(idx, taps, grid_deg)[0]
 
 
 def _refine_peak_2d(spec: torch.Tensor, az_grid: torch.Tensor,
@@ -96,24 +115,9 @@ def _refine_peak_2d(spec: torch.Tensor, az_grid: torch.Tensor,
     [..., G_el, G_az] and a parabola along each axis through the peak's
     neighbours on that axis.  Returns (az_deg [...], el_deg [...])."""
     Gel, Gaz = spec.shape[-2:]
-    flat = spec.reshape(*spec.shape[:-2], Gel * Gaz)
-    idx = torch.argmax(flat, dim=-1, keepdim=True)
-    ie, ia = idx // Gaz, idx % Gaz
-
-    def tap(e, a):
-        return torch.gather(flat, -1, e * Gaz + a)[..., 0]
-
-    y0 = tap(ie, ia)
-    da = _parabola(tap(ie, torch.clamp(ia - 1, 0, Gaz - 1)), y0,
-                   tap(ie, torch.clamp(ia + 1, 0, Gaz - 1)),
-                   (ia[..., 0] > 0) & (ia[..., 0] < Gaz - 1))
-    de = _parabola(tap(torch.clamp(ie - 1, 0, Gel - 1), ia), y0,
-                   tap(torch.clamp(ie + 1, 0, Gel - 1), ia),
-                   (ie[..., 0] > 0) & (ie[..., 0] < Gel - 1))
-    az_step = az_grid[1] - az_grid[0] if Gaz > 1 else 0.0
-    el_step = el_grid[1] - el_grid[0] if Gel > 1 else 0.0
-    return (az_grid[ia[..., 0]] + da * az_step,
-            el_grid[ie[..., 0]] + de * el_step)
+    idx, taps = beam.spectrum_peak_taps(
+        spec.reshape(*spec.shape[:-2], Gel * Gaz), Gel, Gaz)
+    return _angles_from_taps(idx, taps, az_grid, el_grid)
 
 
 # Complex elements per chunk of a spectrum's intermediate.  MUSIC's
@@ -466,3 +470,55 @@ def estimate_angles_2d(signatures: torch.Tensor, cfg: RadarConfig,
         return az, el, None
     return _grid_search(signatures, cfg, aoa, method, num_sources,
                         forward_backward=aoa.music_fb)
+
+
+def grid_route(signatures: torch.Tensor, cfg: RadarConfig,
+               method: str) -> str:
+    """How :func:`locate_angles_2d` searches: ``"fused"`` (a beamforming
+    search on the card over an array the kernel holds, ``ops/beam.py:fits``:
+    its kernel, no spectrum) or ``"spectrum"`` (:func:`estimate_angles_2d`)."""
+    if (method == "beamforming" and signatures.device.type == "cuda"
+            and beam.fits(cfg.num_antennas, cfg.num_antennas_el)):
+        return "fused"
+    return "spectrum"
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_search_constants(cfg: RadarConfig, aoa: AoAConfig, device: str):
+    """The fused search's grid constants (``ops/beam.py:grid_constants``)
+    and the grids in degrees on ``device``, built once per (radar, AoA
+    configuration, device) and shared read-only, so that a call builds
+    none (the streaming step's CUDA graph reads them).  The elevation
+    grid is None on a ULA."""
+    az = azimuth_grid_deg(aoa, device)
+    el = (elevation_grid_deg(aoa, device) if cfg.num_antennas_el > 1
+          else None)
+    consts = beam.grid_constants(
+        grid_steering_matrix(cfg, aoa, device), torch.deg2rad(az),
+        torch.zeros(1) if el is None else torch.deg2rad(el),
+        cfg.num_antennas, cfg.num_antennas_el, cfg.spacing, cfg.spacing_el,
+        cfg.lambda_c)
+    return consts, az, el
+
+
+def locate_angles_2d(signatures: torch.Tensor, cfg: RadarConfig,
+                     aoa: AoAConfig, method: str = "beamforming",
+                     num_sources=1):
+    """(az_deg [...], el_deg [...]) of signatures [..., A]: the first two
+    outputs of :func:`estimate_angles_2d`, without its spectra.  A
+    beamforming search on a CUDA tensor (:func:`grid_route` ``"fused"``)
+    takes each peak and its neighbour taps from ``ops/beam.py``'s kernel
+    and refines them as the spectrum route does; MUSIC, ESPRIT, CPU
+    tensors and arrays the kernel does not hold take
+    :func:`estimate_angles_2d`."""
+    if grid_route(signatures, cfg, method) == "spectrum":
+        az, el, _ = estimate_angles_2d(signatures, cfg, aoa, method,
+                                       num_sources)
+        return az, el
+    consts, az_grid, el_grid = _fused_search_constants(
+        cfg, aoa, str(signatures.device))
+    lead = signatures.shape[:-1]
+    idx, taps = beam.peak_taps(
+        signatures.reshape(-1, signatures.shape[-1]).contiguous(), consts)
+    az, el = _angles_from_taps(idx, taps, az_grid, el_grid)
+    return az.reshape(lead), el.reshape(lead)

@@ -46,7 +46,7 @@ def process_targets_robust(rds: Optional[torch.Tensor],
 
     eigvals = estimators.rank1_eigenvalues(signatures)
     num_sources, is_multipath, _ = conf_mod.mdl_model_order(eigvals)
-    angles_deg, el_deg, _ = estimators.estimate_angles_2d(
+    angles_deg, el_deg = estimators.locate_angles_2d(
         signatures, cfg, aoa, method=method, num_sources=num_sources)
     conf = conf_mod.angle_confidence(signatures, angles_deg, cfg, el_deg)
 

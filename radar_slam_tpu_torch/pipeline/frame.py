@@ -295,7 +295,8 @@ def _aoa_features(det: Detections, sigs: torch.Tensor, cfg: PipelineConfig):
     [F, K].  Returns (det, sigs, keep, num_sources, is_multi, angles_deg,
     el_deg, conf).  Spans: ``aoa_features``, and inside it ``aoa_grid``
     (attrs ``signatures``, ``grid_points``: the search grid's points, the
-    URA's joint grid, 0 for ESPRIT; ``elements``) and ``aoa_confidence``."""
+    URA's joint grid, 0 for ESPRIT; ``elements``; ``route``: ``"fused"``
+    or ``"spectrum"``, ``estimators.grid_route``) and ``aoa_confidence``."""
     with span("aoa_features"):
         K = det.range_bin.shape[-1]
         keep = (det.valid & (det.power_db > cfg.aoa.power_filter_db)
@@ -304,8 +305,10 @@ def _aoa_features(det: Detections, sigs: torch.Tensor, cfg: PipelineConfig):
         num_sources, is_multi, _ = conf_mod.mdl_model_order(eigvals)
         A = sigs.shape[-1]
         with span("aoa_grid", signatures=sigs.numel() // A,
-                  grid_points=_grid_points(cfg), elements=A):
-            angles_deg, el_deg, _ = estimators.estimate_angles_2d(
+                  grid_points=_grid_points(cfg), elements=A,
+                  route=estimators.grid_route(sigs, cfg.radar,
+                                             cfg.aoa.method)):
+            angles_deg, el_deg = estimators.locate_angles_2d(
                 sigs, cfg.radar, cfg.aoa, method=cfg.aoa.method,
                 num_sources=num_sources)
         with span("aoa_confidence"):

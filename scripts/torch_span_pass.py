@@ -40,9 +40,10 @@ From the span pass:
   first span;
 - ``span_host_ms.<name>`` (``aoa_features``, its ``aoa_grid`` and
   ``aoa_confidence``): ms per unit of those spans, with the first
-  ``aoa_grid``'s attrs (signatures, grid points, elements), and the
-  counters per unit over the pass: ``beamforming_spectrum``'s calls,
-  chunks and products, and K1's launches by branch (a URA call's
+  ``aoa_grid``'s attrs (signatures, grid points, elements, route), and
+  the counters per unit over the pass: ``beamforming_spectrum``'s calls,
+  chunks and products, the fused search's launches and products
+  (``peak_taps``), and K1's launches by branch (a URA call's
   ``tiled_rows``).
 
 Besides: each pass's host wall per unit, and the host cost of ``span()``
@@ -251,12 +252,15 @@ def span_host_ms(spans, names, units: int) -> Dict[str, float]:
 
 def counters() -> Dict[str, float]:
     """The program's launch counters: ``beamforming_spectrum``'s calls,
-    chunks and products, K1's launches and launches by branch."""
+    chunks and products, the fused search's (``ops/beam.py:peak_taps``)
+    launches and products, K1's launches and launches by branch."""
     from radar_slam_tpu_torch.aoa import estimators
-    from radar_slam_tpu_torch.ops import frontend
+    from radar_slam_tpu_torch.ops import beam, frontend
     bf, k1 = estimators.beamforming_spectrum, frontend.frontend_kernel_split
     out = {f"beamforming_spectrum.{k}": getattr(bf, k)
            for k in ("calls", "chunks", "products")}
+    out.update({f"peak_taps.{k}": getattr(beam.peak_taps, k)
+                for k in ("launches", "products")})
     out["k1.launches"] = k1.launches
     out.update({f"k1.branch_launches.{b}": n
                 for b, n in k1.branch_launches.items()})

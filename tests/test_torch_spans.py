@@ -320,7 +320,8 @@ def test_aoa_grid_and_confidence_nest_under_aoa_features(spans_on, case):
     assert _children(spans, feat) == ["aoa_grid", "aoa_confidence"]
     (grid,) = [s for s in spans if s.name == "aoa_grid"]
     assert grid.attrs == {"signatures": 3 * cfg.detection.max_detections,
-                          "grid_points": grid_points, "elements": elements}
+                          "grid_points": grid_points, "elements": elements,
+                          "route": "spectrum"}
     assert {s.request for s in spans} == {feat.request}
 
 
