@@ -195,26 +195,36 @@ def _three_dispatch_frontend(scatterers: ScattererBatch,
     """The power map straight from the dense synthesis factors (K4),
     detection on it (CA- or OS-CFAR, ``clutter`` [F, R, D] gating), then
     the detected cells' signatures from the factors with the same noise
-    (K5).  Returns (p_lin, Detections, sigs) as :func:`_onepass_frontend`."""
+    (K5).  Returns (p_lin, Detections, sigs) as :func:`_onepass_frontend`.
+    Spans: ``k4`` (the dense factors and K4; attr ``fidelity``),
+    ``os_cfar`` (the detection; attrs ``cfar``: ``"os"`` or ``"ca"``, and
+    ``chunks``: the order statistic's sorts, 0 for CA) and ``k5`` (attr
+    ``signatures``: F * K)."""
     C = cfg.radar.num_chirps
     S = cfg.radar.samples_per_chirp
     sigma = float(cfg.radar.noise_power) ** 0.5
+    d = cfg.detection
     mix = _front_end_constants(cfg.radar, cfg.window, cfg.synth_fidelity,
                                str(scatterers.range_m.device))[0]
-    e_ac, e_fast = synthesis_factors(scatterers, cfg.radar,
-                                     cfg.synth_fidelity)
-    p_lin = sp.scatterer_power(e_ac, e_fast, seeds, mix, C, sigma,
-                               doppler_window=cfg.doppler_window,
-                               precision_name=cfg.power_precision,
-                               doppler_precision=cfg.synth_doppler_precision,
-                               doppler_layout=cfg.synth_doppler_layout,
-                               noise_impl=cfg.noise_impl)
-    det = detect_mod.detect_peaks_from_power(p_lin, cfg.radar, cfg.detection,
-                                             clutter_lin=clutter)
-    sigs = sp.scatterer_signatures(e_ac, e_fast, seeds, det.range_bin,
-                                   det.doppler_bin, mix, C, sigma,
-                                   doppler_window=cfg.doppler_window,
-                                   noise_impl=cfg.noise_impl)
+    with span("k4", fidelity=cfg.synth_fidelity):
+        e_ac, e_fast = synthesis_factors(scatterers, cfg.radar,
+                                         cfg.synth_fidelity)
+        p_lin = sp.scatterer_power(
+            e_ac, e_fast, seeds, mix, C, sigma,
+            doppler_window=cfg.doppler_window,
+            precision_name=cfg.power_precision,
+            doppler_precision=cfg.synth_doppler_precision,
+            doppler_layout=cfg.synth_doppler_layout,
+            noise_impl=cfg.noise_impl)
+    with span("os_cfar", cfar=d.cfar_mode,
+              chunks=detect_mod.os_chunks(p_lin.shape[0], d)):
+        det = detect_mod.detect_peaks_from_power(p_lin, cfg.radar, d,
+                                                 clutter_lin=clutter)
+    with span("k5", signatures=det.range_bin.numel()):
+        sigs = sp.scatterer_signatures(e_ac, e_fast, seeds, det.range_bin,
+                                       det.doppler_bin, mix, C, sigma,
+                                       doppler_window=cfg.doppler_window,
+                                       noise_impl=cfg.noise_impl)
     return p_lin, det, sigs
 
 

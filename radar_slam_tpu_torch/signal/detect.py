@@ -79,9 +79,15 @@ def _os_noise(p_lin: torch.Tensor, train: int, guard: int,
     with no valid sample (tiny maps) falls back to the mean of its own
     frame's map.  Frames are sorted ``_OS_CHUNK`` at a time: the stack is
     4 train floats per cell (~3.4 GB at 2048 frames of 400 x 32), and the
-    sort needs as much again plus its indices."""
+    sort needs as much again plus its indices.
+
+    Counters, on the host at each call: ``.calls``, ``.chunks`` (the
+    sorts) and ``.samples`` (cells x 4 train)."""
     F, R, D = p_lin.shape
     dev = p_lin.device
+    _os_noise.calls += 1
+    _os_noise.chunks += -(-F // _OS_CHUNK)
+    _os_noise.samples += F * R * D * 4 * train
     h = guard + train
     offs = range(guard + 1, h + 1)
     row = torch.arange(R, device=dev)[:, None]
@@ -109,6 +115,19 @@ def _os_noise(p_lin: torch.Tensor, train: int, guard: int,
         mean = torch.mean(p, dim=(-2, -1), keepdim=True)
         out[i:i + _OS_CHUNK] = torch.where(torch.isfinite(est), est, mean)
     return out
+
+
+_os_noise.calls = 0
+_os_noise.chunks = 0
+_os_noise.samples = 0
+
+
+def os_chunks(frames: int, det: DetectionConfig) -> int:
+    """The order statistic's sorts over ``frames`` maps at ``det``: one
+    per ``_OS_CHUNK`` frames with OS-CFAR and training cells, else 0."""
+    if det.cfar_mode != "os" or det.cfar_train_cells <= 0:
+        return 0
+    return -(-frames // _OS_CHUNK)
 
 
 def power_spectrum_db(rds: torch.Tensor) -> torch.Tensor:

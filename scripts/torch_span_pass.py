@@ -39,12 +39,14 @@ From the span pass:
   the ``k1`` span that launched it, and no device event before the pass's
   first span;
 - ``span_host_ms.<name>`` (``aoa_features``, its ``aoa_grid`` and
-  ``aoa_confidence``): ms per unit of those spans, with the first
-  ``aoa_grid``'s attrs (signatures, grid points, elements, route), and
-  the counters per unit over the pass: ``beamforming_spectrum``'s calls,
-  chunks and products, the fused search's launches and products
-  (``peak_taps``), and K1's launches by branch (a URA call's
-  ``tiled_rows``).
+  ``aoa_confidence``; the three-dispatch route's ``k4``, ``os_cfar`` and
+  ``k5``): ms per unit of those spans, with the first ``aoa_grid``'s
+  attrs (signatures, grid points, elements, route) and the first attrs of
+  each three-dispatch span, and the counters per unit over the pass:
+  ``beamforming_spectrum``'s calls, chunks and products, the fused
+  search's launches and products (``peak_taps``), K1's launches by branch
+  (a URA call's ``tiled_rows``), K4's and K5's launches and the order
+  statistic's calls, chunks and samples (``_os_noise``).
 
 Besides: each pass's host wall per unit, and the host cost of ``span()``
 off and on.  With ``--window-s``, before the traces and again after them,
@@ -81,6 +83,7 @@ PATH_STAGES = {"eager": STAGES, "capture": STAGES[:3] + ("replay", "fetch"),
 ROW_STAGES = PATH_STAGES["capture"]
 PHASES = ("phase_a", "phase_b", "ingest")
 AOA_SPANS = ("aoa_features", "aoa_grid", "aoa_confidence")
+THREE_DISPATCH_SPANS = ("k4", "os_cfar", "k5")
 
 
 def on_clock(spans: List[profiling.Span], origin_ns: int):
@@ -253,9 +256,11 @@ def span_host_ms(spans, names, units: int) -> Dict[str, float]:
 def counters() -> Dict[str, float]:
     """The program's launch counters: ``beamforming_spectrum``'s calls,
     chunks and products, the fused search's (``ops/beam.py:peak_taps``)
-    launches and products, K1's launches and launches by branch."""
+    launches and products, K1's launches and launches by branch, K4's and
+    K5's launches and the order statistic's calls, chunks and samples."""
     from radar_slam_tpu_torch.aoa import estimators
-    from radar_slam_tpu_torch.ops import beam, frontend
+    from radar_slam_tpu_torch.ops import beam, frontend, synthpower
+    from radar_slam_tpu_torch.signal import detect
     bf, k1 = estimators.beamforming_spectrum, frontend.frontend_kernel_split
     out = {f"beamforming_spectrum.{k}": getattr(bf, k)
            for k in ("calls", "chunks", "products")}
@@ -264,6 +269,10 @@ def counters() -> Dict[str, float]:
     out["k1.launches"] = k1.launches
     out.update({f"k1.branch_launches.{b}": n
                 for b, n in k1.branch_launches.items()})
+    out["k4.launches"] = synthpower.scatterer_power.launches
+    out["k5.launches"] = synthpower.scatterer_signatures.launches
+    out.update({f"os_noise.{k}": getattr(detect._os_noise, k)
+                for k in ("calls", "chunks", "samples")})
     return out
 
 
@@ -434,9 +443,13 @@ def main(argv=None) -> int:
         "wall_per_unit_s": {"cuda_only": wall_off / n, "spans": wall_on / n},
         "window_s": {"host_wall": wall_on, "mapped": t1 - t0},
         "clock": k1_clock_check(spans, rec_on.events),
-        "span_host_ms": span_host_ms(spans, AOA_SPANS, n),
+        "span_host_ms": span_host_ms(spans,
+                                     AOA_SPANS + THREE_DISPATCH_SPANS, n),
         "aoa_grid_attrs": next((s.attrs for s in spans
                                 if s.name == "aoa_grid"), None),
+        "three_dispatch_attrs": {name: next((s.attrs for s in spans
+                                             if s.name == name), None)
+                                 for name in THREE_DISPATCH_SPANS},
         "counters_per_unit": counted,
         "launch_lag_s": launch_lags_s(prof_cpu),
         "builds": [{"name": s.attrs["name"], "compiled": s.attrs["compiled"],
